@@ -1,0 +1,14 @@
+"""DeepSpeed-TPU's PyTorch port for NVIDIA Hopper (H100).
+
+A second package beside the JAX reference ``deepspeed_tpu``: the same
+names and module layout, plain tensor code in PyTorch, and every Pallas
+TPU kernel on a ported path replaced by a CUDA kernel written for
+``sm_90a``.  It imports neither JAX nor the reference package.  Entry
+points run on the GPU unless the caller passes ``device="cpu"``.
+
+Ported so far: the v1 serving path, ``init_inference`` ->
+``InferenceEngine.generate``, on the Llama family.
+"""
+from deepspeed_tpu_torch.inference.engine import init_inference
+
+__all__ = ["init_inference"]
