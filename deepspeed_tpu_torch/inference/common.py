@@ -1,7 +1,7 @@
 """Conventions shared by the inference engines.
 
 Counterpart of ``deepspeed_tpu/inference/common.py``: the host-path stage
-timer, ``logits_of`` and ``normalize_params``.
+timer, ``kv_quant_block``, ``logits_of`` and ``normalize_params``.
 """
 from __future__ import annotations
 
@@ -29,8 +29,12 @@ class HostStageStats:
     — ~1.0 means the loop never waits on the device (host-bound),
     ~0.0 means the host keeps the device saturated (device-bound).
 
-    The stage names and counters are the reference's, so both engines
-    report the same keys; the stages the ragged v2 engine adds stay 0 here.
+    The stage names and counters are the reference's, so the engines
+    report the same keys.  In the ragged v2 engine a dispatch is one
+    fused tick or one decode block, and ``ticks`` counts model ticks (a
+    K-tick block counts K); the stages and ``prefix_*`` counters of
+    features not ported yet (speculation, tiering, prefix cache) stay 0.
+    ``replica`` is the reference's metric label of a scale-out replica.
     The reference's trace-span and metrics-histogram hooks arrive with the
     telemetry port.
     """
@@ -38,16 +42,22 @@ class HostStageStats:
     STAGES = ("plan", "upload", "dispatch", "device", "harvest", "draft",
               "verify", "spill", "restore", "prefix")
 
-    def __init__(self):
+    def __init__(self, replica: str = ""):
+        self.replica = str(replica)
         self.reset()
 
     def reset(self) -> None:
         self.seconds: Dict[str, float] = {s: 0.0 for s in self.STAGES}
-        self.ticks = 0            # model ticks (decode tokens)
-        self.dispatches = 0       # generate calls dispatched
-        self.meta_uploads = 0     # host->device prompt uploads
+        self.ticks = 0            # model ticks (a K-tick block counts K)
+        self.dispatches = 0       # generate calls, fused ticks, blocks
+        self.meta_uploads = 0     # host->device metadata arrays sent
         self.blocking_gets = 0    # blocking device->host fetches
         self.harvests = 0         # deferred-harvest fold-backs
+        self.prefix_hits = 0      # admissions that attached cached pages
+        self.prefix_misses = 0    # admissions that attached nothing
+        self.prefix_hit_pages = 0   # cached pages attached
+        self.prefix_hit_tokens = 0  # prefill tokens skipped via the cache
+        self.prefix_cow_copies = 0  # copy-on-write page copies
 
     @contextmanager
     def stage(self, name: str):
@@ -73,6 +83,36 @@ class HostStageStats:
                    blocking_gets=self.blocking_gets,
                    harvests=self.harvests)
         return out
+
+
+def kv_quant_block(pools, fmt: str, dequant_path: str,
+                   num_pages: int) -> Dict[str, Any]:
+    """``serving_stages()['kv_quant']`` sub-dict for a quantized paged
+    pool (a list of per-layer ``PagedKVPool``): exact byte accounting
+    (1-byte payload pages vs fp32 scale rows), the dequant-free read
+    route, and written-scale statistics.  Copies the scales to the host:
+    call at stats time, never in the serving loop."""
+    payload = sum(p.pages.numel() * p.pages.element_size() for p in pools)
+    scale_bytes = sum(p.scales.numel() * p.scales.element_size()
+                      for p in pools if p.scales is not None)
+    flat = torch.cat([p.scales.reshape(-1) for p in pools
+                      if p.scales is not None] or
+                     [torch.zeros(0)]).cpu()
+    # the write path floors every written scale at the smallest normal
+    # fp32, so exact zeros are rows never written
+    nz = flat[flat != 0.0]
+    return {
+        "format": fmt,
+        "dequant_path": dequant_path,
+        "pool_bytes": payload + scale_bytes,
+        "payload_bytes": payload,
+        "scale_bytes": scale_bytes,
+        "num_pages": int(num_pages),
+        "scale_rows_written": int(nz.numel()),
+        "scale_min": float(nz.min()) if nz.numel() else 0.0,
+        "scale_max": float(nz.max()) if nz.numel() else 0.0,
+        "scale_mean": float(nz.double().mean()) if nz.numel() else 0.0,
+    }
 
 
 def logits_of(out):

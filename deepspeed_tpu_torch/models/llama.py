@@ -9,8 +9,11 @@ Module and parameter names follow the flax tree, so
 ``module_inject/flax_bridge.py`` maps one onto the other by rule.  Layers
 are always unrolled (an ``nn.ModuleList``); the model computes in the
 dtype of its weights, which ``init_inference`` sets to the serving dtype.
-A KV cache is passed explicitly (``kv_cache=``, one ``KVCache`` per layer)
-where the flax model threads a mutable ``"cache"`` collection.
+A KV cache is passed explicitly (``kv_cache=``, one per layer) where the
+flax model threads a mutable ``"cache"`` collection: a ``KVCache`` for the
+v1 engine, or a ``PagedKVPool`` together with the tick's ``RaggedMeta``
+(``ragged_meta=``) for the ragged v2 engine, whose token batch is
+``[1, T]`` with per-token positions ``[1, T]``.
 """
 from __future__ import annotations
 
@@ -25,8 +28,12 @@ from torch import nn
 from torch.nn import functional as F
 
 from deepspeed_tpu_torch.inference.kv_cache import KVCache, cached_attention
+from deepspeed_tpu_torch.inference.paged import (KV_CACHE_DTYPES,
+                                                 PagedKVPool, RaggedMeta)
 from deepspeed_tpu_torch.ops.flash_attention import (flash_attention,
                                                      mha_reference)
+from deepspeed_tpu_torch.ops.ragged_paged_attention import (
+    ragged_paged_attention, ragged_paged_attention_quant)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,10 +41,12 @@ class LlamaConfig:
     """Same fields as the flax ``LlamaConfig``, so one converts to the other
     field for field.  ``dtype``/``param_dtype`` are torch dtypes; modules
     are built in ``param_dtype`` and compute in their weights' dtype.
-    ``scan_layers``, ``remat``, ``remat_policy``, ``decode`` and
-    ``pipeline_microbatches`` are accepted and change nothing here (layers
-    are always unrolled, there is no backward yet, and the cache is an
-    argument).  Knobs of paths not ported yet raise."""
+    ``scan_layers``, ``remat``, ``remat_policy``, ``decode``,
+    ``pipeline_microbatches`` and the paged-cache fields
+    (``paged_decode``, ``kv_page_size``, ``kv_num_pages``,
+    ``kv_cache_dtype``, set by the v2 engine) change nothing in the
+    modules here (layers are always unrolled, there is no backward yet,
+    and the cache is an argument).  Knobs of paths not ported yet raise."""
 
     vocab_size: int = 32000
     max_position_embeddings: int = 4096
@@ -83,13 +92,16 @@ class LlamaConfig:
                                 "ROADMAP A11 (parallel/pipeline.py)"),
             "tensor_parallel": (self.tensor_parallel,
                                 "ROADMAP A7a (tensor-parallel serving)"),
-            "paged_decode": (self.paged_decode, "ROADMAP A8 (ragged v2)"),
-            "ragged_decode": (self.ragged_decode, "ROADMAP A8 (ragged v2)"),
-            "kv_cache_dtype": (self.kv_cache_dtype != "none",
-                               "ROADMAP A9.1 (quantized KV)"),
+            "ragged_decode": (self.ragged_decode,
+                              "ROADMAP A8 (the slot-row ragged cache; the "
+                              "v2 engine uses paged_decode)"),
             "weight_quant": (self.weight_quant != "none",
                              "ROADMAP A9.6 (W8A8 serving)"),
         }
+        if self.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(f"kv_cache_dtype must be one of "
+                             f"{KV_CACHE_DTYPES}, got "
+                             f"{self.kv_cache_dtype!r}")
         for name, (is_set, item) in unported.items():
             if is_set:
                 raise NotImplementedError(
@@ -195,9 +207,13 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 rope: Tuple[torch.Tensor, torch.Tensor],
-                kv_cache: Optional[KVCache] = None) -> torch.Tensor:
+                kv_cache: Optional[KVCache] = None,
+                ragged_meta: Optional[RaggedMeta] = None) -> torch.Tensor:
         """x: [B, S, E]; ``rope``: (cos, sin) shaped to broadcast over
-        [B, S, heads, rot/2]."""
+        [B, S, heads, rot/2].  A ``PagedKVPool`` cache takes the paged
+        path: this tick's K/V rows are written into the pool, then ragged
+        paged attention runs over it for all ``S`` tokens of the ``[1, S]``
+        batch."""
         cfg = self.config
         B, S, _ = x.shape
         H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -218,6 +234,9 @@ class LlamaAttention(nn.Module):
                            q[..., rot:]], dim=-1)
             k = torch.cat([apply_rotary(k[..., :rot], cos, sin),
                            k[..., rot:]], dim=-1)
+        if isinstance(kv_cache, PagedKVPool):
+            y = self._paged(q[0], k[0], v[0], kv_cache, ragged_meta)
+            return self.o_proj(y.reshape(B, S, H * Dh))
         q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
         if kv_cache is not None:
@@ -244,6 +263,24 @@ class LlamaAttention(nn.Module):
         return self.o_proj(y.transpose(1, 2).reshape(B, S, H * Dh))
 
 
+    def _paged(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               pool: PagedKVPool, meta: Optional[RaggedMeta]
+               ) -> torch.Tensor:
+        """q [T, H, D], k and v [T, Hkv, D] (rotary applied): write this
+        tick's rows into ``pool``, then attend over it."""
+        if meta is None:
+            raise ValueError("a paged KV cache needs the tick's ragged_meta")
+        pool.write(k, v, meta.new_kv_dest)
+        args = (meta.kv_lens, meta.page_indices, meta.cu_q_lens,
+                meta.num_seqs)
+        kw = dict(sm_scale=1.0 / math.sqrt(q.shape[-1]),
+                  sliding_window=self.config.sliding_window)
+        if pool.quantized:
+            return ragged_paged_attention_quant(q, pool.pages, pool.scales,
+                                                *args, **kw)
+        return ragged_paged_attention(q, pool.pages, *args, **kw)
+
+
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -266,9 +303,9 @@ class LlamaBlock(nn.Module):
         self.post_attention_layernorm = RMSNorm(E, eps, pd)
         self.mlp = LlamaMLP(cfg)
 
-    def forward(self, x, positions, rope, kv_cache=None):
+    def forward(self, x, positions, rope, kv_cache=None, ragged_meta=None):
         x = x + self.self_attn(self.input_layernorm(x), positions, rope,
-                               kv_cache)
+                               kv_cache, ragged_meta)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -285,7 +322,8 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                kv_cache: Optional[List[KVCache]] = None) -> torch.Tensor:
+                kv_cache: Optional[List] = None,
+                ragged_meta: Optional[RaggedMeta] = None) -> torch.Tensor:
         cfg = self.config
         S = input_ids.shape[1]
         if positions is None:
@@ -301,7 +339,8 @@ class LlamaModel(nn.Module):
         x = self.embed_tokens(input_ids)
         for i, layer in enumerate(self.layers):
             x = layer(x, positions, rope,
-                      None if kv_cache is None else kv_cache[i])
+                      None if kv_cache is None else kv_cache[i],
+                      ragged_meta)
         return self.norm(x)
 
 
@@ -315,9 +354,16 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                kv_cache: Optional[List[KVCache]] = None) -> torch.Tensor:
-        """Logits [B, S, V] for ``input_ids`` [B, S]."""
-        return self.lm_head(self.model(input_ids, positions, kv_cache))
+                kv_cache: Optional[List] = None,
+                ragged_meta: Optional[RaggedMeta] = None,
+                logit_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits [B, S, V] for ``input_ids`` [B, S].  With
+        ``logit_rows`` (a ``[1, T]`` ragged batch), only those token rows
+        reach the LM head: logits [len(logit_rows), V]."""
+        h = self.model(input_ids, positions, kv_cache, ragged_meta)
+        if logit_rows is not None:
+            h = h[0, logit_rows]
+        return self.lm_head(h)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:

@@ -99,11 +99,22 @@ def test_bridge_raises_on_unmapped_names(tree):
 
 @pytest.mark.parametrize("field,value", [
     ("sequence_parallel", "ring"), ("pipeline_stages", 2),
-    ("paged_decode", True), ("weight_quant", "w8a8"),
+    ("ragged_decode", True), ("weight_quant", "w8a8"),
     ("tensor_parallel", True)])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         llama.LlamaConfig(**{field: value})
+
+
+@pytest.mark.parametrize("kv_cache_dtype", ["none", "int8", "fp8",
+                                            "fp8_e4m3"])
+def test_paged_config_fields_are_accepted(kv_cache_dtype):
+    cfg = llama.LlamaConfig(paged_decode=True, kv_num_pages=9,
+                            kv_page_size=16, kv_cache_dtype=kv_cache_dtype)
+    assert (cfg.paged_decode, cfg.kv_num_pages, cfg.kv_page_size,
+            cfg.kv_cache_dtype) == (True, 9, 16, kv_cache_dtype)
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        llama.LlamaConfig(paged_decode=True, kv_cache_dtype="fp16")
 
 
 def test_presets_match_flax():

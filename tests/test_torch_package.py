@@ -4,7 +4,8 @@
   interpreter, and by an AST scan of every port file and chip_smoke.py).
 - Entry points run on the GPU unless the caller asks for the CPU: with no
   GPU and no ``device="cpu"`` they raise.
-- Kernel launch counters stay 0 when everything runs on the CPU.
+- Kernel launch counters stay 0 when everything runs on the CPU (the v1
+  engine's flash kernel, the v2 engine's paged kernels).
 - Its inference config parses JSON configs to the same values as the JAX
   package's.
 - ``chip_smoke.py`` refuses to run without a GPU and prints no result.
@@ -17,6 +18,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -28,6 +30,7 @@ from deepspeed_tpu_torch import accelerator
 from deepspeed_tpu_torch.inference.config import load_inference_config
 from deepspeed_tpu_torch.models import llama
 from deepspeed_tpu_torch.ops import flash_attention as fa
+from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
 from deepspeed_tpu_torch.telemetry.slo import parse_objective
 
 REPO = Path(__file__).resolve().parents[1]
@@ -42,7 +45,12 @@ def _forbidden(module: str) -> bool:
 def test_import_loads_no_jax():
     code = ("import sys, deepspeed_tpu_torch, "
             "deepspeed_tpu_torch.models.llama, "
-            "deepspeed_tpu_torch.module_inject.flax_bridge\n"
+            "deepspeed_tpu_torch.module_inject.flax_bridge, "
+            "deepspeed_tpu_torch.inference.v2.ragged_engine, "
+            "deepspeed_tpu_torch.inference.paged, "
+            "deepspeed_tpu_torch.inference.sampling, "
+            "deepspeed_tpu_torch.ops.ragged_paged_attention, "
+            "deepspeed_tpu_torch.telemetry.requests\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -79,6 +87,8 @@ def test_entry_points_refuse_to_run_without_gpu(monkeypatch):
             num_key_value_heads=1))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         deepspeed_tpu_torch.init_inference(model, config={"dtype": "fp32"})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepspeed_tpu_torch.RaggedInferenceEngineV2(model)
     assert accelerator.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -98,6 +108,24 @@ def test_launch_counter_stays_zero_on_cpu():
     out = eng.generate(torch.zeros(2, 5, dtype=torch.long), max_new_tokens=3)
     assert out.shape == (2, 8)
     assert fa.flash_fwd.launches == start == 0
+
+
+@pytest.mark.parametrize("kv_cache_dtype", ["none", "int8"])
+def test_paged_launch_counters_stay_zero_on_cpu(kv_cache_dtype):
+    counters = (rpa.ragged_paged_attention, rpa.ragged_paged_attention_quant)
+    with torch.device("meta"):
+        model = llama.LlamaForCausalLM(llama.get_config(
+            "tinyllama", hidden_size=128, num_attention_heads=2,
+            num_key_value_heads=1))
+    eng = deepspeed_tpu_torch.RaggedInferenceEngineV2(
+        model, generator=torch.Generator().manual_seed(0), device="cpu",
+        max_seqs=2, max_seq_len=64, prefill_chunk=16, page_size=16,
+        kv_cache_dtype=kv_cache_dtype)
+    outs = eng.generate_all([np.arange(1, 20), np.arange(3, 8)],
+                            max_new_tokens=12)
+    assert sorted(len(t) for t in outs.values()) == [17, 31]
+    assert eng.host_stats.ticks > 0
+    assert [f.launches for f in counters] == [0, 0]
 
 
 @pytest.mark.parametrize("config", [
