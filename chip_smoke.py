@@ -39,8 +39,30 @@ Phases (any failed check raises; nothing is caught):
    CPU, over an fp32 pool and then an int8 pool, give the same tokens (a
    token may differ only where the CPU's top-2 logit margin is under
    1e-3).
+8. Training kernels against plain: the flash-attention backward (dQ and
+   dK/dV kernels) in bf16 at the training shape (B 4, H 32/4, S 2048,
+   D 64, causal) and at D 128 with GQA 32/8 (S 1000, a tail; Sk > S;
+   rows that see no key), plus fp32, with the forward's ``o`` and ``lse``
+   checked at each of these shapes too; fused Adam (L2 and AdamW) and Lion
+   over flat buffers of ``llama-1b``'s parameter count.  Times each
+   kernel, its plain version, its bound and, as yardsticks the port never
+   calls, the SDPA backward and ``torch.optim.AdamW(fused=True).step``.
+9. The training slice: ``initialize`` on ``llama-1b`` (TinyLlama shape)
+   at full width and depth, bf16 with fp32 master weights, fused AdamW,
+   WarmupLR, clipping 1.0, micro-batch 4 x 2048 tokens, 2 accumulation
+   steps; 10 ``train_batch`` steps on one seeded batch (the loss must be
+   finite and fall), then 3 fused-Lion steps on a second engine.  Every
+   step launches dQ and dK/dV 22 x 2 times, the flash forward 22 x 2 x 2
+   times (remat recomputes it) and the optimizer kernel once.
+10. Training against the CPU: ``llama-1b`` at full width with 2 layers in
+   fp32 (TF32 off), weights made as a flax-layout tree and bridged; 3
+   steps on the card against 3 on the CPU.  Then ``save_checkpoint``, 2
+   more steps, and a fresh engine that ``load_checkpoint``s and takes the
+   same 2 steps: bit-identical losses and params on the card.
 
-The line before the last is the ``kernels`` JSON; the last line is
+Phases 3 and 6 (serving) keep their full depth: the whole run stays well
+inside its time limit.  The line before the last is the ``kernels`` JSON;
+the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits nonzero
 and prints no result.
 """
@@ -94,15 +116,18 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def pairs_of(S, Sk, causal):
+    """Valid (query, key) pairs of one head: bottom-right causal or all."""
+    if not causal:
+        return S * Sk
+    return int(np.clip(np.arange(S) + (Sk - S) + 1, 0, Sk).sum())
+
+
 def attention_bound(B, H, Hkv, S, Sk, D, causal, dtype):
     """Least time (ms) the card could take, and what bounds it: the q-k
     pairs these inputs need, 4*D operations each, at the peak rate of
     their type; each input read once and each output written once."""
-    if causal:
-        pairs = int(np.clip(np.arange(S) + (Sk - S) + 1, 0, Sk).sum())
-    else:
-        pairs = S * Sk
-    ops = 4 * B * H * D * pairs
+    ops = 4 * B * H * D * pairs_of(S, Sk, causal)
     elem = torch.finfo(dtype).bits // 8
     nbytes = elem * (2 * B * H * S * D + 2 * B * Hkv * Sk * D) + 4 * B * H * S
     peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
@@ -123,7 +148,8 @@ def phase_report():
     from deepspeed_tpu_torch.ops import builder
 
     t0 = time.perf_counter()
-    built = builder.build_all(["flash_fwd", "ragged_paged_attn"])
+    built = builder.build_all(["flash_fwd", "ragged_paged_attn",
+                               "flash_bwd", "fused_adam"])
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)}")
     for name, b in built.items():
         log(f"[{name}] nvcc {b.seconds:.1f} s\n{b.log.strip()}")
@@ -138,6 +164,24 @@ def _qkv(gen, B, H, Hkv, S, Sk, D, dtype):
                            dtype=dtype).transpose(1, 2)
 
     return make(H, S), make(Hkv, Sk), make(Hkv, Sk)
+
+
+def check_fwd(name, o, lse, ro, rlse, dtype):
+    """The forward kernel's ``o`` and ``lse`` against the plain version's,
+    to the phase-2 limits; returns the largest errors of both."""
+    of, rof = o.float(), ro.float()
+    err = (of - rof).abs()
+    atol, rtol = (BF16_ATOL, BF16_RTOL) if dtype == torch.bfloat16 \
+        else (FP32_ATOL, FP32_ATOL)
+    assert torch.isfinite(of).all(), f"{name}: non-finite output"
+    assert (err <= atol + rtol * rof.abs()).all(), (
+        f"{name}: o differs from plain by up to {err.max().item():.3e}")
+    inf = torch.isinf(rlse)
+    assert torch.equal(torch.isinf(lse), inf), f"{name}: lse inf rows"
+    lerr = (lse - rlse)[~inf].abs()
+    assert (lerr <= LSE_ATOL + LSE_RTOL * rlse[~inf].abs()).all(), (
+        f"{name}: lse differs by up to {lerr.max().item():.3e}")
+    return err.max().item(), lerr.max().item()
 
 
 def phase_kernel():
@@ -160,22 +204,12 @@ def phase_kernel():
         o, lse = flash_fwd(q, k, v, causal=causal)
         ro, rlse = flash_fwd_reference(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        of, rof = o.float(), ro.float()
-        err = (of - rof).abs()
-        atol, rtol = (BF16_ATOL, BF16_RTOL) if dtype == bf16 \
-            else (FP32_ATOL, FP32_ATOL)
-        assert torch.isfinite(of).all(), f"{name}: non-finite output"
-        assert (err <= atol + rtol * rof.abs()).all(), (
-            f"{name}: o differs from plain by up to {err.max().item():.3e}")
-        inf = torch.isinf(rlse)
-        assert torch.equal(torch.isinf(lse), inf), f"{name}: lse inf rows"
-        lerr = (lse - rlse)[~inf].abs()
-        assert (lerr <= LSE_ATOL + LSE_RTOL * rlse[~inf].abs()).all(), (
-            f"{name}: lse differs by up to {lerr.max().item():.3e}")
+        err, lerr = check_fwd(name, o, lse, ro, rlse, dtype)
         if causal and Sk < S:   # rows before the diagonal see no key
             blind = S - Sk
+            inf = torch.isinf(rlse)
             assert inf[:, :, :blind].all() and not inf[:, :, blind:].any()
-            assert (of[:, :, :blind] == 0).all()
+            assert (o[:, :, :blind] == 0).all()
         ms = time_ms(lambda: flash_fwd(q, k, v, causal=causal))
         # SDPA's causal mask is top-left aligned, so it computes the same
         # function only when S == Sk
@@ -184,8 +218,8 @@ def phase_kernel():
             if (not causal or S == Sk) else None
         bound, by = attention_bound(B, H, Hkv, S, Sk, D, causal, dtype)
         log(f"flash_fwd[{name}] B={B} H={H} Hkv={Hkv} S={S} Sk={Sk} D={D} "
-            f"causal={causal} {dtype}: max|o-plain|={err.max().item():.3e} "
-            f"max|lse-plain|={lerr.max().item():.3e} kernel {ms:.4f} ms, "
+            f"causal={causal} {dtype}: max|o-plain|={err:.3e} "
+            f"max|lse-plain|={lerr:.3e} kernel {ms:.4f} ms, "
             f"sdpa {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
             f"bound {bound:.4f} ms ({by}), {bound / ms:.1%} of bound")
         if name == "serving":
@@ -196,7 +230,7 @@ def phase_kernel():
             entry = dict(name="flash_fwd", route="cuda",
                          source="deepspeed_tpu_torch/ops/csrc/flash_fwd.cu",
                          replaces="deepspeed_tpu/ops/flash_attention.py:225",
-                         launches=0, max_abs_err=err.max().item(), ms=ms,
+                         launches=0, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                          library_ms=lib_ms)
         del q, k, v, o, lse, ro, rlse
@@ -732,6 +766,390 @@ def phase_v2_cpu_parity(cfg, state):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# bf16 gradients: P and dS round to bf16 from fp32 values that kernel and
+# plain version sum in another order, and each rounds dq, dk, dv to bf16
+# once (rtol: one bf16 ulp, 2^-8 relative, and some); atol sits an order
+# under the gradients' median size (2e-2 to 8e-2 at these shapes);
+# fp32: full fp32 products
+BWD_ATOL, BWD_RTOL = 3e-3, 2e-2
+BWD_FP32_TOL = 2e-4
+OPT_RTOL, OPT_ATOL = 1e-6, 1e-7      # fp32 elementwise; FMA contraction
+
+
+def bwd_bound(which, B, H, Hkv, S, Sk, D, causal, dtype):
+    """Least time (ms) of one backward kernel and what bounds it: 6*D
+    operations per valid (q head, key) pair for dQ (QK^T, dO V^T, dS K)
+    and 8*D for dK/dV (K Q^T, V dO^T, P^T dO, dS^T Q); bytes: q, k, v,
+    dO, lse and delta read once, the gradients it writes written once."""
+    elem = torch.finfo(dtype).bits // 8
+    ops = (6 if which == "dq" else 8) * D * B * H * pairs_of(S, Sk, causal)
+    nbytes = elem * (2 * B * H * S * D + 2 * B * Hkv * Sk * D) + 8 * B * H * S
+    nbytes += elem * (B * H * S * D if which == "dq" else 2 * B * Hkv * Sk * D)
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_train_kernels():
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from torch.nn import functional as F
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = [  # name, B, H, Hkv, S, Sk, D, causal, dtype
+        ("train", 4, 32, 4, 2048, 2048, 64, True, bf16),
+        ("d128_tail", 2, 32, 8, 1000, 1000, 128, True, bf16),
+        ("sk_gt_s", 2, 32, 8, 600, 1000, 128, True, bf16),
+        ("masked_rows", 2, 32, 8, 1000, 600, 128, True, bf16),
+        ("fp32", 1, 8, 2, 300, 300, 128, True, f32),
+        ("fp32_d64_cross", 1, 8, 2, 200, 260, 64, False, f32),
+    ]
+    entries = {}
+    for i, (name, B, H, Hkv, S, Sk, D, causal, dtype) in enumerate(shapes):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 100 + i)
+        q, k, v = _qkv(gen, B, H, Hkv, S, Sk, D, dtype)
+        do = torch.randn(B, S, H, D, generator=gen, device="cuda",
+                         dtype=dtype).transpose(1, 2)
+        o, lse = fa.flash_fwd(q, k, v, causal=causal)
+        # the forward at the same shape: the backward below takes its o and
+        # lse on both sides, so a wrong forward would not show there
+        fwd_err = check_fwd(f"fwd {name}", o, lse,
+                            *fa.flash_fwd_reference(q, k, v, causal=causal),
+                            dtype)
+        got = fa.flash_bwd(q, k, v, o, lse, do, causal=causal)
+        want = fa.flash_bwd_reference(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        atol, rtol = (BWD_ATOL, BWD_RTOL) if dtype == bf16 else \
+            (BWD_FP32_TOL, BWD_FP32_TOL)
+        errs = {}
+        for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+            af, bf = a.float(), b.float()
+            err = (af - bf).abs()
+            assert torch.isfinite(af).all(), f"bwd {name}: non-finite {gname}"
+            assert (err <= atol + rtol * bf.abs()).all(), (
+                f"bwd {name}: {gname} differs from plain by up to "
+                f"{err.max().item():.3e}")
+            # the least atol that would pass at this rtol
+            need = (err - rtol * bf.abs()).clamp_min(0).max().item()
+            errs[gname] = (err.max().item(), bf.abs().median().item(), need)
+        if causal and Sk < S:
+            assert (got[0][:, :, :S - Sk] == 0).all(), "masked rows' dq"
+        line = (f"flash_bwd[{name}] B={B} H={H} Hkv={Hkv} S={S} Sk={Sk} "
+                f"D={D} causal={causal} {dtype}: forward max|o-plain|="
+                f"{fwd_err[0]:.3e} max|lse-plain|={fwd_err[1]:.3e}; " +
+                ", ".join(f"max|{g}-plain|={e:.3e} (median |{g}| {m:.3e}, "
+                          f"atol needed at rtol {rtol:g}: {n:.3e} of {atol:g})"
+                          for g, (e, m, n) in errs.items()))
+        if name == "train":
+            delta = torch.linalg.vecdot(do.float(), o.float()).contiguous()
+            ms = {"dq": time_ms(lambda: fa.flash_bwd_dq(
+                      q, k, v, do, lse, delta, causal)),
+                  "dkv": time_ms(lambda: fa.flash_bwd_dkv(
+                      q, k, v, do, lse, delta, causal))}
+            plain_ms = time_ms(lambda: fa.flash_bwd_reference(
+                q, k, v, o, lse, do, causal=causal), reps=3, warmup=1)
+            # yardstick: the SDPA backward alone (its graph kept alive)
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                 enable_gqa=True)
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                out, (qs, ks, vs), do, retain_graph=True))
+            del out, qs, ks, vs
+            for which, kname in (("dq", "flash_bwd_dq"),
+                                 ("dkv", "flash_bwd_dkv")):
+                bound, by = bwd_bound(which, B, H, Hkv, S, Sk, D, causal,
+                                      dtype)
+                err = errs["dq"][0] if which == "dq" else max(
+                    errs["dk"][0], errs["dv"][0])
+                entries[kname] = dict(
+                    name=kname, route="cuda",
+                    source="deepspeed_tpu_torch/ops/csrc/flash_bwd.cu",
+                    replaces=("deepspeed_tpu/ops/flash_attention.py:364"
+                              if which == "dq" else
+                              "deepspeed_tpu/ops/flash_attention.py:419"),
+                    launches=0, max_abs_err=err, ms=ms[which],
+                    plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                    library_ms=lib_ms)
+                line += (f"; {kname} {ms[which]:.4f} ms, bound {bound:.4f} "
+                         f"ms ({by}), {bound / ms[which]:.1%} of bound")
+            line += (f"; plain (dq, dk, dv) {plain_ms:.3f} ms; SDPA "
+                     f"backward {lib_ms:.4f} ms")
+        log(line)
+        del q, k, v, do, o, lse, got, want
+    torch.cuda.empty_cache()
+    entries.update(phase_opt_kernels())
+    return entries
+
+
+def phase_opt_kernels():
+    """Fused Adam and Lion over one flat buffer of llama-1b's parameter
+    count, against their plain versions; timed beside their byte bounds
+    and, for Adam, ``torch.optim.AdamW(fused=True).step``."""
+    from deepspeed_tpu_torch.models.llama import LlamaLMLoss, get_config
+    from deepspeed_tpu_torch.ops import fused_adam as fo
+
+    with torch.device("meta"):
+        n = sum(p.numel() for p in LlamaLMLoss(get_config(
+            "llama-1b")).parameters())
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 200)
+    p = torch.randn(n, generator=gen, device="cuda")
+    g = torch.randn(n, generator=gen, device="cuda") * 1e-2
+    m = torch.randn(n, generator=gen, device="cuda") * 1e-3
+    v = torch.rand(n, generator=gen, device="cuda") * 1e-4
+    w = p.to(torch.bfloat16)
+    sc = torch.tensor([3e-4, 0.19, 0.0975, 0.5, 0.0], device="cuda")
+    entries = {}
+    # the kernel updates the buffers themselves (the plain version a copy),
+    # so that kernel, plain temporaries and copies fit the card together
+    state = [p, m, v, w]
+    for opt in ("adam", "adamw", "lion"):
+        ref = [t.clone() for t in state]
+        if opt == "lion":
+            kw = dict(b1=0.9, b2=0.99, wd=0.1)
+            fo.fused_lion(state[0], g, state[1], sc, state[3], **kw)
+            fo.lion_update_reference(ref[0], g, ref[1], sc, ref[3], **kw)
+            run = lambda: fo.fused_lion(state[0], g, state[1], sc,
+                                        state[3], **kw)
+            plain = lambda: fo.lion_update_reference(
+                ref[0], g, ref[1], sc, ref[3], **kw)
+            nbytes = n * (12 + 8 + 2)        # p, g, m in; p, m, w out
+        else:
+            kw = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1,
+                      adam_w=opt == "adamw")
+            fo.fused_adam(state[0], g, state[1], state[2], sc, state[3],
+                          **kw)
+            fo.adam_update_reference(ref[0], g, ref[1], ref[2], sc, ref[3],
+                                     **kw)
+            run = lambda: fo.fused_adam(state[0], g, state[1], state[2],
+                                        sc, state[3], **kw)
+            plain = lambda: fo.adam_update_reference(
+                ref[0], g, ref[1], ref[2], sc, ref[3], **kw)
+            nbytes = n * (16 + 12 + 2)       # p, g, m, v in; p, m, v, w out
+        torch.cuda.synchronize()
+        err = 0.0
+        for a, b in zip(state[:3], ref[:3]):
+            if opt == "lion" and a is state[2]:
+                continue
+            d = (a - b).abs()
+            assert (d <= OPT_ATOL + OPT_RTOL * b.abs()).all(), (
+                f"{opt}: differs from plain by up to {d.max().item():.3e}")
+            err = max(err, d.max().item())
+        assert torch.equal(state[3], state[0].to(torch.bfloat16))
+        ms = time_ms(run, reps=10, warmup=2)
+        plain_ms = time_ms(plain, reps=3, warmup=1)
+        bound = nbytes / PEAK_BYTES * 1e3
+        lib_ms = None
+        if opt == "adamw":
+            param = torch.nn.Parameter(p.clone())
+            param.grad = g
+            topt = torch.optim.AdamW([param], lr=3e-4, betas=(0.9, 0.95),
+                                     weight_decay=0.1, fused=True)
+            lib_ms = time_ms(topt.step, reps=10, warmup=2)
+            del param, topt
+        log(f"{opt} over {n} fp32 parameters (+ bf16 copy): max|kernel-"
+            f"plain|={err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms,"
+            f" bound {bound:.3f} ms (bytes), {bound / ms:.1%} of bound"
+            + (f"; torch AdamW(fused=True).step {lib_ms:.3f} ms"
+               if lib_ms is not None else ""))
+        kname = "fused_lion" if opt == "lion" else "fused_adam"
+        if opt != "adam":           # the slice runs AdamW and Lion
+            entries[kname] = dict(
+                name=kname, route="cuda",
+                source="deepspeed_tpu_torch/ops/csrc/fused_adam.cu",
+                replaces=("deepspeed_tpu/ops/fused_adam.py:75"
+                          if opt == "lion" else
+                          "deepspeed_tpu/ops/fused_adam.py:52"),
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by="bytes", library_ms=lib_ms)
+        del ref
+        torch.cuda.empty_cache()
+    del p, g, m, v, w, state
+    torch.cuda.empty_cache()
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the training slice at full width and depth
+# ---------------------------------------------------------------------------
+
+def train_config(opt="AdamW", lr=3e-4, **kw):
+    cfg = {"train_micro_batch_size_per_gpu": 4,
+           "gradient_accumulation_steps": 2,
+           "bf16": {"enabled": True},
+           "optimizer": {"type": opt, "params": {
+               "lr": lr, "weight_decay": 0.1, "fused": True,
+               "betas": [0.9, 0.95]}},
+           "scheduler": {"type": "WarmupLR", "params": {
+               "warmup_min_lr": lr / 10, "warmup_max_lr": lr,
+               "warmup_num_steps": 3, "warmup_type": "linear"}},
+           "gradient_clipping": 1.0, "steps_per_print": 1000}
+    cfg.update(kw)
+    return cfg
+
+
+def phase_train():
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import (LlamaLMLoss,
+                                                  flops_per_token,
+                                                  get_config)
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_adam as fo
+
+    cfg = get_config("llama-1b")
+    L, S = cfg.num_hidden_layers, 2048
+    batch = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                 size=(8, S))
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                fo.fused_adam, fo.fused_lion)
+    for c in counters:                  # the main path's run starts here
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        model = LlamaLMLoss(cfg)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=train_config(),
+        generator=torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    log(f"train: llama-1b engine up in {time.perf_counter() - t0:.1f} s, "
+        f"{engine.num_parameters / 1e9:.4f} B params, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    losses, step_s = [], []
+    for step in range(10):
+        before = [c.launches for c in counters]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = float(engine.train_batch(batch=batch))
+        step_s.append(time.perf_counter() - t)
+        losses.append(loss)
+        got = [c.launches - b for c, b in zip(counters, before)]
+        want = [L * 2 * 2, L * 2, L * 2, 1, 0]
+        assert got == want, f"step {step}: launches {got}, want {want}"
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0] - 0.5, f"loss did not fall: {losses}"
+    steady = float(np.median(step_s[2:]))
+    tokens = 8 * S
+    tps = tokens / steady
+    mfu = flops_per_token(cfg, S) * tps / PEAK_BF16
+    log(f"train: 10 AdamW steps of {tokens} tokens: losses "
+        f"{[round(x, 4) for x in losses]}; step {steady * 1e3:.1f} ms "
+        f"(median of steps 3-10; first {step_s[0] * 1e3:.1f} ms), "
+        f"{tps:.0f} tokens/s, MFU {mfu:.1%} (flops_per_token "
+        f"{flops_per_token(cfg, S):.4e}); peak memory {peak:.2f} GiB; "
+        f"grad norm {engine.get_global_grad_norm():.4f}")
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with torch.device("meta"):
+        model = LlamaLMLoss(cfg)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=train_config("Lion", lr=3e-5),
+        generator=torch.Generator(device="cuda").manual_seed(SEED))
+    lion = [float(engine.train_batch(batch=batch)) for _ in range(3)]
+    assert all(math.isfinite(x) for x in lion), lion
+    launches = {c.__name__: c.launches for c in counters}
+    assert launches["fused_lion"] == 3 and launches["fused_adam"] == 10, \
+        launches
+    log(f"train: 3 Lion steps: losses {[round(x, 4) for x in lion]}; "
+        f"launches over the phase {launches}")
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: training on the card against the CPU; checkpoint resume
+# ---------------------------------------------------------------------------
+
+TRAIN_LOSS_RTOL = 1e-4   # fp32 both sides, summation order only
+# params: x lr x steps.  Adam's direction is ~sign(g) where |g| is small,
+# so an element whose tiny gradient the card and the CPU sum to different
+# values moves apart by up to 2 lr in a step (0.037 x lr x steps observed)
+TRAIN_PARAM_TOL = 0.1
+
+
+def phase_train_cpu_parity():
+    import shutil
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaLMLoss, get_config
+    from deepspeed_tpu_torch.module_inject.flax_bridge import \
+        flax_to_state_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("llama-1b", num_hidden_layers=2, dtype=torch.float32)
+    rng = np.random.default_rng(SEED + 3)
+    tree = flax_tree(cfg, rng)
+    state = {f"lm.{k}": v for k, v in flax_to_state_dict(tree).items()}
+    batches = [rng.integers(0, cfg.vocab_size, size=(4, 128))
+               for _ in range(5)]
+    lr = 1e-3
+    conf = {"train_micro_batch_size_per_gpu": 2,
+            "gradient_accumulation_steps": 2, "gradient_clipping": 1.0,
+            "optimizer": {"type": "AdamW", "params": {
+                "lr": lr, "weight_decay": 0.1, "fused": True}},
+            "steps_per_print": 1000}
+
+    def make(dev):
+        with torch.device("meta"):
+            model = LlamaLMLoss(cfg)
+        return deepspeed_tpu_torch.initialize(
+            model=model, model_parameters=state, config=conf,
+            device=dev)[0]
+
+    losses, params = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        eng = make(dev)
+        losses[dev] = [float(eng.train_batch(batch=b)) for b in batches[:3]]
+        params[dev] = eng.state.params.cpu()
+        log(f"train parity: 3 steps on {dev} in "
+            f"{time.perf_counter() - t0:.1f} s: {losses[dev]}")
+        if dev == "cuda":
+            card = eng
+        else:
+            del eng
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                   losses["cpu"]))
+    diff = (params["cuda"] - params["cpu"]).abs()
+    perr = diff.max().item()
+    frac = (diff > 1e-6).float().mean().item()
+    log(f"train parity: 2 layers fp32, card vs CPU: losses max rel diff "
+        f"{rel:.3e} (limit {TRAIN_LOSS_RTOL}), params max|diff| {perr:.3e} "
+        f"(limit {TRAIN_PARAM_TOL * lr * 3:.1e}); {frac:.3e} of them more "
+        "than 1e-6 apart")
+    assert rel <= TRAIN_LOSS_RTOL and perr <= TRAIN_PARAM_TOL * lr * 3
+
+    ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    card.save_checkpoint(ckpt)
+    cont = [float(card.train_batch(batch=b)) for b in batches[3:]]
+    want = card.state.params.clone()
+    del card
+    gc.collect()
+    fresh = make("cuda")
+    path, _ = fresh.load_checkpoint(ckpt)
+    assert path is not None and fresh.global_steps == 3
+    again = [float(fresh.train_batch(batch=b)) for b in batches[3:]]
+    same = torch.equal(fresh.state.params, want)
+    log(f"train resume: losses {cont} then {again} after "
+        f"load_checkpoint; params bit-identical: {same}")
+    assert again == cont and same, "the resumed run differs"
+    del fresh, want
+    shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -753,7 +1171,19 @@ def main() -> int:
     log(f"phase 6 done at {time.perf_counter() - t0:.1f} s")
     phase_v2_cpu_parity(cfg2, state)
     log(f"phase 7 done at {time.perf_counter() - t0:.1f} s")
-    log(json.dumps({"kernels": [entry, paged, paged_quant]}))
+    del state
+    gc.collect()
+    train = phase_train_kernels()
+    log(f"phase 8 done at {time.perf_counter() - t0:.1f} s")
+    launches = phase_train()
+    for name, e in train.items():
+        e["launches"] = launches[name]
+    log(f"phase 9 done at {time.perf_counter() - t0:.1f} s")
+    phase_train_cpu_parity()
+    log(f"phase 10 done at {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"kernels": [entry, paged, paged_quant] +
+                    [train[k] for k in ("flash_bwd_dq", "flash_bwd_dkv",
+                                        "fused_adam", "fused_lion")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,10 +7,13 @@ TPU kernel on a ported path replaced by a CUDA kernel written for
 points run on the GPU unless the caller passes ``device="cpu"``.
 
 Ported so far, on the Llama family: the v1 serving path,
-``init_inference`` -> ``InferenceEngine.generate``, and the ragged v2
-serving path, ``RaggedInferenceEngineV2`` over a paged KV pool.
+``init_inference`` -> ``InferenceEngine.generate``; the ragged v2 serving
+path, ``RaggedInferenceEngineV2`` over a paged KV pool; and single-GPU
+training at ZeRO stage 0, ``initialize`` -> ``engine.train_batch`` ->
+``engine.save_checkpoint`` / ``engine.load_checkpoint``.
 """
 from deepspeed_tpu_torch.inference.engine import init_inference
 from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+from deepspeed_tpu_torch.runtime.engine import initialize
 
-__all__ = ["init_inference", "RaggedInferenceEngineV2"]
+__all__ = ["init_inference", "RaggedInferenceEngineV2", "initialize"]

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.inference.kv_cache import KVCache, cached_attention
 from deepspeed_tpu_torch.inference.paged import (KV_CACHE_DTYPES,
@@ -41,12 +42,14 @@ class LlamaConfig:
     """Same fields as the flax ``LlamaConfig``, so one converts to the other
     field for field.  ``dtype``/``param_dtype`` are torch dtypes; modules
     are built in ``param_dtype`` and compute in their weights' dtype.
-    ``scan_layers``, ``remat``, ``remat_policy``, ``decode``,
-    ``pipeline_microbatches`` and the paged-cache fields
-    (``paged_decode``, ``kv_page_size``, ``kv_num_pages``,
-    ``kv_cache_dtype``, set by the v2 engine) change nothing in the
-    modules here (layers are always unrolled, there is no backward yet,
-    and the cache is an argument).  Knobs of paths not ported yet raise."""
+    ``remat`` checkpoints every block under autograd
+    (``torch.utils.checkpoint``, the whole block recomputed in the
+    backward: ``remat_policy`` "full"; "none" turns it off).
+    ``scan_layers``, ``decode``, ``pipeline_microbatches`` and the
+    paged-cache fields (``paged_decode``, ``kv_page_size``,
+    ``kv_num_pages``, ``kv_cache_dtype``, set by the v2 engine) change
+    nothing in the modules here (layers are always unrolled, and the cache
+    is an argument).  Knobs of paths not ported yet raise."""
 
     vocab_size: int = 32000
     max_position_embeddings: int = 4096
@@ -97,6 +100,9 @@ class LlamaConfig:
                               "v2 engine uses paged_decode)"),
             "weight_quant": (self.weight_quant != "none",
                              "ROADMAP A9.6 (W8A8 serving)"),
+            "remat_policy": (self.remat_policy not in ("full", "none"),
+                             "ROADMAP A4 (remat policies that save "
+                             "selected activations)"),
         }
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype must be one of "
@@ -337,10 +343,18 @@ class LlamaModel(nn.Module):
             else angles[:, :, None]
         rope = (angles.cos(), angles.sin())
         x = self.embed_tokens(input_ids)
+        remat = (cfg.remat and cfg.remat_policy == "full"
+                 and torch.is_grad_enabled() and kv_cache is None)
         for i, layer in enumerate(self.layers):
-            x = layer(x, positions, rope,
-                      None if kv_cache is None else kv_cache[i],
-                      ragged_meta)
+            if remat:
+                # recompute the block in the backward (nn.remat of the
+                # flax model): only its input is kept
+                x = checkpoint(layer, x, positions, rope,
+                               use_reentrant=False)
+            else:
+                x = layer(x, positions, rope,
+                          None if kv_cache is None else kv_cache[i],
+                          ragged_meta)
         return self.norm(x)
 
 
@@ -380,3 +394,48 @@ class LlamaForCausalLM(nn.Module):
                 mod.weight.normal_(0.0, 1.0, generator=generator)
             elif isinstance(mod, RMSNorm):
                 mod.weight.fill_(1.0)
+
+
+def next_token_loss(logits: torch.Tensor,
+                    input_ids: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy, ``mean(logsumexp(logits) - target
+    logit)`` (``deepspeed_tpu/models/gpt2.py::next_token_loss``): the
+    logits stay in the compute dtype, the log-sum-exp and the gathered
+    target logits are fp32."""
+    logits = logits[:, :-1]
+    targets = input_ids[:, 1:]
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    tgt = logits.gather(-1, targets[..., None])[..., 0]
+    return (lse - tgt.float()).mean()
+
+
+class LlamaLMLoss(nn.Module):
+    """Loss-returning wrapper (the engine's module contract):
+    ``module(batch) -> scalar`` next-token cross entropy in fp32.  The
+    causal LM sits under ``lm``, as in the flax ``LlamaLMLoss``."""
+
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        self.config = cfg
+        self.lm = LlamaForCausalLM(cfg)
+
+    def forward(self, batch) -> torch.Tensor:
+        input_ids = batch["input_ids"] if isinstance(batch, dict) else batch
+        return next_token_loss(self.lm(input_ids), input_ids)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        self.lm.init_weights(generator)
+
+
+def flops_per_token(cfg: LlamaConfig, seq_len: Optional[int] = None
+                    ) -> float:
+    """Forward+backward FLOPs per token (PaLM convention), for MFU: a copy
+    of ``deepspeed_tpu/models/llama.py::flops_per_token``."""
+    E, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    Dh, H, Hkv = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
+    per_layer = (E * H * Dh + 2 * E * Hkv * Dh + H * Dh * E  # qkvo
+                 + 3 * E * I)                                # gate/up/down
+    n = L * per_layer + cfg.vocab_size * E                   # + lm head
+    s = seq_len or cfg.max_position_embeddings
+    attn = 12 * L * H * Dh * s
+    return 6.0 * n + attn

@@ -1,5 +1,5 @@
-"""Weight bridge: the JAX package's flax Llama params -> this port's
-``state_dict``.
+"""Weight bridge between the JAX package's flax Llama params and this
+port's ``state_dict``, both ways.
 
 Takes the param tree as nested dicts of numpy arrays (optionally under a
 ``{"params": ...}`` wrapper) in either layer layout:
@@ -11,8 +11,10 @@ Takes the param tree as nested dicts of numpy arrays (optionally under a
 
 Renames: Dense ``kernel [in, out]`` -> Linear ``weight [out, in]``,
 ``Embed.embedding`` -> ``weight``, RMSNorm ``scale`` -> ``weight``,
-``bias`` -> ``bias``.  Any module or leaf name outside the Llama family's
+``bias`` -> ``bias``.  The trees of ``LlamaLMLoss`` carry one more level,
+``lm``, on both sides.  Any module or leaf name outside the Llama family's
 raises, so a tree of another model is refused rather than half-loaded.
+:func:`state_dict_to_flax` is the way back, into either layer layout.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 _MODULES = frozenset({
-    "model", "embed_tokens", "layers", "norm", "lm_head",
+    "lm", "model", "embed_tokens", "layers", "norm", "lm_head",
     "input_layernorm", "post_attention_layernorm", "self_attn", "mlp",
     "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
     "down_proj"})
@@ -77,3 +79,55 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
     walk(params, [], None)
     return out
+
+
+_FLAX_LEAVES = {"q_proj": "kernel", "k_proj": "kernel", "v_proj": "kernel",
+                "o_proj": "kernel", "gate_proj": "kernel",
+                "up_proj": "kernel", "down_proj": "kernel",
+                "lm_head": "kernel", "embed_tokens": "embedding",
+                "input_layernorm": "scale",
+                "post_attention_layernorm": "scale", "norm": "scale"}
+
+
+def state_dict_to_flax(state: Mapping[str, torch.Tensor],
+                       scan_layers: bool = True) -> Dict[str, Any]:
+    """The flax param tree (nested dicts of fp32 numpy arrays, without the
+    ``{"params": ...}`` wrapper) of a port ``state_dict``: scan-stacked
+    under ``layers/block`` with a leading L axis, or unrolled as
+    ``layers_<i>``.  Linear weights ``[out, in]`` become kernels
+    ``[in, out]``."""
+    tree: Dict[str, Any] = {}
+    stacked: Dict[tuple, Dict[int, np.ndarray]] = {}
+    for name, t in state.items():
+        parts = name.split(".")
+        arr = t.detach().float().cpu().numpy()
+        owner = parts[-2]
+        if owner not in _MODULES:
+            raise KeyError(f"unmapped port name {name}")
+        if parts[-1] == "weight":
+            leaf = _FLAX_LEAVES[owner]
+            if leaf == "kernel":
+                arr = arr.T
+        elif parts[-1] == "bias":
+            leaf = "bias"
+        else:
+            raise KeyError(f"unmapped port name {name}")
+        path = parts[:-1] + [leaf]
+        if "layers" in path:
+            i = path.index("layers")
+            layer = int(path[i + 1])
+            if scan_layers:
+                key = tuple(path[:i + 1] + ["block"] + path[i + 2:])
+                stacked.setdefault(key, {})[layer] = arr
+                continue
+            path = path[:i] + [f"layers_{layer}"] + path[i + 2:]
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    for key, layers in stacked.items():
+        node = tree
+        for k in key[:-1]:
+            node = node.setdefault(k, {})
+        node[key[-1]] = np.stack([layers[i] for i in range(len(layers))])
+    return tree

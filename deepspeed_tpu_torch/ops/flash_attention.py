@@ -1,9 +1,11 @@
-"""Flash attention forward for the H100.
+"""Flash attention, forward and backward, for the H100.
 
 Counterpart of ``deepspeed_tpu/ops/flash_attention.py``.  The TPU kernel
 ``_flash_fwd_kernel`` becomes the hand-written CUDA kernel in
-``csrc/flash_fwd.cu`` (see the note at its top); beside it live the plain
-PyTorch versions of the same functions:
+``csrc/flash_fwd.cu``, and ``_flash_bwd_dq_kernel`` and
+``_flash_bwd_dkv_kernel`` (with the GQA group sum of ``_flash_vjp_bwd``)
+become the two kernels of ``csrc/flash_bwd.cu`` (see the notes at their
+tops); beside them live the plain PyTorch versions of the same functions:
 
 - :func:`mha_reference`: naive O(S^2)-memory attention;
 - :func:`flash_fwd_reference`: the blockwise online-softmax forward
@@ -12,12 +14,21 @@ PyTorch versions of the same functions:
 - :func:`flash_fwd`: the wrapper.  CPU tensors take the plain version; a
   CUDA tensor launches the kernel or raises.  ``flash_fwd.launches`` counts
   kernel launches;
+- :func:`flash_bwd_reference`: the blockwise backward recomputing P from
+  the saved log-sum-exp, the counterpart of ``_blockwise_bwd`` followed
+  by the group sum, and the arithmetic the backward kernels repeat;
+- :func:`flash_bwd`: the backward wrapper.  It computes
+  ``delta = rowsum(dO * O)`` with torch (as ``_flash_bwd_pallas`` does
+  outside Pallas) and launches :func:`flash_bwd_dq` and
+  :func:`flash_bwd_dkv`, each counting its launches in ``.launches``;
 - :func:`flash_attention`: the public call with the JAX layout, q
-  ``[B,H,S,D]`` and k, v ``[B,Hkv,Sk,D]`` (Hkv divides H).
+  ``[B,H,S,D]`` and k, v ``[B,Hkv,Sk,D]`` (Hkv divides H).  It is a
+  ``torch.autograd.Function`` whose forward saves ``(q, k, v, o, lse)``,
+  as ``_flash_vjp_fwd`` does, and whose backward is :func:`flash_bwd`.
 
 Causal masks are bottom-right aligned (the last query sees the last key),
-the KV-cache decode convention; a row that sees no key gives output 0 and
-log-sum-exp ``+inf``.  There is no backward yet: serving needs none.
+the KV-cache decode convention; a row that sees no key gives output 0,
+log-sum-exp ``+inf`` and gradient 0.
 """
 from __future__ import annotations
 
@@ -133,44 +144,71 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"tensors on {q.device}, {k.device}, {v.device}")
 
 
-def _lib() -> ctypes.CDLL:
-    lib = builder.load("flash_fwd")
-    if lib.dstpu_flash_fwd.argtypes is None:
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.dstpu_flash_fwd.argtypes = (
-            [ptr] * 5 + [i32] * 7 + [i64] * 12 +
-            [ctypes.c_float, i32, ptr])
-        lib.dstpu_flash_fwd.restype = i32
-        lib.dstpu_cuda_error_string.argtypes = [i32]
+class _BwdArgs(ctypes.Structure):
+    """``BwdArgs`` of ``csrc/flash_bwd.cu``, field for field."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("q", "k", "v", "dout", "lse", "delta", "dq", "dk", "dv")] +
+                [(n, ctypes.c_int) for n in
+                 ("B", "H", "Hkv", "S", "Sk", "causal")] +
+                [("scale", ctypes.c_float), ("pad", ctypes.c_int)] +
+                [(n, ctypes.c_longlong * 3) for n in
+                 ("qs", "ks", "vs", "dos", "dqs", "dks", "dvs")])
+
+
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# library -> (entry point, its argtypes); every entry point returns int
+_ENTRY = {
+    "flash_fwd": ("dstpu_flash_fwd", [_PTR] * 5 + [_I32] * 7 + [_I64] * 12 +
+                  [ctypes.c_float, _I32, _PTR]),
+    "flash_bwd": ("dstpu_flash_bwd", [ctypes.POINTER(_BwdArgs), _I32, _I32,
+                                      _I32, _PTR]),
+}
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = builder.load(name)
+    fn_name, argtypes = _ENTRY[name]
+    fn = getattr(lib, fn_name)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = argtypes, _I32
+        lib.dstpu_cuda_error_string.argtypes = [_I32]
         lib.dstpu_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(q, k, v, causal: bool, sm_scale: float):
-    B, H, S, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
-    vec = 16 // q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check_rows(**tensors: torch.Tensor) -> None:
+    """The kernels read and write 16-byte rows: a contiguous head dim, a
+    16-byte aligned base and strides that are multiples of 16 bytes."""
+    for name, t in tensors.items():
+        vec = 16 // t.element_size()
         if t.stride(3) != 1 or t.data_ptr() % 16 or any(
                 s % vec for s in t.stride()[:3]):
             raise ValueError(
                 f"{name}: the kernel reads 16-byte rows; want a contiguous "
                 f"head dim, a 16-byte aligned base and strides that are "
                 f"multiples of {vec} (got strides {t.stride()})")
+
+
+def _launch(q, k, v, causal: bool, sm_scale: float):
+    B, H, S, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    _check_rows(q=q, k=k, v=v)
     # o is laid out [B,S,H,D] and returned as its [B,H,S,D] view, so the
     # caller's transpose back to [B,S,H*D] costs no copy
     o = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    lib = _lib("flash_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib().dstpu_flash_fwd(
+        err = lib.dstpu_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), _DTYPES[q.dtype], B, H, Hkv, S, Sk, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], float(sm_scale), int(causal), stream)
     if err:
         raise RuntimeError("flash_fwd launch failed: " +
-                           _lib().dstpu_cuda_error_string(err).decode())
+                           lib.dstpu_cuda_error_string(err).decode())
     return o, lse
 
 
@@ -196,9 +234,187 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_fwd.launches = 0
 
 
+def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True,
+                        sm_scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Blockwise backward in plain PyTorch: ``(dq, dk, dv)`` in the
+    dtypes of q, k and v, with dk and dv summed over each KV head's group.
+
+    P is recomputed from the saved ``lse`` (rows with ``lse = +inf`` get
+    p = 0), ``dS = P * (dO V^T - delta)`` with ``delta = rowsum(dO * O)``,
+    all in fp32 over 64-row q tiles.  P enters the dV product and dS the
+    dQ and dK products rounded to the input dtype, as in the kernels."""
+    B, H, S, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    dt = q.dtype
+    qf = q.float().reshape(B, Hkv, G, S, D)
+    dof = do.float().reshape(B, Hkv, G, S, D)
+    lsef = lse.float().reshape(B, Hkv, G, S)
+    delta = (dof * o.float().reshape(B, Hkv, G, S, D)).sum(-1)
+    kf = k.float()[:, :, None]
+    vf = v.float()[:, :, None]
+    offset = Sk - S
+    kpos = torch.arange(Sk, device=q.device)
+    dq = torch.empty(B, Hkv, G, S, D, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(B, Hkv, Sk, D, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(B, Hkv, Sk, D, dtype=torch.float32, device=q.device)
+    for q0 in range(0, S, BLOCK):
+        q1 = min(q0 + BLOCK, S)
+        qb, dob = qf[..., q0:q1, :], dof[..., q0:q1, :]
+        s = qb @ kf.transpose(-1, -2) * sm_scale       # [B,Hkv,G,bq,Sk]
+        if causal:
+            qpos = torch.arange(q0, q1, device=q.device)
+            s = s.masked_fill(kpos[None, :] > qpos[:, None] + offset,
+                              DEFAULT_MASK_VALUE)
+        p = torch.exp(s - lsef[..., q0:q1, None])
+        dv += (p.to(dt).float().transpose(-1, -2) @ dob).sum(2)
+        dp = dob @ vf.transpose(-1, -2)
+        ds = (p * (dp - delta[..., q0:q1, None])).to(dt).float()
+        dq[..., q0:q1, :] = (ds @ kf) * sm_scale
+        dk += (ds.transpose(-1, -2) @ qb).sum(2)
+    return (dq.reshape(B, H, S, D).to(dt), (dk * sm_scale).to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _bwd_launch(which: int, q, k, v, do, lse, delta, causal, sm_scale):
+    """Launch one backward kernel: 0 writes dq, 1 writes dk and dv.  The
+    outputs are laid out [B,S,heads,D] and returned as [B,heads,S,D]
+    views, the layout the projections' backward wants."""
+    B, H, S, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    _check_rows(q=q, k=k, v=v, do=do)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or t.shape != (B, H, S)
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"{name}: want contiguous fp32 [B,H,S] on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)}")
+    a = _BwdArgs(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
+                 dout=do.data_ptr(), lse=lse.data_ptr(),
+                 delta=delta.data_ptr(), B=B, H=H, Hkv=Hkv, S=S, Sk=Sk,
+                 causal=int(causal), scale=float(sm_scale))
+    for field, t in (("qs", q), ("ks", k), ("vs", v), ("dos", do)):
+        setattr(a, field, (ctypes.c_longlong * 3)(*t.stride()[:3]))
+    if which == 0:
+        outs = (torch.empty(B, S, H, D, dtype=q.dtype,
+                            device=q.device).transpose(1, 2),)
+        a.dq = outs[0].data_ptr()
+        a.dqs = (ctypes.c_longlong * 3)(*outs[0].stride()[:3])
+    else:
+        outs = tuple(torch.empty(B, Sk, Hkv, D, dtype=t.dtype,
+                                 device=q.device).transpose(1, 2)
+                     for t in (k, v))
+        a.dk, a.dv = outs[0].data_ptr(), outs[1].data_ptr()
+        a.dks = (ctypes.c_longlong * 3)(*outs[0].stride()[:3])
+        a.dvs = (ctypes.c_longlong * 3)(*outs[1].stride()[:3])
+    lib = _lib("flash_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.dstpu_flash_bwd(ctypes.byref(a), which, _DTYPES[q.dtype],
+                                  D, stream)
+    if err:
+        raise RuntimeError("flash_bwd launch failed: " +
+                           lib.dstpu_cuda_error_string(err).decode())
+    return outs
+
+
+def _cuda_only(fn_name: str, q: torch.Tensor) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn_name} launches a CUDA kernel; got a tensor "
+                         f"on {q.device} (CPU callers use flash_bwd)")
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
+                 sm_scale: Optional[float] = None) -> torch.Tensor:
+    """dq [B,H,S,D] from the dQ kernel (CUDA tensors only); counts the
+    launch in ``flash_bwd_dq.launches``."""
+    _check(q, k, v)
+    _cuda_only("flash_bwd_dq", q)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    (dq,) = _bwd_launch(0, q, k, v, do, lse, delta, causal, sm_scale)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
+                  sm_scale: Optional[float] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) [B,Hkv,Sk,D], summed over each group, from the dK/dV
+    kernel (CUDA tensors only); counts the launch in
+    ``flash_bwd_dkv.launches``."""
+    _check(q, k, v)
+    _cuda_only("flash_bwd_dkv", q)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    dk, dv = _bwd_launch(1, q, k, v, do, lse, delta, causal, sm_scale)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+              causal: bool = True, sm_scale: Optional[float] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention backward: ``(dq, dk, dv)`` in the dtypes and shapes of q,
+    k and v.  CPU tensors take :func:`flash_bwd_reference`; CUDA tensors
+    launch the dQ and dK/dV kernels.  ``dO`` whose rows the kernels cannot
+    read as they are (a head dim that is not contiguous, strides or a base
+    off 16 bytes) is copied to a contiguous tensor first."""
+    _check(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or o.shape != q.shape:
+        raise ValueError(f"dO {tuple(do.shape)} {do.dtype} and o "
+                         f"{tuple(o.shape)} must match q {tuple(q.shape)} "
+                         f"{q.dtype}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, o, lse, do, causal=causal,
+                                   sm_scale=sm_scale)
+    _cuda_only("flash_bwd", q)
+    vec = 16 // do.element_size()
+    if do.stride(3) != 1 or do.data_ptr() % 16 or any(
+            s % vec for s in do.stride()[:3]):
+        do = do.contiguous()
+    # delta = rowsum(dO * O) in fp32, outside the kernels as on the TPU
+    delta = torch.linalg.vecdot(do.float(), o.float()).contiguous()
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``_flash`` of the JAX package with its custom VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+        o, lse = flash_fwd(q, k, v, causal=causal, sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, causal=ctx.causal,
+                               sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, sm_scale: Optional[float] = None
                     ) -> torch.Tensor:
     """Flash attention.  q: [B, H, S, D]; k, v: [B, Hkv, Sk, D] where Hkv
-    divides H (grouped-query attention).  Returns [B, H, S, D] in q.dtype."""
-    return flash_fwd(q, k, v, causal=causal, sm_scale=sm_scale)[0]
+    divides H (grouped-query attention).  Returns [B, H, S, D] in q.dtype,
+    differentiable through :func:`flash_bwd`."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttention.apply(q, k, v, bool(causal), float(sm_scale))

@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Where the time goes in one training step of the PyTorch port, on one GPU.
+
+    python3 scripts/profile_torch_training.py [--layers 22] [--top 16]
+                                              [--out FILE]
+
+Builds ``llama-1b`` (TinyLlama shape) with random seeded weights on the
+card and the training engine of ``chip_smoke.py`` phase 9 (bf16 with fp32
+master weights, fused AdamW, clipping 1.0, micro-batch 4 x 2048 tokens,
+2 accumulation steps), takes two warm-up steps, then traces one
+``train_batch`` with ``torch.profiler``.  It prints the wall time, the
+device busy share (the union of device intervals over wall time), the
+kernels that take the most device time, and the device time by class:
+GEMMs (cuBLAS), the port's flash forward and backward kernels, the fused
+optimizer kernel, and everything else (elementwise, reductions, copies).
+``--out`` also writes the numbers as JSON.  Needs a CUDA GPU.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(HERE))
+sys.path.insert(0, HERE)
+
+from profile_torch_serving import profile, report  # noqa: E402
+
+# kernel name fragments of each class (the port's kernels by their CUDA
+# function names; cuBLAS GEMMs by their library prefixes)
+CLASSES = {
+    "flash_fwd": ("flash_fwd_bf16",),
+    "flash_bwd_dq": ("dq_bf16",),
+    "flash_bwd_dkv": ("dkv_bf16",),
+    "optimizer": ("adam_kernel", "lion_kernel"),
+    "gemm": ("nvjet", "gemm", "cutlass", "sm90_xmma", "Kernel2"),
+}
+
+
+def by_class(step_fn):
+    """Device ms of each class over one call (every kernel counted)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step_fn()
+        torch.cuda.synchronize()
+    out = {k: 0.0 for k in CLASSES}
+    out["other"] = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        for cls, frags in CLASSES.items():
+            if any(f in e.name for f in frags):
+                out[cls] += ms
+                break
+        else:
+            out["other"] += ms
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--layers", type=int, default=22)
+    ap.add_argument("--top", type=int, default=16)
+    ap.add_argument("--out", default=None, help="write the JSON here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_training: needs a CUDA GPU", file=sys.stderr)
+        return 2
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaLMLoss, get_config
+
+    cfg = get_config("llama-1b", num_hidden_layers=args.layers)
+    with torch.device("meta"):
+        model = LlamaLMLoss(cfg)
+    config = {"train_micro_batch_size_per_gpu": 4,
+              "gradient_accumulation_steps": 2, "bf16": {"enabled": True},
+              "optimizer": {"type": "AdamW", "params": {
+                  "lr": 3e-4, "weight_decay": 0.1, "fused": True,
+                  "betas": [0.9, 0.95]}},
+              "gradient_clipping": 1.0, "steps_per_print": 1000}
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=config,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    batch = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                              size=(8, 2048))
+    for _ in range(2):                                   # warm-up
+        engine.train_batch(batch=batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.train_batch(batch=batch)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    out = {"device": torch.cuda.get_device_name(0), "layers": args.layers,
+           "tokens_per_step": 8 * 2048, "step_ms_unprofiled": plain_ms}
+    out["train_step"] = profile(lambda: engine.train_batch(batch=batch),
+                                args.top)
+    out["device_ms_by_class"] = by_class(
+        lambda: engine.train_batch(batch=batch))
+    print(f"step without the profiler: {plain_ms:.1f} ms")
+    print("device ms by class: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["device_ms_by_class"].items()))
+    return report(out, ("train_step",), args.out)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

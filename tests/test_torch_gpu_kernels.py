@@ -6,15 +6,23 @@ runs where JAX is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu_kernels.py
 
-Kernels: the flash-attention forward (``flash_fwd.cu``) and ragged paged
-attention over bf16, fp32, int8 and e4m3 pages (``ragged_paged_attn.cu``)
-at the v2 path's shapes: decode, mixed decode and prefill, a sliding
-window, page-table holes, D=64 with 16-row pages, 128-row pages with 8 q
-heads per KV head, MHA with padding tokens.
+Kernels: the flash-attention forward (``flash_fwd.cu``), its backward
+(``flash_bwd.cu``: dQ and dK/dV, GQA, tails, Sk != S, rows that see no
+key), the fused Adam and Lion steps (``fused_adam.cu``: L2 and AdamW, the
+overflow skip, bf16 and fp16 working copies), and ragged paged attention
+over bf16, fp32, int8 and e4m3 pages (``ragged_paged_attn.cu``) at the v2
+path's shapes: decode, mixed decode and prefill, a sliding window,
+page-table holes, D=64 with 16-row pages, 128-row pages with 8 q heads per
+KV head, MHA with padding tokens.
 
 Tolerances: bf16 flash outputs 2e-2 (p and o round to bf16 at 2^-8
 relative, in different places in the kernel and the plain version); bf16
-paged outputs 2e-3 absolute plus 2e-2 relative (K and V are O(1), so |o|
+flash gradients 3e-3 absolute plus 2e-2 relative (P and dS round to bf16
+from fp32 values summed in another order, and each side rounds the
+gradient to bf16 once: one ulp is 2^-8 relative; the absolute part sits an
+order under the gradients' median size); fp32 gradients 2e-4 (full fp32 products over
+up to 200 keys, another order); optimizer steps 1e-6 relative (fp32
+elementwise, the kernel contracts multiply-adds into FMAs); bf16 paged outputs 2e-3 absolute plus 2e-2 relative (K and V are O(1), so |o|
 is ~0.04 at 2048 keys and the absolute part stays under it); fp32 outputs
 1e-4 (full fp32 products, another summation order); lse 2e-3 absolute.
 """
@@ -201,3 +209,109 @@ def test_kernel_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_fwd(misaligned, k, v)
     assert fa.flash_fwd.launches == before
+
+
+# B, H, Hkv, S, Sk, D, causal
+BWD_SHAPES = [
+    (2, 4, 2, 100, 100, 64, True),     # q and key tails, GQA 2
+    (1, 8, 1, 130, 100, 128, True),    # Sk < S: rows that see no key, GQA 8
+    (1, 4, 4, 64, 200, 64, True),      # Sk > S, bottom-right diagonal
+    (1, 8, 2, 96, 96, 128, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_bwd_kernels_match_plain(cuda, shape, dtype):
+    dt = getattr(torch, dtype)
+    B, H, Hkv, S, Sk, D, causal = shape
+    q, k, v = _qkv(sum(shape) + 1, B, H, Hkv, S, Sk, D, dt, cuda)
+    g = torch.Generator().manual_seed(7)
+    # dO in the layout the o_proj backward gives: [B,S,H,D] seen as [B,H,S,D]
+    do = torch.randn(B, S, H, D, generator=g).to(cuda, dt).transpose(1, 2)
+    o, lse = fa.flash_fwd(q, k, v, causal=causal)
+    before = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    got = fa.flash_bwd(q, k, v, o, lse, do, causal=causal)
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = fa.flash_bwd_reference(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    # bf16: rtol covers one ulp where the two round a gradient apart;
+    # atol sits an order under the gradients' size (chip_smoke.py)
+    atol, rtol = (3e-3, 2e-2) if dt == torch.bfloat16 else (2e-4, 2e-4)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dt and a.shape == b.shape, name
+        torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                   rtol=rtol, msg=name)
+    if causal and Sk < S:
+        assert (got[0][:, :, :S - Sk] == 0).all()
+
+
+@pytest.mark.gpu
+def test_flash_attention_grad_runs_the_kernels(cuda):
+    q, k, v = (t.requires_grad_() for t in
+               _qkv(3, 2, 8, 2, 128, 128, 64, torch.bfloat16, cuda))
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    fa.flash_attention(q, k, v).float().square().sum().backward()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(b + 1 for b in before)
+    assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+
+
+def _opt_state(seed, n, device, wdtype=None):
+    g = torch.Generator().manual_seed(seed)
+    p = torch.randn(n, generator=g)
+    grad = torch.randn(n, generator=g) * 1e-2
+    m = torch.randn(n, generator=g) * 1e-3
+    v = torch.rand(n, generator=g) * 1e-4
+    out = [t.to(device) for t in (p, grad, m, v)]
+    w = None if wdtype is None else out[0].to(wdtype)
+    return out, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("adam_w", [True, False])
+@pytest.mark.parametrize("skip", [0.0, 1.0])
+@pytest.mark.parametrize("wdtype", ["bfloat16", "float16", None])
+def test_fused_adam_matches_plain(cuda, adam_w, skip, wdtype):
+    from deepspeed_tpu_torch.ops import fused_adam as fo
+
+    wdt = None if wdtype is None else getattr(torch, wdtype)
+    (p, g, m, v), w = _opt_state(1, 1_000_003, cuda, wdt)
+    sc = torch.tensor([1e-3, 0.1, 0.001, 0.5, skip], device=cuda)
+    ref = [t.clone() for t in (p, g, m, v)]
+    ref_w = None if w is None else w.clone()
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.1, adam_w=adam_w)
+    before = fo.fused_adam.launches
+    fo.fused_adam(p, g, m, v, sc, w, **kw)
+    assert fo.fused_adam.launches == before + 1
+    fo.adam_update_reference(ref[0], ref[1], ref[2], ref[3], sc, ref_w, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip((p, m, v), (ref[0], ref[2], ref[3])):
+        torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6)
+    if skip:
+        assert torch.equal(p, ref[0]) and torch.equal(m, ref[2])
+    if w is not None:
+        assert torch.equal(w, p.to(wdt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skip", [0.0, 1.0])
+def test_fused_lion_matches_plain(cuda, skip):
+    from deepspeed_tpu_torch.ops import fused_adam as fo
+
+    (p, g, m, _), w = _opt_state(2, 777_777, cuda, torch.bfloat16)
+    sc = torch.tensor([1e-4, 1.0, 1.0, 0.5, skip], device=cuda)
+    ref = [t.clone() for t in (p, g, m)]
+    ref_w = w.clone()
+    before = fo.fused_lion.launches
+    fo.fused_lion(p, g, m, sc, w, b1=0.9, b2=0.99, wd=0.1)
+    assert fo.fused_lion.launches == before + 1
+    fo.lion_update_reference(ref[0], ref[1], ref[2], sc, ref_w, b1=0.9,
+                             b2=0.99, wd=0.1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(p, ref[0], atol=1e-7, rtol=1e-6)
+    torch.testing.assert_close(m, ref[2], atol=1e-7, rtol=1e-6)
+    assert torch.equal(w, p.to(torch.bfloat16))

@@ -5,7 +5,9 @@
 - Entry points run on the GPU unless the caller asks for the CPU: with no
   GPU and no ``device="cpu"`` they raise.
 - Kernel launch counters stay 0 when everything runs on the CPU (the v1
-  engine's flash kernel, the v2 engine's paged kernels).
+  engine's flash kernel, the v2 engine's paged kernels, the training
+  engine's flash backward and optimizer kernels), and a tensor on neither
+  the CPU nor a GPU reaches no plain version: the wrappers raise.
 - Its inference config parses JSON configs to the same values as the JAX
   package's.
 - ``chip_smoke.py`` refuses to run without a GPU and prints no result.
@@ -30,6 +32,7 @@ from deepspeed_tpu_torch import accelerator
 from deepspeed_tpu_torch.inference.config import load_inference_config
 from deepspeed_tpu_torch.models import llama
 from deepspeed_tpu_torch.ops import flash_attention as fa
+from deepspeed_tpu_torch.ops import fused_adam as fo
 from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
 from deepspeed_tpu_torch.telemetry.slo import parse_objective
 
@@ -50,7 +53,11 @@ def test_import_loads_no_jax():
             "deepspeed_tpu_torch.inference.paged, "
             "deepspeed_tpu_torch.inference.sampling, "
             "deepspeed_tpu_torch.ops.ragged_paged_attention, "
-            "deepspeed_tpu_torch.telemetry.requests\n"
+            "deepspeed_tpu_torch.telemetry.requests, "
+            "deepspeed_tpu_torch.runtime.engine, "
+            "deepspeed_tpu_torch.checkpoint.engine, "
+            "deepspeed_tpu_torch.ops.fused_adam, "
+            "deepspeed_tpu_torch.utils.timer\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -89,6 +96,12 @@ def test_entry_points_refuse_to_run_without_gpu(monkeypatch):
         deepspeed_tpu_torch.init_inference(model, config={"dtype": "fp32"})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         deepspeed_tpu_torch.RaggedInferenceEngineV2(model)
+    with torch.device("meta"):
+        lm = llama.LlamaLMLoss(llama.get_config(
+            "tinyllama", hidden_size=128, num_attention_heads=2,
+            num_key_value_heads=1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepspeed_tpu_torch.initialize(model=lm, config={})
     assert accelerator.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -108,6 +121,56 @@ def test_launch_counter_stays_zero_on_cpu():
     out = eng.generate(torch.zeros(2, 5, dtype=torch.long), max_new_tokens=3)
     assert out.shape == (2, 8)
     assert fa.flash_fwd.launches == start == 0
+
+
+def test_training_launch_counters_stay_zero_on_cpu():
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                fo.fused_adam, fo.fused_lion)
+    with torch.device("meta"):
+        model = llama.LlamaLMLoss(llama.get_config(
+            "tinyllama", hidden_size=128, num_attention_heads=2,
+            num_key_value_heads=1))
+    for opt in ("AdamW", "Lion"):
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=model, device="cpu",
+            config={"train_batch_size": 2, "bf16": {"enabled": True},
+                    "optimizer": {"type": opt, "params": {"fused": True}}},
+            generator=torch.Generator().manual_seed(0))
+        loss = eng.train_batch(batch=np.ones((2, 16), np.int64))
+        assert torch.isfinite(loss)
+    assert [c.launches for c in counters] == [0] * 5
+
+
+@pytest.mark.parametrize("wrapper", ["flash_bwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv", "fused_adam",
+                                     "fused_lion"])
+def test_new_wrappers_never_take_the_plain_path_off_the_cpu(wrapper,
+                                                            monkeypatch):
+    """A tensor that is not on the CPU (here the meta device: this sandbox
+    has no GPU) makes the wrapper launch its kernel or raise, never run
+    the plain version."""
+    def plain(*a, **k):
+        raise AssertionError("took the plain path")
+
+    for name in ("flash_bwd_reference",):
+        monkeypatch.setattr(fa, name, plain)
+    monkeypatch.setattr(fo, "adam_update_reference", plain)
+    monkeypatch.setattr(fo, "lion_update_reference", plain)
+    meta = dict(device="meta")
+    q = torch.empty(1, 2, 16, 64, **meta)
+    k = torch.empty(1, 1, 16, 64, **meta)
+    lse = torch.empty(1, 2, 16, **meta)
+    p = torch.empty(100, **meta)
+    sc = torch.empty(5, **meta)
+    calls = {
+        "flash_bwd": lambda: fa.flash_bwd(q, k, k, q, lse, q),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, k, q, lse, lse),
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, k, q, lse, lse),
+        "fused_adam": lambda: fo.fused_adam(p, p, p, p, sc),
+        "fused_lion": lambda: fo.fused_lion(p, p, p, sc),
+    }
+    with pytest.raises(ValueError):
+        calls[wrapper]()
 
 
 @pytest.mark.parametrize("kv_cache_dtype", ["none", "int8"])
