@@ -59,6 +59,24 @@ Phases (any failed check raises; nothing is caught):
    steps on the card against 3 on the CPU.  Then ``save_checkpoint``, 2
    more steps, and a fresh engine that ``load_checkpoint``s and takes the
    same 2 steps: bit-identical losses and params on the card.
+11. Quantization kernels against plain: group-wise int8 quantize and
+   dequantize (kernels #6 and #7) at the int8 serving path's shapes
+   (``gate_proj`` [4096, 14336] at groups of 128 and 2048, the embedding
+   [128256, 4096]) and at tails, symmetric and asymmetric, 8 and 4 bits,
+   bf16 and fp32: payload, scale, offset and dequantized output
+   bit-identical to the plain versions.  Times both kernels, their plain
+   versions and their byte bounds.
+12. The int8 slice: (a) ``init_inference`` on ``llama3-8b`` at full width
+   and depth with ``quant.enabled`` int8 (groups of 128), phase 3's
+   prompts greedy twice (identical tokens); kernel #6 launched 226 times
+   at construction, #7 226 times per forward, flash once per layer per
+   prefill.  (b) ``RaggedInferenceEngineV2`` with
+   ``quantize_weights="int8"`` (groups of 2048) serving phase 6's 24
+   requests twice (identical tokens); #7 226 times per model tick.
+   Resident weight bytes and peak memory while serving beside the bf16
+   runs'.  (c) 2 layers at full width in fp32: weights quantized on the
+   card and on the CPU are byte-identical, and 4 greedy v2 requests give
+   the same tokens (the margin rule of phase 7).
 
 Phases 3 and 6 (serving) keep their full depth: the whole run stays well
 inside its time limit.  The line before the last is the ``kernels`` JSON;
@@ -149,7 +167,7 @@ def phase_report():
 
     t0 = time.perf_counter()
     built = builder.build_all(["flash_fwd", "ragged_paged_attn",
-                               "flash_bwd", "fused_adam"])
+                               "flash_bwd", "fused_adam", "quantization"])
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)}")
     for name, b in built.items():
         log(f"[{name}] nvcc {b.seconds:.1f} s\n{b.log.strip()}")
@@ -304,7 +322,7 @@ def phase_slice():
     del engine, model
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, greedy1
 
 
 def flax_tree(cfg, rng):
@@ -712,14 +730,17 @@ def phase_v2():
     del module
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, quant_launches
+    return launches, quant_launches, out1
 
 
 # ---------------------------------------------------------------------------
 # Phase 7: v2 on the card against v2 on the CPU
 # ---------------------------------------------------------------------------
 
-def phase_v2_cpu_parity(cfg, state):
+def phase_v2_cpu_parity(cfg, state, runs=(("none", None), ("int8", None))):
+    """v2 on the card against v2 on the CPU, for each (KV pool format,
+    weight format) of ``runs``; int8 weights quantized on the two must be
+    byte-identical."""
     from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
 
@@ -728,17 +749,31 @@ def phase_v2_cpu_parity(cfg, state):
                for n in (37, 100, 300, 513)]
     kw = dict(max_seqs=4, max_seq_len=640, prefill_chunk=128, page_size=64,
               decode_block_size=4)
-    for fmt in ("none", "int8"):
+    for fmt, wq in runs:
+        label = f"{fmt} pool" + ("" if wq is None else f", {wq} weights")
         toks, engines = {}, {}
         for dev in ("cuda", "cpu"):
             with torch.device("meta"):
                 model = LlamaForCausalLM(cfg)
             eng = RaggedInferenceEngineV2(model, params=state, device=dev,
-                                          kv_cache_dtype=fmt, **kw)
+                                          kv_cache_dtype=fmt,
+                                          quantize_weights=wq, **kw)
             outs = eng.generate_all(prompts, max_new_tokens=16)
             toks[dev] = [outs[u] for u in sorted(outs)]
             eng.audit_kv_sharing()
             engines[dev] = eng
+        if wq is not None:
+            card = dict(engines["cuda"].module.named_buffers())
+            cpu = dict(engines["cpu"].module.named_buffers())
+            assert card.keys() == cpu.keys() and len(card) > 0
+            for name, b in card.items():
+                assert torch.equal(b.cpu().view(torch.int8),
+                                   cpu[name].view(torch.int8)), (
+                    f"{name}: the card's quantized buffer differs")
+            log(f"v2 parity, {wq} weights: {len(card)} buffers "
+                f"({sum(b.numel() * b.element_size() for b in cpu.values())}"
+                " bytes) quantized on the card and on the CPU are "
+                "byte-identical")
         cpu_model = engines["cpu"].module
         del engines
         worst = math.inf
@@ -751,14 +786,14 @@ def phase_v2_cpu_parity(cfg, state):
             diff = np.nonzero(got != want)[0]
             if diff.size:
                 i = int(diff[0]) - len(p)
-                log(f"v2 parity {fmt}: prompt {len(p)}: first differing "
+                log(f"v2 parity {label}: prompt {len(p)}: first differing "
                     f"token {i}, CPU top-2 margin {margins[i]:.3e}")
                 assert margins[i] < MARGIN, (
                     f"card and CPU tokens differ at {i} with margin "
                     f"{margins[i]:.3e}")
         same = sum(np.array_equal(a, b)
                    for a, b in zip(toks["cuda"], toks["cpu"]))
-        log(f"v2 parity, 2 layers fp32, {fmt} pool: {same}/4 requests "
+        log(f"v2 parity, 2 layers fp32, {label}: {same}/4 requests "
             f"token-equal card vs CPU; smallest CPU top-2 margin "
             f"{worst:.3e}")
         del cpu_model
@@ -1150,6 +1185,267 @@ def phase_train_cpu_parity():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the quantization kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def quant_bound(n, gs, elem):
+    """Least time (ms) of one quantize or dequantize of ``n`` elements of
+    ``elem`` bytes in groups of ``gs``, and what bounds it.  Bytes: the
+    values once, the int8 payload (tail padding included) once, fp32 scale
+    and offset once; the same either way.  Operations: 7 a value for
+    quantize (max, min, subtract, divide, round, two clamps) at the fp32
+    rate, the larger of the two kernels' counts."""
+    groups = -(-n // gs)
+    nbytes = n * elem + groups * gs + 8 * groups
+    t_bytes, t_ops = nbytes / PEAK_BYTES, 7 * n / PEAK_FP32
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_quant_kernels():
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gate, embed = (4096, 14336), (128256, 4096)
+    # name, shape, group size, dtype, bits, symmetric, timed
+    cases = [("gate_proj_g128", gate, 128, bf16, 8, True, True),
+             ("gate_proj_g2048", gate, 2048, bf16, 8, True, True),
+             ("embedding_g128", embed, 128, bf16, 8, True, False),
+             ("embedding_g2048", embed, 2048, bf16, 8, True, False),
+             ("gate_proj_fp32_asym4", gate, 128, f32, 4, False, False)]
+    cases += [(f"tail_{str(dt)[6:]}_{bits}b_{'sym' if sym else 'asym'}",
+               (1000, 1001), 128, dt, bits, sym, False)
+              for dt in (bf16, f32) for bits in (8, 4) for sym in (True,
+                                                                   False)]
+    # one element per access: n, then the group size, off the vector width
+    cases += [("odd_n_bf16", (999, 1001), 128, bf16, 8, True, False),
+              ("odd_group_fp32_asym", (300, 77), 100, f32, 8, False, False)]
+    entries = {}
+    worst = {"quantize": 0.0, "dequantize": 0.0}
+    for i, (name, shape, gs, dtype, bits, sym, timed) in enumerate(cases):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 300 + i)
+        # rows of mixed magnitude, as trained weights have
+        x = (torch.randn(shape, generator=gen, device="cuda") *
+             torch.rand(shape[0], 1, generator=gen, device="cuda") * 3
+             ).to(dtype)
+        kw = dict(num_bits=bits, group_size=gs, symmetric=sym)
+        got = qz.quantize(x, **kw)
+        back = qz.dequantize(got)
+        want = qz.quantize_reference(x, **kw)
+        want_back = qz.dequantize_reference(want)
+        torch.cuda.synchronize()
+        word = torch.int16 if dtype == bf16 else torch.int32
+        same = [torch.equal(got.values, want.values),
+                torch.equal(got.scale.view(torch.int32),
+                            want.scale.view(torch.int32)),
+                torch.equal(got.offset.view(torch.int32),
+                            want.offset.view(torch.int32)),
+                torch.equal(back.view(word), want_back.view(word))]
+        assert all(same), (f"quant[{name}]: payload, scale, offset, output "
+                           f"bit-identical: {same}")
+        worst["quantize"] = max(
+            worst["quantize"],
+            (got.values.int() - want.values.int()).abs().max().item(),
+            (got.scale - want.scale).abs().max().item(),
+            (got.offset - want.offset).abs().max().item())
+        worst["dequantize"] = max(
+            worst["dequantize"],
+            (back.float() - want_back.float()).abs().max().item())
+        n = x.numel()
+        line = (f"quant[{name}] {list(shape)} groups of {gs} {dtype} "
+                f"{bits}-bit {'symmetric' if sym else 'asymmetric'}: "
+                "payload, scale, offset and dequantized output "
+                "bit-identical to plain")
+        if timed:
+            bound, by = quant_bound(n, gs, x.element_size())
+            ms_q = time_ms(lambda: qz.quantize(x, **kw))
+            ms_d = time_ms(lambda: qz.dequantize(got))
+            plain_q = time_ms(lambda: qz.quantize_reference(x, **kw),
+                              reps=3, warmup=1)
+            plain_d = time_ms(lambda: qz.dequantize_reference(got), reps=3,
+                              warmup=1)
+            line += (f"; quantize {ms_q:.4f} ms (plain {plain_q:.3f} ms), "
+                     f"dequantize {ms_d:.4f} ms (plain {plain_d:.3f} ms), "
+                     f"bound {bound:.4f} ms ({by}) each: "
+                     f"{bound / ms_q:.1%} and {bound / ms_d:.1%} of bound")
+            for kname, ms, plain_ms, line_no in (
+                    (f"quantize_int8_g{gs}", ms_q, plain_q, 41),
+                    (f"dequantize_int8_g{gs}", ms_d, plain_d, 59)):
+                entries[kname] = dict(
+                    name=kname, route="cuda",
+                    source="deepspeed_tpu_torch/ops/csrc/quantization.cu",
+                    replaces=f"deepspeed_tpu/ops/quantization.py:{line_no}",
+                    launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=by, library_ms=None)
+        log(line)
+        del x, got, back, want, want_back
+        torch.cuda.empty_cache()
+    for kname, e in entries.items():
+        e["max_abs_err"] = worst[kname.split("_")[0]]
+    log("quantization kernels: no single PyTorch call computes group-wise "
+        "absmax quantization or its inverse, so library_ms is null")
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: int8 weight-only serving through v1 and v2
+# ---------------------------------------------------------------------------
+
+def resident_bytes(module) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in [*module.parameters(), *module.buffers()])
+
+
+def phase_int8_v1(bf16_greedy):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
+    from deepspeed_tpu_torch.ops import quantization as qz
+    from deepspeed_tpu_torch.ops.flash_attention import flash_fwd
+
+    cfg = get_config("llama3-8b")
+    B, P, NEW = 4, 1000, 64
+    n_weights = 7 * cfg.num_hidden_layers + 2
+    qz.quantize.launches = qz.dequantize.launches = 0   # the path starts
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    engine = deepspeed_tpu_torch.init_inference(
+        model, config={"dtype": "bfloat16", "max_out_tokens": 2048,
+                       "quant": {"enabled": True, "qtype": "int8"}},
+        generator=torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    assert qz.quantize.launches == n_weights, qz.quantize.launches
+    weights = resident_bytes(engine.module)
+    log(f"int8 v1: llama3-8b up in {time.perf_counter() - t0:.1f} s; "
+        f"{qz.quantize.launches} weights quantized (groups of 128); "
+        f"resident weights {weights / 2**30:.3f} GiB, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    torch.cuda.reset_peak_memory_stats()    # building held the bf16 weights
+    prompts = torch.randint(0, cfg.vocab_size, (B, P),
+                            generator=torch.Generator().manual_seed(SEED))
+
+    def run(new):
+        before = (flash_fwd.launches, qz.dequantize.launches)
+        t = time.perf_counter()
+        out = engine.generate(prompts, max_new_tokens=new)
+        dt = time.perf_counter() - t
+        got = (flash_fwd.launches - before[0],
+               qz.dequantize.launches - before[1])
+        assert got == (cfg.num_hidden_layers, n_weights * new), (
+            f"generate({new}) launched (flash, dequantize) {got}, want "
+            f"{(cfg.num_hidden_layers, n_weights * new)}")
+        assert out.shape == (B, P + new) and torch.equal(out[:, :P], prompts)
+        assert ((out[:, P:] >= 0) & (out[:, P:] < cfg.vocab_size)).all()
+        return out, dt
+
+    logits = engine.forward(prompts[:, :16])
+    assert logits.shape == (B, 16, cfg.vocab_size)
+    assert torch.isfinite(logits).all(), "non-finite int8 logits"
+    del logits
+    greedy1, t1 = run(NEW)
+    greedy2, t2 = run(NEW)
+    _, tp1 = run(1)
+    _, tp2 = run(1)
+    assert torch.equal(greedy1, greedy2), "int8 greedy runs differ"
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    same = (greedy1[:, P:] == bf16_greedy[:, P:]).float().mean().item()
+    log(f"int8 v1: generate {B}x{P}+{NEW}: {t1:.3f} s (first), {t2:.3f} s; "
+        f"prefill (generate 1 token) {tp1 * 1e3:.1f} / {tp2 * 1e3:.1f} ms; "
+        f"decode {B * (NEW - 1) / (t2 - tp2):.1f} tokens/s "
+        f"({(t2 - tp2) / (NEW - 1) * 1e3:.2f} ms/step at batch {B}); peak "
+        f"memory while serving {peak:.2f} GiB; greedy tokens identical "
+        f"twice; {same:.1%} of them equal to the bf16 run's; launches "
+        f"quantize {qz.quantize.launches}, dequantize "
+        f"{qz.dequantize.launches}")
+    launches = (qz.quantize.launches, qz.dequantize.launches)
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_int8_v2(bf16_outs):
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
+    from deepspeed_tpu_torch.ops import quantization as qz
+    from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+
+    cfg = get_config("llama3-8b")
+    L = cfg.num_hidden_layers
+    n_weights = 7 * L + 2
+    qz.quantize.launches = qz.dequantize.launches = 0   # the path starts
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    engine = RaggedInferenceEngineV2(
+        model, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda", quantize_weights="int8", **V2)
+    torch.cuda.synchronize()
+    assert qz.quantize.launches == n_weights, qz.quantize.launches
+    module = engine.module
+    weights = resident_bytes(module)
+    log(f"int8 v2: llama3-8b engine up in {time.perf_counter() - t0:.1f} s;"
+        f" {qz.quantize.launches} weights quantized (groups of 2048); "
+        f"resident weights {weights / 2**30:.3f} GiB, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    torch.cuda.reset_peak_memory_stats()
+    reqs = v2_traffic()
+    outs, ticks = [], 0
+    for run in (1, 2):
+        if run == 2:    # a second engine over the same quantized weights
+            engine = RaggedInferenceEngineV2(module, device="cuda", **V2)
+        before = (qz.dequantize.launches, rpa.ragged_paged_attention.launches)
+        out, r = serve(engine, reqs)
+        t = engine.host_stats.ticks
+        got = (qz.dequantize.launches - before[0],
+               rpa.ragged_paged_attention.launches - before[1])
+        assert got == (n_weights * t, L * t), (
+            f"run {run}: (dequantize, paged) launches {got}, want "
+            f"{(n_weights * t, L * t)}")
+        ticks += t
+        outs.append(out)
+        st = engine.serving_stages()
+        rq = st["requests"]
+        log(f"int8 v2 run {run}: 24 requests in {r['wall_s']:.2f} s; prefill "
+            f"{r['prompt_tokens'] / r['fused_s']:.0f} prompt tokens/s in "
+            f"fused ticks ({r['fused_s']:.2f} s); decode "
+            f"{r['block_tokens'] / max(r['block_s'], 1e-9):.1f} tokens/s in "
+            f"decode blocks ({r['block_tokens']} tokens, {r['block_s']:.2f} "
+            f"s); TTFT p50 {rq['ttft_ms_p50']} ms p99 {rq['ttft_ms_p99']} ms;"
+            f" TPOT p50 {rq['tpot_ms_p50']} ms; ticks {t}; "
+            f"host_bound_fraction {st['host_bound_fraction']}; audit clean")
+        del engine
+    for a, b in zip(*outs):
+        assert np.array_equal(a, b), "the second int8 run's tokens differ"
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    same = sum(np.array_equal(a, b) for a, b in zip(outs[0], bf16_outs))
+    log(f"int8 v2: identical tokens for all 24 requests twice; {same}/24 "
+        f"equal to the bf16 run's; peak memory while serving {peak:.2f} "
+        f"GiB; launches over the phase: quantize {qz.quantize.launches}, "
+        f"dequantize {qz.dequantize.launches} ({n_weights} x {ticks} ticks)")
+    launches = (qz.quantize.launches, qz.dequantize.launches)
+    del module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_int8_cpu_parity():
+    from deepspeed_tpu_torch.models.llama import get_config
+    from deepspeed_tpu_torch.module_inject.flax_bridge import \
+        flax_to_state_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("llama3-8b", num_hidden_layers=2, dtype=torch.float32)
+    state = flax_to_state_dict(flax_tree(cfg, np.random.default_rng(SEED + 4)))
+    phase_v2_cpu_parity(cfg, state, runs=(("none", "int8"),))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -1161,13 +1457,13 @@ def main() -> int:
     phase_report()
     entry = phase_kernel()
     log(f"phase 2 done at {time.perf_counter() - t0:.1f} s")
-    entry["launches"] = phase_slice()
+    entry["launches"], bf16_greedy = phase_slice()
     log(f"phase 3 done at {time.perf_counter() - t0:.1f} s")
     cfg2, state = phase_cpu_parity()
     log(f"phase 4 done at {time.perf_counter() - t0:.1f} s")
     paged, paged_quant = phase_paged_kernels()
     log(f"phase 5 done at {time.perf_counter() - t0:.1f} s")
-    paged["launches"], paged_quant["launches"] = phase_v2()
+    paged["launches"], paged_quant["launches"], bf16_outs = phase_v2()
     log(f"phase 6 done at {time.perf_counter() - t0:.1f} s")
     phase_v2_cpu_parity(cfg2, state)
     log(f"phase 7 done at {time.perf_counter() - t0:.1f} s")
@@ -1181,9 +1477,19 @@ def main() -> int:
     log(f"phase 9 done at {time.perf_counter() - t0:.1f} s")
     phase_train_cpu_parity()
     log(f"phase 10 done at {time.perf_counter() - t0:.1f} s")
+    quant = phase_quant_kernels()
+    log(f"phase 11 done at {time.perf_counter() - t0:.1f} s")
+    for gs, launches in ((128, phase_int8_v1(bf16_greedy)),
+                         (2048, phase_int8_v2(bf16_outs))):
+        quant[f"quantize_int8_g{gs}"]["launches"] = launches[0]
+        quant[f"dequantize_int8_g{gs}"]["launches"] = launches[1]
+    phase_int8_cpu_parity()
+    log(f"phase 12 done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [entry, paged, paged_quant] +
                     [train[k] for k in ("flash_bwd_dq", "flash_bwd_dkv",
-                                        "fused_adam", "fused_lion")]}))
+                                        "fused_adam", "fused_lion")] +
+                    [quant[f"{op}_int8_g{gs}"] for gs in (128, 2048)
+                     for op in ("quantize", "dequantize")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

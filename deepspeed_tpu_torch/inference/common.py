@@ -133,7 +133,9 @@ def normalize_params(model: nn.Module,
     in ``dtype`` on ``device``, so a large model never stages fp32 weights
     anywhere; with no ``params`` its weights are then drawn from
     ``generator`` by ``model.init_weights``.  A model with real weights
-    and no ``params`` keeps its weights, cast and moved."""
+    and no ``params`` keeps its weights, cast and moved.  Only parameters
+    take ``dtype``: buffers (the int8 payload and fp32 scales of a model
+    already quantized, ``inference/quantization.py``) keep theirs."""
     if any(p.is_meta for p in model.parameters()):
         model.to(dtype=dtype)               # on meta: no memory touched
         model.to_empty(device=device)
@@ -142,7 +144,10 @@ def normalize_params(model: nn.Module,
                 generator = torch.Generator(device=device).manual_seed(0)
             model.init_weights(generator)
     else:
-        model.to(device=device, dtype=dtype)
+        model.to(device=device)
+        for p in model.parameters():
+            if p.is_floating_point():
+                p.data = p.data.to(dtype)
     if params is not None:
         model.load_state_dict(params, strict=True)
     return model

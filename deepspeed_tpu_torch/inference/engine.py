@@ -12,6 +12,11 @@ work on the current CUDA stream without waiting for it: no step reads a
 device value on the host, so :meth:`InferenceEngine.generate_async`
 returns while the card is still working, and :class:`PendingGeneration`
 harvests the tokens when asked.
+
+``quant.enabled`` (``qtype`` "int8") serves int8 weights: every matmul
+weight is quantized group-wise once the weights are in the serving dtype
+(``quant.group_size``, 128 by default) and dequantized at use
+(:mod:`~deepspeed_tpu_torch.inference.quantization`).
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ from deepspeed_tpu_torch.inference.common import (HostStageStats, logits_of,
 from deepspeed_tpu_torch.inference.config import (DeepSpeedInferenceConfig,
                                                   load_inference_config)
 from deepspeed_tpu_torch.inference.kv_cache import init_cache
+from deepspeed_tpu_torch.inference.quantization import (check_format,
+                                                        quantize_model_)
 from deepspeed_tpu_torch.inference.sampling import sample_logits
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
@@ -112,9 +119,7 @@ class InferenceEngine:
                 "tensor-parallel serving (tp_size > 1) is not ported yet: "
                 "ROADMAP A7a")
         if config.quant.enabled:
-            raise NotImplementedError(
-                "weight-quantized serving (quant.enabled) is not ported "
-                "yet: ROADMAP A9.6")
+            check_format(config.quant.qtype)
 
         mcfg = getattr(model, "config", None)
         if not (dataclasses.is_dataclass(mcfg) and
@@ -144,6 +149,15 @@ class InferenceEngine:
         self.module = normalize_params(model, params, dtype=self.dtype,
                                        device=self.device,
                                        generator=generator).eval()
+        if config.quant.enabled:
+            # weight-only serving quantization, after the cast to the
+            # serving dtype as in the reference: weights persist as int8
+            # and dequantize at use
+            b0, b1 = quantize_model_(self.module, config.quant.qtype,
+                                     group_size=config.quant.group_size)
+            log_dist(f"init_inference weights -> {config.quant.qtype}: "
+                     f"{b0 / 2**20:.1f} MiB -> {b1 / 2**20:.1f} MiB",
+                     ranks=[0])
         log_dist(f"InferenceEngine: dtype={config.dtype} "
                  f"device={self.device} max_cache_len={self.max_cache_len}",
                  ranks=[0])

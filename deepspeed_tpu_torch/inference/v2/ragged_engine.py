@@ -30,11 +30,17 @@ token (same scheduling, same admission and eviction decisions); sampled
 outputs agree in distribution, drawn from a position-keyed hash instead of
 JAX's threefry streams (:mod:`~deepspeed_tpu_torch.inference.sampling`).
 
+- **int8 weights.**  ``quantize_weights="int8"`` stores every matmul
+  weight as an int8 payload with fp32 group scales (groups of 2048, the
+  quantizer's default, as the reference passes none), quantized once when
+  the engine is built and dequantized at use in every model tick
+  (:mod:`~deepspeed_tpu_torch.inference.quantization`).
+
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP item: the pipelined host path (A8a), speculation (A9.4), KV
-tiering (A9.2), the prefix cache (A9.3), long context (A9.5), weight
-quantization (A9.6), handoff export/import (A9.7), tensor parallelism
-(A7a), and the control plane, SLOs and trace sampling (A10).
+tiering (A9.2), the prefix cache (A9.3), long context (A9.5), the fp8,
+fp6 and w8a8 weight formats (A9.6), handoff export/import (A9.7), tensor
+parallelism (A7a), and the control plane, SLOs and trace sampling (A10).
 """
 from __future__ import annotations
 
@@ -60,6 +66,8 @@ from deepspeed_tpu_torch.inference.paged import (KV_CACHE_DTYPES,
                                                  PageAllocator, PagedKVPool,
                                                  RaggedMeta, kv_dequant_path,
                                                  pages_for)
+from deepspeed_tpu_torch.inference.quantization import (check_format,
+                                                        quantize_model_)
 from deepspeed_tpu_torch.inference.sampling import (position_keys,
                                                     sample_logits_batched)
 from deepspeed_tpu_torch.ops.ragged_paged_attention import PAGE_SIZES
@@ -149,7 +157,9 @@ class RaggedInferenceEngineV2:
         ``kv_reserve``: "on_demand" (admit on context + one decode
         block of pages, grow per block, evict and requeue as a
         continuation when the pool runs dry) or "worst_case" (reserve
-        prompt + max_new_tokens at admission).  ``replica`` is the
+        prompt + max_new_tokens at admission).  ``quantize_weights``:
+        ``None`` or "int8" (weight-only, groups of 2048; "fp8", "fp6" and
+        "w8a8" raise, ROADMAP A9.6).  ``replica`` is the
         scale-out metric label.  ``pipeline=False`` is the only host path
         (the config's default ``v2.pipeline`` resolves to it); every
         other feature kwarg raises ``NotImplementedError`` when it asks
@@ -213,6 +223,11 @@ class RaggedInferenceEngineV2:
         self.module = normalize_params(model, params, dtype=self.dtype,
                                        device=self.device,
                                        generator=generator).eval()
+        if quantize_weights is not None:
+            b0, b1 = quantize_model_(self.module, quantize_weights)
+            log_dist(f"ragged engine weights -> {quantize_weights}: "
+                     f"{b0 / 2**20:.1f} MiB -> {b1 / 2**20:.1f} MiB "
+                     f"({b0 / max(b1, 1):.2f}x)", ranks=[0])
         self.allocator = PageAllocator(self.num_pages, self.page_size)
         self.page_table = np.full((max_seqs, self.pages_per_seq), -1,
                                   np.int32)
@@ -253,7 +268,7 @@ class RaggedInferenceEngineV2:
         if topology is not None:
             raise _unported("tensor-parallel serving (topology)", "A7a")
         if quantize_weights is not None:
-            raise _unported("quantize_weights", "A9.6")
+            check_format(quantize_weights)
         if (draft_model is not None or draft_params is not None
                 or draft_kv_cache_dtype is not None):
             raise _unported("draft-model speculation", "A9.4")

@@ -13,7 +13,10 @@ A KV cache is passed explicitly (``kv_cache=``, one per layer) where the
 flax model threads a mutable ``"cache"`` collection: a ``KVCache`` for the
 v1 engine, or a ``PagedKVPool`` together with the tick's ``RaggedMeta``
 (``ragged_meta=``) for the ragged v2 engine, whose token batch is
-``[1, T]`` with per-token positions ``[1, T]``.
+``[1, T]`` with per-token positions ``[1, T]``.  Int8 weight-only serving
+swaps the projections, ``embed_tokens`` and ``lm_head`` in place for the
+quantized modules of ``inference/quantization.py``, which take the same
+calls, so the forward is one path for bf16 and int8 weights.
 """
 from __future__ import annotations
 

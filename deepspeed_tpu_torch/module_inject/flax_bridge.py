@@ -15,6 +15,14 @@ Renames: Dense ``kernel [in, out]`` -> Linear ``weight [out, in]``,
 ``lm``, on both sides.  Any module or leaf name outside the Llama family's
 raises, so a tree of another model is refused rather than half-loaded.
 :func:`state_dict_to_flax` is the way back, into either layer layout.
+
+A tree the JAX package quantized (``quantize_param_tree``, "int8") carries
+across too: each ``QuantizedWeight`` leaf (payload, scale and offset as
+numpy arrays; recognised by its ``fmt`` and ``arrays``, as the port
+imports nothing of the JAX package) becomes the ``values``, ``scale`` and
+``offset`` buffers of the port's quantized module
+(``inference/quantization.py``), unchanged: both quantize over the flax
+flattening, so a ``kernel``'s payload is not transposed.
 """
 from __future__ import annotations
 
@@ -40,13 +48,51 @@ def _first_leaf(node: Mapping[str, Any]) -> np.ndarray:
     raise ValueError("empty scan-stacked subtree")
 
 
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:         # e.g. a view of a JAX array
+        arr = arr.copy()
+    if arr.dtype.name == "bfloat16":    # ml_dtypes' bfloat16: by its bits
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _quantized_leaf(path: List[str], q, layer: Optional[int]
+                    ) -> Dict[str, torch.Tensor]:
+    """The buffers of one int8 ``QuantizedWeight`` leaf; of layer
+    ``layer`` when the leaf is a scan-stacked ``[L, ...]`` one quantized
+    whole (its groups split by layer only when none spans two)."""
+    if q.fmt != "int8":
+        raise NotImplementedError(
+            f"{'/'.join(path)}: weight format {q.fmt!r} is not ported yet: "
+            "ROADMAP A9.6")
+    arrays = [np.asarray(a) for a in q.arrays]
+    if layer is not None:
+        per_layer = int(np.prod(q.shape[1:]))
+        gs = arrays[0].shape[1]
+        if per_layer % gs:
+            raise ValueError(
+                f"{'/'.join(path)}: groups of {gs} span the layers of a "
+                f"scan-stacked leaf of {tuple(q.shape)} (ROADMAP §C); "
+                "quantize an unrolled tree")
+        rows = per_layer // gs
+        arrays = [a[layer * rows:(layer + 1) * rows] for a in arrays]
+    prefix = ".".join(path[:-1])
+    return {f"{prefix}.{name}": _tensor(a)
+            for name, a in zip(("values", "scale", "offset"), arrays)}
+
+
 def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for a flax Llama param tree."""
+    """The port's ``state_dict`` for a flax Llama param tree, quantized
+    leaves included."""
     if set(params) == {"params"}:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
 
     def leaf(path: List[str], arr, layer: Optional[int]) -> None:
+        if hasattr(arr, "fmt") and hasattr(arr, "arrays"):
+            out.update(_quantized_leaf(path, arr, layer))
+            return
         arr = np.asarray(arr)
         if layer is not None:
             arr = arr[layer]
@@ -55,10 +101,7 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"{'/'.join(path)}: kernel of shape "
                                  f"{arr.shape}, want [in, out]")
             arr = arr.T
-        arr = np.ascontiguousarray(arr)
-        if not arr.flags.writeable:     # e.g. a view of a JAX array
-            arr = arr.copy()
-        out[".".join(path[:-1] + [_LEAVES[path[-1]]])] = torch.from_numpy(arr)
+        out[".".join(path[:-1] + [_LEAVES[path[-1]]])] = _tensor(arr)
 
     def walk(node: Mapping[str, Any], path: List[str],
              layer: Optional[int]) -> None:

@@ -2,10 +2,13 @@
 """Where the time goes in the PyTorch port's serving paths, on one GPU.
 
     python3 scripts/profile_torch_serving.py [--mode v1|v2] [--new 16]
+                                             [--weights bf16|int8]
                                              [--out FILE]
 
 Builds ``llama3-8b`` at full width and depth with random seeded weights
-(bf16, made on the card) and traces with ``torch.profiler``:
+(bf16, made on the card; ``--weights int8`` then serves them as int8,
+groups of 128 in v1 and 2048 in v2, dequantized at use) and traces with
+``torch.profiler``:
 
 - ``v1`` (``init_inference``): serves 4 prompts x 1000 tokens once to
   warm up, then traces (a) a prefill (``generate`` of one token) and
@@ -70,7 +73,7 @@ def profile(fn, top: int):
             "top_kernels": rows}
 
 
-def profile_v2(top: int):
+def profile_v2(top: int, weights: str):
     """Trace one mixed fused tick and one decode block of the v2 engine."""
     from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
@@ -81,7 +84,8 @@ def profile_v2(top: int):
     engine = RaggedInferenceEngineV2(
         model, generator=torch.Generator(device="cuda").manual_seed(0),
         max_seqs=16, max_seq_len=2048, prefill_chunk=512, page_size=64,
-        decode_block_size=8)
+        decode_block_size=8,
+        quantize_weights=None if weights == "bf16" else weights)
     rng = np.random.default_rng(0)
 
     def submit(n, prompt, new):
@@ -95,7 +99,8 @@ def profile_v2(top: int):
     engine.get_outputs()
     submit(16, 600, 64)
     out = {"device": torch.cuda.get_device_name(0), "mode": "v2",
-           "requests": 16, "prompt": 600, "new_tokens": 64}
+           "weights": weights, "requests": 16, "prompt": 600,
+           "new_tokens": 64}
     st = engine.host_stats
 
     def traced_step(want_block: bool):
@@ -128,6 +133,7 @@ def main() -> int:
     ap.add_argument("--mode", choices=("v1", "v2"), default="v1")
     ap.add_argument("--new", type=int, default=16,
                     help="new tokens in the traced v1 generate")
+    ap.add_argument("--weights", choices=("bf16", "int8"), default="bf16")
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--out", default=None, help="write the JSON here")
     args = ap.parse_args()
@@ -135,7 +141,8 @@ def main() -> int:
         print("profile_torch_serving: needs a CUDA GPU", file=sys.stderr)
         return 2
     if args.mode == "v2":
-        return report(profile_v2(args.top), ("fused_tick", "decode_block"),
+        return report(profile_v2(args.top, args.weights),
+                      ("fused_tick", "decode_block"),
                       args.out)
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
@@ -143,13 +150,16 @@ def main() -> int:
     cfg = get_config("llama3-8b")
     with torch.device("meta"):
         model = LlamaForCausalLM(cfg)
+    config = {"dtype": "bfloat16", "max_out_tokens": 2048}
+    if args.weights != "bf16":
+        config["quant"] = {"enabled": True, "qtype": args.weights}
     engine = deepspeed_tpu_torch.init_inference(
-        model, config={"dtype": "bfloat16", "max_out_tokens": 2048},
+        model, config=config,
         generator=torch.Generator(device="cuda").manual_seed(0))
     prompts = torch.randint(0, cfg.vocab_size, (4, 1000),
                             generator=torch.Generator().manual_seed(0))
     engine.generate(prompts, max_new_tokens=4)             # warm-up
-    out = {"device": torch.cuda.get_device_name(0),
+    out = {"device": torch.cuda.get_device_name(0), "weights": args.weights,
            "batch": 4, "prompt": 1000, "new_tokens": args.new}
     out["prefill"] = profile(
         lambda: engine.generate(prompts, max_new_tokens=1), args.top)

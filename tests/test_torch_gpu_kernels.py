@@ -13,7 +13,10 @@ overflow skip, bf16 and fp16 working copies), and ragged paged attention
 over bf16, fp32, int8 and e4m3 pages (``ragged_paged_attn.cu``) at the v2
 path's shapes: decode, mixed decode and prefill, a sliding window,
 page-table holes, D=64 with 16-row pages, 128-row pages with 8 q heads per
-KV head, MHA with padding tokens.
+KV head, MHA with padding tokens; and group-wise int8 quantize and
+dequantize (``quantization.cu``) at the int8 serving path's shapes
+(``gate_proj`` at groups of 128 and 2048, the embedding table) and at
+tails, symmetric and asymmetric, 8 and 4 bits, bf16 and fp32.
 
 Tolerances: bf16 flash outputs 2e-2 (p and o round to bf16 at 2^-8
 relative, in different places in the kernel and the plain version); bf16
@@ -24,7 +27,9 @@ order under the gradients' median size); fp32 gradients 2e-4 (full fp32 products
 up to 200 keys, another order); optimizer steps 1e-6 relative (fp32
 elementwise, the kernel contracts multiply-adds into FMAs); bf16 paged outputs 2e-3 absolute plus 2e-2 relative (K and V are O(1), so |o|
 is ~0.04 at 2048 keys and the absolute part stays under it); fp32 outputs
-1e-4 (full fp32 products, another summation order); lse 2e-3 absolute.
+1e-4 (full fp32 products, another summation order); lse 2e-3 absolute;
+quantize and dequantize none: payload, scale, offset and output must be
+bit-identical to the plain version (IEEE division, rint, no FMA).
 """
 import pytest
 import torch
@@ -315,3 +320,67 @@ def test_fused_lion_matches_plain(cuda, skip):
     torch.testing.assert_close(p, ref[0], atol=1e-7, rtol=1e-6)
     torch.testing.assert_close(m, ref[2], atol=1e-7, rtol=1e-6)
     assert torch.equal(w, p.to(torch.bfloat16))
+
+
+# (shape, group size, dtype, bits, symmetric): the int8 serving path's
+# weights in bf16 at v1's and v2's group sizes, then tails (n % gs != 0)
+# in every mode, and a group size the vector path cannot take
+QUANT_CASES = [((4096, 14336), 128, "bfloat16", 8, True),
+               ((4096, 14336), 2048, "bfloat16", 8, True),
+               ((128256, 4096), 2048, "bfloat16", 8, True)] + [
+    ((1000, 1001), 128, dt, bits, sym)
+    for dt in ("bfloat16", "float32") for bits in (8, 4)
+    for sym in (True, False)] + [((300, 77), 100, "float32", 8, False)]
+
+
+def _float_bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", QUANT_CASES, ids=lambda c: "-".join(
+    map(str, (f"{c[0][0]}x{c[0][1]}", *c[1:]))))
+def test_quant_kernels_match_plain(cuda, case):
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    shape, gs, dtype, bits, sym = case
+    g = torch.Generator().manual_seed(sum(shape) + gs)
+    x = (torch.randn(shape, generator=g) *
+         torch.rand(shape[0], 1, generator=g) * 3).to(cuda, getattr(torch,
+                                                                   dtype))
+    before = (qz.quantize.launches, qz.dequantize.launches)
+    got = qz.quantize(x, num_bits=bits, group_size=gs, symmetric=sym)
+    back = qz.dequantize(got)
+    assert (qz.quantize.launches, qz.dequantize.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = qz.quantize_reference(x, num_bits=bits, group_size=gs,
+                                 symmetric=sym)
+    want_back = qz.dequantize_reference(want)
+    torch.cuda.synchronize()
+    assert torch.equal(got.values, want.values)
+    assert torch.equal(_float_bits(got.scale), _float_bits(want.scale))
+    assert torch.equal(_float_bits(got.offset), _float_bits(want.offset))
+    assert back.shape == x.shape and back.dtype == x.dtype
+    assert torch.equal(_float_bits(back), _float_bits(want_back))
+    out = torch.empty_like(x)
+    assert qz.dequantize(got, out=out) is out
+    assert torch.equal(_float_bits(out), _float_bits(want_back))
+
+
+@pytest.mark.gpu
+def test_quant_kernel_errors_propagate(cuda, monkeypatch):
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    x = torch.randn(64, 256, device=cuda)
+    qt = qz.quantize(x, group_size=128)
+    before = (qz.quantize.launches, qz.dequantize.launches)
+    with pytest.raises(ValueError, match="contiguous"):
+        qz.quantize(x.t())
+    # a dtype code the C side does not know: it refuses the launch, and
+    # the wrapper raises instead of answering with the plain version
+    monkeypatch.setattr(qz, "_DTYPES", {torch.float32: 9})
+    with pytest.raises(RuntimeError, match="launch failed"):
+        qz.quantize(x, group_size=128)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        qz.dequantize(qt)
+    assert (qz.quantize.launches, qz.dequantize.launches) == before

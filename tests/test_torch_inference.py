@@ -181,7 +181,7 @@ def test_seeded_sampling_is_reproducible(served):
 
 @pytest.mark.parametrize("config,match", [
     ({"tensor_parallel": {"tp_size": 2}}, "ROADMAP A7"),
-    ({"quant": {"enabled": True}}, "ROADMAP A9")])
+    ({"quant": {"enabled": True, "qtype": "fp8"}}, "ROADMAP A9")])
 def test_unported_engine_options_raise(served, config, match):
     with torch.device("meta"):
         model = llama.LlamaForCausalLM(llama.LlamaConfig(**TINY))

@@ -57,6 +57,8 @@ def test_import_loads_no_jax():
             "deepspeed_tpu_torch.runtime.engine, "
             "deepspeed_tpu_torch.checkpoint.engine, "
             "deepspeed_tpu_torch.ops.fused_adam, "
+            "deepspeed_tpu_torch.ops.quantization, "
+            "deepspeed_tpu_torch.inference.quantization, "
             "deepspeed_tpu_torch.utils.timer\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")

@@ -276,7 +276,7 @@ def test_stream_deltas_report_each_token_once(served):
     (dict(kv_tiering={"host_pages": 8}), "A9.2"),
     (dict(kv_tiering={"host_pages": 8, "long_context": True}), "A9.5"),
     (dict(prefix_cache=True), "A9.3"),
-    (dict(quantize_weights="int8"), "A9.6"),
+    (dict(quantize_weights="fp8"), "A9.6"),
     (dict(topology=object()), "A7a"),
     (dict(control=True), "A10"),
     (dict(slo=["ttft_ms_p99 <= 150"]), "A10"),
