@@ -9,11 +9,16 @@ Phases (any failed check raises; nothing is caught):
    versions; build every kernel of the paths from ``ops/csrc`` (one
    ``nvcc`` per source, all started together) and print the build
    seconds and ``ptxas -v``.
+   The TMA/wgmma forward (D=64 and 128) must show no spill, no local
+   memory and no wgmma serialization warning; its registers at launch,
+   the ``setmaxnreg`` of each warpgroup role (from the SASS) and its
+   shared memory are printed.
 2. Kernel against plain: the flash-attention forward kernel against its
-   plain PyTorch version on the card, in bf16 at the serving shape and
-   three more, plus an fp32 case; ``o`` and ``lse`` both compared.  Times
-   the kernel, the plain version and, as a yardstick the port never
-   calls, ``scaled_dot_product_attention``.
+   plain PyTorch version on the card, in bf16 at the serving shape, the
+   training shape (B 4, H 32/4, S 2048, D 64, causal) and three more,
+   plus an fp32 case; ``o`` and ``lse`` both compared.  Times the kernel
+   (with its TFLOP/s), the plain version and, as a yardstick the port
+   never calls, ``scaled_dot_product_attention``.
 3. The v1 slice: ``init_inference`` on ``llama3-8b`` at full width and
    depth, bf16, random seeded weights made on the card; greedy
    ``generate`` of 4 prompts x 1000 tokens + 64 new tokens twice
@@ -171,7 +176,57 @@ def phase_report():
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)}")
     for name, b in built.items():
         log(f"[{name}] nvcc {b.seconds:.1f} s\n{b.log.strip()}")
+    check_hopper_build(built["flash_fwd"])
     return smi
+
+
+def check_hopper_build(built):
+    """The TMA/wgmma forward at D=64 and D=128, from its ``ptxas -v`` log
+    and its SASS: no spill and no local memory, no wgmma that ptxas had to
+    serialize, and the registers each warpgroup role asks for."""
+    import ctypes
+
+    from deepspeed_tpu_torch.ops import builder
+
+    kernel = "flash_fwd_hopper"
+    if not built.log:           # built before this run: build it again
+        built.path.unlink()
+        built = builder.build_all(["flash_fwd"])["flash_fwd"]
+    log_lines = built.log.splitlines()
+    bad = [ln for ln in log_lines if "warning" in ln and (
+        kernel in ln or "wgmma" in ln)]
+    assert not bad, "ptxas warns about the forward kernel:\n" + \
+        "\n".join(bad)
+    props = {}
+    for i, ln in enumerate(log_lines):
+        if ln.startswith("ptxas info    : Function properties for") and \
+                kernel in ln:
+            d = 64 if "ILi64E" in ln else 128
+            props[d] = (log_lines[i + 1].strip(),
+                        log_lines[i + 2].split(": ", 1)[-1].strip())
+    assert sorted(props) == [64, 128], f"ptxas lines for {kernel}: {props}"
+    # the role registers: setmaxnreg compiles to USETMAXREG in the SASS
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(builder.nvcc()), "cuobjdump"),
+         "-sass", str(built.path)], capture_output=True, text=True,
+        check=True).stdout
+    roles, func = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            func = (64 if "ILi64E" in ln else 128) if kernel in ln \
+                else None
+        elif func and "SETMAXREG" in ln:
+            roles.setdefault(func, []).append(" ".join(
+                ln.split("*/")[1].split("/*")[0].split()).rstrip(" ;"))
+    lib = ctypes.CDLL(str(built.path))
+    for d in (64, 128):
+        spills, regs = props[d]
+        assert "0 bytes spill stores, 0 bytes spill loads" in spills, spills
+        assert len(roles.get(d, [])) >= 2, roles
+        log(f"{kernel}<{d}>: {regs}; {spills}; setmaxnreg in SASS: "
+            f"{roles[d]}; dynamic shared memory "
+            f"{lib.dstpu_flash_fwd_smem_bytes(d)} bytes; no wgmma "
+            f"serialization warning")
 
 
 def _qkv(gen, B, H, Hkv, S, Sk, D, dtype):
@@ -213,6 +268,7 @@ def phase_kernel():
         ("s2048", 4, 32, 8, 2048, 2048, 128, True, bf16),
         ("d64_noncausal", 4, 32, 8, 1000, 1000, 64, False, bf16),
         ("sk_lt_s", 2, 32, 8, 1000, 600, 128, True, bf16),
+        ("train", 4, 32, 4, 2048, 2048, 64, True, bf16),
         ("fp32", 1, 8, 2, 300, 300, 128, True, f32),
     ]
     entry = None
@@ -235,11 +291,14 @@ def phase_kernel():
             q, k, v, is_causal=causal, enable_gqa=True)) \
             if (not causal or S == Sk) else None
         bound, by = attention_bound(B, H, Hkv, S, Sk, D, causal, dtype)
+        tflop = 4 * B * H * D * pairs_of(S, Sk, causal) / 1e12
         log(f"flash_fwd[{name}] B={B} H={H} Hkv={Hkv} S={S} Sk={Sk} D={D} "
             f"causal={causal} {dtype}: max|o-plain|={err:.3e} "
-            f"max|lse-plain|={lerr:.3e} kernel {ms:.4f} ms, "
-            f"sdpa {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
-            f"bound {bound:.4f} ms ({by}), {bound / ms:.1%} of bound")
+            f"max|lse-plain|={lerr:.3e} kernel {ms:.4f} ms "
+            f"({tflop / ms * 1e3:.1f} TFLOP/s), sdpa "
+            f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms"
+            f"{'' if lib_ms is None else f' ({tflop / lib_ms * 1e3:.1f} TFLOP/s)'}"
+            f", bound {bound:.4f} ms ({by}), {bound / ms:.1%} of bound")
         if name == "serving":
             plain_ms = time_ms(
                 lambda: flash_fwd_reference(q, k, v, causal=causal),

@@ -2,11 +2,12 @@
 
 Each kernel source under ``ops/csrc/`` has a plain C interface and builds
 into its own shared library for ``sm_90a`` (Hopper).  Libraries go into
-``ops/build/`` (git-ignored), named by a hash of the source and the flags,
-so a changed source rebuilds and an unchanged one loads at once.  Nothing
-builds at import: a kernel's wrapper calls :func:`load` at its first
-launch, and :func:`build_all` starts every ``nvcc`` together when a caller
-wants the whole set up front.
+``ops/build/`` (git-ignored), named by a hash of the source, every shared
+header ``csrc/*.cuh`` and the source's flags, so a changed source, header
+or flag rebuilds and an unchanged one loads at once.  Nothing builds at
+import: a kernel's wrapper calls :func:`load` at its first launch, and
+:func:`build_all` starts every ``nvcc`` together when a caller wants the
+whole set up front.
 """
 from __future__ import annotations
 
@@ -19,12 +20,17 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags a source adds to NVCC_FLAGS: the TMA/wgmma forward has ptxas name
+# any spill or local-memory use as a warning, which the smoke refuses
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
+    "flash_fwd": ("-Xptxas", "-warn-spills,-warn-lmem-usage"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,10 +57,16 @@ def nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{tag[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str]) -> Dict[str, Built]:
@@ -70,7 +82,8 @@ def build_all(names: Iterable[str]) -> Dict[str, Built]:
             done[name] = Built(out, 0.0, "")
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *_flags(name), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         jobs[name] = (out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []

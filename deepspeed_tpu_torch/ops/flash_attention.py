@@ -42,7 +42,7 @@ import torch
 from deepspeed_tpu_torch.ops import builder
 
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
-BLOCK = 64              # the kernel's q-tile and key-tile rows
+BLOCK = 64              # q-tile and key-tile rows of the plain versions
 _HEAD_DIMS = (64, 128)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -77,9 +77,11 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with out in q's dtype and lse fp32 ``[B,H,S]``.
 
     Scores are fp32 and scaled there; ``p`` enters the PV product in v's
-    dtype, as in the kernel, over the kernel's 64-row tiles.  Key tiles
-    wholly past a q tile's causal diagonal are skipped: for every row that
-    sees a key they would add exactly nothing (p = 0, alpha = 1)."""
+    dtype, as in the kernels, over 64-row tiles (the fp32 kernel's; the
+    bf16 kernel's 128-key tiles round p against another running max, a
+    difference within bf16's rounding).  Key tiles wholly past a q tile's
+    causal diagonal are skipped: for every row that sees a key they would
+    add exactly nothing (p = 0, alpha = 1)."""
     B, H, S, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     groups = H // Hkv
@@ -206,6 +208,12 @@ def _launch(q, k, v, causal: bool, sm_scale: float):
             lse.data_ptr(), _DTYPES[q.dtype], B, H, Hkv, S, Sk, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], float(sm_scale), int(causal), stream)
+    if err < 0:     # -(CUresult * 4 + which map): nothing was launched
+        raise RuntimeError(
+            f"flash_fwd: cuTensorMapEncodeTiled refused the tensor map of "
+            f"{'qkvo'[-err % 4]} (CUresult {-err // 4}); TMA wants a 16-byte "
+            f"aligned base and strides that are multiples of 16 bytes below "
+            f"2^40 (strides q {q.stride()}, k {k.stride()}, v {v.stride()})")
     if err:
         raise RuntimeError("flash_fwd launch failed: " +
                            lib.dstpu_cuda_error_string(err).decode())

@@ -6,7 +6,9 @@ runs where JAX is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu_kernels.py
 
-Kernels: the flash-attention forward (``flash_fwd.cu``), its backward
+Kernels: the flash-attention forward (``flash_fwd.cu``: S and Sk off
+the 128-row tiles, Sk above and below S, groups of 1, 4 and 8, D 64 and
+128, [B,S,H,D] views, and a tensor map TMA refuses), its backward
 (``flash_bwd.cu``: dQ and dK/dV, GQA, tails, Sk != S, rows that see no
 key), the fused Adam and Lion steps (``fused_adam.cu``: L2 and AdamW, the
 overflow skip, bf16 and fp16 working copies), and ragged paged attention
@@ -47,25 +49,46 @@ def cuda():
     return torch.device("cuda")
 
 
-def _qkv(seed, B, H, Hkv, S, Sk, D, dtype, device):
+def _qkv(seed, B, H, Hkv, S, Sk, D, dtype, device, kv_view=False):
+    """q as the model hands it in: a [B,S,H,D] projection seen as
+    [B,H,S,D]; k and v contiguous [B,Hkv,Sk,D], or [B,Sk,Hkv,D] views."""
     g = torch.Generator().manual_seed(seed)
     q = torch.randn(B, S, H, D, generator=g).to(device, dtype).transpose(1, 2)
-    k = torch.randn(B, Hkv, Sk, D, generator=g).to(device, dtype)
-    v = torch.randn(B, Hkv, Sk, D, generator=g).to(device, dtype)
+    if kv_view:
+        k, v = (torch.randn(B, Sk, Hkv, D, generator=g).to(
+            device, dtype).transpose(1, 2) for _ in range(2))
+    else:
+        k = torch.randn(B, Hkv, Sk, D, generator=g).to(device, dtype)
+        v = torch.randn(B, Hkv, Sk, D, generator=g).to(device, dtype)
     return q, k, v
 
 
+# B, H, Hkv, S, Sk, D, causal, kv_view.  The bf16 kernel walks 128-row q
+# tiles over 128-key tiles: S and Sk at 1, 63, 129, 1000 leave ragged
+# tiles; groups of 1, 4 and 8
+FWD_SHAPES = [
+    (2, 4, 2, 100, 130, 128, True, False),    # Sk > S, ragged causal edge
+    (2, 4, 2, 130, 100, 64, True, False),     # Sk < S: rows that see no key
+    (1, 8, 8, 64, 64, 64, False, False),      # one partial tile, not causal
+    (1, 8, 8, 1, 1, 64, True, True),          # one row, one key
+    (2, 8, 2, 1, 1000, 128, True, True),      # one query row over 1000 keys
+    (1, 8, 1, 63, 63, 64, False, False),      # group of 8
+    (1, 8, 2, 129, 129, 128, True, True),     # one row past a tile
+    (1, 8, 1, 129, 400, 64, True, False),     # Sk - S = 271: over two tiles
+    (2, 16, 4, 1000, 1000, 128, True, True),  # the serving shape's tails
+    (1, 16, 2, 1000, 1000, 64, False, True),
+    (1, 4, 1, 1000, 129, 128, True, False),   # 871 rows see no key
+    (1, 4, 4, 300, 1000, 128, False, True),   # Sk > S, not causal
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [
-    (2, 4, 2, 100, 130, 128, True),    # Sk > S, ragged causal edge, GQA
-    (2, 4, 2, 130, 100, 64, True),     # Sk < S: rows that see no key
-    (1, 8, 8, 64, 64, 64, False),      # one full tile, not causal
-])
+@pytest.mark.parametrize("shape", FWD_SHAPES)
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_kernel_matches_plain(cuda, shape, dtype):
     dt = getattr(torch, dtype)
-    B, H, Hkv, S, Sk, D, causal = shape
-    q, k, v = _qkv(sum(shape), B, H, Hkv, S, Sk, D, dt, cuda)
+    B, H, Hkv, S, Sk, D, causal, kv_view = shape
+    q, k, v = _qkv(sum(shape), B, H, Hkv, S, Sk, D, dt, cuda, kv_view)
     before = fa.flash_fwd.launches
     o, lse = fa.flash_fwd(q, k, v, causal=causal)
     assert fa.flash_fwd.launches == before + 1
@@ -77,6 +100,18 @@ def test_kernel_matches_plain(cuda, shape, dtype):
     if causal and Sk < S:
         assert torch.isinf(lse[:, :, :S - Sk]).all()
         assert (o[:, :, :S - Sk] == 0).all()
+
+
+@pytest.mark.gpu
+def test_tensor_map_refusal_raises_and_launches_nothing(cuda):
+    q, k, v = _qkv(0, 1, 2, 2, 64, 64, 64, torch.bfloat16, cuda)
+    # a size-1 batch dim may carry any stride; TMA refuses one of 2^41
+    # elements (2^42 bytes, past its 2^40 limit)
+    far = q.as_strided(q.shape, (2 ** 41, *q.stride()[1:]))
+    before = fa.flash_fwd.launches
+    with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled.*q"):
+        fa.flash_fwd(far, k, v)
+    assert fa.flash_fwd.launches == before
 
 
 def paged_case(seed, q_lens, kv_lens, H=32, Hkv=8, D=128, page=64,

@@ -11,6 +11,9 @@
 - Its inference config parses JSON configs to the same values as the JAX
   package's.
 - ``chip_smoke.py`` refuses to run without a GPU and prints no result.
+- The kernel builder names a library by its source, every shared header
+  and its flags, so editing a header rebuilds (checked on a copy of
+  ``csrc``, without ``nvcc``), and the package ships the headers.
 """
 import ast
 import json
@@ -31,6 +34,7 @@ from deepspeed_tpu.telemetry.slo import parse_objective as jax_parse
 from deepspeed_tpu_torch import accelerator
 from deepspeed_tpu_torch.inference.config import load_inference_config
 from deepspeed_tpu_torch.models import llama
+from deepspeed_tpu_torch.ops import builder
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import fused_adam as fo
 from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
@@ -237,3 +241,45 @@ def test_chip_smoke_refuses_without_gpu(where, tmp_path):
                          capture_output=True, text=True, timeout=120, env=env)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+@pytest.fixture
+def csrc_copy(tmp_path, monkeypatch):
+    """The builder pointed at a temporary copy of ``csrc``."""
+    copy = Path(shutil.copytree(builder.CSRC, tmp_path / "csrc"))
+    monkeypatch.setattr(builder, "CSRC", copy)
+    return copy
+
+
+def _append(path: Path, text: str) -> None:
+    path.write_text(path.read_text() + text)
+
+
+@pytest.mark.parametrize("edit", ["header", "source", "flags"])
+def test_builder_target_tracks_headers_and_flags(csrc_copy, monkeypatch,
+                                                 edit):
+    before = builder._target("flash_fwd")
+    assert builder._target("flash_fwd") == before
+    if edit == "header":
+        _append(csrc_copy / "hopper.cuh", "\n// edited\n")
+    elif edit == "source":
+        _append(csrc_copy / "flash_fwd.cu", "\n// edited\n")
+    else:
+        monkeypatch.setitem(builder.EXTRA_FLAGS, "flash_fwd", ("-lineinfo",))
+    after = builder._target("flash_fwd")
+    assert after != before and after.parent == before.parent
+
+
+def test_builder_target_ignores_other_sources(csrc_copy):
+    fwd, adam = builder._target("flash_fwd"), builder._target("fused_adam")
+    _append(csrc_copy / "fused_adam.cu", "\n// edited\n")
+    assert builder._target("flash_fwd") == fwd
+    assert builder._target("fused_adam") != adam
+
+
+def test_package_data_ships_the_headers():
+    text = (REPO / "pyproject.toml").read_text()
+    headers = sorted(builder.CSRC.glob("*.cuh"))
+    assert headers and '"csrc/*.cuh"' in text
+    assert '#include "hopper.cuh"' in (builder.CSRC /
+                                       "flash_fwd.cu").read_text()
