@@ -9,9 +9,10 @@ Phases (any failed check raises; nothing is caught):
    versions; build every kernel of the paths from ``ops/csrc`` (one
    ``nvcc`` per source, all started together) and print the build
    seconds and ``ptxas -v``.
-   The TMA/wgmma forward (D=64 and 128) must show no spill, no local
-   memory and no wgmma serialization warning; its registers at launch,
-   the ``setmaxnreg`` of each warpgroup role (from the SASS) and its
+   The TMA/wgmma kernels, the forward and the backward's dQ and dK/dV
+   (D=64 and 128 each), must show no spill, no local memory and no
+   wgmma serialization warning; their registers at launch, the
+   ``setmaxnreg`` of each warpgroup role (from the SASS) and their
    shared memory are printed.
 2. Kernel against plain: the flash-attention forward kernel against its
    plain PyTorch version on the card, in bf16 at the serving shape, the
@@ -48,10 +49,12 @@ Phases (any failed check raises; nothing is caught):
    dK/dV kernels) in bf16 at the training shape (B 4, H 32/4, S 2048,
    D 64, causal) and at D 128 with GQA 32/8 (S 1000, a tail; Sk > S;
    rows that see no key), plus fp32, with the forward's ``o`` and ``lse``
-   checked at each of these shapes too; fused Adam (L2 and AdamW) and Lion
+   checked at each of these shapes too, and two backward calls at the
+   training shape bit-identical; fused Adam (L2 and AdamW) and Lion
    over flat buffers of ``llama-1b``'s parameter count.  Times each
    kernel, its plain version, its bound and, as yardsticks the port never
-   calls, the SDPA backward and ``torch.optim.AdamW(fused=True).step``.
+   calls, the SDPA backward (its fastest backend, named) and
+   ``torch.optim.AdamW(fused=True).step``.
 9. The training slice: ``initialize`` on ``llama-1b`` (TinyLlama shape)
    at full width and depth, bf16 with fp32 master weights, fused AdamW,
    WarmupLR, clipping 1.0, micro-batch 4 x 2048 tokens, 2 accumulation
@@ -176,35 +179,43 @@ def phase_report():
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)}")
     for name, b in built.items():
         log(f"[{name}] nvcc {b.seconds:.1f} s\n{b.log.strip()}")
-    check_hopper_build(built["flash_fwd"])
+    check_hopper_build(built["flash_fwd"], "flash_fwd",
+                       ["flash_fwd_hopper"],
+                       lambda lib, k, d: lib.dstpu_flash_fwd_smem_bytes(d))
+    check_hopper_build(built["flash_bwd"], "flash_bwd",
+                       ["dq_hopper", "dkv_hopper"],
+                       lambda lib, k, d: lib.dstpu_flash_bwd_smem_bytes(
+                           0 if k == "dq_hopper" else 1, d))
     return smi
 
 
-def check_hopper_build(built):
-    """The TMA/wgmma forward at D=64 and D=128, from its ``ptxas -v`` log
-    and its SASS: no spill and no local memory, no wgmma that ptxas had to
-    serialize, and the registers each warpgroup role asks for."""
+def check_hopper_build(built, name, kernels, smem_bytes):
+    """The TMA/wgmma kernels of library ``name`` at D=64 and D=128, from
+    its ``ptxas -v`` log and its SASS: no spill and no local memory, no
+    wgmma that ptxas had to serialize, and the registers each warpgroup
+    role asks for.  ``smem_bytes(lib, kernel, d)`` reads a kernel's dynamic
+    shared memory from the library."""
     import ctypes
 
     from deepspeed_tpu_torch.ops import builder
 
-    kernel = "flash_fwd_hopper"
     if not built.log:           # built before this run: build it again
         built.path.unlink()
-        built = builder.build_all(["flash_fwd"])["flash_fwd"]
+        built = builder.build_all([name])[name]
     log_lines = built.log.splitlines()
-    bad = [ln for ln in log_lines if "warning" in ln and (
-        kernel in ln or "wgmma" in ln)]
-    assert not bad, "ptxas warns about the forward kernel:\n" + \
-        "\n".join(bad)
+    bad = [ln for ln in log_lines if "serialized" in ln or "C7520" in ln
+           or ("warning" in ln and any(k in ln for k in kernels))]
+    assert not bad, f"ptxas warns about {kernels}:\n" + "\n".join(bad)
     props = {}
     for i, ln in enumerate(log_lines):
+        kernel = next((k for k in kernels if k in ln), None)
         if ln.startswith("ptxas info    : Function properties for") and \
-                kernel in ln:
+                kernel:
             d = 64 if "ILi64E" in ln else 128
-            props[d] = (log_lines[i + 1].strip(),
-                        log_lines[i + 2].split(": ", 1)[-1].strip())
-    assert sorted(props) == [64, 128], f"ptxas lines for {kernel}: {props}"
+            props[kernel, d] = (log_lines[i + 1].strip(),
+                                log_lines[i + 2].split(": ", 1)[-1].strip())
+    want = sorted((k, d) for k in kernels for d in (64, 128))
+    assert sorted(props) == want, f"ptxas lines for {kernels}: {props}"
     # the role registers: setmaxnreg compiles to USETMAXREG in the SASS
     sass = subprocess.run(
         [os.path.join(os.path.dirname(builder.nvcc()), "cuobjdump"),
@@ -213,20 +224,21 @@ def check_hopper_build(built):
     roles, func = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
-            func = (64 if "ILi64E" in ln else 128) if kernel in ln \
+            kernel = next((k for k in kernels if k in ln), None)
+            func = (kernel, 64 if "ILi64E" in ln else 128) if kernel \
                 else None
         elif func and "SETMAXREG" in ln:
             roles.setdefault(func, []).append(" ".join(
                 ln.split("*/")[1].split("/*")[0].split()).rstrip(" ;"))
     lib = ctypes.CDLL(str(built.path))
-    for d in (64, 128):
-        spills, regs = props[d]
+    for kernel, d in want:
+        spills, regs = props[kernel, d]
         assert "0 bytes spill stores, 0 bytes spill loads" in spills, spills
-        assert len(roles.get(d, [])) >= 2, roles
+        assert len(roles.get((kernel, d), [])) >= 2, roles
         log(f"{kernel}<{d}>: {regs}; {spills}; setmaxnreg in SASS: "
-            f"{roles[d]}; dynamic shared memory "
-            f"{lib.dstpu_flash_fwd_smem_bytes(d)} bytes; no wgmma "
-            f"serialization warning")
+            f"{roles[kernel, d]}; dynamic shared memory "
+            f"{smem_bytes(lib, kernel, d)} bytes; no wgmma serialization "
+            f"warning")
 
 
 def _qkv(gen, B, H, Hkv, S, Sk, D, dtype):
@@ -889,9 +901,35 @@ def bwd_bound(which, B, H, Hkv, S, Sk, D, causal, dtype):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def sdpa_backward(q, k, v, do):
+    """(ms, backend name) of SDPA's causal backward alone, its graph kept
+    alive, on the fastest of the flash, cuDNN and efficient backends that
+    take these inputs, each pinned in turn.  A yardstick only: the port
+    never calls SDPA."""
+    from torch.nn import functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        leaves = tuple(t.detach().requires_grad_() for t in (q, k, v))
+        try:
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(
+                    *leaves, is_causal=True, enable_gqa=True)
+                times[backend.name] = time_ms(lambda: torch.autograd.grad(
+                    out, leaves, do, retain_graph=True))
+        except RuntimeError:
+            continue
+        del out, leaves
+    assert times, "no SDPA backend takes these inputs"
+    best = min(times, key=times.get)
+    return times[best], f"{best}; " + ", ".join(
+        f"{b} {t:.4f} ms" for b, t in times.items())
+
+
 def phase_train_kernels():
     from deepspeed_tpu_torch.ops import flash_attention as fa
-    from torch.nn import functional as F
 
     bf16, f32 = torch.bfloat16, torch.float32
     shapes = [  # name, B, H, Hkv, S, Sk, D, causal, dtype
@@ -939,20 +977,22 @@ def phase_train_kernels():
                           f"atol needed at rtol {rtol:g}: {n:.3e} of {atol:g})"
                           for g, (e, m, n) in errs.items()))
         if name == "train":
-            delta = torch.linalg.vecdot(do.float(), o.float()).contiguous()
+            # deterministic: no atomics, so a second call is bit-identical
+            again = fa.flash_bwd(q, k, v, o, lse, do, causal=causal)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+                "bwd train: two calls differ"
+            line += "; a second call bit-identical"
+            del again
+            delta = fa.bwd_delta(do, o)
             ms = {"dq": time_ms(lambda: fa.flash_bwd_dq(
                       q, k, v, do, lse, delta, causal)),
                   "dkv": time_ms(lambda: fa.flash_bwd_dkv(
                       q, k, v, do, lse, delta, causal))}
             plain_ms = time_ms(lambda: fa.flash_bwd_reference(
                 q, k, v, o, lse, do, causal=causal), reps=3, warmup=1)
-            # yardstick: the SDPA backward alone (its graph kept alive)
-            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-            out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                                 enable_gqa=True)
-            lib_ms = time_ms(lambda: torch.autograd.grad(
-                out, (qs, ks, vs), do, retain_graph=True))
-            del out, qs, ks, vs
+            # yardstick: the SDPA backward alone (its graph kept alive),
+            # on its fastest backend, named
+            lib_ms, backend = sdpa_backward(q, k, v, do)
             for which, kname in (("dq", "flash_bwd_dq"),
                                  ("dkv", "flash_bwd_dkv")):
                 bound, by = bwd_bound(which, B, H, Hkv, S, Sk, D, causal,
@@ -971,7 +1011,7 @@ def phase_train_kernels():
                 line += (f"; {kname} {ms[which]:.4f} ms, bound {bound:.4f} "
                          f"ms ({by}), {bound / ms[which]:.1%} of bound")
             line += (f"; plain (dq, dk, dv) {plain_ms:.3f} ms; SDPA "
-                     f"backward {lib_ms:.4f} ms")
+                     f"backward ({backend}) {lib_ms:.4f} ms")
         log(line)
         del q, k, v, do, o, lse, got, want
     torch.cuda.empty_cache()

@@ -4,8 +4,10 @@ Counterpart of ``deepspeed_tpu/ops/flash_attention.py``.  The TPU kernel
 ``_flash_fwd_kernel`` becomes the hand-written CUDA kernel in
 ``csrc/flash_fwd.cu``, and ``_flash_bwd_dq_kernel`` and
 ``_flash_bwd_dkv_kernel`` (with the GQA group sum of ``_flash_vjp_bwd``)
-become the two kernels of ``csrc/flash_bwd.cu`` (see the notes at their
-tops); beside them live the plain PyTorch versions of the same functions:
+become the two kernels of ``csrc/flash_bwd.cu``; in bf16 all three are
+persistent TMA + ``wgmma`` kernels on ``csrc/hopper.cuh`` (see the notes
+at the sources' tops).  Beside them live the plain PyTorch versions of the
+same functions:
 
 - :func:`mha_reference`: naive O(S^2)-memory attention;
 - :func:`flash_fwd_reference`: the blockwise online-softmax forward
@@ -18,8 +20,8 @@ tops); beside them live the plain PyTorch versions of the same functions:
   the saved log-sum-exp, the counterpart of ``_blockwise_bwd`` followed
   by the group sum, and the arithmetic the backward kernels repeat;
 - :func:`flash_bwd`: the backward wrapper.  It computes
-  ``delta = rowsum(dO * O)`` with torch (as ``_flash_bwd_pallas`` does
-  outside Pallas) and launches :func:`flash_bwd_dq` and
+  ``delta = rowsum(dO * O)`` with torch (:func:`bwd_delta`, as
+  ``_flash_bwd_pallas`` does outside Pallas) and launches :func:`flash_bwd_dq` and
   :func:`flash_bwd_dkv`, each counting its launches in ``.launches``;
 - :func:`flash_attention`: the public call with the JAX layout, q
   ``[B,H,S,D]`` and k, v ``[B,Hkv,Sk,D]`` (Hkv divides H).  It is a
@@ -126,6 +128,9 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Shapes, dtypes and devices every path takes; the head dims the
+    kernels take are checked on the CUDA path only (:func:`_check_head_dim`),
+    since the plain versions take any D."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"want q [B,H,S,D] and k, v [B,Hkv,Sk,D]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -137,13 +142,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if H % k.shape[1]:
         raise ValueError(f"q heads {H} not a multiple of kv heads "
                          f"{k.shape[1]}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {_HEAD_DIMS}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: want all "
                         "bfloat16 or all float32")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"tensors on {q.device}, {k.device}, {v.device}")
+
+
+def _check_head_dim(D: int) -> None:
+    if D not in _HEAD_DIMS:
+        raise ValueError(
+            f"head dim {D}: the CUDA kernels take D in {_HEAD_DIMS} "
+            "(ROADMAP B1d); CPU tensors of any D take the plain version")
 
 
 class _BwdArgs(ctypes.Structure):
@@ -195,6 +205,7 @@ def _check_rows(**tensors: torch.Tensor) -> None:
 def _launch(q, k, v, causal: bool, sm_scale: float):
     B, H, S, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
+    _check_head_dim(D)
     _check_rows(q=q, k=k, v=v)
     # o is laid out [B,S,H,D] and returned as its [B,H,S,D] view, so the
     # caller's transpose back to [B,S,H*D] costs no copy
@@ -224,9 +235,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, sm_scale: Optional[float] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention forward: ``(out [B,H,S,D] in q's dtype, lse [B,H,S]
-    fp32)``.  CPU tensors take :func:`flash_fwd_reference`; CUDA tensors
-    launch the kernel on the current stream (bf16 or fp32, D in {64, 128})
-    and count the launch in ``flash_fwd.launches``."""
+    fp32)``.  CPU tensors of any head dim take :func:`flash_fwd_reference`;
+    CUDA tensors launch the kernel on the current stream (bf16 or fp32, D
+    in {64, 128}, else it raises) and count the launch in
+    ``flash_fwd.launches``."""
     _check(q, k, v)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
@@ -295,6 +307,7 @@ def _bwd_launch(which: int, q, k, v, do, lse, delta, causal, sm_scale):
     views, the layout the projections' backward wants."""
     B, H, S, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
+    _check_head_dim(D)
     _check_rows(q=q, k=k, v=v, do=do)
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.dtype != torch.float32 or t.shape != (B, H, S)
@@ -324,10 +337,28 @@ def _bwd_launch(which: int, q, k, v, do, lse, delta, causal, sm_scale):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.dstpu_flash_bwd(ctypes.byref(a), which, _DTYPES[q.dtype],
                                   D, stream)
+    if err < 0:     # -(CUresult * 8 + which map): nothing was launched
+        names = ("q", "k", "v", "dO", "dq" if which == 0 else "dk", "dv")
+        raise RuntimeError(
+            f"flash_bwd: cuTensorMapEncodeTiled refused the tensor map of "
+            f"{names[-err % 8]} (CUresult {-err // 8}); TMA wants a "
+            f"16-byte aligned base and strides that are multiples of 16 "
+            f"bytes below 2^40")
     if err:
         raise RuntimeError("flash_bwd launch failed: " +
                            lib.dstpu_cuda_error_string(err).decode())
     return outs
+
+
+def bwd_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dO * O)`` in fp32, contiguous ``[B,H,S]``: a torch
+    pass outside the kernels, as ``_flash_bwd_pallas`` computes it outside
+    Pallas.  dO is copied to fp32 once and multiplied by O in place: one
+    fp32 temporary instead of two (a copy even when dO is fp32 already,
+    which ``.float()`` would return as it is, so the caller's dO is never
+    written)."""
+    return torch.sum(do.to(torch.float32, copy=True).mul_(o),
+                     dim=-1).contiguous()
 
 
 def _cuda_only(fn_name: str, q: torch.Tensor) -> None:
@@ -392,8 +423,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if do.stride(3) != 1 or do.data_ptr() % 16 or any(
             s % vec for s in do.stride()[:3]):
         do = do.contiguous()
-    # delta = rowsum(dO * O) in fp32, outside the kernels as on the TPU
-    delta = torch.linalg.vecdot(do.float(), o.float()).contiguous()
+    delta = bwd_delta(do, o)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale)
     return dq, dk, dv

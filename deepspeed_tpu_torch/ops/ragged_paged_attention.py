@@ -51,8 +51,6 @@ def _check(q, pages, scales, kv_lens, page_indices, cu_q_lens, num_seqs,
     if H % Hkv or H // Hkv > MAX_GROUP:
         raise ValueError(f"q heads {H} must be a multiple of kv heads "
                          f"{Hkv}, at most {MAX_GROUP} per kv head")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {_HEAD_DIMS}")
     if page not in PAGE_SIZES:
         raise ValueError(f"page size {page} not in {PAGE_SIZES}")
     if q.dtype not in _Q_DTYPES:
@@ -105,6 +103,10 @@ def _launch(q, pages, scales, kv_lens, page_indices, cu_q_lens, num_seqs,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel reads contiguous tensors")
     T, H, D = q.shape
+    if D not in _HEAD_DIMS:
+        raise ValueError(
+            f"head dim {D}: the paged kernels take D in {_HEAD_DIMS} "
+            "(ROADMAP B1d); CPU tensors of any D take the plain version")
     P, page, combined, _ = pages.shape
     S, pp = page_indices.shape
     o = torch.empty_like(q)
@@ -135,8 +137,9 @@ def ragged_paged_attention(q: torch.Tensor, pages: torch.Tensor,
     pages ``[P,page,2*Hkv,D]`` of q's dtype (bf16 or fp32), through the
     page table; returns ``[T,H,D]`` in q's dtype.  Metadata (int32):
     ``kv_lens [S]``, ``page_indices [S,pp]`` (-1 = padding or hole),
-    ``cu_q_lens [S+1]``, ``num_seqs [1]``.  D in {64, 128}, page in
-    {16, 32, 64, 128}.  CPU tensors take :func:`ref_paged_attention`."""
+    ``cu_q_lens [S+1]``, ``num_seqs [1]``.  Page in {16, 32, 64, 128};
+    the kernel takes D in {64, 128}.  CPU tensors of any D take
+    :func:`ref_paged_attention`."""
     _check(q, pages, None, kv_lens, page_indices, cu_q_lens, num_seqs,
            sliding_window)
     if pages.dtype != q.dtype:

@@ -34,9 +34,9 @@ from profile_torch_serving import profile, report  # noqa: E402
 # kernel name fragments of each class (the port's kernels by their CUDA
 # function names; cuBLAS GEMMs by their library prefixes)
 CLASSES = {
-    "flash_fwd": ("flash_fwd_bf16",),
-    "flash_bwd_dq": ("dq_bf16",),
-    "flash_bwd_dkv": ("dkv_bf16",),
+    "flash_fwd": ("flash_fwd_hopper", "flash_fwd_f32"),
+    "flash_bwd_dq": ("dq_hopper", "dq_f32"),
+    "flash_bwd_dkv": ("dkv_hopper", "dkv_f32"),
     "optimizer": ("adam_kernel", "lion_kernel"),
     "gemm": ("nvjet", "gemm", "cutlass", "sm90_xmma", "Kernel2"),
 }

@@ -102,14 +102,12 @@ def test_plain_forward_bf16_rounds_like_the_kernel():
                                rtol=2e-2)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "head_dim", "gqa", "rank",
-                                 "mixed_dtype", "kv_shape"])
+@pytest.mark.parametrize("bad", ["dtype", "gqa", "rank", "mixed_dtype",
+                                 "kv_shape"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     q, k, v = (torch.from_numpy(x) for x in _qkv(6, 1, 4, 2, 16, 16, 64))
     if bad == "dtype":
         q, k, v = q.half(), k.half(), v.half()
-    elif bad == "head_dim":
-        q, k, v = q[..., :32], k[..., :32], v[..., :32]
     elif bad == "gqa":
         q = q[:, :3]
     elif bad == "rank":
@@ -121,3 +119,41 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     with pytest.raises((TypeError, ValueError)):
         fa.flash_fwd(q, k, v)
 
+
+
+# Head dims the CUDA kernels do not take: CPU tensors take the plain
+# versions at any D, as the reference does off the TPU.  The CUDA path's
+# refusal is in test_torch_gpu_kernels.py.
+@pytest.mark.parametrize("D", [32, 80, 96])
+@pytest.mark.parametrize("causal", [True, False])
+def test_forward_takes_any_head_dim_on_cpu(D, causal):
+    q, k, v = (torch.from_numpy(x) for x in _qkv(D, 1, 4, 2, 40, 56, D))
+    o, lse = fa.flash_fwd(q, k, v, causal=causal)
+    want = fa.mha_reference(q, k, v, causal=causal)
+    np.testing.assert_allclose(o.numpy(), want.numpy(), atol=ATOL, rtol=0)
+    assert lse.shape == (1, 4, 40) and torch.isfinite(lse).all()
+    jo = jax_flash_attention(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                             jnp.asarray(v.numpy()), causal=causal)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("D", [32, 80, 96])
+def test_backward_takes_any_head_dim_on_cpu(D):
+    """flash_bwd's plain version against autograd through mha_reference
+    (fp32 both: summation order only)."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(D + 1, 1, 4, 2, 48, 48, D))
+    do = torch.from_numpy(np.random.default_rng(D).standard_normal(
+        (1, 4, 48, D), dtype=np.float32))
+    o, lse = fa.flash_fwd(q, k, v, causal=True)
+    got = fa.flash_bwd(q, k, v, o, lse, do, causal=True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fa.mha_reference(*leaves, causal=True),
+                               leaves, do)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=0,
+                                   err_msg=name)
+    # the public call's gradient goes through the same plain backward
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*leaves, causal=True).backward(do)
+    for a, b in zip(leaves, got):
+        torch.testing.assert_close(a.grad, b, atol=0, rtol=0)

@@ -144,3 +144,28 @@ def test_backward_rejects_what_it_does_not_take(bad):
         return
     with pytest.raises(ValueError):
         fa.flash_bwd(q, k, v, o, lse, do)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_delta_is_the_rowsum_and_leaves_do_alone(dtype):
+    """delta = rowsum(dO * O) in fp32, against the expression
+    ``_flash_bwd_pallas`` uses outside Pallas; dO, which the pass
+    multiplies in place after its fp32 copy, is never written, also when
+    it is fp32 already.  dO and O as the model hands them: [B,S,H,D]
+    seen as [B,H,S,D]."""
+    rng = np.random.default_rng(9)
+    do_np, o_np = (rng.standard_normal((2, 24, 4, 64), dtype=np.float32)
+                   for _ in range(2))
+    dt = getattr(torch, dtype)
+    do = torch.from_numpy(do_np).to(dt).transpose(1, 2)
+    o = torch.from_numpy(o_np).to(dt).transpose(1, 2)
+    before = do.clone()
+    got = fa.bwd_delta(do, o)
+    assert torch.equal(do, before)
+    assert got.dtype == torch.float32 and got.shape == (2, 4, 24)
+    assert got.is_contiguous()
+    want = jnp.sum(jnp.asarray(do.float().numpy()).astype(jnp.float32) *
+                   jnp.asarray(o.float().numpy()).astype(jnp.float32),
+                   axis=-1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)

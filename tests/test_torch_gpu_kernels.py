@@ -10,7 +10,8 @@ Kernels: the flash-attention forward (``flash_fwd.cu``: S and Sk off
 the 128-row tiles, Sk above and below S, groups of 1, 4 and 8, D 64 and
 128, [B,S,H,D] views, and a tensor map TMA refuses), its backward
 (``flash_bwd.cu``: dQ and dK/dV, GQA, tails, Sk != S, rows that see no
-key), the fused Adam and Lion steps (``fused_adam.cu``: L2 and AdamW, the
+key, more units than SMs, two calls bit-identical), a CUDA call at a head
+dim the kernels do not take (it raises, naming ROADMAP B1d), the fused Adam and Lion steps (``fused_adam.cu``: L2 and AdamW, the
 overflow skip, bf16 and fp16 working copies), and ragged paged attention
 over bf16, fp32, int8 and e4m3 pages (``ragged_paged_attn.cu``) at the v2
 path's shapes: decode, mixed decode and prefill, a sliding window,
@@ -286,6 +287,79 @@ def test_flash_bwd_kernels_match_plain(cuda, shape, dtype):
                                    rtol=rtol, msg=name)
     if causal and Sk < S:
         assert (got[0][:, :, :S - Sk] == 0).all()
+
+
+# The TMA/wgmma bf16 kernels' own paths, same limits: more units than the
+# card has SMs with q and key tails off the 128-row tiles (dQ: 9 q tiles x
+# 16 heads x 2; dK/dV: 9 key tiles x 8 KV heads x 2), and D=128 (64-row q
+# stages in dK/dV, 64-row key tiles in dQ) with Sk > S
+BWD_HOPPER_SHAPES = [
+    (2, 16, 2, 1100, 1100, 64, True),
+    (2, 16, 8, 1100, 1100, 64, True),
+    (2, 8, 2, 300, 700, 128, True),
+    (1, 4, 1, 200, 460, 128, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BWD_HOPPER_SHAPES)
+def test_flash_bwd_hopper_paths_match_plain(cuda, shape):
+    B, H, Hkv, S, Sk, D, causal = shape
+    q, k, v = _qkv(sum(shape), B, H, Hkv, S, Sk, D, torch.bfloat16, cuda)
+    g = torch.Generator().manual_seed(8)
+    do = torch.randn(B, S, H, D, generator=g).to(
+        cuda, torch.bfloat16).transpose(1, 2)
+    o, lse = fa.flash_fwd(q, k, v, causal=causal)
+    got = fa.flash_bwd(q, k, v, o, lse, do, causal=causal)
+    want = fa.flash_bwd_reference(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=3e-3,
+                                   rtol=2e-2, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_is_bit_identical_twice(cuda, D):
+    """No atomics: every block owns its output tiles and sums in a fixed
+    order, so two identical calls give the same bits."""
+    q, k, v = _qkv(11, 2, 16, 4, 700, 700, D, torch.bfloat16, cuda)
+    do = torch.randn_like(q)
+    o, lse = fa.flash_fwd(q, k, v)
+    first = fa.flash_bwd(q, k, v, o, lse, do)
+    second = fa.flash_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_unsupported_head_dim_raises_on_cuda_naming_b1d(cuda):
+    """CPU tensors of any D take the plain versions; a CUDA call at a D the
+    kernels do not take raises, naming the roadmap item, and launches
+    nothing."""
+    q, k, v = _qkv(12, 1, 2, 1, 16, 16, 96, torch.bfloat16, cuda)
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    with pytest.raises(ValueError, match="B1d"):
+        fa.flash_fwd(q, k, v)
+    lse = torch.zeros(1, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="B1d"):
+        fa.flash_bwd(q, k, v, q, lse, q)
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == before
+
+
+@pytest.mark.gpu
+def test_unsupported_head_dim_raises_on_cuda_paged(cuda):
+    from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+
+    q, pages, _, meta = paged_case(0, [1], [10], H=4, Hkv=2, D=96, page=16,
+                                   device=cuda)
+    before = rpa.ragged_paged_attention.launches
+    with pytest.raises(ValueError, match="B1d"):
+        rpa.ragged_paged_attention(q, pages, *meta, sm_scale=0.1)
+    assert rpa.ragged_paged_attention.launches == before
 
 
 @pytest.mark.gpu

@@ -25,10 +25,11 @@ ATOL = 1e-4
 def make_pair(seed=0, **kw):
     """(flax model, flax params as numpy, port model loaded through the
     bridge) for one config."""
-    jcfg = jax_llama.LlamaConfig(**TINY, dtype=jnp.float32,
-                                 param_dtype=jnp.float32, remat=False, **kw)
-    tcfg = llama.LlamaConfig(**TINY, dtype=torch.float32,
-                             param_dtype=torch.float32, remat=False, **kw)
+    kw = {**TINY, **kw}
+    jcfg = jax_llama.LlamaConfig(dtype=jnp.float32, param_dtype=jnp.float32,
+                                 remat=False, **kw)
+    tcfg = llama.LlamaConfig(dtype=torch.float32, param_dtype=torch.float32,
+                             remat=False, **kw)
     jmodel = jax_llama.LlamaForCausalLM(jcfg)
     params = jmodel.init(jax.random.PRNGKey(seed),
                          jnp.zeros((1, 8), jnp.int32))["params"]
@@ -45,6 +46,10 @@ CASES = {
     "partial_rotary": dict(partial_rotary_factor=0.5),
     "biases": dict(attention_bias=True, attention_out_bias=True),
     "no_flash": dict(use_flash_attention=False),
+    # D = 96 (the phi3-mini and gpt-neox-20b head dim): the CUDA kernels
+    # do not take it, the CPU path takes the plain versions at any D
+    "head_dim_96": dict(hidden_size=192, num_attention_heads=2,
+                        num_key_value_heads=1),
 }
 
 

@@ -320,7 +320,6 @@ def test_wrappers_take_the_plain_versions_on_cpu():
 
 @pytest.mark.parametrize("bad,err,match", [
     ({"page": 8}, ValueError, "page size"),
-    ({"D": 32}, ValueError, "head dim"),
     ({"kv_dtype": torch.int64}, TypeError, "int32"),
     ({"pool_dtype": torch.bfloat16}, TypeError, "q's dtype"),
     ({"window": 0}, ValueError, "sliding_window"),
@@ -334,6 +333,29 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, err, match):
     with pytest.raises(err, match=match):
         rpa.ragged_paged_attention(_torch(q), pt, *meta, sm_scale=0.1,
                                    sliding_window=bad.get("window"))
+
+
+@pytest.mark.parametrize("D", [32, 80, 96])
+def test_wrappers_take_any_head_dim_on_cpu(D):
+    """The kernels take D in {64, 128}; CPU tensors of any D take the
+    plain versions, held here against JAX's reference (fp32, atol 1e-5)."""
+    q, pool, scales, meta = _case(7 + D, [1, 5, 1], [12, 40, 7], 4, 2, D, 16,
+                                  fmt="int8")
+    sm = 1 / np.sqrt(D)
+    tmeta = [_torch(m) for m in meta]
+    got = rpa.ragged_paged_attention(_torch(q), _torch(pool.astype(
+        np.float32) * scales[..., None]), *tmeta, sm_scale=sm)
+    want = np.asarray(jpaged.ref_paged_attention(
+        jnp.asarray(q), jnp.asarray(pool.astype(np.float32) *
+                                    scales[..., None]),
+        *map(jnp.asarray, meta), sm_scale=sm))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    got = rpa.ragged_paged_attention_quant(_torch(q), _torch(pool),
+                                           _torch(scales), *tmeta,
+                                           sm_scale=sm)
+    torch.testing.assert_close(got, paged.ref_paged_attention_quant(
+        _torch(q), _torch(pool), _torch(scales), *tmeta, sm_scale=sm),
+        atol=0, rtol=0)
 
 
 def test_kv_dequant_path_names_the_route():
