@@ -13,7 +13,9 @@ Phases (any failed check raises; nothing is caught):
    (D=64 and 128 each), must show no spill, no local memory and no
    wgmma serialization warning; their registers at launch, the
    ``setmaxnreg`` of each warpgroup role (from the SASS) and their
-   shared memory are printed.
+   shared memory are printed.  The paged kernels (``rpa_mma`` over bf16,
+   int8 and e4m3 pages and ``rpa_combine``, D=64 and 128) must show no
+   spill and no local memory.
 2. Kernel against plain: the flash-attention forward kernel against its
    plain PyTorch version on the card, in bf16 at the serving shape, the
    training shape (B 4, H 32/4, S 2048, D 64, causal) and three more,
@@ -31,9 +33,13 @@ Phases (any failed check raises; nothing is caught):
    against the port on the CPU.
 5. Paged kernels against plain: ragged paged attention over bf16, int8
    and e4m3 pages (kernels #9 and #8) against their plain versions at
-   the v2 path's shapes (decode, mixed decode + prefill chunk, sliding
-   window, page-table holes, D=64) and an fp32 case; times the kernels,
-   the plain versions and the bound at the decode and mixed shapes.
+   the v2 path's shapes (decode, mixed decode + prefill chunk, a
+   few-sequence decode of 2 x 2048 keys, a long decode of 16 x 8192,
+   sliding window, page-table holes, D=64) and an fp32 case; two decode
+   calls bit-identical.  Times the kernels on the device (20 calls in a
+   CUDA graph, replayed) beside the wrapper's host loop and the bound at
+   the four decode and mixed shapes, and the plain versions at decode
+   and mixed.
 6. The v2 slice: ``RaggedInferenceEngineV2`` on ``llama3-8b`` at full
    width and depth, bf16, serving 24 requests (16 slots) twice with
    identical tokens; the paged kernel launched once per layer per model
@@ -142,6 +148,32 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one ``fn`` call: ``reps`` calls captured in a CUDA
+    graph and replayed, so that the host's time per call (Python checks,
+    allocation, ctypes) is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (5 * reps)
+
+
 def pairs_of(S, Sk, causal):
     """Valid (query, key) pairs of one head: bottom-right causal or all."""
     if not causal:
@@ -186,7 +218,35 @@ def phase_report():
                        ["dq_hopper", "dkv_hopper"],
                        lambda lib, k, d: lib.dstpu_flash_bwd_smem_bytes(
                            0 if k == "dq_hopper" else 1, d))
+    check_paged_build(built["ragged_paged_attn"])
     return smi
+
+
+def check_paged_build(built):
+    """The bf16-query paged kernels (``rpa_mma`` over bf16, int8 and e4m3
+    pages and ``rpa_combine``, D=64 and 128), from ``ptxas -v``: no
+    spill and no local memory.  They use neither wgmma nor setmaxnreg."""
+    from deepspeed_tpu_torch.ops import builder
+
+    if not built.log:           # built before this run: build it again
+        built.path.unlink()
+        built = builder.build_all(["ragged_paged_attn"])["ragged_paged_attn"]
+    kernels = ("rpa_mma", "rpa_combine")
+    lines = built.log.splitlines()
+    bad = [ln for ln in lines
+           if "warning" in ln and any(k in ln for k in kernels)]
+    assert not bad, "ptxas warns about the paged kernels:\n" + "\n".join(bad)
+    props = {}
+    for i, ln in enumerate(lines):
+        if ln.startswith("ptxas info    : Function properties for") and \
+                any(k in ln for k in kernels):
+            props[ln.split()[-1]] = (lines[i + 1].strip(),
+                                     lines[i + 2].split(": ", 1)[-1].strip())
+    assert len(props) == 8, f"ptxas lines for {kernels}: {sorted(props)}"
+    for name, (frame, regs) in sorted(props.items()):
+        assert frame.startswith("0 bytes stack frame, 0 bytes spill "
+                                "stores, 0 bytes spill loads"), (name, frame)
+        log(f"{name}: {regs}; {frame}")
 
 
 def check_hopper_build(built, name, kernels, smem_bytes):
@@ -547,6 +607,8 @@ def phase_paged_kernels():
     # name, (q_lens, kv_lens), options, timed
     shapes = [("decode", decode, {}, True),
               ("mixed", mixed, {}, True),
+              ("few_decode", ([1, 1], [2048, 2048]), {}, True),
+              ("long_decode", ([1] * 16, [8192] * 16), {}, True),
               ("window", mixed, {"window": 256}, False),
               ("holes", ([1] * 4 + [200], [700, 900, 1000, 1300, 1500]),
                {"holes": True, "pad": 7}, False),
@@ -597,15 +659,30 @@ def phase_paged_kernels():
                 f"max|o-plain|={err.max().item():.3e} "
                 f"({(err / limit).max().item():.1%} of the limit; median "
                 f"|o| {wf[:n_real].abs().median().item():.3e})")
+        if name == "decode":    # no atomics: two calls, the same bits
+            assert torch.equal(out, fn(*args, sm_scale=sm,
+                                       sliding_window=window)), (
+                f"paged decode {pd}: two calls differ")
+            line += "; bit-identical twice"
         if timed:
-            ms = time_ms(lambda: fn(*args, sm_scale=sm))
-            plain_ms = time_ms(lambda: ref(*args, sm_scale=sm), reps=3,
-                               warmup=1)
+            # device time, graph-replayed; the wrapper's host loop beside
+            ms = graph_ms(lambda: fn(*args, sm_scale=sm))
+            host_ms = time_ms(lambda: fn(*args, sm_scale=sm))
             bound, by = paged_bound(q_lens, kv_lens, meta[1].cpu(),
                                     q.shape[1], pages.shape[2] // 2,
                                     q.shape[2], pages.shape[1], q.dtype, pd)
-            line += (f" kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-                     f"{bound:.4f} ms ({by}), {bound / ms:.1%} of bound")
+            S, pp = meta[1].shape
+            splits = rpa.split_plan(q.shape[0], S, q.shape[1],
+                                    pages.shape[2] // 2, pp,
+                                    pages.shape[1])[0]
+            line += (f" splits {splits} ({1 + (splits > 1)} device kernels "
+                     f"a call); kernel {ms:.4f} ms on the device, "
+                     f"{host_ms:.4f} ms in a host loop, bound {bound:.4f} ms "
+                     f"({by}), {bound / ms:.1%} of bound")
+            if name in ("decode", "mixed"):
+                plain_ms = time_ms(lambda: ref(*args, sm_scale=sm), reps=3,
+                                   warmup=1)
+                line += f", plain {plain_ms:.3f} ms"
             # the JSON row of each kernel: its decode shape (bf16 pages for
             # #9, int8 pages for #8), the serving steady state
             if name == "decode" and pd in (bf16, i8):

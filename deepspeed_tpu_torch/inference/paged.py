@@ -24,7 +24,11 @@ scattered into the flat page buffer BEFORE attention, and ``kv_lens``
 includes this tick's tokens.  Page 0 is the trash page: padding tokens
 write there, no sequence is ever allocated it.
 
-The reference's chunked long-context scan (``carry``, ``fold_stats``,
+- :func:`fold_stats` and :func:`neutral_carry` are the reference's
+  streaming-softmax combine and its identity, as plain torch: the
+  definition the split-KV kernel's combine follows.
+
+The reference's chunked long-context scan (the ``carry`` operand and
 ``_staged_attend_stats``) is not ported yet: ROADMAP A9.5.
 """
 from __future__ import annotations
@@ -245,6 +249,32 @@ class PageAllocator:
 # ---------------------------------------------------------------------------
 # Plain versions of the paged-attention kernels
 # ---------------------------------------------------------------------------
+
+def fold_stats(carry, m_cur: torch.Tensor, l_cur: torch.Tensor,
+               acc_cur: torch.Tensor):
+    """Fold a flash-attention carry ``(m, l, acc)`` with a fresh stat
+    triple (``m``, ``l`` ``[T,H]``, ``acc`` ``[T,H,D]``, fp32, natural-log
+    units): the associative streaming-softmax combine.  The neutral carry
+    ``(m=_MASK_VALUE, l=0, acc=0)`` folds exactly.  The split-KV kernel
+    folds its splits' stats in split order by this rule (in log2 units
+    and in its closed form: m is the largest m, each split weighs
+    exp(m_z - m))."""
+    m0, l0, acc0 = (x.float() for x in carry)
+    m_new = torch.maximum(m0, m_cur)
+    a0 = torch.exp(m0 - m_new)
+    a1 = torch.exp(m_cur - m_new)
+    l_new = a0 * l0 + a1 * l_cur
+    acc_new = a0[..., None] * acc0 + a1[..., None] * acc_cur
+    return m_new, l_new, acc_new
+
+
+def neutral_carry(T: int, H: int, D: int, device=None):
+    """The identity element for :func:`fold_stats` (all-masked stats)."""
+    return (torch.full((T, H), _MASK_VALUE, dtype=torch.float32,
+                       device=device),
+            torch.zeros((T, H), dtype=torch.float32, device=device),
+            torch.zeros((T, H, D), dtype=torch.float32, device=device))
+
 
 def _token_layout(T: int, kv_lens: torch.Tensor, cu_q_lens: torch.Tensor,
                   num_seqs: torch.Tensor):

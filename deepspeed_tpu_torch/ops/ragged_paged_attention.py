@@ -13,14 +13,18 @@ Both are one hand-written CUDA source, ``csrc/ragged_paged_attn.cu``
 the plain versions, :func:`~deepspeed_tpu_torch.inference.paged.
 ref_paged_attention` and :func:`~deepspeed_tpu_torch.inference.paged.
 ref_paged_attention_quant`; a CUDA tensor launches the kernel or raises.
-Each function counts its kernel launches in ``.launches``.  The wrappers
-never read a device value on the host, so they can run inside a captured
+Each function counts its calls that launch on the card in ``.launches``.
+With bf16 queries one call runs one device kernel, ``rpa_mma``, or two
+when :func:`split_plan` cuts the keys into more than one split: then
+``rpa_combine`` folds the splits' raw stats, which live in scratch the
+wrapper allocates.  The wrappers never read a device value on the host
+(the plan depends on shapes only), so they can run inside a captured
 decode block.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,6 +39,38 @@ _Q_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _PAGE_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2,
                 torch.float8_e4m3fn: 3}
 _QUANT = (torch.int8, torch.float8_e4m3fn)
+STAGE_KEYS = 64          # keys per stage of the kernel's page ring
+PT_MAX = 1024            # page-table entries one work unit holds
+# units to aim for: two per SM of an H100 (two blocks fit an SM).  More,
+# shorter units measured slower at every decode shape: each unit pays a
+# few microseconds of metadata and ring start-up (PERF.md, §6)
+UNITS_TARGET = 2 * 132
+
+
+def split_plan(T: int, S: int, H: int, Hkv: int, pp: int,
+               page: int) -> Tuple[int, int]:
+    """``(splits, split_stages)``: how the bf16-query kernel cuts each
+    sequence's keys, from host-known sizes only.  A split is a run of
+    ``split_stages`` 64-key stages at absolute key positions; a work
+    unit is (sequence, KV head, q tile of ``64 // (H // Hkv)`` tokens,
+    split).  A decode-like tick (``T <= 2 * S``) gets enough splits for
+    about ``UNITS_TARGET`` units over its q-tile slots, so that no unit
+    streams a long sequence alone; a tick carrying prefill chunks
+    already has many q tiles and gets one split, which keeps the
+    scratch at zero.  At the v2 decode shape (16 sequences, 2048-key
+    table) that is 2 splits of 1024 keys.  A split never holds more than
+    ``PT_MAX`` page-table entries, so very long tables split
+    regardless."""
+    stages = max(1, -(-pp * page // STAGE_KEYS))
+    cap = (PT_MAX - 1) * page // STAGE_KEYS
+    splits = 1
+    if T <= 2 * S:
+        tq = 64 // (H // Hkv)
+        slots = (-(-T // tq) + S) * Hkv
+        splits = min(stages, -(-UNITS_TARGET // slots))
+    splits = max(splits, -(-stages // cap))
+    split_stages = -(-stages // splits)
+    return -(-stages // split_stages), split_stages
 
 
 def _check(q, pages, scales, kv_lens, page_indices, cu_q_lens, num_seqs,
@@ -85,7 +121,7 @@ def _lib() -> ctypes.CDLL:
     if lib.dstpu_ragged_paged_attn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.dstpu_ragged_paged_attn.argtypes = (
-            [ptr] * 8 + [i32] * 10 + [ctypes.c_float, ptr])
+            [ptr] * 11 + [i32] * 12 + [ctypes.c_float, ptr])
         lib.dstpu_ragged_paged_attn.restype = i32
         lib.dstpu_cuda_error_string.argtypes = [i32]
         lib.dstpu_cuda_error_string.restype = ctypes.c_char_p
@@ -110,17 +146,26 @@ def _launch(q, pages, scales, kv_lens, page_indices, cu_q_lens, num_seqs,
     P, page, combined, _ = pages.shape
     S, pp = page_indices.shape
     o = torch.empty_like(q)
+    splits, split_stages = split_plan(T, S, H, combined // 2, pp, page)
+    parts = [None] * 3
+    if q.dtype == torch.bfloat16 and splits > 1:
+        # raw stats of every split: m and l [splits,T,H], acc [..., D]
+        n = splits * T * H
+        stats = torch.empty(n * (D + 2), dtype=torch.float32,
+                            device=q.device)
+        parts = [stats[:n].data_ptr(), stats[n:2 * n].data_ptr(),
+                 stats[2 * n:].data_ptr()]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _lib().dstpu_ragged_paged_attn(
             q.data_ptr(), pages.data_ptr(),
             None if scales is None else scales.data_ptr(), o.data_ptr(),
             kv_lens.data_ptr(), page_indices.data_ptr(),
-            cu_q_lens.data_ptr(), num_seqs.data_ptr(),
+            cu_q_lens.data_ptr(), num_seqs.data_ptr(), *parts,
             _Q_DTYPES[q.dtype], _PAGE_DTYPES[pages.dtype], T, H,
             combined // 2, D, S, pp, page,
             0 if sliding_window is None else int(sliding_window),
-            float(sm_scale), stream)
+            splits, split_stages, float(sm_scale), stream)
     if err:
         raise RuntimeError("ragged paged attention launch failed: " +
                            _lib().dstpu_cuda_error_string(err).decode())

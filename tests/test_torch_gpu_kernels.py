@@ -16,7 +16,11 @@ overflow skip, bf16 and fp16 working copies), and ragged paged attention
 over bf16, fp32, int8 and e4m3 pages (``ragged_paged_attn.cu``) at the v2
 path's shapes: decode, mixed decode and prefill, a sliding window,
 page-table holes, D=64 with 16-row pages, 128-row pages with 8 q heads per
-KV head, MHA with padding tokens; and group-wise int8 quantize and
+KV head, MHA with padding tokens, and on the split-KV decode path kv_len at
+a split boundary and one key past it, one 2048-key sequence among 1-key
+ones, a window across splits, holes that empty a whole split, D=64 with
+16- and 128-row pages, and two calls bit-identical; and group-wise int8
+quantize and
 dequantize (``quantization.cu``) at the int8 serving path's shapes
 (``gate_proj`` at groups of 128 and 2048, the embedding table) and at
 tails, symmetric and asymmetric, 8 and 4 bits, bf16 and fp32.
@@ -174,6 +178,18 @@ PAGED_CASES = {
                      {"H": 64, "Hkv": 8, "page": 128}),
     "page32_mha": ([1, 33], [50, 97], {"H": 4, "Hkv": 4, "page": 32,
                                        "pad": 5}),
+    # the split-KV decode path (ops/ragged_paged_attention.split_plan):
+    # kv_len at a split boundary and one key past it (128-key splits here)
+    "split_boundary": ([1] * 4, [256, 257, 512, 513], {}),
+    "one_long_among_short": ([1] * 8, [1] * 7 + [2048], {}),
+    "window_across_splits": ([1] * 16, [128 + 120 * j for j in range(16)],
+                             {"window": 300}),
+    # one sequence: 64-key splits, so each hole page is a whole split
+    "holes_empty_a_split": ([1], [1000], {"holes": True}),
+    "d64_page16_decode": ([1] * 6, [100 * (j + 1) for j in range(6)],
+                          {"D": 64, "H": 16, "Hkv": 4, "page": 16}),
+    "d64_page128": ([1] * 5 + [20], [150 * (j + 1) for j in range(6)],
+                    {"D": 64, "H": 16, "Hkv": 4, "page": 128, "pad": 2}),
 }
 
 
@@ -203,6 +219,28 @@ def test_paged_kernels_match_plain(cuda, case, pdtype):
                                rtol=2e-2)
     n_real = int(meta[2][-1])
     assert (out[n_real:] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pdtype", ["bfloat16", "int8", "float8_e4m3fn"])
+def test_paged_kernels_are_bit_identical_twice(cuda, pdtype):
+    """No atomics: each split writes its own stats and the combine folds
+    them in split order, so two identical calls give the same bits."""
+    from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+
+    q_lens, kv_lens, _ = PAGED_CASES["decode"]
+    q, pages, scales, meta = paged_case(3, q_lens, kv_lens,
+                                        pdtype=getattr(torch, pdtype),
+                                        device=cuda)
+    S, pp = meta[1].shape
+    assert rpa.split_plan(q.shape[0], S, 32, 8, pp, 64)[0] > 1
+    fn = rpa.ragged_paged_attention_quant if scales is not None \
+        else rpa.ragged_paged_attention
+    extra = () if scales is None else (scales,)
+    first = fn(q, pages, *extra, *meta, sm_scale=0.1)
+    second = fn(q, pages, *extra, *meta, sm_scale=0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.gpu

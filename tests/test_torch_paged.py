@@ -18,6 +18,14 @@ and ``deepspeed_tpu_torch.inference.paged``:
   fp8 payloads and fp32 scales bit-equal.
 - The kernel wrappers route CPU tensors to the plain versions and count
   no launch.
+- The split-KV kernel's combine on the CPU: ``fold_stats`` and
+  ``neutral_carry`` against JAX's on seeded stats (neutral rows
+  included, atol 1e-6); the plain version's keys cut at arbitrary split
+  boundaries, each split's raw stats folded in order (and in the
+  kernel's closed form), equal the unsplit output (fp32, atol 1e-5: the
+  same sums in another order), with rows whose whole split is masked by
+  a window or made of holes; and ``split_plan``'s cuts at the v2 path's
+  shapes.
 """
 import dataclasses
 
@@ -361,3 +369,154 @@ def test_wrappers_take_any_head_dim_on_cpu(D):
 def test_kv_dequant_path_names_the_route():
     assert paged.kv_dequant_path(torch.device("cpu")) == "torch-gather"
     assert paged.kv_dequant_path(torch.device("cuda", 0)) == "cuda-quant"
+
+
+# -- the split-KV combine ------------------------------------------------------
+
+def _seeded_stats(seed, T, H, D, neutral_rows=()):
+    r = np.random.default_rng(seed)
+    m = (r.standard_normal((T, H)) * 3).astype(np.float32)
+    l = (r.random((T, H)) * 10 + 0.5).astype(np.float32)
+    acc = r.standard_normal((T, H, D)).astype(np.float32)
+    for t in neutral_rows:
+        m[t], l[t], acc[t] = jpaged._MASK_VALUE, 0.0, 0.0
+    return m, l, acc
+
+
+def test_neutral_carry_matches_jax():
+    got = paged.neutral_carry(3, 4, 8)
+    want = jpaged.neutral_carry(3, 4, 8)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("neutral", [(), (0, 2), (1,)])
+def test_fold_stats_matches_jax(neutral):
+    """A carry folded with fresh stats, each with neutral rows, in both
+    orders; atol 1e-6 (the same fp32 arithmetic, exp of either side)."""
+    T, H, D = 4, 3, 16
+    carry = _seeded_stats(10, T, H, D, neutral_rows=neutral)
+    cur = _seeded_stats(11, T, H, D, neutral_rows=neutral[:1])
+    for a, b in ((carry, cur), (cur, carry)):
+        want = jpaged.fold_stats(tuple(map(jnp.asarray, a)),
+                                 *map(jnp.asarray, b))
+        got = paged.fold_stats(tuple(map(torch.from_numpy, a)),
+                               *map(torch.from_numpy, b))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6,
+                                       rtol=1e-6)
+    # the neutral carry is the identity
+    m, l, acc = paged.fold_stats(paged.neutral_carry(T, H, D),
+                                 *map(torch.from_numpy, cur))
+    np.testing.assert_allclose(m.numpy(), np.maximum(cur[0],
+                                                     jpaged._MASK_VALUE))
+    np.testing.assert_allclose(l.numpy(), cur[1], rtol=1e-6)
+    np.testing.assert_allclose(acc.numpy(), cur[2], rtol=1e-6)
+
+
+def _real_tokens(meta, T):
+    return torch.arange(T) < meta[2][meta[3][0]]
+
+
+def _split_stats(q, pool, meta, sm, window, lo, hi):
+    """Raw stats of one split: the keys at positions [lo, hi), as the
+    kernel forms them: masked scores are _MASK_VALUE and count in l (p =
+    exp(MASK - m) = 1 while the split has no valid key)."""
+    kv_lens, table, cu, ns = meta
+    T, H, D = q.shape
+    P, page, combined, _ = pool.shape
+    Hkv, groups = combined // 2, H // (combined // 2)
+    seq_of_t, token_valid, q_pos = paged._token_layout(T, kv_lens, cu, ns)
+    key = torch.arange(lo, hi)
+    pg = table.long()[:, (key // page).clamp(max=table.shape[1] - 1)]
+    ok = (pg >= 0) & (key[None] // page < table.shape[1])          # [S, K]
+    rows = pg.clamp(min=0) * page + key[None] % page
+    flat = pool.reshape(P * page, combined, D)
+    k = flat[rows][..., 0::2, :].repeat_interleave(groups, dim=2)
+    v = flat[rows][..., 1::2, :].repeat_interleave(groups, dim=2)
+    k, v = k[seq_of_t], v[seq_of_t]                           # [T,K,H,D]
+    mask = (ok[seq_of_t] & (key[None] < kv_lens.long()[seq_of_t, None]) &
+            (key[None] <= q_pos[:, None]) & token_valid[:, None])
+    if window is not None:
+        mask &= key[None] > q_pos[:, None] - window
+    att = torch.einsum("thd,tkhd->thk", q, k) * sm
+    att = att.masked_fill(~mask[:, None, :], paged._MASK_VALUE)
+    m = att.amax(dim=-1)
+    p = torch.exp(att - m[..., None])
+    return m, p.sum(-1), torch.einsum("thk,tkhd->thd", p, v)
+
+
+@pytest.mark.parametrize("cuts", [(16,), (8, 24, 40), (5, 13, 50),
+                                  (8, 16, 24, 32)])
+@pytest.mark.parametrize("name", ["decode_and_prefill_gqa", "gqa4_window",
+                                  "interior_holes", "padding_tokens"])
+def test_split_stats_fold_to_the_plain_output(name, cuts):
+    """Keys cut at split boundaries, each split's raw stats folded in
+    split order with fold_stats (and in the kernel's closed form),
+    finalized as the kernel does, equal ref_paged_attention (fp32,
+    atol 1e-5).  The window and hole cases hold rows whose whole split
+    is masked."""
+    q_lens, kv_lens, H, Hkv, D, page, opt = CASES[name]
+    window = opt.get("window")
+    q, pool, _, meta = _case(1, q_lens, kv_lens, H, Hkv, D, page,
+                             holes=opt.get("holes", ()),
+                             pad=opt.get("pad", 0))
+    q, pool, meta = _torch(q), _torch(pool), [_torch(x) for x in meta]
+    sm = 1 / np.sqrt(D)
+    T = q.shape[0]
+    edges = [0, *[c for c in cuts if c < max(kv_lens)], max(kv_lens)]
+    splits = [_split_stats(q, pool, meta, sm, window, lo, hi)
+              for lo, hi in zip(edges[:-1], edges[1:])]
+    masked_split = any(((s[0] <= paged._MASK_VALUE * 0.5) &
+                        _real_tokens(meta, T)[:, None]).any()
+                       for s in splits)
+    # the window masks a decode row's first split; cuts at page edges
+    # make a split of holes only
+    if name == "gqa4_window" or (name == "interior_holes" and
+                                 cuts == (8, 16, 24, 32)):
+        assert masked_split, "no row with a wholly masked split"
+    carry = paged.neutral_carry(T, H, D)
+    for st in splits:
+        carry = paged.fold_stats(carry, *st)
+    m, l, acc = carry
+    # the closed form the kernel's combine takes: m = max m_z, weights
+    # exp(m_z - m)
+    mz = torch.stack([s[0] for s in splits])
+    w = torch.exp(mz - mz.amax(0))
+    l2 = (w * torch.stack([s[1] for s in splits])).sum(0)
+    acc2 = (w[..., None] * torch.stack([s[2] for s in splits])).sum(0)
+    torch.testing.assert_close(l2, l, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(acc2, acc, atol=1e-5, rtol=1e-5)
+    valid = m > paged._MASK_VALUE * 0.5
+    got = torch.where(valid[..., None], acc / l.clamp_min(1e-30)[..., None],
+                      0.0)
+    want = paged.ref_paged_attention(q, pool, *meta, sm_scale=sm,
+                                     sliding_window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape,want", [
+    # T, S, H, Hkv, pp, page: decode at 2048 keys, the mixed tick, 2 long
+    # sequences, a page table of 8192 keys, one sequence of 1024 keys
+    ((16, 16, 32, 8, 32, 64), (2, 16)),
+    ((520, 9, 32, 8, 24, 64), (1, 24)),
+    ((2, 2, 32, 8, 32, 64), (11, 3)),
+    ((16, 16, 32, 8, 128, 64), (2, 64)),
+    ((1, 1, 32, 8, 16, 64), (16, 1)),
+])
+def test_split_plan_at_the_v2_shapes(shape, want):
+    assert rpa.split_plan(*shape) == want
+
+
+@pytest.mark.parametrize("T,S", [(1, 1), (16, 16), (64, 16), (2048, 16)])
+@pytest.mark.parametrize("pp,page", [(1, 16), (7, 16), (512, 16),
+                                     (4096, 16), (33, 128), (300, 64)])
+def test_split_plan_covers_the_table_within_the_kernel_limits(T, S, pp,
+                                                               page):
+    splits, per = rpa.split_plan(T, S, 32, 8, pp, page)
+    stages = -(-pp * page // rpa.STAGE_KEYS)
+    assert splits * per >= stages and (splits - 1) * per < stages
+    assert per * rpa.STAGE_KEYS // page + 1 <= rpa.PT_MAX
+    if T > 2 * S and stages * rpa.STAGE_KEYS // page < rpa.PT_MAX:
+        assert splits == 1      # prefill ticks: no scratch
