@@ -14,8 +14,10 @@ Phases (any failed check raises; nothing is caught):
    wgmma serialization warning; their registers at launch, the
    ``setmaxnreg`` of each warpgroup role (from the SASS) and their
    shared memory are printed.  The paged kernels (``rpa_mma`` over bf16,
-   int8 and e4m3 pages and ``rpa_combine``, D=64 and 128) must show no
-   spill and no local memory.
+   int8 and e4m3 pages and ``rpa_combine``, D=64 and 128) and the
+   quantization kernels (``quant_ring``, ``quant_kernel`` and
+   ``dequant_kernel`` over bf16, fp16 and fp32) must show no spill and
+   no local memory.
 2. Kernel against plain: the flash-attention forward kernel against its
    plain PyTorch version on the card, in bf16 at the serving shape, the
    training shape (B 4, H 32/4, S 2048, D 64, causal) and three more,
@@ -76,10 +78,13 @@ Phases (any failed check raises; nothing is caught):
 11. Quantization kernels against plain: group-wise int8 quantize and
    dequantize (kernels #6 and #7) at the int8 serving path's shapes
    (``gate_proj`` [4096, 14336] at groups of 128 and 2048, the embedding
-   [128256, 4096]) and at tails, symmetric and asymmetric, 8 and 4 bits,
-   bf16 and fp32: payload, scale, offset and dequantized output
-   bit-identical to the plain versions.  Times both kernels, their plain
-   versions and their byte bounds.
+   [128256, 4096]), at groups of 32 and 64, in fp16, at a ZeRO++-like
+   flat shard of 2^26 values at groups of 2048 (fp32 8-bit, bf16 4-bit)
+   and at tails, symmetric and asymmetric, 8 and 4 bits, bf16 and fp32:
+   payload, scale, offset and dequantized output bit-identical to the
+   plain versions.  Times both kernels on the device (20 calls in a CUDA
+   graph, replayed) at ``gate_proj`` and the flat shard, beside the
+   wrapper's host loop, their plain versions and their byte bounds.
 12. The int8 slice: (a) ``init_inference`` on ``llama3-8b`` at full width
    and depth with ``quant.enabled`` int8 (groups of 128), phase 3's
    prompts greedy twice (identical tokens); kernel #6 launched 226 times
@@ -218,35 +223,41 @@ def phase_report():
                        ["dq_hopper", "dkv_hopper"],
                        lambda lib, k, d: lib.dstpu_flash_bwd_smem_bytes(
                            0 if k == "dq_hopper" else 1, d))
-    check_paged_build(built["ragged_paged_attn"])
+    # the bf16-query paged kernels (rpa_mma over bf16, int8 and e4m3 pages
+    # and rpa_combine, D=64 and 128; neither wgmma nor setmaxnreg), then
+    # quantize (the ring and the first design) and dequantize, 3 input
+    # types each
+    check_no_spill(built["ragged_paged_attn"], "ragged_paged_attn",
+                   ("rpa_mma", "rpa_combine"), 8)
+    check_no_spill(built["quantization"], "quantization",
+                   ("quant_ring", "quant_kernel", "dequant_kernel"), 18)
     return smi
 
 
-def check_paged_build(built):
-    """The bf16-query paged kernels (``rpa_mma`` over bf16, int8 and e4m3
-    pages and ``rpa_combine``, D=64 and 128), from ``ptxas -v``: no
-    spill and no local memory.  They use neither wgmma nor setmaxnreg."""
+def check_no_spill(built, name, kernels, count):
+    """The ``count`` kernels of library ``name`` whose names contain one
+    of ``kernels``, from ``ptxas -v``: no warning (the source's flags make
+    a spill or local memory one), no stack, no spill."""
     from deepspeed_tpu_torch.ops import builder
 
     if not built.log:           # built before this run: build it again
         built.path.unlink()
-        built = builder.build_all(["ragged_paged_attn"])["ragged_paged_attn"]
-    kernels = ("rpa_mma", "rpa_combine")
+        built = builder.build_all([name])[name]
     lines = built.log.splitlines()
     bad = [ln for ln in lines
            if "warning" in ln and any(k in ln for k in kernels)]
-    assert not bad, "ptxas warns about the paged kernels:\n" + "\n".join(bad)
+    assert not bad, f"ptxas warns about {kernels}:\n" + "\n".join(bad)
     props = {}
     for i, ln in enumerate(lines):
         if ln.startswith("ptxas info    : Function properties for") and \
                 any(k in ln for k in kernels):
             props[ln.split()[-1]] = (lines[i + 1].strip(),
                                      lines[i + 2].split(": ", 1)[-1].strip())
-    assert len(props) == 8, f"ptxas lines for {kernels}: {sorted(props)}"
-    for name, (frame, regs) in sorted(props.items()):
+    assert len(props) == count, f"ptxas lines for {kernels}: {sorted(props)}"
+    for fn, (frame, regs) in sorted(props.items()):
         assert frame.startswith("0 bytes stack frame, 0 bytes spill "
-                                "stores, 0 bytes spill loads"), (name, frame)
-        log(f"{name}: {regs}; {frame}")
+                                "stores, 0 bytes spill loads"), (fn, frame)
+        log(f"{fn}: {regs}; {frame}")
 
 
 def check_hopper_build(built, name, kernels, smem_bytes):
@@ -1382,9 +1393,11 @@ def quant_bound(n, gs, elem):
 def phase_quant_kernels():
     from deepspeed_tpu_torch.ops import quantization as qz
 
-    bf16, f32 = torch.bfloat16, torch.float32
-    gate, embed = (4096, 14336), (128256, 4096)
-    # name, shape, group size, dtype, bits, symmetric, timed
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    gate, embed, flat = (4096, 14336), (128256, 4096), (1 << 26,)
+    # name, shape, group size, dtype, bits, symmetric, timed.  The ZeRO++
+    # cases are a flat shard of 2^26 values at groups of 2048, as the
+    # quantized all-gather and reduce-scatter quantize one
     cases = [("gate_proj_g128", gate, 128, bf16, 8, True, True),
              ("gate_proj_g2048", gate, 2048, bf16, 8, True, True),
              ("embedding_g128", embed, 128, bf16, 8, True, False),
@@ -1397,21 +1410,29 @@ def phase_quant_kernels():
     # one element per access: n, then the group size, off the vector width
     cases += [("odd_n_bf16", (999, 1001), 128, bf16, 8, True, False),
               ("odd_group_fp32_asym", (300, 77), 100, f32, 8, False, False)]
+    # the ring's other lane splits (4 and 8 lanes a group), fp16 input
+    cases += [("gate_proj_g32", gate, 32, bf16, 8, True, False),
+              ("gate_proj_g64_asym", gate, 64, bf16, 8, False, False),
+              ("gate_proj_fp16", gate, 128, f16, 8, True, False),
+              ("zero_fp32_g2048", flat, 2048, f32, 8, True, True),
+              ("zero_bf16_4b_g2048", flat, 2048, bf16, 4, True, True)]
     entries = {}
     worst = {"quantize": 0.0, "dequantize": 0.0}
     for i, (name, shape, gs, dtype, bits, sym, timed) in enumerate(cases):
         gen = torch.Generator(device="cuda").manual_seed(SEED + 300 + i)
         # rows of mixed magnitude, as trained weights have
-        x = (torch.randn(shape, generator=gen, device="cuda") *
-             torch.rand(shape[0], 1, generator=gen, device="cuda") * 3
-             ).to(dtype)
+        rows = shape[0] if len(shape) > 1 else 4096
+        x = (torch.randn(rows, math.prod(shape) // rows, generator=gen,
+                         device="cuda") *
+             torch.rand(rows, 1, generator=gen, device="cuda") * 3
+             ).to(dtype).reshape(shape)
         kw = dict(num_bits=bits, group_size=gs, symmetric=sym)
         got = qz.quantize(x, **kw)
         back = qz.dequantize(got)
         want = qz.quantize_reference(x, **kw)
         want_back = qz.dequantize_reference(want)
         torch.cuda.synchronize()
-        word = torch.int16 if dtype == bf16 else torch.int32
+        word = torch.int16 if x.element_size() == 2 else torch.int32
         same = [torch.equal(got.values, want.values),
                 torch.equal(got.scale.view(torch.int32),
                             want.scale.view(torch.int32)),
@@ -1435,19 +1456,27 @@ def phase_quant_kernels():
                 "bit-identical to plain")
         if timed:
             bound, by = quant_bound(n, gs, x.element_size())
-            ms_q = time_ms(lambda: qz.quantize(x, **kw))
-            ms_d = time_ms(lambda: qz.dequantize(got))
+            # device time: 20 calls in a CUDA graph, replayed, so that the
+            # wrapper's host time per call is not in it
+            ms_q = graph_ms(lambda: qz.quantize(x, **kw))
+            ms_d = graph_ms(lambda: qz.dequantize(got))
+            host_q = time_ms(lambda: qz.quantize(x, **kw))
+            host_d = time_ms(lambda: qz.dequantize(got))
             plain_q = time_ms(lambda: qz.quantize_reference(x, **kw),
                               reps=3, warmup=1)
             plain_d = time_ms(lambda: qz.dequantize_reference(got), reps=3,
                               warmup=1)
-            line += (f"; quantize {ms_q:.4f} ms (plain {plain_q:.3f} ms), "
-                     f"dequantize {ms_d:.4f} ms (plain {plain_d:.3f} ms), "
-                     f"bound {bound:.4f} ms ({by}) each: "
-                     f"{bound / ms_q:.1%} and {bound / ms_d:.1%} of bound")
+            line += (f"; device time quantize {ms_q:.4f} ms (plain "
+                     f"{plain_q:.3f} ms), dequantize {ms_d:.4f} ms (plain "
+                     f"{plain_d:.3f} ms), bound {bound:.4f} ms ({by}) each: "
+                     f"{bound / ms_q:.1%} and {bound / ms_d:.1%} of bound; "
+                     f"the wrapper in a host loop (what an uncaptured "
+                     f"caller sees) {host_q:.4f} and {host_d:.4f} ms")
             for kname, ms, plain_ms, line_no in (
                     (f"quantize_int8_g{gs}", ms_q, plain_q, 41),
                     (f"dequantize_int8_g{gs}", ms_d, plain_d, 59)):
+                if not name.startswith("gate_proj"):
+                    continue    # the kernels line reports gate_proj
                 entries[kname] = dict(
                     name=kname, route="cuda",
                     source="deepspeed_tpu_torch/ops/csrc/quantization.cu",
@@ -1493,7 +1522,7 @@ def phase_int8_v1(bf16_greedy):
     torch.cuda.synchronize()
     assert qz.quantize.launches == n_weights, qz.quantize.launches
     weights = resident_bytes(engine.module)
-    log(f"int8 v1: llama3-8b up in {time.perf_counter() - t0:.1f} s; "
+    log(f"int8 v1: llama3-8b up in {time.perf_counter() - t0:.3f} s; "
         f"{qz.quantize.launches} weights quantized (groups of 128); "
         f"resident weights {weights / 2**30:.3f} GiB, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
@@ -1561,7 +1590,7 @@ def phase_int8_v2(bf16_outs):
     assert qz.quantize.launches == n_weights, qz.quantize.launches
     module = engine.module
     weights = resident_bytes(module)
-    log(f"int8 v2: llama3-8b engine up in {time.perf_counter() - t0:.1f} s;"
+    log(f"int8 v2: llama3-8b engine up in {time.perf_counter() - t0:.3f} s;"
         f" {qz.quantize.launches} weights quantized (groups of 2048); "
         f"resident weights {weights / 2**30:.3f} GiB, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")

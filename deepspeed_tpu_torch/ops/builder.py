@@ -26,13 +26,14 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# flags a source adds to NVCC_FLAGS: the TMA/wgmma flash kernels and the
-# paged kernels have ptxas name any spill or local-memory use as a
-# warning, which the smoke refuses
+# flags a source adds to NVCC_FLAGS: the TMA/wgmma flash kernels, the
+# paged kernels and the quantize ring have ptxas name any spill or
+# local-memory use as a warning, which the smoke refuses
 EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
     "flash_fwd": ("-Xptxas", "-warn-spills,-warn-lmem-usage"),
     "flash_bwd": ("-Xptxas", "-warn-spills,-warn-lmem-usage"),
     "ragged_paged_attn": ("-Xptxas", "-warn-spills,-warn-lmem-usage"),
+    "quantization": ("-Xptxas", "-warn-spills,-warn-lmem-usage"),
 }
 
 

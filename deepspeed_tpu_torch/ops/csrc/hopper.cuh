@@ -178,6 +178,19 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// Copy `bytes` contiguous bytes from global `src` to shared `dst` with the
+// bulk-copy engine (no tensor map); completion counts the bytes on `bar`.
+// `src` and `dst` must be 16-byte aligned and `bytes` a multiple of 16: a
+// source off 16 bytes faults ("illegal instruction").
+__device__ __forceinline__ void bulk_load_1d(uint32_t dst, const void* src,
+                                             uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // Store the box at `src` to the map's coordinates; rows outside the view
 // are not written.  Call fence_proxy_async and sync the writers first;
 // then tma_store_commit and tma_store_wait before `src` is reused or the

@@ -22,8 +22,10 @@ ones, a window across splits, holes that empty a whole split, D=64 with
 16- and 128-row pages, and two calls bit-identical; and group-wise int8
 quantize and
 dequantize (``quantization.cu``) at the int8 serving path's shapes
-(``gate_proj`` at groups of 128 and 2048, the embedding table) and at
-tails, symmetric and asymmetric, 8 and 4 bits, bf16 and fp32.
+(``gate_proj`` at groups of 128 and 2048, the embedding table), at groups
+of 32, 64, 256 and 4096, 4 bits at 2048, fp16 input, n off a whole tile,
+tails, and an input one value off 16 bytes, symmetric and asymmetric,
+bf16 and fp32.
 
 Tolerances: bf16 flash outputs 2e-2 (p and o round to bf16 at 2^-8
 relative, in different places in the kernel and the plain version); bf16
@@ -471,13 +473,27 @@ def test_fused_lion_matches_plain(cuda, skip):
 
 # (shape, group size, dtype, bits, symmetric): the int8 serving path's
 # weights in bf16 at v1's and v2's group sizes, then tails (n % gs != 0)
-# in every mode, and a group size the vector path cannot take
+# in every mode, and a group size the vector path cannot take; then the
+# ring path's other lane and row splits (groups of 32, 64 and 256, and
+# of 4096 over 8 rows), fp16 input, 4 bits at 2048 as ZeRO++ quantizes,
+# and n off a whole tile (the last tile holds fewer groups, the last
+# group padding) in bf16 and in fp32 at 4096 (one group a tile)
 QUANT_CASES = [((4096, 14336), 128, "bfloat16", 8, True),
                ((4096, 14336), 2048, "bfloat16", 8, True),
                ((128256, 4096), 2048, "bfloat16", 8, True)] + [
     ((1000, 1001), 128, dt, bits, sym)
     for dt in ("bfloat16", "float32") for bits in (8, 4)
-    for sym in (True, False)] + [((300, 77), 100, "float32", 8, False)]
+    for sym in (True, False)] + [((300, 77), 100, "float32", 8, False)] + [
+    ((4096, 14336), 32, "bfloat16", 8, True),
+    ((4096, 14336), 64, "bfloat16", 8, False),
+    ((1024, 4096), 256, "bfloat16", 8, True),
+    ((512, 14336), 4096, "bfloat16", 8, True),
+    ((4096, 4096), 128, "float16", 8, True),
+    ((4096, 4096), 2048, "float16", 8, False),
+    ((4096, 4096), 2048, "bfloat16", 4, True),
+    ((1000, 1004), 256, "float32", 8, False),
+    ((777, 1000), 128, "bfloat16", 8, True),
+    ((77, 4104), 4096, "float32", 8, True)]
 
 
 def _float_bits(t):
@@ -512,6 +528,30 @@ def test_quant_kernels_match_plain(cuda, case):
     out = torch.empty_like(x)
     assert qz.dequantize(got, out=out) is out
     assert torch.equal(_float_bits(out), _float_bits(want_back))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_quant_kernels_off_16_bytes_match_plain(cuda, dtype):
+    """An input one value past a 16-byte boundary (2 bytes in bf16, 4 in
+    fp32), sliced from a larger tensor: the ring's bulk copy cannot read
+    it, so it takes the one-value-an-access path, bit-identical all the
+    same."""
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    g = torch.Generator().manual_seed(11)
+    dt = getattr(torch, dtype)
+    base = (torch.randn(1000 * 1024 + 8, generator=g) * 2).to(cuda, dt)
+    x = base[1:1 + 1000 * 1024].view(1000, 1024)
+    assert x.data_ptr() % 16 == base.element_size() and x.is_contiguous()
+    got = qz.quantize(x, group_size=128)
+    back = qz.dequantize(got)
+    want = qz.quantize_reference(x, group_size=128)
+    torch.cuda.synchronize()
+    assert torch.equal(got.values, want.values)
+    assert torch.equal(_float_bits(got.scale), _float_bits(want.scale))
+    assert torch.equal(_float_bits(back),
+                       _float_bits(qz.dequantize_reference(want)))
 
 
 @pytest.mark.gpu

@@ -4,10 +4,10 @@
   the JAX functions' jnp branch, which the JAX engines run off the TPU:
   bit-exact payload, scale, offset and dequantized output, symmetric and
   asymmetric, 8 and 4 bits, groups of 128 and 2048 and a shape with a
-  tail group, bf16 and fp32 inputs.  Under ``jax.jit`` the dequant is
-  bit-exact too, except fp32 asymmetric, where XLA's CPU backend
-  contracts ``v * s + o`` into one FMA (one rounding, not two): there it
-  is held within 1 ulp.
+  tail group and groups of 32, bf16, fp16 and fp32 inputs.  Under
+  ``jax.jit`` the dequant is bit-exact too, except fp32 and fp16
+  asymmetric, where XLA's CPU backend contracts ``v * s + o`` into one
+  FMA (one rounding, not two): there it is held within 1 ulp.
 - The same against the Pallas kernels in interpret mode, which are not
   bit-exact with their own jnp branch: scale within 1 ulp, payload within
   one step, dequant within one scale step.
@@ -41,10 +41,12 @@ from deepspeed_tpu_torch.models import llama
 from deepspeed_tpu_torch.module_inject.flax_bridge import flax_to_state_dict
 from deepspeed_tpu_torch.ops import quantization as q
 
-# (shape, group size): whole groups of 128 and 2048, and a tail group
+# (shape, group size): whole groups of 128 and 2048, a tail group, and
+# groups of 32 (the kernel's lane split of two lanes a group)
 CASES = {"gs128": ((48, 256), 128), "gs2048": ((32, 256), 2048),
-         "tail": ((37, 53), 128)}
-_BITS = {torch.bfloat16: np.uint16, torch.float32: np.uint32}
+         "tail": ((37, 53), 128), "gs32": ((40, 96), 32)}
+_BITS = {torch.bfloat16: np.uint16, torch.float16: np.uint16,
+         torch.float32: np.uint32}
 
 
 def _inputs(shape, dtype, seed=0):
@@ -53,8 +55,7 @@ def _inputs(shape, dtype, seed=0):
     rng = np.random.default_rng(seed)
     x = (rng.standard_normal(shape) *
          rng.uniform(0.01, 3.0, size=(shape[0], 1))).astype(np.float32)
-    jx = jnp.asarray(x, dtype=jnp.bfloat16 if dtype == "bfloat16"
-                     else jnp.float32)
+    jx = jnp.asarray(x, dtype=getattr(jnp, dtype))
     tx = torch.from_numpy(np.asarray(jx).view(_BITS[getattr(torch, dtype)])
                           .copy()).view(getattr(torch, dtype))
     return jx, tx
@@ -64,7 +65,7 @@ def _bits(a):
     """Raw bits of a float array or tensor, for bit-exact comparison."""
     if isinstance(a, torch.Tensor):
         return a.contiguous().view(
-            torch.int16 if a.dtype == torch.bfloat16 else torch.int32).numpy()
+            torch.int16 if a.element_size() == 2 else torch.int32).numpy()
     a = np.asarray(a)
     return a.view(np.int16 if a.dtype.itemsize == 2 else np.int32)
 
@@ -76,7 +77,7 @@ def _jit_dequant(qt):
 
 
 @pytest.mark.parametrize("case", list(CASES))
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("symmetric", [True, False])
 def test_plain_matches_jnp_branch_bit_exact(case, dtype, bits, symmetric):
@@ -95,8 +96,9 @@ def test_plain_matches_jnp_branch_bit_exact(case, dtype, bits, symmetric):
     assert x.dtype == tx.dtype and x.shape == tx.shape
     np.testing.assert_array_equal(_bits(x), _bits(jax_q.dequantize(want)))
     jitted = _jit_dequant(want)
-    if dtype == "float32" and not symmetric:
-        # one FMA under jit against a multiply then an add: 1 ulp
+    if dtype != "bfloat16" and not symmetric:
+        # one FMA under jit against a multiply then an add: 1 ulp of fp32,
+        # which an fp16 output keeps now and then (bf16 rounds it away)
         ulps = np.abs(_bits(x).astype(np.int64) - _bits(jitted))
         assert ulps.max() <= 1
     else:
