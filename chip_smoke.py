@@ -97,6 +97,22 @@ Phases (any failed check raises; nothing is caught):
    card and on the CPU are byte-identical, and 4 greedy v2 requests give
    the same tokens (the margin rule of phase 7).
 
+13. ZeRO across ranks: ``init_distributed(dist_backend="nccl")`` (one
+   rank: NCCL puts one rank on each card, and the run needs one card),
+   then ``initialize`` at ``zero_optimization.stage`` 1, 2 and 3 on
+   ``llama-1b`` at full width and depth, 3 AdamW steps each on phase 9's
+   seed and batch, losses within rtol 2e-3 of phase 9's stage 0 (the
+   reference's ``tests/unit/test_engine.py:55`` bound); 2 Lion steps at
+   stage 2 against phase 9's Lion.  Every step launches the fused
+   optimizer exactly once and issues exactly the plan's collectives
+   (``comms_logger`` counts against ``plan.step_collectives``).  Step ms
+   and peak GiB per stage (of the init and of the steps).  Every one of
+   those collectives goes through the NCCL group (``comm.backend_calls``),
+   a world of one's too: none is a local copy.  Then the stage-3
+   engine's partitioned checkpoint at full depth
+   (``build/smoke_zero_ckpt``, removed afterwards): save, 2 more steps,
+   and a fresh engine that loads and retakes them, bit-identically.
+
 Phases 3 and 6 (serving) keep their full depth: the whole run stays well
 inside its time limit.  The line before the last is the ``kernels`` JSON;
 the last line is
@@ -1283,7 +1299,8 @@ def phase_train():
     del engine, model
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, {"AdamW": losses, "Lion": lion,
+                      "step_ms": steady * 1e3, "peak_gib": peak}
 
 
 # ---------------------------------------------------------------------------
@@ -1651,6 +1668,141 @@ def phase_int8_cpu_parity():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: ZeRO stages 1-3 over NCCL at full width and depth
+# ---------------------------------------------------------------------------
+
+STAGE_LOSS_RTOL = 2e-3   # the reference's tests/unit/test_engine.py:55
+
+
+def zero_run(cfg, config, batch, steps):
+    """``steps`` train_batch calls on a fresh engine: losses, step ms,
+    peak GiB of the init and of the steps, and each step's
+    fused-optimizer launches and collectives (by the engine's log names)
+    checked exactly against the plan, every one of them through the
+    process group (``comm.backend_calls``), none a local copy."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.llama import LlamaLMLoss
+    from deepspeed_tpu_torch.ops import fused_adam as fo
+
+    opt = fo.fused_lion if config["optimizer"]["type"] == "Lion" \
+        else fo.fused_adam
+    opt.launches = 0                    # the main path's run starts here
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.device("meta"):
+        model = LlamaLMLoss(cfg)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=config,
+        generator=torch.Generator(device="cuda").manual_seed(SEED))
+    peaks = [torch.cuda.max_memory_allocated() / 2**30]
+    torch.cuda.reset_peak_memory_stats()
+    want = engine.plan.step_collectives(engine.gas)
+    losses, step_ms = [], []
+    for step in range(steps):
+        before, launched = comm.comms_logger.counts(), opt.launches
+        through = dict(comm.backend_calls)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(engine.train_batch(batch=batch)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        after = comm.comms_logger.counts()
+        got = {k: after[k] - before.get(k, 0) for k in after
+               if after[k] != before.get(k, 0)}
+        assert got == want, f"step {step}: collectives {got}, plan {want}"
+        nccl = {k: v - through.get(k, 0) for k, v in
+                comm.backend_calls.items() if v != through.get(k, 0)}
+        assert nccl == want, \
+            f"step {step}: through the process group {nccl}, plan {want}"
+        assert opt.launches - launched == 1, \
+            f"step {step}: {opt.launches - launched} {opt.__name__} launches"
+    peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+    return engine, model, losses, step_ms, peaks, want
+
+
+def phase_zero(stage0):
+    """ZeRO stages 1-3 through ``initialize`` over an NCCL process group,
+    at ``llama-1b``'s full width and depth on phase 9's seed and batch,
+    against phase 9's stage-0 losses; the stage-3 engine's partitioned
+    checkpoint resumes bit-identically."""
+    import shutil
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.llama import get_config
+
+    # one rank: NCCL puts one rank on each card, and the run needs one
+    comm.init_distributed(dist_backend="nccl")
+    log(f"zero: NCCL process group up, world size "
+        f"{comm.get_process_count()} ({torch.cuda.device_count()} card(s) "
+        f"visible), backend {comm.get_backend_name()}")
+    assert comm.get_backend_name() == "nccl"
+    cfg = get_config("llama-1b")
+    batch = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                 size=(8, 2048))
+    zero = {"comms_logger": {"enabled": True}}
+    log(f"zero: stage 0 (phase 9): losses "
+        f"{[round(x, 4) for x in stage0['AdamW'][:3]]}, step "
+        f"{stage0['step_ms']:.1f} ms, peak {stage0['peak_gib']:.2f} GiB")
+    for stage in (1, 2, 3):
+        conf = train_config(zero_optimization={"stage": stage}, **zero)
+        engine, model, losses, step_ms, peaks, want = zero_run(
+            cfg, conf, batch, 3)
+        gap = max(abs(a - b) / abs(b) for a, b in
+                  zip(losses, stage0["AdamW"][:3]))
+        log(f"zero: stage {stage}: losses {[round(x, 4) for x in losses]}, "
+            f"largest gap to stage 0 {gap:.3e} (limit {STAGE_LOSS_RTOL}); "
+            f"step ms {[round(x, 1) for x in step_ms]}; peak {peaks[0]:.2f} "
+            f"GiB in the init, {peaks[1]:.2f} GiB in the steps; buffers "
+            f"{engine.buffer_numels()}; per step: 1 fused_adam launch, "
+            f"collectives {want}, all of them through NCCL")
+        assert gap <= STAGE_LOSS_RTOL, (stage, losses, stage0["AdamW"])
+        if stage < 3:
+            del engine, model
+
+    # the stage-3 engine's partitioned checkpoint, at full depth
+    ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_zero_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t = time.perf_counter()
+    engine.save_checkpoint(ckpt)
+    save_s = time.perf_counter() - t
+    cont = [float(engine.train_batch(batch=batch)) for _ in range(2)]
+    want_p = engine.state.params.clone()
+    del engine, model
+    fresh, model, _, _, _, _ = zero_run(cfg, conf, batch, 0)
+    t = time.perf_counter()
+    path, _ = fresh.load_checkpoint(ckpt)
+    load_s = time.perf_counter() - t
+    again = [float(fresh.train_batch(batch=batch)) for _ in range(2)]
+    same = torch.equal(fresh.state.params, want_p)
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(ckpt) for f in fs) / 2**30
+    log(f"zero: stage-3 checkpoint of {cfg.num_hidden_layers} layers "
+        f"({size:.2f} GiB): saved in {save_s:.1f} s, loaded (verified) in "
+        f"{load_s:.1f} s; losses {cont} then {again}; master "
+        f"bit-identical: {same}")
+    assert path is not None and again == cont and same, \
+        "the resumed stage-3 run differs"
+    del fresh, model, want_p
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    engine, model, lion, _, _, want = zero_run(
+        cfg, train_config("Lion", lr=3e-5, zero_optimization={"stage": 2},
+                          **zero), batch, 2)
+    gap = max(abs(a - b) / abs(b) for a, b in zip(lion, stage0["Lion"]))
+    log(f"zero: stage 2 Lion: losses {[round(x, 4) for x in lion]}, gap "
+        f"{gap:.3e}; per step 1 fused_lion launch, collectives {want}, "
+        f"all of them through NCCL")
+    assert gap <= STAGE_LOSS_RTOL, (lion, stage0["Lion"])
+    del engine, model
+    comm.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -1676,7 +1828,7 @@ def main() -> int:
     gc.collect()
     train = phase_train_kernels()
     log(f"phase 8 done at {time.perf_counter() - t0:.1f} s")
-    launches = phase_train()
+    launches, stage0 = phase_train()
     for name, e in train.items():
         e["launches"] = launches[name]
     log(f"phase 9 done at {time.perf_counter() - t0:.1f} s")
@@ -1690,6 +1842,8 @@ def main() -> int:
         quant[f"dequantize_int8_g{gs}"]["launches"] = launches[1]
     phase_int8_cpu_parity()
     log(f"phase 12 done at {time.perf_counter() - t0:.1f} s")
+    phase_zero(stage0)
+    log(f"phase 13 done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [entry, paged, paged_quant] +
                     [train[k] for k in ("flash_bwd_dq", "flash_bwd_dkv",
                                         "fused_adam", "fused_lion")] +

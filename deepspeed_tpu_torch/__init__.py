@@ -8,8 +8,10 @@ points run on the GPU unless the caller passes ``device="cpu"``.
 
 Ported so far, on the Llama family: the v1 serving path,
 ``init_inference`` -> ``InferenceEngine.generate``; the ragged v2 serving
-path, ``RaggedInferenceEngineV2`` over a paged KV pool; and single-GPU
-training at ZeRO stage 0, ``initialize`` -> ``engine.train_batch`` ->
+path, ``RaggedInferenceEngineV2`` over a paged KV pool; and training at
+ZeRO stages 0-3 (with hpZ) over the data-parallel ranks of a
+``torch.distributed`` process group (``deepspeed_tpu_torch.comm``), or in
+one process, ``initialize`` -> ``engine.train_batch`` ->
 ``engine.save_checkpoint`` / ``engine.load_checkpoint``.
 """
 from deepspeed_tpu_torch.inference.engine import init_inference

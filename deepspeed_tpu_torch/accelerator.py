@@ -13,9 +13,11 @@ explicitly, and an error, never a silent CPU run, when there is no GPU.
 from __future__ import annotations
 
 import importlib.util
+import os
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 DeviceLike = Union[None, str, int, torch.device]
 
@@ -25,7 +27,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
     ``None`` means the current CUDA device and raises when no GPU is
     present; the CPU is used only when the caller asks for it
-    (``device="cpu"``, as the tests do)."""
+    (``device="cpu"``, as the tests do).  Under an initialised process
+    group, ``cuda`` without an index is ``cuda:LOCAL_RANK`` (one GPU per
+    rank, as ``torchrun`` sets it)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -33,7 +37,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "no CUDA GPU is available; the port runs on the GPU unless "
                 "the caller passes device='cpu'")
         if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+            index = torch.cuda.current_device()
+            if dist.is_available() and dist.is_initialized() and \
+                    "LOCAL_RANK" in os.environ:
+                index = int(os.environ["LOCAL_RANK"])
+            dev = torch.device("cuda", index)
     return dev
 
 

@@ -1,4 +1,5 @@
-"""Checkpoint save and load for the training engine, one process.
+"""Checkpoint save and load for the training engine, at any world size
+and ZeRO stage.
 
 Counterpart of ``deepspeed_tpu/checkpoint/engine.py`` (the reference's
 ``engine.py:3213 save_checkpoint`` / ``:2867 load_checkpoint``) with its
@@ -16,8 +17,12 @@ hardened commit protocol:
 A checkpoint carries what the JAX one does: params, optimizer moments and
 count, loss-scale state, step, skipped steps, the generator state (the
 PRNG key's counterpart), the LR scheduler, the dataloader cursor and
-``client_state``.  Async save raises (ROADMAP A5); legacy pickles, the
-NVMe tiers and ``zero_to_fp32`` are not ported.
+``client_state``.  Every rank writes its own pieces of the partitioned
+state (``sharded.py``); rank 0 writes the rest, verifies on load and
+commits, and the ranks meet at barriers between.  The pieces are
+addressed by leaf, so a save at (world W, stage k) loads at (W', k').
+The directory must be one all ranks see.  Async save raises (ROADMAP
+A5); legacy pickles, the NVMe tiers and ``zero_to_fp32`` are not ported.
 """
 from __future__ import annotations
 
@@ -28,7 +33,9 @@ import pickle
 import shutil
 from typing import Dict, List, Optional, Tuple
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.checkpoint import sharded
+from deepspeed_tpu_torch.resilience import faults
 from deepspeed_tpu_torch.resilience.retry import retriable
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
@@ -57,35 +64,43 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     tag = _tag_of(engine, tag)
     path = os.path.join(save_dir, tag)
     stage = os.path.join(save_dir, STAGING_PREFIX + tag)
-    if os.path.isdir(stage):                 # leftover of a crashed save
-        shutil.rmtree(stage, ignore_errors=True)
-    os.makedirs(stage)
-    sharded.save_tree(engine.checkpoint_tree(), stage)
-    st = engine.state
-    extra = {
-        "loss_scale": {k: v.item() for k, v in
-                       dataclasses.asdict(st.scale).items()},
-        "step": int(st.step),
-        "rng": st.generator.get_state(),
-        "skipped_steps": int(st.skipped_steps),
-        "lr_scheduler": engine.lr_scheduler.state_dict(),
-        "global_steps": engine.global_steps,
-        "global_samples": engine.global_samples,
-        "client_state": client_state or {},
-    }
-    dl = engine.training_dataloader
-    if dl is not None and callable(getattr(dl, "state_dict", None)):
-        dl_state = dl.state_dict()
-        if dl_state is not None:
-            extra["dataloader"] = dl_state
-    meta = {"tag": tag, "format": "sharded-v1", "zero_stage": 0,
-            "world_size": 1, "process_count": 1,
-            "dtype": str(engine.compute_dtype).removeprefix("torch.")}
-    _write_pickle(os.path.join(stage, EXTRA_FILE), extra)
-    _write_json(os.path.join(stage, META_FILE), meta)
-    _commit_tag(save_dir, tag, save_latest=save_latest,
-                keep_last_k=engine.config.resilience.keep_last_k)
-    log_dist(f"saved checkpoint {path}", ranks=[0])
+    rank, world = comm.get_rank(), comm.get_process_count()
+    if rank == 0:
+        if os.path.isdir(stage):             # leftover of a crashed save
+            shutil.rmtree(stage, ignore_errors=True)
+        os.makedirs(stage)
+    comm.barrier()
+    sharded.save_pieces(engine.checkpoint_pieces(), stage, proc=rank)
+    comm.barrier()
+    if rank == 0:
+        st = engine.state
+        extra = {
+            "loss_scale": {k: v.item() for k, v in
+                           dataclasses.asdict(st.scale).items()},
+            "step": int(st.step),
+            "rng": st.generator.get_state(),
+            "skipped_steps": int(st.skipped_steps),
+            "lr_scheduler": engine.lr_scheduler.state_dict(),
+            "global_steps": engine.global_steps,
+            "global_samples": engine.global_samples,
+            "client_state": client_state or {},
+        }
+        dl = engine.training_dataloader
+        if dl is not None and callable(getattr(dl, "state_dict", None)):
+            dl_state = dl.state_dict()
+            if dl_state is not None:
+                extra["dataloader"] = dl_state
+        meta = {"tag": tag, "format": "sharded-v2",
+                "zero_stage": engine.zero_stage,
+                "world_size": engine.dp_world_size, "process_count": world,
+                "dtype": str(engine.compute_dtype).removeprefix("torch.")}
+        _write_pickle(os.path.join(stage, EXTRA_FILE), extra)
+        _write_json(os.path.join(stage, META_FILE), meta)
+        _commit_tag(save_dir, tag, save_latest=save_latest,
+                    keep_last_k=engine.config.resilience.keep_last_k,
+                    process_count=world)
+        log_dist(f"saved checkpoint {path}", ranks=[0])
+    comm.barrier()
     return path
 
 
@@ -112,18 +127,19 @@ def _write_latest(save_dir: str, tag: str) -> None:
 
 
 def _commit_tag(save_dir: str, tag: str, save_latest: bool,
-                keep_last_k: int) -> None:
+                keep_last_k: int, process_count: int = 1) -> None:
     """Atomically publish ``tmp.<tag>`` as ``<tag>``, then point
     ``latest`` at it and garbage-collect old tags."""
     stage = os.path.join(save_dir, STAGING_PREFIX + tag)
     final = os.path.join(save_dir, tag)
-    if not sharded.is_complete(stage):
+    if not sharded.is_complete(stage, process_count):
         raise RuntimeError(f"commit of {tag!r}: the shards were not all "
                            "written")
     if os.path.isdir(final):
         # re-saving an existing tag replaces it (not crash-atomic for the
         # overwrite; new-tag saves, the training-loop path, are)
         shutil.rmtree(final)
+    faults.hook("ckpt.commit", path=final)
     os.rename(stage, final)
     sharded.fsync_dir(save_dir)
     if save_latest:
@@ -216,7 +232,8 @@ def _resolve_verified_tag(engine, load_dir: str, tag: Optional[str]
                 return None
             ok, reason = False, "no extra_states (interrupted save?)"
         elif verify:
-            ok, reason = sharded.verify_tag(path, process_count=1, deep=True)
+            ok, reason = sharded.verify_tag(
+                path, process_count=_process_count(path), deep=True)
         else:
             ok, reason = True, "ok"
         if ok:
@@ -236,6 +253,31 @@ def _resolve_verified_tag(engine, load_dir: str, tag: Optional[str]
         logger.warning(f"falling back to tag {tag!r}")
 
 
+def _process_count(path: str) -> Optional[int]:
+    """How many processes wrote the tag (its meta), or None if unknown."""
+    try:
+        with open(os.path.join(path, META_FILE)) as f:
+            return int(json.load(f).get("process_count", 1))
+    except (OSError, ValueError):
+        return None
+
+
+def _resolve_on_rank0(engine, load_dir: str, tag: Optional[str]
+                      ) -> Optional[str]:
+    """Rank 0 resolves, verifies and (on a fault) quarantines; every rank
+    gets its answer, or the error it raised."""
+    answer = None
+    if comm.get_rank() == 0:
+        try:
+            answer = ("ok", _resolve_verified_tag(engine, load_dir, tag))
+        except (RuntimeError, OSError) as e:
+            answer = ("error", f"{type(e).__name__}: {e}")
+    answer = comm.broadcast_object(answer)
+    if answer[0] == "error":
+        raise RuntimeError(answer[1])
+    return answer[1]
+
+
 def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
                     load_optimizer_states: bool = True,
                     load_lr_scheduler_states: bool = True
@@ -244,13 +286,13 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     with verify-quarantine-fallback).  Returns ``(path, client_state)``,
     or ``(None, None)`` when nothing verified."""
     requested = tag
-    tag = _resolve_verified_tag(engine, load_dir, tag)
+    tag = _resolve_on_rank0(engine, load_dir, tag)
     if tag is None:
         return None, None
     path = os.path.join(load_dir, tag)
-    if not sharded.is_complete(path):
+    if not sharded.is_complete(path, _process_count(path) or 1):
         raise RuntimeError(f"checkpoint {path} is incomplete")
-    if requested is None:
+    if requested is None and comm.get_rank() == 0:
         latest = os.path.join(load_dir, LATEST_FILE)
         stale = True
         if os.path.exists(latest):
@@ -263,10 +305,10 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
                 pass    # read-only checkpoint mount
     with open(os.path.join(path, EXTRA_FILE), "rb") as f:
         extra = pickle.load(f)
-    tree = engine.checkpoint_tree()
+    pieces = engine.checkpoint_pieces(for_load=True)
     if not load_optimizer_states:
-        tree = {"module": tree["module"]}
-    sharded.load_tree(tree, path)
+        pieces = [p for p in pieces if p[0].startswith("module/")]
+    sharded.load_pieces(pieces, path)
     st = engine.state
     for name, val in extra["loss_scale"].items():
         getattr(st.scale, name).fill_(val)

@@ -385,18 +385,28 @@ class LlamaForCausalLM(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """Random weights drawn from ``generator`` in place, in the dtype
-        and on the device the parameters already have: linear weights
-        N(0, 1/fan_in), embeddings N(0, 1), norms 1, biases 0."""
+        and on the device the parameters already have, module by module
+        in ``modules()`` order (:meth:`init_module_weights`)."""
         for mod in self.modules():
-            if isinstance(mod, nn.Linear):
-                mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features),
-                                   generator=generator)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, nn.Embedding):
-                mod.weight.normal_(0.0, 1.0, generator=generator)
-            elif isinstance(mod, RMSNorm):
-                mod.weight.fill_(1.0)
+            self.init_module_weights(mod, generator)
+
+    @staticmethod
+    @torch.no_grad()
+    def init_module_weights(mod: nn.Module,
+                            generator: torch.Generator) -> None:
+        """One module's own weights: linear weights N(0, 1/fan_in),
+        embeddings N(0, 1), norms 1, biases 0.  Calling it on every
+        module in ``modules()`` order draws what :meth:`init_weights`
+        draws, so a caller may hold one module's weights at a time."""
+        if isinstance(mod, nn.Linear):
+            mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features),
+                               generator=generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.Embedding):
+            mod.weight.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(mod, RMSNorm):
+            mod.weight.fill_(1.0)
 
 
 def next_token_loss(logits: torch.Tensor,
@@ -428,6 +438,8 @@ class LlamaLMLoss(nn.Module):
 
     def init_weights(self, generator: torch.Generator) -> None:
         self.lm.init_weights(generator)
+
+    init_module_weights = staticmethod(LlamaForCausalLM.init_module_weights)
 
 
 def flops_per_token(cfg: LlamaConfig, seq_len: Optional[int] = None

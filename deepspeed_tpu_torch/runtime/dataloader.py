@@ -2,9 +2,10 @@
 
 Copy of ``deepspeed_tpu/runtime/dataloader.py`` (the reference's
 ``runtime/dataloader.py``: ``DeepSpeedDataLoader`` + ``RepeatingLoader``)
-without ``shard_batch``, which has no single-GPU counterpart: the engine
-moves each batch to its device.  Works with any iterable / indexable
-dataset yielding numpy arrays, dicts of arrays, or tuples.
+without ``shard_batch``: each rank runs its own process and loads only
+the rows it trains on, and the engine moves them to its device.  Works
+with any indexable dataset yielding numpy arrays, dicts of arrays, or
+tuples.
 """
 from __future__ import annotations
 
@@ -67,18 +68,36 @@ class DeepSpeedDataLoader:
     mid-epoch from the next unseen batch instead of replaying (double-
     training) or skipping (never seeing) the interrupted epoch's data;
     the shuffle permutation is a pure function of ``seed + epoch``, so
-    the resumed sequence is identical to the uninterrupted one."""
+    the resumed sequence is identical to the uninterrupted one.
+
+    Across ``world_size`` data-parallel ranks every rank draws the same
+    global batches and collates only its own rows: each global batch is
+    a run of micro-batches of ``micro_batch_size * world_size`` samples,
+    and rank ``r`` takes rows ``[r * micro_batch_size, (r + 1) *
+    micro_batch_size)`` of each, as the engine cuts a global batch
+    (``runtime/engine.py``).  The cursor counts global batches, so it
+    carries over to another world size."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 1234, drop_last: bool = True,
-                 collate_fn=None, world_size: int = 1):
+                 collate_fn=None, world_size: int = 1, rank: int = 0,
+                 micro_batch_size: Optional[int] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
         self.collate_fn = collate_fn or _stack
-        self.world_size = int(world_size)   # recorded for elastic resume
+        self.world_size = int(world_size)
+        self.rank = int(rank)
+        if self.world_size > 1:
+            if micro_batch_size is None or batch_size % (
+                    micro_batch_size * self.world_size):
+                raise ValueError(
+                    f"batch_size {batch_size} is not a whole number of "
+                    f"micro-batches of {micro_batch_size} x world "
+                    f"{self.world_size}")
+            self.micro_batch_size = int(micro_batch_size)
         self.epoch = 0              # epoch the NEXT batch comes from
         self.cursor = 0             # batches already served this epoch
         if not hasattr(dataset, "__len__") or not hasattr(dataset, "__getitem__"):
@@ -103,6 +122,12 @@ class DeepSpeedDataLoader:
             if bi < self.cursor:
                 continue            # resume mid-epoch: skip served batches
             sel = idx[start:start + self.batch_size]
+            if self.world_size > 1:
+                if sel.size < self.batch_size:
+                    break           # a short tail does not split over ranks
+                m = self.micro_batch_size
+                sel = sel.reshape(-1, self.world_size, m)[:, self.rank]
+                sel = sel.reshape(-1)
             batch = self.collate_fn([self.dataset[int(i)] for i in sel])
             self.cursor = bi + 1
             yield batch

@@ -505,7 +505,7 @@ def test_bridge_back_gives_jax_the_ports_loss(scan_layers):
 
 
 @pytest.mark.parametrize("config,item", [
-    ({"zero_optimization": {"stage": 2}}, "A6"),
+    ({"pipeline": {"stages": 2}}, "A11"),
     ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
      "A11"),
     ({"curriculum_learning": {"enabled": True}}, "A11"),
