@@ -44,7 +44,7 @@ Phases (any failed check raises; nothing is caught):
    and mixed.
 6. The v2 slice: ``RaggedInferenceEngineV2`` on ``llama3-8b`` at full
    width and depth, bf16, serving 24 requests (16 slots) twice with
-   identical tokens; the paged kernel launched once per layer per model
+   identical tokens, eager and unpipelined (phase 14's reference); the paged kernel launched once per layer per model
    tick and the flash kernel never; then a tight pool that must evict,
    and int8 and fp8 pools that must launch kernel #8.  The allocator's
    audit is clean after every run.
@@ -112,6 +112,24 @@ Phases (any failed check raises; nothing is caught):
    engine's partitioned checkpoint at full depth
    (``build/smoke_zero_ckpt``, removed afterwards): save, 2 more steps,
    and a fresh engine that loads and retakes them, bit-identically.
+14. CUDA graphs and the pipelined host path: phase 6's 24 requests on
+   ``llama3-8b`` again with ``enable_cuda_graph`` and the pipeline on,
+   then graphs with the pipeline off and the pipeline without graphs;
+   phase 12's int8 v2 traffic with graphs and the pipeline; phase 3's v1
+   prompts (4 x 1000 + 64) with the decode step replayed, then v1 at
+   prompts of 500, 1500 and 1000 in turn (each a recapture, against an
+   eager engine of the same call).  Every request's tokens equal the
+   eager unpipelined run's (phases 3, 6 and 12; sampled v1 too where
+   torch registers a generator with a graph).
+   The paged kernel's and the dequantize's Python counters tick at
+   warm-ups and captures only: each is held equal to its launches per
+   tick x (eager ticks + 2 K x captures), from the engine's
+   ``graph_captures`` and ``graph_replays``; the device's launches are
+   derived from those (the counters never see a replay), not traced.
+   Printed beside the eager runs of the same call: decode tokens/s in
+   decode blocks, blocking fetches per block and ``host_bound_fraction``
+   in blocks; v1 decode tokens/s; peak memory with graphs and without;
+   capture and recapture seconds.
 
 Phases 3 and 6 (serving) keep their full depth: the whole run stays well
 inside its time limit.  The line before the last is the ``kernels`` JSON;
@@ -480,7 +498,8 @@ def phase_slice():
     del engine, model
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, greedy1
+    return launches, greedy1, dict(sampled=sampled, decode_tps=decode_tps,
+                                   peak=peak)
 
 
 def flax_tree(cfg, rng):
@@ -736,8 +755,10 @@ def phase_paged_kernels():
 # Phase 6: the v2 slice at full width and depth
 # ---------------------------------------------------------------------------
 
+# eager and unpipelined: phase 14 reruns this traffic with CUDA graphs and
+# the pipeline, against these runs' tokens
 V2 = dict(max_seqs=16, max_seq_len=2048, prefill_chunk=512, page_size=64,
-          decode_block_size=8)
+          decode_block_size=8, pipeline=False)
 
 
 def v2_traffic(n=24):
@@ -759,22 +780,40 @@ def v2_traffic(n=24):
 def serve(engine, reqs):
     """Submit every request, step until drained; returns the outputs by
     submission order and the run's numbers (fused-tick and decode-block
-    wall time, prompt and decode-block tokens)."""
+    wall time, prompt and decode-block tokens; decode blocks, their
+    blocking fetches, and their host and device-wait seconds).  A
+    pipelined step that dispatches a block may return 0 and its tokens
+    come at a later harvest, which may be a step that dispatches nothing:
+    block tokens count at harvests, block time over every such step.
+    A CUDA graph's capture (with its eager warm-up block) happens in the
+    step of its first block: its seconds are kept apart from block time
+    (``capture_s``)."""
     uids = [engine.put_request(p, **kw) for p, kw in reqs]
     st = engine.host_stats
-    fused_s = block_s = 0.0
-    block_tokens = 0
+    K = engine.decode_block_size
+    fused_s = block_s = block_host_s = block_dev_s = capture_s = 0.0
+    block_tokens = blocks = block_gets = 0
     outs = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while engine.has_work():
-        ticks = st.ticks
+        ticks, gets, secs = st.ticks, st.blocking_gets, dict(st.seconds)
+        captured = st.graph_capture_s
         t = time.perf_counter()
         produced = engine.step()
         dt = time.perf_counter() - t
-        if st.ticks - ticks == engine.decode_block_size > 1:
-            block_s += dt
+        dticks = st.ticks - ticks
+        if dticks == K > 1 or (dticks == 0 and produced and
+                               engine.pipeline):
+            blocks += dticks == K
+            capture_s += st.graph_capture_s - captured
+            block_s += dt - (st.graph_capture_s - captured)
             block_tokens += produced
+            block_gets += st.blocking_gets - gets
+            dev = st.seconds["device"] - secs["device"]
+            block_dev_s += dev
+            block_host_s += sum(st.seconds.values()) - sum(
+                secs.values()) - dev
         else:
             fused_s += dt
         outs.update(engine.get_outputs())
@@ -790,7 +829,10 @@ def serve(engine, reqs):
         "pages still held after the run"
     return [outs[u] for u in uids], dict(
         wall_s=wall, fused_s=fused_s, block_s=block_s,
-        block_tokens=block_tokens,
+        block_tokens=block_tokens, blocks=blocks, block_gets=block_gets,
+        capture_s=capture_s,
+        block_hbf=block_host_s / max(block_host_s + block_dev_s, 1e-12),
+        decode_tps=block_tokens / max(block_s, 1e-9),
         prompt_tokens=int(sum(len(p) for p, _ in reqs)))
 
 
@@ -905,7 +947,7 @@ def phase_v2():
     del module
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, quant_launches, out1
+    return launches, quant_launches, out1, dict(run1, peak=peak)
 
 
 # ---------------------------------------------------------------------------
@@ -1613,7 +1655,7 @@ def phase_int8_v2(bf16_outs):
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     torch.cuda.reset_peak_memory_stats()
     reqs = v2_traffic()
-    outs, ticks = [], 0
+    outs, ticks, runs = [], 0, []
     for run in (1, 2):
         if run == 2:    # a second engine over the same quantized weights
             engine = RaggedInferenceEngineV2(module, device="cuda", **V2)
@@ -1627,6 +1669,7 @@ def phase_int8_v2(bf16_outs):
             f"{(n_weights * t, L * t)}")
         ticks += t
         outs.append(out)
+        runs.append(r)
         st = engine.serving_stages()
         rq = st["requests"]
         log(f"int8 v2 run {run}: 24 requests in {r['wall_s']:.2f} s; prefill "
@@ -1650,7 +1693,7 @@ def phase_int8_v2(bf16_outs):
     del module, model
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, outs[0], dict(runs[0], peak=peak)
 
 
 def phase_int8_cpu_parity():
@@ -1803,6 +1846,219 @@ def phase_zero(stage0):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: CUDA graphs and the pipelined host path
+# ---------------------------------------------------------------------------
+
+def phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager, v1_greedy,
+                 v1_eager):
+    """Phases 6 and 12's v2 traffic and phase 3's v1 prompts again, with
+    ``enable_cuda_graph`` and (v2) the pipeline: every request's tokens
+    equal the eager unpipelined runs'; the kernels' Python counters tick
+    at warm-ups and captures only, so each equals its launches per tick
+    x (eager ticks + 2 K x captures); the device's launches, (eager
+    ticks + K x (captures + replays)) times a tick's count, are derived
+    from the engine's counters, not traced.  v1 then serves prompts of
+    three lengths in turn, each a recapture."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
+    from deepspeed_tpu_torch.ops import quantization as qz
+    from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+    from deepspeed_tpu_torch.ops.flash_attention import flash_fwd
+
+    cfg = get_config("llama3-8b")
+    L, K = cfg.num_hidden_layers, V2["decode_block_size"]
+    n_weights = 7 * L + 2
+    reqs = v2_traffic()
+
+    def v2_run(label, module, want, counters, eager, traffic=reqs, **kw):
+        engine = RaggedInferenceEngineV2(module, device="cuda",
+                                         **{**V2, **kw})
+        before = [c.launches for c, _ in counters]
+        out, r = serve(engine, traffic)
+        for i, (a, b) in enumerate(zip(out, want)):
+            assert np.array_equal(a, b), (
+                f"{label}: request {i}'s tokens differ from the eager "
+                "unpipelined run's")
+        st = engine.serving_stages()
+        cap = st.get("graph_captures", 0)
+        rep = st.get("graph_replays", 0)
+        eager_ticks = engine.host_stats.ticks - K * rep
+        device = {}
+        for (c, per), b in zip(counters, before):
+            got, want_n = c.launches - b, per * (eager_ticks + 2 * K * cap)
+            assert got == want_n, (
+                f"{label}: {c.__name__} counted {got} launches, want "
+                f"{per} x ({eager_ticks} eager ticks + 2 x {K} x {cap} "
+                "captures)")
+            # derived, not traced: the counters never see a replay
+            device[c.__name__] = per * (eager_ticks + K * (cap + rep))
+        log(f"graphs {label}: {len(traffic)} requests in "
+            f"{r['wall_s']:.2f} s, tokens equal to the eager unpipelined "
+            f"run's; decode "
+            f"{r['decode_tps']:.1f} tokens/s in decode blocks "
+            f"({r['block_tokens']} tokens, {r['block_s']:.2f} s, the "
+            f"capture's {r['capture_s']:.3f} s apart; eager "
+            f"{eager['decode_tps']:.1f}); {r['blocks']} blocks, blocking "
+            f"gets per block {r['block_gets'] / max(r['blocks'], 1):.3f} "
+            f"(eager {eager['block_gets'] / max(eager['blocks'], 1):.3f}); "
+            f"host_bound_fraction in blocks {r['block_hbf']:.4f} (eager "
+            f"{eager['block_hbf']:.4f}), overall "
+            f"{st['host_bound_fraction']}; prefill "
+            f"{r['prompt_tokens'] / r['fused_s']:.0f} prompt tokens/s; "
+            f"captures {cap} ({st.get('graph_capture_s', 0.0):.3f} s), "
+            f"replays {rep}, harvests {engine.host_stats.harvests}, "
+            f"dispatches {engine.host_stats.dispatches}; device launches "
+            f"derived from the replays, per tick x (eager ticks + K x "
+            f"(captures + replays)): {device}; pipeline_window "
+            f"{st.get('pipeline_window')}")
+        del engine
+        torch.cuda.empty_cache()
+
+    # bf16: the module of phase 6, made again from its seed
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    engine = RaggedInferenceEngineV2(
+        model, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda", **V2)
+    module = engine.module
+    del engine
+    graph = {"config": {"enable_cuda_graph": True}}
+    paged = [(rpa.ragged_paged_attention, L)]
+    v2_run("bf16 v2, pipeline on", module, bf16_outs, paged, v2_eager,
+           pipeline=True, **graph)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"graphs bf16 v2: peak memory {peak:.2f} GiB with graphs and the "
+        f"pipeline, {v2_eager['peak']:.2f} GiB eager (phase 6)")
+    v2_run("bf16 v2, pipeline off", module, bf16_outs, paged, v2_eager,
+           **graph)
+    v2_run("bf16 v2, pipeline alone (no graphs)", module, bf16_outs, paged,
+           v2_eager, pipeline=True)
+    # kernel #8: phase 6's int8 KV pool over its 8 requests, eager and
+    # unpipelined first, then through graphs and the pipeline
+    engine = RaggedInferenceEngineV2(module, device="cuda",
+                                     kv_cache_dtype="int8", **V2)
+    want8, eager8 = serve(engine, reqs[:8])
+    del engine
+    v2_run("bf16 v2, int8 KV pool, pipeline on", module, want8,
+           [(rpa.ragged_paged_attention_quant, L)], eager8, reqs[:8],
+           kv_cache_dtype="int8", pipeline=True, **graph)
+    del module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # int8 weights: phase 12's quantized module, made again from its seed
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    engine = RaggedInferenceEngineV2(
+        model, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda", quantize_weights="int8", **V2)
+    module = engine.module
+    del engine
+    torch.cuda.reset_peak_memory_stats()    # building held the bf16 weights
+    v2_run("int8 v2, pipeline on", module, int8_outs,
+           paged + [(qz.dequantize, n_weights)], int8_eager, pipeline=True,
+           **graph)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"graphs int8 v2: peak memory while serving {peak:.2f} GiB with "
+        f"graphs and the pipeline, {int8_eager['peak']:.2f} GiB eager "
+        "(phase 12)")
+    del module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # v1: phase 3's engine and prompts, the decode step replayed
+    B, P, NEW = v1_greedy.shape[0], 1000, 64
+    torch.cuda.reset_peak_memory_stats()
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    engine = deepspeed_tpu_torch.init_inference(
+        model, config={"dtype": "bfloat16", "max_out_tokens": 2048,
+                       "enable_cuda_graph": True},
+        generator=torch.Generator(device="cuda").manual_seed(SEED))
+    prompts = torch.randint(0, cfg.vocab_size, (B, P),
+                            generator=torch.Generator().manual_seed(SEED))
+
+    def run(**kw):
+        before = flash_fwd.launches
+        t = time.perf_counter()
+        out = engine.generate(prompts, **kw)
+        dt = time.perf_counter() - t
+        assert flash_fwd.launches - before == L, "prefill not one flash/layer"
+        return out, dt
+
+    greedy1, t1 = run(max_new_tokens=NEW)
+    greedy2, t2 = run(max_new_tokens=NEW)
+    assert torch.equal(greedy1, v1_greedy) and torch.equal(greedy2,
+                                                           v1_greedy), \
+        "v1 tokens through graphs differ from phase 3's eager run"
+    _, tp1 = run(max_new_tokens=1)
+    _, tp2 = run(max_new_tokens=1)
+    sampled = dict(max_new_tokens=NEW, do_sample=True, temperature=0.8,
+                   top_k=50, top_p=0.9,
+                   generator=torch.Generator(device="cuda").manual_seed(SEED))
+    if hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+        out, ts = run(**sampled)
+        assert torch.equal(out, v1_eager["sampled"]), (
+            "sampled v1 tokens through graphs differ from phase 3's")
+        note = f"sampled equal to phase 3's ({ts:.3f} s)"
+    else:
+        try:
+            run(**sampled)
+        except NotImplementedError as e:
+            note = f"sampled raises ({e})"
+        else:
+            raise AssertionError("a sampled graph without generator "
+                                 "registration did not raise")
+    st = engine.serving_stages()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tps = B * (NEW - 1) / (t2 - tp2)
+    log(f"graphs v1: generate {B}x{P}+{NEW}: {t1:.3f} s (first, with the "
+        f"capture), {t2:.3f} s; greedy tokens equal to phase 3's twice; "
+        f"{note}; prefill {tp1 * 1e3:.1f} / {tp2 * 1e3:.1f} ms; decode "
+        f"{tps:.1f} tokens/s ({(t2 - tp2) / (NEW - 1) * 1e3:.2f} ms/step; "
+        f"eager {v1_eager['decode_tps']:.1f} in phase 3); captures "
+        f"{st['graph_captures']} ({st['graph_capture_s']:.3f} s), replays "
+        f"{st['graph_replays']}; peak memory {peak:.2f} GiB "
+        f"({v1_eager['peak']:.2f} eager)")
+
+    # prompts of other lengths: each new cache length frees the engine's
+    # one decode state and captures again; tokens against an eager
+    # engine over the same weights, peaks measured call by call
+    eager = deepspeed_tpu_torch.init_inference(
+        engine.module, config={"dtype": "bfloat16", "max_out_tokens": 2048})
+    gen = torch.Generator().manual_seed(SEED + 1)
+    rows = []
+    for Pm in (500, 1500, 1000):
+        pm = torch.randint(0, cfg.vocab_size, (B, Pm), generator=gen)
+        torch.cuda.reset_peak_memory_stats()
+        want = eager.generate(pm, max_new_tokens=NEW)
+        peak_e = torch.cuda.max_memory_allocated() / 2**30
+        c0, s0 = st["graph_captures"], st["graph_capture_s"]
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        got = engine.generate(pm, max_new_tokens=NEW)
+        dt = time.perf_counter() - t
+        peak_g = torch.cuda.max_memory_allocated() / 2**30
+        assert torch.equal(got, want), (
+            f"v1 tokens through graphs at prompt {Pm} differ from eager")
+        st = engine.serving_stages()
+        assert st["graph_captures"] == c0 + 1, "a new length must recapture"
+        rows.append(f"{Pm}: {dt:.3f} s, recapture "
+                    f"{st['graph_capture_s'] - s0:.3f} s, peak "
+                    f"{peak_g:.2f} GiB (eager {peak_e:.2f}), held after "
+                    f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    log(f"graphs v1: prompt lengths {B}x(500, 1500, 1000)+{NEW} in turn, "
+        "tokens equal to an eager engine's, one decode state kept: "
+        + "; ".join(rows))
+    del engine, eager, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -1814,13 +2070,14 @@ def main() -> int:
     phase_report()
     entry = phase_kernel()
     log(f"phase 2 done at {time.perf_counter() - t0:.1f} s")
-    entry["launches"], bf16_greedy = phase_slice()
+    entry["launches"], bf16_greedy, v1_eager = phase_slice()
     log(f"phase 3 done at {time.perf_counter() - t0:.1f} s")
     cfg2, state = phase_cpu_parity()
     log(f"phase 4 done at {time.perf_counter() - t0:.1f} s")
     paged, paged_quant = phase_paged_kernels()
     log(f"phase 5 done at {time.perf_counter() - t0:.1f} s")
-    paged["launches"], paged_quant["launches"], bf16_outs = phase_v2()
+    (paged["launches"], paged_quant["launches"], bf16_outs,
+     v2_eager) = phase_v2()
     log(f"phase 6 done at {time.perf_counter() - t0:.1f} s")
     phase_v2_cpu_parity(cfg2, state)
     log(f"phase 7 done at {time.perf_counter() - t0:.1f} s")
@@ -1836,14 +2093,18 @@ def main() -> int:
     log(f"phase 10 done at {time.perf_counter() - t0:.1f} s")
     quant = phase_quant_kernels()
     log(f"phase 11 done at {time.perf_counter() - t0:.1f} s")
-    for gs, launches in ((128, phase_int8_v1(bf16_greedy)),
-                         (2048, phase_int8_v2(bf16_outs))):
+    int8_v1 = phase_int8_v1(bf16_greedy)
+    int8_v2, int8_outs, int8_eager = phase_int8_v2(bf16_outs)
+    for gs, launches in ((128, int8_v1), (2048, int8_v2)):
         quant[f"quantize_int8_g{gs}"]["launches"] = launches[0]
         quant[f"dequantize_int8_g{gs}"]["launches"] = launches[1]
     phase_int8_cpu_parity()
     log(f"phase 12 done at {time.perf_counter() - t0:.1f} s")
     phase_zero(stage0)
     log(f"phase 13 done at {time.perf_counter() - t0:.1f} s")
+    phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager, bf16_greedy,
+                 v1_eager)
+    log(f"phase 14 done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [entry, paged, paged_quant] +
                     [train[k] for k in ("flash_bwd_dq", "flash_bwd_dkv",
                                         "fused_adam", "fused_lion")] +

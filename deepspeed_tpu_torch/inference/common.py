@@ -1,13 +1,15 @@
 """Conventions shared by the inference engines.
 
 Counterpart of ``deepspeed_tpu/inference/common.py``: the host-path stage
-timer, ``kv_quant_block``, ``logits_of`` and ``normalize_params``.
+timer, ``kv_quant_block``, ``logits_of`` and ``normalize_params``; and
+:func:`capture_graph`, the CUDA-graph capture both engines use where the
+reference compiles its decode loops with ``jax.jit``.
 """
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
@@ -36,7 +38,11 @@ class HostStageStats:
     features not ported yet (speculation, tiering, prefix cache) stay 0.
     ``replica`` is the reference's metric label of a scale-out replica.
     The reference's trace-span and metrics-histogram hooks arrive with the
-    telemetry port.
+    telemetry port.  With ``enable_cuda_graph`` an engine's decode work
+    replays CUDA graphs: ``graph_captures`` counts captures (each after
+    one eager warm-up), ``graph_replays`` replays and ``graph_capture_s``
+    the host seconds spent capturing; the engines report the three only
+    when graphs are on (:meth:`graph_stages`).
     """
 
     STAGES = ("plan", "upload", "dispatch", "device", "harvest", "draft",
@@ -58,6 +64,9 @@ class HostStageStats:
         self.prefix_hit_pages = 0   # cached pages attached
         self.prefix_hit_tokens = 0  # prefill tokens skipped via the cache
         self.prefix_cow_copies = 0  # copy-on-write page copies
+        self.graph_captures = 0   # CUDA graphs captured
+        self.graph_replays = 0    # CUDA graph replays
+        self.graph_capture_s = 0.0  # host seconds spent capturing
 
     @contextmanager
     def stage(self, name: str):
@@ -83,6 +92,40 @@ class HostStageStats:
                    blocking_gets=self.blocking_gets,
                    harvests=self.harvests)
         return out
+
+    def graph_stages(self) -> Dict[str, Any]:
+        return {"graph_captures": self.graph_captures,
+                "graph_replays": self.graph_replays,
+                "graph_capture_s": round(self.graph_capture_s, 4)}
+
+
+def capture_graph(fn: Callable[[], Any], *, warmup: Optional[Callable] = None,
+                  pool=None, generators: Sequence[torch.Generator] = ()):
+    """Capture ``fn()`` into a ``torch.cuda.CUDAGraph``; returns
+    ``(graph, outputs)``.  One eager warm-up call first (``warmup``, or
+    ``fn`` itself) on a side stream, as CUDA-graph capture wants: it runs
+    for real, so the caller arranges for it to write nothing live.
+    ``pool``: a memory pool shared with other graphs
+    (``torch.cuda.graph_pool_handle()``).  ``generators``: CUDA
+    generators the captured work draws from, registered so that every
+    replay advances them (``CUDAGraph.register_generator_state``).  A
+    failure raises; nothing falls back to eager execution."""
+    graph = torch.cuda.CUDAGraph()
+    if generators and not hasattr(graph, "register_generator_state"):
+        raise NotImplementedError(
+            f"torch {torch.__version__} cannot register a generator with a "
+            "CUDA graph (CUDAGraph.register_generator_state): sampled v1 "
+            "decoding under enable_cuda_graph needs it (ROADMAP A8b)")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        (warmup or fn)()
+    torch.cuda.current_stream().wait_stream(side)
+    for gen in generators:
+        graph.register_generator_state(gen)
+    with torch.cuda.graph(graph, pool=pool):
+        out = fn()
+    return graph, out
 
 
 def kv_quant_block(pools, fmt: str, dequant_path: str,

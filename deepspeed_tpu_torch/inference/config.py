@@ -309,6 +309,8 @@ class DeepSpeedInferenceConfig(ConfigModel):
     max_out_tokens: int = 1024              # KV-cache length bound
     min_out_tokens: int = 1
     replace_with_kernel_inject: bool = False
+    # v1 decode steps and v2 decode blocks replayed from CUDA graphs on
+    # cuda; a CPU engine runs the same static-shape steps eagerly
     enable_cuda_graph: bool = False
     max_batch_size: int = 0                 # 0 = unbounded (shape-compiled)
     quant: QuantConfig = Field(default_factory=QuantConfig)
@@ -323,10 +325,6 @@ class DeepSpeedInferenceConfig(ConfigModel):
             logger.warning(
                 "replace_with_kernel_inject=True is a no-op: the port's "
                 "models already call its hand-written kernels")
-        if self.enable_cuda_graph:
-            logger.warning(
-                "enable_cuda_graph is not implemented yet: the decode "
-                "loop runs eagerly")
         return self
 
 

@@ -7,11 +7,26 @@ Counterpart of ``deepspeed_tpu/inference/engine.py`` (the reference
 against a per-layer KV cache, sampling on the device.
 
 Where the JAX engine compiles the whole generate loop into one program (a
-``lax.scan`` over decode steps), this one is a Python loop that enqueues
-work on the current CUDA stream without waiting for it: no step reads a
-device value on the host, so :meth:`InferenceEngine.generate_async`
-returns while the card is still working, and :class:`PendingGeneration`
-harvests the tokens when asked.
+``lax.scan`` over decode steps with a fixed-size cache as its carry), this
+one runs a static-shape decode step ``max_new_tokens - 1`` times: it
+writes its K/V row at a position held in a device tensor into
+preallocated ``fixed`` caches and attends over the whole buffer under the
+position mask (:mod:`~deepspeed_tpu_torch.inference.kv_cache`), so that
+no step reads a device value on the host.
+:meth:`InferenceEngine.generate_async` returns while the card is still
+working, and :class:`PendingGeneration` harvests the tokens when asked.
+With ``enable_cuda_graph`` the step is captured as a CUDA graph once per
+(batch, cache length, sampling settings) and replayed (ROADMAP A8b); the
+EOS id lives in a device buffer, so it keys nothing.  The engine keeps
+one decode state (its caches and its graphs) at a time: a call of
+another batch or cache length frees it before it builds and captures
+the next, and every graph of the engine shares one memory pool.  The
+prefill stays eager, one launch chain that keeps the card busy
+already.  Eager and replayed steps run the same kernels at the same
+shapes, so their tokens are equal.  Sampled steps draw from a
+``torch.Generator`` that each replay advances (the graph registers it
+through ``CUDAGraph.register_generator_state``; a torch without that
+raises for sampled graphs and captures greedy ones only).
 
 ``quant.enabled`` (``qtype`` "int8") serves int8 weights: every matmul
 weight is quantized group-wise once the weights are in the serving dtype
@@ -21,13 +36,15 @@ weight is quantized group-wise once the weights are in the serving dtype
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from deepspeed_tpu_torch.accelerator import DeviceLike, resolve_device
-from deepspeed_tpu_torch.inference.common import (HostStageStats, logits_of,
+from deepspeed_tpu_torch.inference.common import (HostStageStats,
+                                                  capture_graph, logits_of,
                                                   normalize_params)
 from deepspeed_tpu_torch.inference.config import (DeepSpeedInferenceConfig,
                                                   load_inference_config)
@@ -40,6 +57,25 @@ from deepspeed_tpu_torch.utils.logging import log_dist, logger
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float16": torch.float16, "fp16": torch.float16,
            "float32": torch.float32, "fp32": torch.float32}
+
+
+class _DecodeState:
+    """The static-shape decode step's buffers for one (batch, cache
+    length): ``fixed`` KV caches, the token fed next (``tok [B]``), its
+    position (``pos [1]``), the EOS id (``eos [1]``, -1 for none), the
+    rows that emitted EOS (``done [B]``) and the output rows
+    (``seq [B, L]``: the prompt, then each new token).  ``graphs``: the
+    step captured over these buffers, by sampling settings."""
+
+    def __init__(self, cache, B: int, L: int, device: torch.device):
+        self.cache = cache
+        self.key = (B, L)
+        self.tok = torch.zeros(B, dtype=torch.long, device=device)
+        self.pos = torch.zeros(1, dtype=torch.long, device=device)
+        self.eos = torch.full((1,), -1, dtype=torch.long, device=device)
+        self.done = torch.zeros(B, dtype=torch.bool, device=device)
+        self.seq = torch.zeros(B, L, dtype=torch.long, device=device)
+        self.graphs: Dict[Tuple, Tuple] = {}
 
 
 def init_inference(model: nn.Module, config: Any = None,
@@ -158,9 +194,17 @@ class InferenceEngine:
             log_dist(f"init_inference weights -> {config.quant.qtype}: "
                      f"{b0 / 2**20:.1f} MiB -> {b1 / 2**20:.1f} MiB",
                      ranks=[0])
+        # the one decode state whose steps are captured, and the memory
+        # pool every graph of the engine shares
+        self._graphed: Optional[_DecodeState] = None
+        self._graph_pool = None
+        if config.enable_cuda_graph and self.device.type != "cuda":
+            log_dist("init_inference: enable_cuda_graph on the CPU runs the "
+                     "static-shape decode step eagerly (CUDA graphs exist "
+                     "only on cuda)", ranks=[0])
         log_dist(f"InferenceEngine: dtype={config.dtype} "
-                 f"device={self.device} max_cache_len={self.max_cache_len}",
-                 ranks=[0])
+                 f"device={self.device} max_cache_len={self.max_cache_len} "
+                 f"cuda_graph={config.enable_cuda_graph}", ranks=[0])
 
     # ------------------------------------------------------------------
 
@@ -175,29 +219,120 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
 
+    def _state(self, B: int, L: int) -> _DecodeState:
+        cfg = self.module.config
+        return _DecodeState(
+            init_cache(cfg.num_hidden_layers, L, B, cfg.num_key_value_heads,
+                       cfg.head_dim, self.dtype, self.device, fixed=True),
+            B, L, self.device)
+
     @torch.inference_mode()
-    def _generate(self, prompt: torch.Tensor, cache, max_new: int,
-                  sample, eos_id: Optional[int]) -> torch.Tensor:
+    def _prefill(self, prompt: torch.Tensor, st: _DecodeState, sample,
+                 eos_id: Optional[int]) -> None:
+        """The eager prefill into ``st``: caches, first token, position,
+        EOS id."""
         B, P = prompt.shape
-        model = self.module
-        out = model(prompt, positions=torch.arange(P, device=self.device),
-                    kv_cache=cache)
+        for c in st.cache:
+            c.index = 0
+        out = self.module(prompt,
+                          positions=torch.arange(P, device=self.device),
+                          kv_cache=st.cache)
         tok = sample(logits_of(out)[:, -1])
-        done = (torch.zeros(B, dtype=torch.bool, device=self.device)
-                if eos_id is None else tok == eos_id)
-        toks = [tok]
-        for t in range(max_new - 1):
-            pos = torch.full((1,), P + t, dtype=torch.long,
-                             device=self.device)
-            out = model(tok[:, None], positions=pos, kv_cache=cache)
-            nxt = sample(logits_of(out)[:, -1])
-            if eos_id is not None:
-                # once a row has emitted EOS it keeps emitting EOS
-                nxt = torch.where(done, eos_id, nxt)
-                done = done | (nxt == eos_id)
-            toks.append(nxt)
-            tok = nxt
-        return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+        st.seq[:, :P].copy_(prompt)
+        st.seq[:, P].copy_(tok)
+        st.tok.copy_(tok)
+        st.pos.fill_(P)
+        st.eos.fill_(-1 if eos_id is None else eos_id)
+        torch.eq(tok, st.eos, out=st.done)
+
+    @torch.inference_mode()
+    def _decode_step(self, st: _DecodeState, sample) -> None:
+        """One static-shape decode step, in place on ``st``: the token at
+        ``pos`` goes through the model (its K/V row written at ``pos``,
+        attention over the whole cache), the next one lands in
+        ``seq[:, pos + 1]`` and ``pos`` advances.  Nothing is read on the
+        host and nothing depends on a host integer, so one capture
+        replays at every position."""
+        out = self.module(st.tok[:, None], positions=st.pos,
+                          kv_cache=st.cache)
+        nxt = sample(logits_of(out)[:, -1])
+        # once a row has emitted EOS it keeps emitting EOS (no token is
+        # -1, so without an EOS id no row is ever done)
+        nxt = torch.where(st.done, st.eos, nxt)
+        st.done |= nxt == st.eos
+        st.seq.index_copy_(1, st.pos + 1, nxt[:, None])
+        st.tok.copy_(nxt)
+        st.pos += 1
+
+    def _generate(self, prompt: torch.Tensor, st: _DecodeState,
+                  max_new: int, sampling: Dict,
+                  generator: Optional[torch.Generator],
+                  eos_id: Optional[int]) -> torch.Tensor:
+        """Prefill and ``max_new - 1`` static-shape decode steps, eager;
+        returns the ``[B, P + max_new]`` rows on the device."""
+        sample = _sampler(sampling, generator)
+        self._prefill(prompt, st, sample, eos_id)
+        for _ in range(max_new - 1):
+            self._decode_step(st, sample)
+        return st.seq
+
+    def _graph_entry(self, B: int, L: int, sampling: Dict):
+        """``(state, graph, generator or None)``: the decode step for
+        (batch, cache length, sampling settings), captured on first use
+        over the engine's one graphed state.  A state of another batch or
+        cache length is freed first, its graphs with it.  Capture runs
+        before the call's prefill, while the state holds no live request:
+        the warm-up before it runs for real.  The caches are zeroed for
+        the call."""
+        st = self._graphed
+        if st is None or st.key != (B, L):
+            self._graphed = st = None       # free its cache before the next
+            st = self._graphed = self._state(B, L)
+        skey = tuple(sorted(sampling.items()))
+        if skey not in st.graphs:
+            st.graphs[skey] = self._capture_step(st, sampling)
+        with torch.inference_mode():
+            for c in st.cache:              # a fresh cache, as eagerly
+                c.key.zero_()
+                c.value.zero_()
+        return (st,) + st.graphs[skey]
+
+    def _capture_step(self, st: _DecodeState, sampling: Dict):
+        # the graph draws from a generator of its own, registered with
+        # it; each call hands it the caller's generator state and back
+        gen = (torch.Generator(device=self.device)
+               if sampling["do_sample"] else None)
+        sample = _sampler(sampling, gen)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        with torch.inference_mode():
+            # the warm-up runs for real: from position 0, its writes stay
+            # inside the buffers whatever call the state served last
+            st.pos.zero_()
+        t0 = time.perf_counter()
+        graph, _ = capture_graph(lambda: self._decode_step(st, sample),
+                                 pool=self._graph_pool,
+                                 generators=() if gen is None else (gen,))
+        self.host_stats.graph_captures += 1
+        self.host_stats.graph_capture_s += time.perf_counter() - t0
+        return graph, gen
+
+    def _generate_graphed(self, prompt: torch.Tensor, entry, max_new: int,
+                          sampling: Dict, generator: Optional[torch.Generator],
+                          eos_id: Optional[int]) -> torch.Tensor:
+        """:meth:`_generate` with the decode steps replayed from the
+        captured ``entry`` (:meth:`_graph_entry`); the same tokens."""
+        st, graph, gen = entry
+        self._prefill(prompt, st, _sampler(sampling, generator), eos_id)
+        if gen is not None:
+            gen.set_state(generator.get_state())
+        for _ in range(max_new - 1):
+            graph.replay()
+        self.host_stats.graph_replays += max_new - 1
+        if gen is not None:
+            generator.set_state(gen.get_state())
+        with torch.inference_mode():
+            return st.seq.clone()       # the next call reuses the buffers
 
     def generate_async(self, input_ids, max_new_tokens: int = 128,
                        do_sample: bool = False, temperature: float = 1.0,
@@ -227,23 +362,24 @@ class InferenceEngine:
             raise ValueError(
                 f"prompt {P} + max_new_tokens {max_new_tokens} exceeds "
                 f"max_cache_len {self.max_cache_len} (raise max_out_tokens)")
-        cfg = self.module.config
-        with st.stage("plan"):
-            cache = init_cache(cfg.num_hidden_layers, P + max_new_tokens, B,
-                               cfg.num_key_value_heads, cfg.head_dim,
-                               self.dtype, self.device)
         if do_sample and generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-
-        def sample(logits):
-            return sample_logits(logits, generator, do_sample=do_sample,
-                                 temperature=temperature, top_k=top_k,
-                                 top_p=top_p)
-
+        sampling = dict(do_sample=bool(do_sample))
+        if do_sample:
+            sampling.update(temperature=float(temperature), top_k=int(top_k),
+                            top_p=float(top_p))
+        L = P + max_new_tokens
+        # one new token has no decode step to capture
+        graphed = (self.config.enable_cuda_graph and
+                   self.device.type == "cuda" and max_new_tokens > 1)
+        with st.stage("plan"):
+            state = (self._graph_entry(B, L, sampling)
+                     if graphed else self._state(B, L))
         with st.stage("dispatch"):
             st.dispatches += 1
-            arr = self._generate(prompt, cache, max_new_tokens, sample,
-                                 eos_token_id)
+            arr = (self._generate_graphed if graphed else self._generate)(
+                prompt, state, max_new_tokens, sampling, generator,
+                eos_token_id)
         st.ticks += max_new_tokens
         return PendingGeneration(self, arr)
 
@@ -263,5 +399,16 @@ class InferenceEngine:
 
     def serving_stages(self) -> Dict[str, Any]:
         """Per-dispatch host-path breakdown + ``host_bound_fraction``
-        (see :class:`~deepspeed_tpu_torch.inference.common.HostStageStats`)."""
-        return self.host_stats.serving_stages()
+        (see :class:`~deepspeed_tpu_torch.inference.common.HostStageStats`);
+        with ``enable_cuda_graph``, the graph counters too."""
+        out = self.host_stats.serving_stages()
+        if self.config.enable_cuda_graph:
+            out.update(self.host_stats.graph_stages())
+        return out
+
+
+def _sampler(sampling: Dict, generator: Optional[torch.Generator]
+             ) -> Callable[[torch.Tensor], torch.Tensor]:
+    def sample(logits):
+        return sample_logits(logits, generator, **sampling)
+    return sample

@@ -8,6 +8,13 @@ reference threads a fresh buffer through every step and relies on XLA to
 alias it; here the buffers are preallocated once per ``generate`` and each
 call writes its tokens into them in place.
 
+A cache made ``fixed`` serves a static-shape decode step, the shape a
+CUDA graph can capture: a one-token call writes its K/V row at a
+position given as a device tensor (``index_copy_``) and attends over the
+whole buffer, masked by position in :func:`cached_attention`, as the
+reference's scan over its fixed-size cache does.  No host integer moves,
+so one captured step replays at every position.
+
 Dense rectangular batches only (every sequence shares one length); the
 ragged v2 engine's paged cache comes with its own port.
 """
@@ -23,20 +30,31 @@ class KVCache:
     """One layer's preallocated K/V buffers and its write offset."""
 
     def __init__(self, max_len: int, batch: int, kv_heads: int,
-                 head_dim: int, dtype: torch.dtype, device: torch.device):
+                 head_dim: int, dtype: torch.dtype, device: torch.device,
+                 fixed: bool = False):
         shape = (max_len, batch, kv_heads, head_dim)
         self.key = torch.zeros(shape, dtype=dtype, device=device)
         self.value = torch.zeros(shape, dtype=dtype, device=device)
         self.index = 0          # tokens cached so far (a host integer)
+        self.fixed = fixed
 
-    def update(self, k: torch.Tensor, v: torch.Tensor
+    def update(self, k: torch.Tensor, v: torch.Tensor,
+               positions: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Write this call's K/V ``[B, Hkv, S, Dh]`` at the current offset.
 
         Returns ``(k_full, v_full)``: views of the buffers over the slots
         written so far (the reference returns the whole ``max_len`` buffer
-        and masks the tail; those slots contribute nothing either way)."""
+        and masks the tail; those slots contribute nothing either way).
+        A ``fixed`` cache writes a one-token call at ``positions`` (a
+        device tensor of one position) instead and returns the whole
+        buffers; its host offset stays where the prefill left it."""
         S = k.shape[2]
+        if self.fixed and S == 1:
+            at = positions.reshape(-1)[:1].long()
+            self.key.index_copy_(0, at, k.permute(2, 0, 1, 3))
+            self.value.index_copy_(0, at, v.permute(2, 0, 1, 3))
+            return self.key, self.value
         start = self.index
         if start + S > self.key.shape[0]:
             raise ValueError(
@@ -50,9 +68,11 @@ class KVCache:
 
 def init_cache(num_layers: int, max_len: int, batch: int, kv_heads: int,
                head_dim: int, dtype: torch.dtype,
-               device: torch.device) -> List[KVCache]:
-    """One zeroed :class:`KVCache` per layer."""
-    return [KVCache(max_len, batch, kv_heads, head_dim, dtype, device)
+               device: torch.device, fixed: bool = False) -> List[KVCache]:
+    """One zeroed :class:`KVCache` per layer (``fixed``: see
+    :class:`KVCache`)."""
+    return [KVCache(max_len, batch, kv_heads, head_dim, dtype, device,
+                    fixed)
             for _ in range(num_layers)]
 
 

@@ -23,10 +23,28 @@ running batch, and a sequence joins the moment a slot frees.
   rows and positions derive from the ``pos``/``active``/``remaining``
   carry on the device, sampling is batched and position-keyed on the
   device, and nothing is read on the host until the block's one
-  device-to-host copy.  The host round trip amortizes to 1/K.
+  device-to-host copy.  The host round trip amortizes to 1/K.  Every
+  block runs over one set of static device buffers
+  (:mod:`~deepspeed_tpu_torch.inference.v2.graphs`), loaded by ``copy_``.
+- **CUDA graphs** (``enable_cuda_graph`` in the config, A8b).  The
+  block is captured once per ``sampled`` flag over those buffers and
+  replayed: one launch a block where the Python loop issues over a
+  thousand a tick.
+- **The pipelined host path** (``pipeline=True``, the default, A8a),
+  the reference's software pipeline: the decode carry stays resident on
+  the device across blocks, the host plans block k+1 from an exact
+  projection of every sequence's length and budget while the device
+  runs block k (at most ``async_depth`` blocks in flight, on the
+  bounded window of :mod:`~deepspeed_tpu_torch.utils.async_stage`), and
+  tokens are harvested in one blocking copy every ``harvest_interval``
+  blocks.  A harvest is forced wherever the unpipelined engine could
+  reap, admit or evict, so the blocks dispatched and their inputs are
+  the unpipelined engine's: outputs are bit-identical with the pipeline
+  on or off, greedy or sampled.  In steady state a block makes no
+  upload (the page table only when it grows) and no blocking fetch.
 
-Greedy outputs equal the JAX engine's with ``pipeline=False`` token for
-token (same scheduling, same admission and eviction decisions); sampled
+Greedy outputs equal the JAX engine's token for token, pipelined or not
+(same scheduling, same admission and eviction decisions); sampled
 outputs agree in distribution, drawn from a position-keyed hash instead of
 JAX's threefry streams (:mod:`~deepspeed_tpu_torch.inference.sampling`).
 
@@ -37,9 +55,9 @@ JAX's threefry streams (:mod:`~deepspeed_tpu_torch.inference.sampling`).
   (:mod:`~deepspeed_tpu_torch.inference.quantization`).
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: the pipelined host path (A8a), speculation (A9.4), KV
-tiering (A9.2), the prefix cache (A9.3), long context (A9.5), the fp8,
-fp6 and w8a8 weight formats (A9.6), handoff export/import (A9.7), tensor
+ROADMAP item: speculation (A9.4, with its pipelined branch), KV tiering
+(A9.2, with the pipeline's prefetch), the prefix cache (A9.3), long
+context (A9.5), the fp8, fp6 and w8a8 weight formats (A9.6), handoff export/import (A9.7), tensor
 parallelism (A7a), and the control plane, SLOs and trace sampling (A10).
 """
 from __future__ import annotations
@@ -70,9 +88,16 @@ from deepspeed_tpu_torch.inference.quantization import (check_format,
                                                         quantize_model_)
 from deepspeed_tpu_torch.inference.sampling import (position_keys,
                                                     sample_logits_batched)
+from deepspeed_tpu_torch.inference.v2.graphs import DecodeBlockGraphs
 from deepspeed_tpu_torch.ops.ragged_paged_attention import PAGE_SIZES
 from deepspeed_tpu_torch.telemetry.requests import RequestLatencyTracker
+from deepspeed_tpu_torch.utils.async_stage import (BoundedAsyncStage,
+                                                   StageTimers)
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
+
+# _block_arrays' order
+_BLOCK_ARRAYS = ("last_tok", "pos", "active", "remaining", "eos_ids",
+                 "do_sample", "temperature", "top_k", "top_p", "seeds")
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -133,6 +158,8 @@ class RaggedInferenceEngineV2:
                  quantize_weights: Optional[str] = None,
                  kv_reserve: str = "on_demand",
                  pipeline: Optional[bool] = None,
+                 async_depth: Optional[int] = None,
+                 harvest_interval: Optional[int] = None,
                  speculation: Any = None,
                  draft_model=None, draft_params: Any = None,
                  draft_kv_cache_dtype: Optional[str] = None,
@@ -160,10 +187,14 @@ class RaggedInferenceEngineV2:
         prompt + max_new_tokens at admission).  ``quantize_weights``:
         ``None`` or "int8" (weight-only, groups of 2048; "fp8", "fp6" and
         "w8a8" raise, ROADMAP A9.6).  ``replica`` is the
-        scale-out metric label.  ``pipeline=False`` is the only host path
-        (the config's default ``v2.pipeline`` resolves to it); every
-        other feature kwarg raises ``NotImplementedError`` when it asks
-        for a feature."""
+        scale-out metric label.  ``pipeline``, ``async_depth``,
+        ``harvest_interval``: the pipelined host path (module docstring);
+        ``None`` takes the config's ``v2`` subtree (on, 2, 4 by
+        default).  ``config["enable_cuda_graph"]`` replays decode blocks
+        from CUDA graphs on ``cuda`` (a failed capture raises); a CPU
+        engine runs the same static buffers eagerly.  Every other
+        feature kwarg raises ``NotImplementedError`` when it asks for a
+        feature."""
         mcfg = getattr(model, "config", None)
         if not (dataclasses.is_dataclass(mcfg) and
                 {"rope_theta", "paged_decode", "decode"} <= {
@@ -172,15 +203,21 @@ class RaggedInferenceEngineV2:
                 "the ragged engine needs a Llama-family module of this "
                 "package (per-token positions through attention and a "
                 "paged-cache config)")
-        self._check_unported(topology, quantize_weights, pipeline,
-                             draft_model, draft_params,
-                             draft_kv_cache_dtype, config, speculation,
-                             kv_tiering, prefix_cache, control, slo,
-                             trace_sample)
-        if config is not None and kv_cache_dtype is None:
-            kv_cache_dtype = load_inference_config(config).v2.kv_cache_dtype
-        kv_cache_dtype = ("none" if kv_cache_dtype is None
-                          else str(kv_cache_dtype))
+        icfg = load_inference_config(config)      # defaults without one
+        v2cfg = icfg.v2
+        self._check_unported(topology, quantize_weights, draft_model,
+                             draft_params, draft_kv_cache_dtype,
+                             v2cfg if config is not None else None,
+                             speculation, kv_tiering, prefix_cache, control,
+                             slo, trace_sample)
+        # kwarg > config > default, as for every v2 knob
+        pipeline = v2cfg.pipeline if pipeline is None else pipeline
+        async_depth = (v2cfg.async_depth if async_depth is None
+                       else async_depth)
+        harvest_interval = (v2cfg.harvest_interval
+                            if harvest_interval is None else harvest_interval)
+        kv_cache_dtype = str(v2cfg.kv_cache_dtype if kv_cache_dtype is None
+                             else kv_cache_dtype)
         if kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype must be one of "
                              f"{KV_CACHE_DTYPES}, got {kv_cache_dtype!r}")
@@ -193,7 +230,9 @@ class RaggedInferenceEngineV2:
         self.kv_cache_dtype = kv_cache_dtype
         self.device = resolve_device(device)
         self.dtype = mcfg.dtype
-        self.pipeline = False
+        self.pipeline = bool(pipeline)
+        self.async_depth = max(int(async_depth), 1)
+        self.harvest_interval = max(int(harvest_interval), 1)
 
         self.page_size = int(page_size)
         self.pages_per_seq = pages_for(max_seq_len, self.page_size)
@@ -218,6 +257,10 @@ class RaggedInferenceEngineV2:
         self.seed = int(seed)
         self.replica = "" if replica is None else str(replica)
         self.host_stats = HostStageStats(replica=self.replica)
+        # the pipelined window's substrate counters (submitted/completed
+        # blocks, submit_wait back-pressure): serving_stages()'s
+        # ``pipeline_window``
+        self._pipe_timers = StageTimers()
         self.request_latency = RequestLatencyTracker()
 
         self.module = normalize_params(model, params, dtype=self.dtype,
@@ -237,6 +280,19 @@ class RaggedInferenceEngineV2:
                                       device=self.device)
         self._block_ns = torch.tensor([max_seqs], dtype=torch.int32,
                                       device=self.device)
+        self.enable_cuda_graph = bool(icfg.enable_cuda_graph)
+        # every decode block runs over these static buffers, replayed
+        # from CUDA graphs with enable_cuda_graph on cuda, eagerly else
+        self._graphs = DecodeBlockGraphs(self, capture=self.enable_cuda_graph)
+        if self.enable_cuda_graph and not self._graphs.capturing:
+            log_dist("ragged engine: enable_cuda_graph on the CPU runs "
+                     "the decode block's static buffers eagerly (CUDA "
+                     "graphs exist only on cuda)", ranks=[0])
+        # device-resident decode-loop state while the pipeline runs
+        # ahead of the host (None: host state is authoritative), and the
+        # harvest ring each pipelined block's outputs are copied into
+        self._dev: Optional[Dict[str, Any]] = None
+        self._ring: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._uid = itertools.count()
         self.waiting: Deque[Request] = deque()
         self.slots: List[Optional[Request]] = [None] * max_seqs
@@ -253,18 +309,20 @@ class RaggedInferenceEngineV2:
             f"max_seq_len={max_seq_len} prefill_chunk={prefill_chunk} "
             f"pages={self.num_pages}x{self.page_size} "
             f"kv={kv_cache_dtype} decode_block={self.decode_block_size} "
+            f"pipeline={self.pipeline} cuda_graph={self.enable_cuda_graph} "
             f"device={self.device} (paged KV, fused SplitFuse step)",
             ranks=[0])
 
     # -- construction helpers -------------------------------------------
 
     @staticmethod
-    def _check_unported(topology, quantize_weights, pipeline, draft_model,
-                        draft_params, draft_kv_cache_dtype, config,
+    def _check_unported(topology, quantize_weights, draft_model,
+                        draft_params, draft_kv_cache_dtype, v2,
                         speculation, kv_tiering, prefix_cache, control,
                         slo, trace_sample) -> None:
         """Raise for every feature asked for that this port lacks; kwargs
-        win over the config's ``v2`` subtree, as in the reference."""
+        win over the config's ``v2`` subtree (``v2``: None without a
+        config), as in the reference."""
         if topology is not None:
             raise _unported("tensor-parallel serving (topology)", "A7a")
         if quantize_weights is not None:
@@ -272,12 +330,6 @@ class RaggedInferenceEngineV2:
         if (draft_model is not None or draft_params is not None
                 or draft_kv_cache_dtype is not None):
             raise _unported("draft-model speculation", "A9.4")
-        v2 = load_inference_config(config).v2 if config is not None \
-            else None
-        if pipeline or (pipeline is None and v2 is not None and
-                        "pipeline" in v2.model_fields_set and v2.pipeline):
-            raise _unported("the pipelined host path (pipeline=True)",
-                            "A8a")
         if v2 is not None:
             speculation = v2.speculation if speculation is None \
                 else speculation
@@ -418,6 +470,13 @@ class RaggedInferenceEngineV2:
         ``"prefill"`` / ``"decode"`` / ``"finished"``) or ``None`` for an
         unknown uid (never submitted, or already collected)."""
         stage: Optional[str] = None
+        # fold an active pipelined carry first: the target may be
+        # mid-decode inside it, and the teardown re-anchors host state so
+        # that the slot release below is authoritative (the target may
+        # finish in this harvest, and then it is in ``finished``)
+        dv = self._dev
+        if dv is not None and any(r.uid == uid for r in dv["reqs"]):
+            self._pipeline_harvest(teardown=True)
         for r in list(self.waiting):
             if r.uid == uid:
                 self.waiting.remove(r)
@@ -452,6 +511,15 @@ class RaggedInferenceEngineV2:
     def has_work(self) -> bool:
         return bool(self.waiting) or any(s is not None for s in self.slots)
 
+    def sync(self) -> int:
+        """Fold pipelined in-flight device work back into the host request
+        state (the deferred harvest, now); returns the tokens folded.  A
+        no-op when the pipeline is off or idle.  Call it before reading
+        ``slots[*].generated`` between ``step()`` calls."""
+        if self._dev is None:
+            return 0
+        return self._pipeline_harvest()
+
     def export_parked(self):
         raise _unported("export_parked", "A9.2")
 
@@ -483,6 +551,10 @@ class RaggedInferenceEngineV2:
             "pages_in_use": int(in_use),
             "waiting_requests": len(self.waiting),
             "pressure": round(in_use / usable + len(self.waiting), 4)}
+        if self._pipe_timers.seconds or self._pipe_timers.counters:
+            out["pipeline_window"] = self._pipe_timers.snapshot()
+        if self.enable_cuda_graph:
+            out.update(self.host_stats.graph_stages())
         out["requests"] = self.request_latency.summary()
         return out
 
@@ -508,10 +580,26 @@ class RaggedInferenceEngineV2:
 
     # -- host <-> device funnels (every transfer is counted and timed) ---
 
+    def _staged(self, x: np.ndarray) -> torch.Tensor:
+        """A copy of ``x`` to send to the device (the host array may
+        change before the copy runs): pinned on ``cuda``, so that the
+        copy is queued on the stream without waiting for the device (the
+        caching host allocator keeps the buffer until the copy has run)."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        return t.pin_memory() if self.device.type == "cuda" else t.clone()
+
     def _upload(self, x: np.ndarray) -> torch.Tensor:
         with self.host_stats.stage("upload"):
             self.host_stats.meta_uploads += 1
-            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            return self._staged(x).to(self.device, non_blocking=True)
+
+    def _upload_into(self, dst: torch.Tensor, x: np.ndarray) -> None:
+        """Upload ``x`` into the static buffer ``dst`` (one counted
+        upload, queued on the stream)."""
+        with self.host_stats.stage("upload"):
+            self.host_stats.meta_uploads += 1
+            with torch.inference_mode():
+                dst.copy_(self._staged(x), non_blocking=True)
 
     def _fetch(self, t: torch.Tensor) -> np.ndarray:
         """Blocking device -> host copy: the serving loop's only sync
@@ -541,8 +629,10 @@ class RaggedInferenceEngineV2:
         current stream with no host read: write rows, ``kv_lens`` and
         positions derive from the carry on the device, sampling is
         batched and position-keyed on the device.  Finished rows park on
-        the trash page.  Returns ``(toks [K,S], produced [K,S],
-        last_tok [S])`` as device tensors."""
+        the trash page.  Returns the whole carry and the block's tokens,
+        ``(last_tok, pos, active, remaining, toks [K,S], mask [K,S])``,
+        as the reference's block does (``ragged_engine.py:1611-1616``),
+        so that a pipelined loop chains blocks on the device."""
         page, max_len = self.page_size, self.max_seq_len
         table0 = page_table.clamp_min(0).long()
         toks, produced = [], []
@@ -569,7 +659,8 @@ class RaggedInferenceEngineV2:
             active = (active & ~hit_eos & (remaining > 0) &
                       (pos + 1 < max_len))
             last_tok = nxt
-        return torch.stack(toks), torch.stack(produced), last_tok
+        return (last_tok, pos, active, remaining, torch.stack(toks),
+                torch.stack(produced))
 
     def _block_arrays(self, reqs: List[Request]):
         """Host numpy decode-block state for ``reqs``."""
@@ -611,22 +702,27 @@ class RaggedInferenceEngineV2:
                 self.request_latency.on_tokens(r.uid, len(r.generated))
         return produced
 
+    def _block_inputs(self, reqs: List[Request]) -> Dict[str, np.ndarray]:
+        """Every decode-block input for ``reqs``, by name."""
+        inputs = dict(zip(_BLOCK_ARRAYS, self._block_arrays(reqs)))
+        inputs["page_table"] = self.page_table
+        return inputs
+
     def _step_decode_block(self, reqs: List[Request]) -> int:
         """Run one decode block and fold its tokens into the host request
         state: one metadata upload and one blocking copy per block."""
         st = self.host_stats
         K, S = self.decode_block_size, self.max_seqs
         with st.stage("plan"):
-            arrays = self._block_arrays(reqs)
-            sampled = bool(arrays[5].any())
-        (last_tok, pos, active, remaining, eos_ids, do_sample, temperature,
-         top_k, top_p, seeds) = [self._upload(a) for a in arrays]
-        table = self._upload(self.page_table)
+            inputs = self._block_inputs(reqs)
+            sampled = bool(inputs["do_sample"].any())
+        self._graphs.ensure(sampled)       # before the loads
+        for name, a in inputs.items():
+            self._graphs.load(name, a)
         with st.stage("dispatch"):
             st.dispatches += 1
-            toks, mask, new_last = self._decode_block(
-                sampled, last_tok, pos, active, remaining, table, eos_ids,
-                do_sample, temperature, top_k, top_p, seeds)
+            out = self._graphs.run(sampled)
+            new_last, toks, mask = out[0], out[4], out[5]
             packed = torch.cat([toks.reshape(-1), mask.reshape(-1).long(),
                                 new_last])
         st.ticks += K
@@ -642,12 +738,210 @@ class RaggedInferenceEngineV2:
             self._reap()
         return produced
 
+    # -- the pipelined decode loop (A8a) ----------------------------------
+
+    def _admittable(self) -> bool:
+        """Would the unpipelined engine admit the queue head now?  From
+        exact global state (allocator and slots), with ``_admit``'s own
+        ``_admit_need``, so the pipelined loop reconciles at precisely
+        the steps where ``pipeline=False`` admits."""
+        if not self.waiting or not any(s is None for s in self.slots):
+            return False
+        need = self._admit_need(self.waiting[0])
+        return self.allocator.pages_for(need) <= self.allocator.free_pages
+
+    def _block_ready(self, block):
+        """The window's waiter: joining a block waits for its device work
+        (its event), which bounds the run-ahead; it fetches nothing."""
+        with self.host_stats.stage("device"):
+            if block[2] is not None:
+                block[2].synchronize()
+        return block
+
+    def _pipeline_start(self, reqs: List[Request]) -> None:
+        """Enter the pipelined decode loop: the decode-block carry and
+        the samplers' settings go to the device ONCE; later blocks chain
+        the device-resident state.  (The reference's ``spec`` branch is
+        speculation, ROADMAP A9.4.)"""
+        st = self.host_stats
+        with st.stage("plan"):
+            inputs = self._block_inputs(reqs)
+            S = self.max_seqs
+            # exact host projection of each slot's cache length and token
+            # budget: for eos-free sequences the device's active and
+            # remaining carry is a function of these, so the host plans
+            # ahead without syncing; eos-bearing sequences force a
+            # harvest every block (finish_possible)
+            plen = np.zeros((S,), np.int64)
+            rem = np.zeros((S,), np.int64)
+            has_eos = np.zeros((S,), bool)
+            for r in reqs:
+                plen[r.slot] = r.length
+                rem[r.slot] = inputs["remaining"][r.slot]
+                has_eos[r.slot] = r.eos_token_id is not None
+        dv: Dict[str, Any] = {
+            "reqs": list(reqs),
+            "sampled": bool(inputs["do_sample"].any()),
+            "plen": plen, "rem": rem, "has_eos": has_eos,
+            # un-harvested blocks ride the bounded window: past
+            # async_depth a submit first joins the oldest block (its
+            # event, timed as device wait); joined blocks wait in
+            # "ready" for the next harvest
+            "window": BoundedAsyncStage(
+                waiter=self._block_ready, depth=self.async_depth,
+                timers=self._pipe_timers, name="serving_pipeline"),
+            "ready": [],
+            "block_seq": 0,
+        }
+        self._graphs.ensure(dv["sampled"])     # before the loads
+        for name, a in inputs.items():
+            self._graphs.load(name, a)
+        self._dev = dv
+
+    def _dispatch_block(self, dv: Dict[str, Any]):
+        """Enqueue one pipelined block; returns ``(toks, mask, event)``,
+        its tokens and the event recorded after it (None on the CPU): one
+        block (a replay when captured), the carry copied back into the
+        static inputs, and the tokens copied into a slot of the harvest
+        ring before the next replay overwrites the graph's outputs."""
+        out = self._graphs.run(dv["sampled"])
+        self._graphs.chain(out)
+        # a block waits in its slot until a harvest: at most
+        # harvest_interval of them, so the ring never laps one
+        R = self.harvest_interval + self.async_depth
+        if self._ring is None:
+            K, S = self.decode_block_size, self.max_seqs
+            with torch.inference_mode():
+                self._ring = (
+                    torch.empty((R, K, S), dtype=torch.int64,
+                                device=self.device),
+                    torch.empty((R, K, S), dtype=torch.bool,
+                                device=self.device))
+        slot = dv["block_seq"] % R
+        with torch.inference_mode():
+            toks = self._ring[0][slot].copy_(out[4])
+            mask = self._ring[1][slot].copy_(out[5])
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return toks, mask, event
+
+    def _pipeline_step(self) -> int:
+        """One pipelined iteration: plan and dispatch block k+1 while the
+        device still runs block k; harvest only when forced.  (Without
+        the reference's speculation and tiering-prefetch branches, A9.4
+        and A9.2.)"""
+        dv = self._dev
+        st = self.host_stats
+        K = self.decode_block_size
+        # a queued request became admittable (put_request arrived, or a
+        # reap freed capacity): reconcile so the normal path admits it
+        # exactly when the unpipelined engine would
+        if self._admittable():
+            return self._pipeline_harvest(teardown=True)
+        with st.stage("plan"):
+            # grow pages to cover the next block, exact: the projection
+            # is exact for every sequence that reaches here un-harvested
+            slots_active = [r.slot for r in dv["reqs"]
+                            if dv["rem"][r.slot] > 0 and
+                            dv["plen"][r.slot] < self.max_seq_len]
+            grow_ok = bool(slots_active)
+            table_dirty = False
+            for s in slots_active:
+                want = int(min(dv["plen"][s] + min(K, dv["rem"][s]),
+                               self.max_seq_len))
+                before = self.allocator.owned(s)
+                if not self._ensure_pages(s, want):
+                    grow_ok = False
+                    break
+                table_dirty |= self.allocator.owned(s) != before
+        if not grow_ok:
+            # out of pages (or nothing left to run): reconcile and hand
+            # control back to the normal path (stall/evict semantics)
+            return self._pipeline_harvest(teardown=True)
+        if table_dirty:
+            self._graphs.load("page_table", self.page_table)
+        # the reference splits its rng here (:2232); sampling in the port
+        # is position-keyed (sampling.position_keys), with no generator
+        # state for a block to advance
+        with st.stage("dispatch"):
+            st.dispatches += 1
+            block = self._dispatch_block(dv)
+        dv["window"].submit(dv["block_seq"], block,
+                            on_done=dv["ready"].append)
+        dv["block_seq"] += 1
+        st.ticks += K
+        with st.stage("plan"):
+            # advance the projection past this block and decide whether
+            # the unpipelined engine could have reaped after it
+            finish_possible = False
+            for s in slots_active:
+                prod = int(min(K, dv["rem"][s],
+                               self.max_seq_len - dv["plen"][s]))
+                dv["rem"][s] -= prod
+                dv["plen"][s] += prod
+                if (dv["has_eos"][s] or dv["rem"][s] <= 0 or
+                        dv["plen"][s] >= self.max_seq_len):
+                    finish_possible = True
+        pending = dv["window"].in_flight + len(dv["ready"])
+        if finish_possible or pending >= self.harvest_interval:
+            return self._pipeline_harvest()
+        return 0
+
+    def _pipeline_harvest(self, teardown: bool = False) -> int:
+        """Fold every pending block back into the host request state (ONE
+        blocking fetch), reap finishes, and either keep the
+        device-resident carry (nothing changed) or tear it down so that
+        the normal path plans again."""
+        dv = self._dev
+        st = self.host_stats
+        K, S = self.decode_block_size, self.max_seqs
+        st.harvests += 1
+        # join every block the window still tracks (on_done appends them
+        # to "ready" in submit order), then fetch the whole run at once
+        dv["window"].drain()
+        blocks = dv["ready"]
+        with st.stage("harvest"):
+            packed = torch.cat([b[0].reshape(-1) for b in blocks] +
+                               [b[1].reshape(-1).long() for b in blocks] +
+                               [self._graphs.static["last_tok"]])
+        packed = self._fetch(packed)
+        with st.stage("harvest"):
+            n, KS = len(blocks), K * S
+            self._last_tokens = np.array(packed[2 * n * KS:], np.int64)
+            produced = 0
+            for i in range(n):
+                toks = packed[i * KS:(i + 1) * KS].reshape(K, S)
+                mask = packed[(n + i) * KS:(n + i + 1) * KS].reshape(
+                    K, S).astype(bool)
+                produced += self._fold_block(dv["reqs"], toks, mask)
+            for r in dv["reqs"]:
+                self._maybe_finish(r)
+            changed = any(r.done for r in dv["reqs"])
+            self._reap()
+            dv["ready"] = []
+            if teardown or changed:
+                self._dev = None
+            else:
+                # the device carry stays authoritative; re-anchor the
+                # projection on the now-exact lengths
+                for r in dv["reqs"]:
+                    dv["plen"][r.slot] = r.length
+                    dv["rem"][r.slot] = r.max_new_tokens - len(r.generated)
+        return produced
+
     # -- the scheduler tick ---------------------------------------------
 
     def step(self) -> int:
-        """One engine iteration; returns the number of tokens produced.
-        All-decoding batches take the K-tick decode block; any
-        prefilling sequence falls back to the fused SplitFuse tick."""
+        """One engine iteration; returns the number of tokens produced
+        (0 for a pipelined iteration whose harvest is still deferred: its
+        tokens count at the harvest's step).  All-decoding batches take
+        the K-tick decode block, pipelined across steps when
+        ``pipeline``; any prefilling sequence falls back to the fused
+        SplitFuse tick."""
+        if self._dev is not None:
+            return self._pipeline_step()
         st = self.host_stats
         with st.stage("plan"):
             self._admit()
@@ -662,6 +956,9 @@ class RaggedInferenceEngineV2:
                                    r.max_new_tokens - len(r.generated)))
                     for r in live))
         if all_decoding:
+            if self.pipeline:
+                self._pipeline_start(live)
+                return self._pipeline_step()
             return self._step_decode_block(live)
         with st.stage("plan"):
             plan = self._plan_tick()

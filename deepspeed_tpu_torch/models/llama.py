@@ -249,7 +249,7 @@ class LlamaAttention(nn.Module):
         q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
         if kv_cache is not None:
-            k_full, v_full = kv_cache.update(k, v)
+            k_full, v_full = kv_cache.update(k, v, positions)
             if S == 1:
                 y = cached_attention(q, k_full, v_full, positions,
                                      window=cfg.sliding_window)

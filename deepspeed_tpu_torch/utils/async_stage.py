@@ -1,0 +1,133 @@
+"""Bounded-async-stage substrate for the host-side pipelines.
+
+Counterpart of ``deepspeed_tpu/utils/async_stage.py`` (``StageTimers`` and
+``BoundedAsyncStage``), host-only Python copied and adapted, not imported.
+The serving host path is its first user here: a pipelined v2 decode loop
+keeps at most ``async_depth`` decode blocks in flight, each tracked as
+one op whose waiter synchronizes the block's ``torch.cuda.Event``.
+
+``BoundedAsyncStage``
+    a bounded window of keyed in-flight async operations.  Submitting
+    past the window's depth first joins the oldest op (back-pressure).
+    ``drain()`` is the forced-drain point: it joins EVERYTHING, collects
+    results and raises the first error only after every op is reaped.
+    ``pop`` joins exactly one keyed op.
+
+``StageTimers``
+    per-stage wall timers and counters; ``snapshot()`` gives
+    ``{"<stage>_s": seconds}`` floats plus the raw counters, the shape
+    the engines' ``serving_stages()`` report.
+
+The reference's trace-span and metrics-histogram hooks arrive with the
+telemetry port; its non-blocking probes (``ready``, ``discard``,
+``abandon``) and its ``HostBufferPool`` (page-aligned staging buffers for
+O_DIRECT reads) arrive with their users, the KV tiers and their I/O
+(ROADMAP A9.2) and the replica feeds (A10).  The substrate has no worker
+thread of its own: asynchrony comes from what the caller submits (CUDA
+work already enqueued, futures); the substrate only bounds, times and
+drains it.
+"""
+from __future__ import annotations
+
+import time
+from collections import OrderedDict
+from contextlib import contextmanager
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+__all__ = ["BoundedAsyncStage", "StageTimers"]
+
+
+class StageTimers:
+    """Accumulating wall timers and counters, one bucket per stage name."""
+
+    def __init__(self) -> None:
+        self.seconds: Dict[str, float] = {}
+        self.counters: Dict[str, int] = {}
+
+    @contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.seconds[name] = (self.seconds.get(name, 0.0) +
+                                  time.perf_counter() - t0)
+
+    def count(self, name: str, n: int = 1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + n
+
+    def snapshot(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {f"{k}_s": round(v, 6)
+                               for k, v in sorted(self.seconds.items())}
+        out.update(sorted(self.counters.items()))
+        return out
+
+
+class BoundedAsyncStage:
+    """Bounded window of keyed in-flight async operations.
+
+    ``waiter(op) -> result`` joins one submitted op (for a decode block:
+    synchronize its event); it is the ONLY way an op completes.
+    ``depth``: most ops in flight; ``submit`` past it first joins the
+    oldest op, timed under the ``submit_wait`` stage.  ``timers``: a
+    shared :class:`StageTimers` (one is made if absent).
+    """
+
+    def __init__(self, waiter: Callable[[Any], Any], depth: int = 2,
+                 timers: Optional[StageTimers] = None,
+                 name: str = "stage") -> None:
+        self._waiter = waiter
+        self.depth = max(1, int(depth))
+        self.name = name
+        self.timers = timers if timers is not None else StageTimers()
+        # key -> (op, on_done) in submission order: oldest-first joins
+        self._inflight: "OrderedDict[Any, Tuple[Any, Any]]" = OrderedDict()
+
+    @property
+    def in_flight(self) -> int:
+        return len(self._inflight)
+
+    def submit(self, key: Any, op: Any,
+               on_done: Optional[Callable[[Any], Any]] = None) -> None:
+        """Track ``op`` under ``key``, joining the oldest op first while
+        the window is full.  ``on_done(result)`` runs at join time and its
+        return value is the op's result.  A live key is joined before it
+        is reused (two ops on one logical slot would race)."""
+        if key in self._inflight:
+            self.pop(key)
+        while len(self._inflight) >= self.depth:
+            with self.timers.stage("submit_wait"):
+                self._finish(self._inflight.popitem(last=False)[1])
+        self._inflight[key] = (op, on_done)
+        self.timers.count("submitted")
+
+    def pop(self, key: Any, default: Any = None) -> Any:
+        """Join exactly ``key``'s op (if live) and return its result."""
+        ent = self._inflight.pop(key, None)
+        if ent is None:
+            return default
+        return self._finish(ent)
+
+    def drain(self) -> List[Any]:
+        """Join every op in submission order.  Every op is reaped even
+        when one fails; the first error is raised after the sweep."""
+        results, first_err = [], None
+        with self.timers.stage("drain"):
+            while self._inflight:
+                _, ent = self._inflight.popitem(last=False)
+                try:
+                    results.append(self._finish(ent))
+                except BaseException as e:   # noqa: BLE001 (re-raised)
+                    if first_err is None:
+                        first_err = e
+        if first_err is not None:
+            raise first_err
+        return results
+
+    def _finish(self, ent: Tuple[Any, Any]) -> Any:
+        op, on_done = ent
+        res = self._waiter(op)
+        self.timers.count("completed")
+        if on_done is not None:
+            res = on_done(res)
+        return res

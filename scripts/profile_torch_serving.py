@@ -3,7 +3,7 @@
 
     python3 scripts/profile_torch_serving.py [--mode v1|v2] [--new 16]
                                              [--weights bf16|int8]
-                                             [--out FILE]
+                                             [--cuda-graph] [--out FILE]
 
 Builds ``llama3-8b`` at full width and depth with random seeded weights
 (bf16, made on the card; ``--weights int8`` then serves them as int8,
@@ -17,7 +17,12 @@ groups of 128 in v1 and 2048 in v2, dequantized at use) and traces with
   chunks, 64-token pages, 8-tick decode blocks): warms up on one small
   run, submits 16 requests of 600 prompt tokens and 64 new tokens, then
   traces (a) a fused tick that mixes decode tokens with a prefill chunk
-  and (b) a decode block.
+  and (b) a decode block (unpipelined, so that one step is one whole
+  block).
+
+``--cuda-graph`` turns on ``enable_cuda_graph``: the v2 decode block and
+the v1 decode steps replay CUDA graphs (captured during the warm-up);
+the fused tick and the prefill stay eager.
 
 For each window it prints the wall time, the device busy share (the
 union of device intervals over wall time: the rest is the device waiting
@@ -73,7 +78,7 @@ def profile(fn, top: int):
             "top_kernels": rows}
 
 
-def profile_v2(top: int, weights: str):
+def profile_v2(top: int, weights: str, graph: bool):
     """Trace one mixed fused tick and one decode block of the v2 engine."""
     from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
@@ -84,7 +89,8 @@ def profile_v2(top: int, weights: str):
     engine = RaggedInferenceEngineV2(
         model, generator=torch.Generator(device="cuda").manual_seed(0),
         max_seqs=16, max_seq_len=2048, prefill_chunk=512, page_size=64,
-        decode_block_size=8,
+        decode_block_size=8, pipeline=False,
+        config={"enable_cuda_graph": graph},
         quantize_weights=None if weights == "bf16" else weights)
     rng = np.random.default_rng(0)
 
@@ -99,8 +105,8 @@ def profile_v2(top: int, weights: str):
     engine.get_outputs()
     submit(16, 600, 64)
     out = {"device": torch.cuda.get_device_name(0), "mode": "v2",
-           "weights": weights, "requests": 16, "prompt": 600,
-           "new_tokens": 64}
+           "weights": weights, "cuda_graph": graph, "requests": 16,
+           "prompt": 600, "new_tokens": 64}
     st = engine.host_stats
 
     def traced_step(want_block: bool):
@@ -134,6 +140,8 @@ def main() -> int:
     ap.add_argument("--new", type=int, default=16,
                     help="new tokens in the traced v1 generate")
     ap.add_argument("--weights", choices=("bf16", "int8"), default="bf16")
+    ap.add_argument("--cuda-graph", action="store_true",
+                    help="replay decode blocks and steps from CUDA graphs")
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--out", default=None, help="write the JSON here")
     args = ap.parse_args()
@@ -141,7 +149,7 @@ def main() -> int:
         print("profile_torch_serving: needs a CUDA GPU", file=sys.stderr)
         return 2
     if args.mode == "v2":
-        return report(profile_v2(args.top, args.weights),
+        return report(profile_v2(args.top, args.weights, args.cuda_graph),
                       ("fused_tick", "decode_block"),
                       args.out)
     import deepspeed_tpu_torch
@@ -150,7 +158,8 @@ def main() -> int:
     cfg = get_config("llama3-8b")
     with torch.device("meta"):
         model = LlamaForCausalLM(cfg)
-    config = {"dtype": "bfloat16", "max_out_tokens": 2048}
+    config = {"dtype": "bfloat16", "max_out_tokens": 2048,
+              "enable_cuda_graph": args.cuda_graph}
     if args.weights != "bf16":
         config["quant"] = {"enabled": True, "qtype": args.weights}
     engine = deepspeed_tpu_torch.init_inference(
@@ -159,8 +168,10 @@ def main() -> int:
     prompts = torch.randint(0, cfg.vocab_size, (4, 1000),
                             generator=torch.Generator().manual_seed(0))
     engine.generate(prompts, max_new_tokens=4)             # warm-up
+    engine.generate(prompts, max_new_tokens=args.new)      # its capture
     out = {"device": torch.cuda.get_device_name(0), "weights": args.weights,
-           "batch": 4, "prompt": 1000, "new_tokens": args.new}
+           "cuda_graph": args.cuda_graph, "batch": 4, "prompt": 1000,
+           "new_tokens": args.new}
     out["prefill"] = profile(
         lambda: engine.generate(prompts, max_new_tokens=1), args.top)
     out["generate"] = profile(

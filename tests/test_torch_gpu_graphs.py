@@ -1,0 +1,185 @@
+"""CUDA-graph decode on the card: the v2 decode blocks and v1's decode step
+replayed from graphs give the eager engines' tokens.
+
+Every test here is marked ``gpu`` and skips without a CUDA GPU: a CUDA
+graph has no CPU mode.  The file imports only torch, numpy and the port,
+so it runs where JAX is not installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu_graphs.py
+
+A tiny bf16 Llama (head dim 64, GQA 2:1) with random seeded weights.
+v2: greedy and sampled traffic with mid-run admissions, through graphs
+with the pipeline on and off, give the eager unpipelined engine's tokens
+exactly (the same kernels at the same shapes); the paged kernel's Python
+counter ticks at warm-ups and captures only, so it equals the layers x
+(eager ticks + 2 K x captures).  Capturing both graphs mid-run leaves
+every live page byte-identical (warm-up and capture write the trash page
+only).  v1: the captured step gives the eager step's tokens, greedy, with
+EOS (held in a buffer: no new capture) and at a second prompt length
+(one decode state kept), and sampled (where torch can register a
+generator with a graph; elsewhere a sampled graph raises).
+"""
+import numpy as np
+import pytest
+import torch
+
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+from deepspeed_tpu_torch.models import llama
+from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+
+TINY = dict(vocab_size=256, hidden_size=256, intermediate_size=512,
+            num_hidden_layers=2, num_attention_heads=4,
+            num_key_value_heads=2, max_position_embeddings=256)
+V2 = dict(max_seqs=4, max_seq_len=256, prefill_chunk=32, page_size=16,
+          decode_block_size=4, harvest_interval=3)
+
+
+@pytest.fixture
+def cuda():
+    # decided inside the test run, never at import: every xdist worker
+    # must collect the same tests
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: CUDA graphs have no CPU mode")
+    return torch.device("cuda")
+
+
+def _model(cuda):
+    with torch.device("meta"):
+        model = llama.LlamaForCausalLM(llama.LlamaConfig(**TINY))
+    return model
+
+
+def _v2(cuda, module=None, **kw):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    return RaggedInferenceEngineV2(
+        module if module is not None else _model(cuda), generator=gen,
+        device=cuda, **{**V2, **kw})
+
+
+def _serve(engine, sampled):
+    """Five requests, two admitted mid-run; with ``sampled`` every other
+    one samples."""
+    r = np.random.default_rng(1)
+    prompts = [r.integers(0, 256, size=n) for n in (5, 40, 17, 9, 33)]
+    kws = [dict(max_new_tokens=40 + 3 * i) for i in range(5)]
+    if sampled:
+        for kw in kws[::2]:
+            kw.update(do_sample=True, temperature=0.8, top_k=20, top_p=0.9)
+    for p, kw in zip(prompts[:3], kws):
+        engine.put_request(p, **kw)
+    outs, step = {}, 0
+    while engine.has_work() or step < 6:
+        if step == 5:                       # mid-run admissions
+            for p, kw in zip(prompts[3:], kws[3:]):
+                engine.put_request(p, **kw)
+        if engine.has_work():
+            engine.step()
+            outs.update(engine.get_outputs())
+        step += 1
+    engine.audit_kv_sharing()
+    assert engine.allocator.free_pages == engine.num_pages - 1
+    return [outs[u] for u in sorted(outs)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_v2_graphs_give_the_eager_tokens(cuda, sampled):
+    eager = _v2(cuda, pipeline=False)
+    want = _serve(eager, sampled)
+    L, K = TINY["num_hidden_layers"], V2["decode_block_size"]
+    for pipeline in (False, True):
+        eng = _v2(cuda, module=eager.module, pipeline=pipeline,
+                  config={"enable_cuda_graph": True})
+        before = rpa.ragged_paged_attention.launches
+        got = _serve(eng, sampled)
+        st = eng.serving_stages()
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        # one graph per sampled flag a block ran with: in the sampled
+        # traffic a sampling request outlives every greedy one admitted
+        # with it, so every block has a sampled row and only the sampled
+        # graph is captured
+        assert st["graph_captures"] == 1
+        assert st["graph_replays"] > 0
+        ticks = eng.host_stats.ticks
+        eager_ticks = ticks - K * st["graph_replays"]
+        assert rpa.ragged_paged_attention.launches - before == L * (
+            eager_ticks + 2 * K * st["graph_captures"])
+        if pipeline:
+            assert eng.host_stats.blocking_gets < eng.host_stats.dispatches
+
+
+@pytest.mark.gpu
+def test_capture_leaves_live_pages_untouched(cuda):
+    eng = _v2(cuda, config={"enable_cuda_graph": True}, pipeline=False)
+    r = np.random.default_rng(2)
+    for n in (30, 21, 7):
+        eng.put_request(r.integers(0, 256, size=n), max_new_tokens=20)
+    while any(s is None or s.prefill_done < s.ctx_len
+              for s in eng.slots[:3]):
+        eng.step()
+    assert eng.host_stats.graph_captures == 0
+    torch.cuda.synchronize()
+    before = [p.pages[1:].clone() for p in eng.cache]
+    eng._graphs.ensure(False)
+    eng._graphs.ensure(True)
+    torch.cuda.synchronize()
+    assert eng.host_stats.graph_captures == 2
+    for b, p in zip(before, eng.cache):
+        assert torch.equal(b.view(torch.uint8),
+                           p.pages[1:].view(torch.uint8))
+    while eng.has_work():
+        eng.step()
+    eng.audit_kv_sharing()
+
+
+def _v1(cuda, module, graph):
+    return deepspeed_tpu_torch.init_inference(
+        module, config={"dtype": "bfloat16", "max_out_tokens": 128,
+                        "enable_cuda_graph": graph}, device=cuda)
+
+
+@pytest.mark.gpu
+def test_v1_graph_step_gives_the_eager_tokens(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    eager = deepspeed_tpu_torch.init_inference(
+        _model(cuda), config={"dtype": "bfloat16", "max_out_tokens": 128},
+        generator=gen, device=cuda)
+    graphed = _v1(cuda, eager.module, True)
+    prompts = torch.from_numpy(
+        np.random.default_rng(3).integers(0, 256, size=(3, 20)))
+    want = eager.generate(prompts, max_new_tokens=24)
+    for _ in range(2):                      # capture, then reuse
+        got = graphed.generate(prompts, max_new_tokens=24)
+        assert torch.equal(got, want)
+    st = graphed.serving_stages()
+    assert st["graph_captures"] == 1 and st["graph_replays"] == 2 * 23
+    eos = int(want[0, 20 + 2])
+    assert torch.equal(
+        graphed.generate(prompts, max_new_tokens=24, eos_token_id=eos),
+        eager.generate(prompts, max_new_tokens=24, eos_token_id=eos))
+    # the EOS id is a buffer of the captured step, not a key
+    assert graphed.serving_stages()["graph_captures"] == 1
+    # another prompt length: the one decode state is replaced
+    assert torch.equal(graphed.generate(prompts[:, :12], max_new_tokens=24),
+                       eager.generate(prompts[:, :12], max_new_tokens=24))
+    assert graphed.serving_stages()["graph_captures"] == 2
+    assert graphed._graphed.key == (3, 12 + 24)
+    kw = dict(max_new_tokens=24, do_sample=True, temperature=0.8, top_k=40,
+              top_p=0.9)
+
+    def sampled(engine):
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        return engine.generate(prompts, generator=gen, **kw), gen
+
+    if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+        with pytest.raises(NotImplementedError, match="A8b"):
+            sampled(graphed)
+        return
+    want, want_gen = sampled(eager)
+    got, got_gen = sampled(graphed)
+    assert torch.equal(got, want)
+    # every replay advanced the caller's generator as an eager step does:
+    # no replay drew a frozen sample
+    assert torch.equal(got_gen.get_state(), want_gen.get_state())

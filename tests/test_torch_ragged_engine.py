@@ -2,8 +2,8 @@
 
 A tiny fp32 Llama (head dim 64, GQA 2:1, unrolled flax params passed
 through the weight bridge) serves through both packages'
-``RaggedInferenceEngineV2`` (JAX with ``pipeline=False``) on the same
-numpy prompts.  Greedy tokens must be equal, token for token, in every
+``RaggedInferenceEngineV2`` (both with ``pipeline=False``; the pipelined
+path is ``test_torch_serving_pipeline.py``'s) on the same numpy prompts.  Greedy tokens must be equal, token for token, in every
 scenario: a single request, a ragged batch, a prompt chunked across
 ``prefill_chunk``, more requests than slots, staggered admission, EOS
 freeing a slot, decode blocks of 1 and 8 ticks, a tight on-demand pool
@@ -134,6 +134,7 @@ def served():
 
 
 def port_engine(state, device="cpu", **kw):
+    kw.setdefault("pipeline", False)
     with torch.device("meta"):
         model = llama.LlamaForCausalLM(
             llama.LlamaConfig(**TINY, dtype=torch.float32))
@@ -268,8 +269,6 @@ def test_stream_deltas_report_each_token_once(served):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(pipeline=True), "A8a"),
-    (dict(config={"v2": {"pipeline": True}}), "A8a"),
     (dict(speculation="ngram"), "A9.4"),
     (dict(config={"v2": {"speculation": {"mode": "ngram"}}}), "A9.4"),
     (dict(draft_model=object()), "A9.4"),
@@ -288,10 +287,10 @@ def test_deferred_features_raise(served, kwargs, item):
 
 
 def test_config_defaults_and_unported_methods(served):
-    # the config's default pipeline=True is not an explicit request
+    # pipeline=None takes the config's default, on, as in the reference
     eng = port_engine(served["state"], config={"v2": {"async_depth": 3}},
                       pipeline=None)
-    assert eng.pipeline is False
+    assert eng.pipeline is True
     for name, item in (("export_parked", "A9.2"), ("import_parked", "A9.2"),
                        ("export_handoff", "A9.7"),
                        ("import_handoff", "A9.7")):
