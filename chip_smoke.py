@@ -131,8 +131,42 @@ Phases (any failed check raises; nothing is caught):
    in blocks; v1 decode tokens/s; peak memory with graphs and without;
    capture and recapture seconds.
 
+15. GPT-2's kernel shapes (``models/gpt2.py``, the model of the JAX
+   package's benchmark matrix): the flash forward in bf16 at B 64 H 12/12
+   S 128 (v1 prefill), B 12 H 12/12 S 1024 (config 1) and B 4 H 32/32
+   S 1024 (config 2), D 64, causal, q, k and v strided views of one
+   ``[B, S, 3E]`` ``c_attn`` output; dQ and dK/dV at the two training
+   shapes; each against its plain version at phase 2's and phase 8's
+   limits and timed beside its bound and SDPA's forward or backward;
+   fused AdamW over each configuration's parameters; quantize and
+   dequantize at ``c_fc`` and the tied table, groups of 128.
+16. v1 GPT-2: ``gpt2-125m`` (``n_positions`` 1024, bf16, flash) at the
+   reference's inference shape (``bench.py:485-500``: 64 prompts x 128
+   + 128 new): greedy twice, sampled, ``generate_async`` and the same
+   module graphed (greedy twice, sampled), all tokens equal, the flash
+   kernel once per layer per ``generate``; decode tokens/s, prefill ms,
+   peak GiB and ``host_bound_fraction`` eager and graphed.  Then
+   ``gpt2-1.3b`` at 4 x 900 + 64 the same way, and ``gpt2-125m`` with
+   int8 weights (groups of 128): 50 quantize launches at build, 51
+   dequantize a forward (the tied table twice), tokens against bf16's.
+17. GPT-2 training, ``bench.py``'s configs: 1, ``gpt2-125m`` at ZeRO 0,
+   fused AdamW (lr 1e-4, wd 0.01), micro 12 x 1024, remat off, 10 steps
+   on one seeded batch, the loss falling; 2, ``gpt2-1.3b`` at ZeRO 2 over
+   one NCCL rank, FusedAdam, micro 4 x 1024, ``dots_saveable``, 5 steps.
+   Step ms, tokens/s, MFU and peak GiB; launches held every step (config
+   1: 12 forward, 12 dQ, 12 dK/dV, 1 Adam; config 2: 48, 24, 24, 1).
+   Config 2 one step under ``full`` and under ``none``: its peak lies
+   between theirs, the losses within phase 13's limit; its ZeRO-2
+   checkpoint (``build/smoke_gpt2_ckpt``, removed afterwards): save, 2
+   steps, load, the same 2 steps bit-identically.
+18. GPT-2 against the CPU: ``gpt2-125m`` at full width with 2 layers in
+   fp32 (TF32 off), one flax-layout tree through the bridge: prefill
+   logits through v1, and one training step's loss and gradients, on
+   the card against the port on the CPU.
+
 Phases 3 and 6 (serving) keep their full depth: the whole run stays well
-inside its time limit.  The line before the last is the ``kernels`` JSON;
+inside its time limit.  ``--gpt2-only`` runs the build and phases 15-18
+alone and prints no result lines.  The line before the last is the ``kernels`` JSON;
 the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits nonzero
 and prints no result.
@@ -2059,6 +2093,618 @@ def phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager, v1_greedy,
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phases 15-18: GPT-2, the JAX package's benchmark model
+# ---------------------------------------------------------------------------
+
+GPT2_HEAD_DIM = 64
+# phase 18: the gradients of one fp32 step on the card against the CPU's,
+# per tensor, within this share of the tensor's largest magnitude (fp32
+# both sides: summation order only)
+GPT2_GRAD_RTOL = 1e-4
+
+
+def gpt2_qkv(gen, B, H, S, D=GPT2_HEAD_DIM, dtype=torch.bfloat16):
+    """q, k and v as GPT-2's attention hands them to the kernels: strided
+    ``[B, H, S, D]`` views into one ``[B, S, 3E]`` ``c_attn`` output (a
+    row stride of 3E, no copy), one KV head per query head."""
+    E = H * D
+    qkv = torch.randn(B, S, 3 * E, generator=gen, device="cuda",
+                      dtype=dtype)
+    q, k, v = (t.view(B, S, H, D).transpose(1, 2)
+               for t in qkv.split(E, dim=-1))
+    assert q.stride() == (S * 3 * E, D, 3 * E, 1), q.stride()
+    return q, k, v
+
+
+def adam_entry(name, n, lr=1e-4, wd=0.01):
+    """Fused AdamW over ``n`` fp32 parameters (+ a bf16 working copy)
+    against its plain version, timed beside its byte bound and
+    ``torch.optim.AdamW(fused=True).step``."""
+    from deepspeed_tpu_torch.ops import fused_adam as fo
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 600)
+    p = torch.randn(n, generator=gen, device="cuda")
+    g = torch.randn(n, generator=gen, device="cuda") * 1e-2
+    m = torch.randn(n, generator=gen, device="cuda") * 1e-3
+    v = torch.rand(n, generator=gen, device="cuda") * 1e-4
+    w = p.to(torch.bfloat16)
+    sc = torch.tensor([lr, 0.19, 0.0975, 0.5, 0.0], device="cuda")
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=wd, adam_w=True)
+    ref = [t.clone() for t in (p, m, v, w)]
+    fo.fused_adam(p, g, m, v, sc, w, **kw)
+    fo.adam_update_reference(ref[0], g, ref[1], ref[2], sc, ref[3], **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b in zip((p, m, v), ref[:3]):
+        d = (a - b).abs()
+        assert (d <= OPT_ATOL + OPT_RTOL * b.abs()).all(), (
+            f"{name}: differs from plain by up to {d.max().item():.3e}")
+        err = max(err, d.max().item())
+    assert torch.equal(w, p.to(torch.bfloat16))
+    ms = time_ms(lambda: fo.fused_adam(p, g, m, v, sc, w, **kw), reps=10,
+                 warmup=2)
+    plain_ms = time_ms(lambda: fo.adam_update_reference(
+        ref[0], g, ref[1], ref[2], sc, ref[3], **kw), reps=3, warmup=1)
+    del ref
+    param = torch.nn.Parameter(p.clone())
+    param.grad = g
+    topt = torch.optim.AdamW([param], lr=lr, weight_decay=wd, fused=True)
+    lib_ms = time_ms(topt.step, reps=10, warmup=2)
+    bound = n * (16 + 12 + 2) / PEAK_BYTES * 1e3
+    log(f"{name}: fused AdamW over {n} fp32 parameters (+ bf16 copy): "
+        f"max|kernel-plain|={err:.3e}; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound:.3f} ms (bytes), {bound / ms:.1%} "
+        f"of bound; torch AdamW(fused=True).step {lib_ms:.3f} ms")
+    del p, g, m, v, w, param, topt
+    torch.cuda.empty_cache()
+    return dict(name=name, route="cuda",
+                source="deepspeed_tpu_torch/ops/csrc/fused_adam.cu",
+                replaces="deepspeed_tpu/ops/fused_adam.py:52", launches=0,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes", library_ms=lib_ms)
+
+
+def phase_gpt2_kernels():
+    """Kernels #1-#3, #4, #6 and #7 at the shapes GPT-2's paths give them,
+    against their plain versions at the limits of phases 2, 8 and 11."""
+    from torch.nn import functional as F
+
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMLoss, get_config
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    bf16 = torch.bfloat16
+    D = GPT2_HEAD_DIM
+    src_f = "deepspeed_tpu_torch/ops/csrc/flash_fwd.cu"
+    src_b = "deepspeed_tpu_torch/ops/csrc/flash_bwd.cu"
+    shapes = [  # kernel line suffix, B, H, S; H KV heads too
+        ("gpt2_125m_prefill", 64, 12, 128),       # v1 at bench.py:485-500
+        ("gpt2_125m_train", 12, 12, 1024),        # config 1
+        ("gpt2_1.3b_train", 4, 32, 1024),         # config 2
+    ]
+    entries = {}
+    for i, (name, B, H, S) in enumerate(shapes):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 500 + i)
+        q, k, v = gpt2_qkv(gen, B, H, S)
+        o, lse = fa.flash_fwd(q, k, v, causal=True)
+        ro, rlse = fa.flash_fwd_reference(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err, lerr = check_fwd(f"gpt2 fwd {name}", o, lse, ro, rlse, bf16)
+        ms = time_ms(lambda: fa.flash_fwd(q, k, v, causal=True))
+        dev_ms = graph_ms(lambda: fa.flash_fwd(q, k, v, causal=True))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+        plain_ms = time_ms(lambda: fa.flash_fwd_reference(q, k, v,
+                                                          causal=True),
+                           reps=3, warmup=1)
+        bound, by = attention_bound(B, H, H, S, S, D, True, bf16)
+        tflop = 4 * B * H * D * pairs_of(S, S, True) / 1e12
+        entries[f"flash_fwd_{name}"] = dict(
+            name=f"flash_fwd_{name}", route="cuda", source=src_f,
+            replaces="deepspeed_tpu/ops/flash_attention.py:225", launches=0,
+            max_abs_err=err, ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=lib_ms)
+        line = (f"gpt2 flash_fwd[{name}] B={B} H={H} Hkv={H} S={S} D={D} "
+                f"causal, q/k/v strided views of [B, S, 3E]: max|o-plain|="
+                f"{err:.3e} max|lse-plain|={lerr:.3e}; device time "
+                f"{dev_ms:.4f} ms ({tflop / dev_ms * 1e3:.1f} TFLOP/s; graph "
+                f"of 20 calls), host loop {ms:.4f} ms, plain {plain_ms:.3f} "
+                f"ms, SDPA {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+                f"{bound / dev_ms:.1%} of bound")
+        if name.endswith("_train"):
+            do = torch.randn(B, S, H, D, generator=gen, device="cuda",
+                             dtype=bf16).transpose(1, 2)
+            got = fa.flash_bwd(q, k, v, o, lse, do, causal=True)
+            want = fa.flash_bwd_reference(q, k, v, o, lse, do, causal=True)
+            torch.cuda.synchronize()
+            errs = {}
+            for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+                af, bf = a.float(), b.float()
+                e = (af - bf).abs()
+                assert torch.isfinite(af).all(), f"gpt2 bwd {name}: {gname}"
+                assert (e <= BWD_ATOL + BWD_RTOL * bf.abs()).all(), (
+                    f"gpt2 bwd {name}: {gname} differs from plain by up to "
+                    f"{e.max().item():.3e}")
+                errs[gname] = e.max().item()
+            delta = fa.bwd_delta(do, o)
+            ms_b = {"dq": time_ms(lambda: fa.flash_bwd_dq(
+                        q, k, v, do, lse, delta, True)),
+                    "dkv": time_ms(lambda: fa.flash_bwd_dkv(
+                        q, k, v, do, lse, delta, True))}
+            plain_b = time_ms(lambda: fa.flash_bwd_reference(
+                q, k, v, o, lse, do, causal=True), reps=3, warmup=1)
+            lib_b, backend = sdpa_backward(q, k, v, do)
+            line += (f"; backward max|dq-plain|={errs['dq']:.3e} "
+                     f"max|dk-plain|={errs['dk']:.3e} max|dv-plain|="
+                     f"{errs['dv']:.3e}; plain {plain_b:.3f} ms; SDPA "
+                     f"backward ({backend}) {lib_b:.4f} ms")
+            for which, kname, line_no in (("dq", "flash_bwd_dq", 364),
+                                          ("dkv", "flash_bwd_dkv", 419)):
+                bound, by = bwd_bound(which, B, H, H, S, S, D, True, bf16)
+                e = errs["dq"] if which == "dq" else max(errs["dk"],
+                                                         errs["dv"])
+                entries[f"{kname}_{name}"] = dict(
+                    name=f"{kname}_{name}", route="cuda", source=src_b,
+                    replaces=f"deepspeed_tpu/ops/flash_attention.py:"
+                             f"{line_no}",
+                    launches=0, max_abs_err=e, ms=ms_b[which],
+                    plain_ms=plain_b, bound_ms=bound, bound_by=by,
+                    library_ms=lib_b)
+                line += (f"; {kname} {ms_b[which]:.4f} ms, bound "
+                         f"{bound:.4f} ms ({by}), {bound / ms_b[which]:.1%} "
+                         "of bound")
+            del do, got, want, delta
+        log(line)
+        del q, k, v, o, lse, ro, rlse
+        torch.cuda.empty_cache()
+    log("gpt2 kernels: these shapes run the D=64 builds of flash_fwd_hopper, "
+        "dq_hopper and dkv_hopper, which phase 1 held to no spill, no local "
+        "memory and no wgmma serialization; GPT-2 adds no build")
+
+    # #4 over each configuration's parameters (config 2: one rank's shard
+    # at ZeRO 2 on one card is all of them)
+    for preset in ("gpt2-125m", "gpt2-1.3b"):
+        with torch.device("meta"):
+            n = sum(p.numel() for p in GPT2LMLoss(get_config(
+                preset)).parameters())
+        name = f"fused_adam_{preset.replace('-', '_')}"
+        entries[name] = adam_entry(name, n)
+
+    # #6 and #7 at gpt2-125m's int8 serving shapes, groups of 128: c_fc
+    # [768, 3072] (flax's [in, out]) and the tied table [50257, 768]
+    for i, (name, shape) in enumerate((("c_fc", (768, 3072)),
+                                       ("wte", (50257, 768)))):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 700 + i)
+        x = (torch.randn(shape, generator=gen, device="cuda") * 0.02).to(bf16)
+        got = qz.quantize(x, group_size=128)
+        back = qz.dequantize(got)
+        want = qz.quantize_reference(x, group_size=128)
+        want_back = qz.dequantize_reference(want)
+        torch.cuda.synchronize()
+        assert torch.equal(got.values, want.values) and torch.equal(
+            got.scale, want.scale) and torch.equal(got.offset, want.offset)
+        assert torch.equal(back.view(torch.int16),
+                           want_back.view(torch.int16))
+        bound, by = quant_bound(x.numel(), 128, 2)
+        ms_q = graph_ms(lambda: qz.quantize(x, group_size=128))
+        ms_d = graph_ms(lambda: qz.dequantize(got))
+        plain_q = time_ms(lambda: qz.quantize_reference(x, group_size=128),
+                          reps=3, warmup=1)
+        plain_d = time_ms(lambda: qz.dequantize_reference(got), reps=3,
+                          warmup=1)
+        log(f"gpt2 quant[{name}] {list(shape)} groups of 128 bf16: payload, "
+            f"scale, offset and dequantized output bit-identical to plain; "
+            f"device time quantize {ms_q:.4f} ms (plain {plain_q:.3f} ms), "
+            f"dequantize {ms_d:.4f} ms (plain {plain_d:.3f} ms), bound "
+            f"{bound:.4f} ms ({by}) each: {bound / ms_q:.1%} and "
+            f"{bound / ms_d:.1%} of bound")
+        for kname, ms, plain_ms, line_no in (
+                (f"quantize_int8_g128_gpt2_{name}", ms_q, plain_q, 41),
+                (f"dequantize_int8_g128_gpt2_{name}", ms_d, plain_d, 59)):
+            entries[kname] = dict(
+                name=kname, route="cuda",
+                source="deepspeed_tpu_torch/ops/csrc/quantization.cu",
+                replaces=f"deepspeed_tpu/ops/quantization.py:{line_no}",
+                launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None)
+        del x, got, back, want, want_back
+        torch.cuda.empty_cache()
+    return entries
+
+
+def phase_gpt2_serve():
+    """v1 serving of gpt2-125m at the reference's inference shape, eager
+    and graphed; gpt2-1.3b; gpt2-125m with int8 weights.  Returns the
+    launches of #1 over the gpt2-125m bf16 run and of #6/#7 over the int8
+    run."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, get_config
+    from deepspeed_tpu_torch.ops import quantization as qz
+    from deepspeed_tpu_torch.ops.flash_attention import flash_fwd
+
+    def build(cfg, **config):
+        with torch.device("meta"):
+            model = GPT2Model(cfg)
+        return deepspeed_tpu_torch.init_inference(
+            model, config={"dtype": "bfloat16", "max_out_tokens": 1024,
+                           **config},
+            generator=torch.Generator(device="cuda").manual_seed(SEED))
+
+    def run(engine, prompts, L, **kw):
+        before = flash_fwd.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = engine.generate(prompts, **kw)
+        dt = time.perf_counter() - t
+        n = flash_fwd.launches - before
+        assert n == L, f"generate launched the flash kernel {n} times, " \
+            f"want {L}"
+        B, P = prompts.shape
+        assert out.shape == (B, P + kw["max_new_tokens"]), out.shape
+        assert torch.equal(out[:, :P], prompts)
+        assert ((out[:, P:] >= 0) & (out[:, P:] < 50257)).all()
+        return out, dt
+
+    def serve(cfg, B, P, NEW):
+        """Eager greedy twice, prefill alone twice, sampled, async, then
+        the same engine's module graphed: greedy twice and sampled."""
+        L = cfg.n_layer
+        prompts = torch.randint(0, cfg.vocab_size, (B, P),
+                                generator=torch.Generator().manual_seed(SEED))
+        torch.cuda.reset_peak_memory_stats()
+        engine = build(cfg)
+        greedy, t1 = run(engine, prompts, L, max_new_tokens=NEW)
+        again, t2 = run(engine, prompts, L, max_new_tokens=NEW)
+        assert torch.equal(greedy, again), "greedy runs differ"
+        _, tp1 = run(engine, prompts, L, max_new_tokens=1)
+        _, tp2 = run(engine, prompts, L, max_new_tokens=1)
+        samp = dict(max_new_tokens=NEW, do_sample=True, temperature=0.8,
+                    top_k=50, top_p=0.9)
+        sampled, ts = run(engine, prompts, L, generator=torch.Generator(
+            device="cuda").manual_seed(SEED), **samp)
+        before = flash_fwd.launches
+        pending = engine.generate_async(prompts, max_new_tokens=NEW)
+        assert torch.equal(pending.result(), greedy), "async differs"
+        assert flash_fwd.launches - before == L
+        stages = engine.serving_stages()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        graphed = deepspeed_tpu_torch.init_inference(
+            engine.module, config={"dtype": "bfloat16",
+                                   "max_out_tokens": 1024,
+                                   "enable_cuda_graph": True})
+        g1, tg1 = run(graphed, prompts, L, max_new_tokens=NEW)
+        g2, tg2 = run(graphed, prompts, L, max_new_tokens=NEW)
+        assert torch.equal(g1, greedy) and torch.equal(g2, greedy), \
+            "graphed greedy tokens differ from eager"
+        note = "sampled graphs need CUDAGraph.register_generator_state"
+        if hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+            gs, _ = run(graphed, prompts, L, generator=torch.Generator(
+                device="cuda").manual_seed(SEED), **samp)
+            assert torch.equal(gs, sampled), "graphed sampled tokens differ"
+            note = "sampled equal to eager"
+        gstages = graphed.serving_stages()
+        peak_g = torch.cuda.max_memory_allocated() / 2**30
+        tps, gtps = (B * (NEW - 1) / (t2 - tp2), B * (NEW - 1) / (tg2 - tp2))
+        log(f"gpt2 v1 {B}x{P}+{NEW} (n_layer {L}, n_head {cfg.n_head}, "
+            f"n_embd {cfg.n_embd}): eager {t1:.3f} s (first) / {t2:.3f} s, "
+            f"prefill (generate 1 token) {tp1 * 1e3:.1f} / {tp2 * 1e3:.1f} "
+            f"ms, decode {tps:.1f} tokens/s "
+            f"({(t2 - tp2) / (NEW - 1) * 1e3:.3f} ms/step), sampled "
+            f"{ts:.3f} s, host_bound_fraction "
+            f"{stages['host_bound_fraction']}, peak {peak:.2f} GiB; graphed "
+            f"{tg1:.3f} s (first, with the capture) / {tg2:.3f} s, decode "
+            f"{gtps:.1f} tokens/s ({(tg2 - tp2) / (NEW - 1) * 1e3:.3f} "
+            f"ms/step), host_bound_fraction {gstages['host_bound_fraction']}"
+            f", captures {gstages['graph_captures']} "
+            f"({gstages['graph_capture_s']:.3f} s), peak {peak_g:.2f} GiB; "
+            f"greedy tokens identical eager twice, async and graphed twice; "
+            f"{note}; flash once per layer per generate")
+        module = engine.module
+        del engine, graphed
+        return module, greedy
+
+    # gpt2-125m at bench.py:485-500's shape; the main path's run starts
+    flash_fwd.launches = 0
+    cfg = get_config("gpt2-125m", n_positions=1024,
+                     use_flash_attention=True, remat=False)
+    module, bf16_greedy = serve(cfg, 64, 128, 128)
+    fwd_launches = flash_fwd.launches
+    del module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # gpt2-1.3b: 900 + 64 stays inside n_positions
+    module, _ = serve(get_config("gpt2-1.3b", n_positions=1024,
+                                 use_flash_attention=True, remat=False),
+                      4, 900, 64)
+    del module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # gpt2-125m, int8 weights at groups of 128: 48 Linear weights, wte and
+    # wpe quantized once each at build; per forward each dequantized once
+    # and the tied table twice (the lookup and the head)
+    n_leaves = 4 * cfg.n_layer + 2
+    per_forward = n_leaves + 1
+    B, P, NEW = 64, 128, 128
+    qz.quantize.launches = qz.dequantize.launches = 0   # the path starts
+    engine = build(cfg, quant={"enabled": True, "qtype": "int8"})
+    torch.cuda.synchronize()
+    assert qz.quantize.launches == n_leaves, qz.quantize.launches
+    prompts = torch.randint(0, cfg.vocab_size, (B, P),
+                            generator=torch.Generator().manual_seed(SEED))
+    before = qz.dequantize.launches
+    out, t1 = run(engine, prompts, cfg.n_layer, max_new_tokens=NEW)
+    got = qz.dequantize.launches - before
+    assert got == per_forward * NEW, (
+        f"int8 generate launched dequantize {got} times, want "
+        f"{per_forward} x {NEW} forwards")
+    again, t2 = run(engine, prompts, cfg.n_layer, max_new_tokens=NEW)
+    assert torch.equal(out, again), "int8 greedy runs differ"
+    same = (out[:, P:] == bf16_greedy[:, P:]).float().mean().item()
+    log(f"gpt2 int8 v1 {B}x{P}+{NEW}: {qz.quantize.launches} weights "
+        f"quantized at build; {per_forward} dequantize launches per forward "
+        f"({n_leaves} leaves, the tied table twice), {got} per generate; "
+        f"{t1:.3f} / {t2:.3f} s; greedy tokens identical twice, {same:.1%} "
+        f"of them equal to the bf16 run's")
+    q_launches = (qz.quantize.launches, qz.dequantize.launches)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fwd_launches, q_launches
+
+
+def gpt2_train_config(opt, micro, stage):
+    """bench.py's configs 1 and 2 (lr 1e-4, weight decay 0.01, one micro
+    batch a step), with ``fused`` set: the port, as the JAX package, runs
+    the fused kernel only when asked."""
+    return {"train_batch_size": micro, "train_micro_batch_size_per_gpu": micro,
+            "gradient_accumulation_steps": 1, "bf16": {"enabled": True},
+            "zero_optimization": {"stage": stage},
+            "optimizer": {"type": opt, "params": {
+                "lr": 1e-4, "weight_decay": 0.01, "fused": True}},
+            "steps_per_print": 1000000}
+
+
+def gpt2_train_run(cfg, config, batch, steps, want, label):
+    """``steps`` train_batch calls on a fresh engine, launches held per
+    step to ``want`` (flash fwd, dQ, dK/dV, fused Adam); returns the
+    engine, its model, the losses, the median step ms and the peak GiB of
+    the steps."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMLoss
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_adam as fo
+
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                fo.fused_adam)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        model = GPT2LMLoss(cfg)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=config,
+        generator=torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for step in range(steps):
+        before = [c.launches for c in counters]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(engine.train_batch(batch=batch)))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        got = [c.launches - b for c, b in zip(counters, before)]
+        assert got == want, f"{label} step {step}: launches {got}, want " \
+            f"{want}"
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert all(math.isfinite(x) for x in losses), (label, losses)
+    log(f"gpt2 train {label}: engine up in {init_s:.1f} s, "
+        f"{engine.num_parameters / 1e9:.4f} B params")
+    return engine, model, losses, step_ms, peak
+
+
+def phase_gpt2_train():
+    """bench.py's config 1 (gpt2-125m, ZeRO 0) and config 2 (gpt2-1.3b,
+    ZeRO 2 over one NCCL rank, dots_saveable) at full width and depth;
+    config 2 under the "full" and "none" policies for a step each, and
+    its ZeRO-2 checkpoint resumed bit-identically.  Returns the launches
+    of the main runs by kernel line."""
+    import shutil
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.gpt2 import flops_per_token, get_config
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_adam as fo
+
+    counters = {"flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
+                "flash_bwd_dkv": fa.flash_bwd_dkv,
+                "fused_adam": fo.fused_adam}
+    S = 1024
+    launches = {}
+
+    def report(label, cfg, micro, losses, step_ms, peak):
+        steady = float(np.median(step_ms[1:]))
+        tps = micro * S / (steady / 1e3)
+        fpt = flops_per_token(cfg, S)
+        log(f"gpt2 train {label}: losses {[round(x, 4) for x in losses]}; "
+            f"step {steady:.1f} ms (median after the first, "
+            f"{step_ms[0]:.1f} ms), {tps:.0f} tokens/s, MFU "
+            f"{fpt * tps / PEAK_BF16:.1%} (flops_per_token {fpt:.4e} at "
+            f"989 TFLOP/s); peak {peak:.2f} GiB in the steps")
+
+    # config 1: gpt2-125m, ZeRO 0, AdamW, micro 12, remat off
+    cfg = get_config("gpt2-125m", n_positions=1024, remat=False,
+                     remat_policy="none", use_flash_attention=True)
+    L, micro = cfg.n_layer, 12
+    batch = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                 size=(micro, S))
+    for c in counters.values():         # the main path's run starts here
+        c.launches = 0
+    engine, model, losses, step_ms, peak = gpt2_train_run(
+        cfg, gpt2_train_config("AdamW", micro, 0), batch, 10,
+        [L, L, L, 1], "config 1 (gpt2-125m, ZeRO 0, AdamW)")
+    launches["gpt2_125m_train"] = {k: c.launches
+                                   for k, c in counters.items()}
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    report("config 1", cfg, micro, losses, step_ms, peak)
+    del engine, model
+
+    # config 2: gpt2-1.3b, ZeRO 2 over one NCCL rank, FusedAdam, micro 4,
+    # dots_saveable: the flash forward runs again in each block's recompute
+    comm.init_distributed(dist_backend="nccl")
+    assert comm.get_backend_name() == "nccl"
+    cfg = get_config("gpt2-1.3b", n_positions=1024, remat=True,
+                     remat_policy="dots_saveable", use_flash_attention=True)
+    L, micro = cfg.n_layer, 4
+    batch = np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size,
+                                                     size=(micro, S))
+    conf = gpt2_train_config("FusedAdam", micro, 2)
+    for c in counters.values():         # the main path's run starts here
+        c.launches = 0
+    engine, model, losses, step_ms, peak = gpt2_train_run(
+        cfg, conf, batch, 5, [2 * L, L, L, 1],
+        "config 2 (gpt2-1.3b, ZeRO 2, FusedAdam, dots_saveable)")
+    launches["gpt2_1.3b_train"] = {k: c.launches
+                                   for k, c in counters.items()}
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    report("config 2", cfg, micro, losses, step_ms, peak)
+    first = (losses[0], step_ms, peak)
+
+    # the ZeRO-2 checkpoint: save, 2 steps, load, the same 2 steps again
+    ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_gpt2_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t = time.perf_counter()
+    engine.save_checkpoint(ckpt)
+    save_s = time.perf_counter() - t
+    cont = [float(engine.train_batch(batch=batch)) for _ in range(2)]
+    want_p = engine.state.params.clone()
+    t = time.perf_counter()
+    path, _ = engine.load_checkpoint(ckpt)
+    load_s = time.perf_counter() - t
+    again = [float(engine.train_batch(batch=batch)) for _ in range(2)]
+    same = torch.equal(engine.state.params, want_p)
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(ckpt) for f in fs) / 2**30
+    log(f"gpt2 train config 2: ZeRO-2 checkpoint ({size:.2f} GiB) saved in "
+        f"{save_s:.1f} s, loaded in {load_s:.1f} s; losses {cont} then "
+        f"{again}; master bit-identical: {same}")
+    assert path is not None and again == cont and same, \
+        "the resumed config-2 run differs"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    del engine, model, want_p
+
+    # one step under "full" and "none": the dots_saveable peak between
+    peaks = {}
+    for policy, want in (("full", [2 * L, L, L, 1]), ("none", [L, L, L, 1])):
+        pcfg = get_config("gpt2-1.3b", n_positions=1024,
+                          remat=policy != "none", remat_policy=policy,
+                          use_flash_attention=True)
+        engine, model, pl, pms, peaks[policy] = gpt2_train_run(
+            pcfg, conf, batch, 1, want, f"config 2 under {policy}")
+        gap = abs(pl[0] - first[0]) / abs(first[0])
+        log(f"gpt2 train config 2 under {policy}: loss {pl[0]:.6f} (gap "
+            f"{gap:.3e} to dots_saveable's, limit {STAGE_LOSS_RTOL}); step "
+            f"{pms[0]:.1f} ms; peak {peaks[policy]:.2f} GiB")
+        assert gap <= STAGE_LOSS_RTOL, (policy, pl, first[0])
+        del engine, model
+    log(f"gpt2 train config 2 peaks: full {peaks['full']:.2f} GiB < "
+        f"dots_saveable {first[2]:.2f} GiB < none {peaks['none']:.2f} GiB")
+    assert peaks["full"] < first[2] < peaks["none"], (peaks, first[2])
+    comm.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gpt2_flax_tree(cfg, rng):
+    """A random flax-layout GPT2LMLoss param tree (unrolled layers) in
+    numpy, at the flax initialisers' scales; LayerNorm scales and biases
+    off their init so that every leaf matters."""
+    E, V = cfg.n_embd, cfg.vocab_size
+
+    def dense(n_in, n_out):
+        w = rng.standard_normal((n_in, n_out), dtype=np.float32)
+        return {"kernel": w * np.float32(1 / math.sqrt(n_in)),
+                "bias": 0.02 * rng.standard_normal(n_out, dtype=np.float32)}
+
+    def norm():
+        return {"scale": 1 + 0.1 * rng.standard_normal(E, dtype=np.float32),
+                "bias": 0.1 * rng.standard_normal(E, dtype=np.float32)}
+
+    def embed(n):
+        return {"embedding": rng.standard_normal((n, E), dtype=np.float32)
+                * np.float32(1 / math.sqrt(E))}
+
+    tree = {"wte": embed(V), "wpe": embed(cfg.n_positions), "ln_f": norm()}
+    for i in range(cfg.n_layer):
+        tree[f"h_{i}"] = {
+            "ln_1": norm(), "ln_2": norm(),
+            "attn": {"c_attn": dense(E, 3 * E), "c_proj": dense(E, E)},
+            "mlp": {"c_fc": dense(E, 4 * E), "c_proj": dense(4 * E, E)}}
+    return {"params": {"transformer": tree}}
+
+
+def phase_gpt2_cpu_parity():
+    """gpt2-125m at full width with 2 layers in fp32 (TF32 off), one
+    flax-layout tree through the bridge: prefill logits through v1, and
+    one training step's loss and gradients, on the card against the
+    port on the CPU."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import (GPT2LMLoss, GPT2Model,
+                                                 get_config)
+    from deepspeed_tpu_torch.module_inject.flax_bridge import \
+        flax_to_state_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("gpt2-125m", n_layer=2, dtype=torch.float32,
+                     param_dtype=torch.float32, remat=False,
+                     use_flash_attention=True)
+    rng = np.random.default_rng(SEED + 5)
+    state = flax_to_state_dict(gpt2_flax_tree(cfg, rng))
+    ids = rng.integers(0, cfg.vocab_size, size=(2, 128))
+    model_state = {k[len("transformer."):]: v for k, v in state.items()}
+    logits, loss, grads = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        with torch.device("meta"):
+            model = GPT2Model(cfg)
+        eng = deepspeed_tpu_torch.init_inference(
+            model, config={"dtype": "float32", "max_out_tokens": 256},
+            params=model_state, device=dev)
+        logits[dev] = eng.forward(ids).cpu()
+        del eng, model
+        lm = GPT2LMLoss(cfg)
+        lm.load_state_dict(state)
+        lm.to(dev)
+        out = lm(torch.from_numpy(ids).to(dev))
+        out.backward()
+        loss[dev] = out.item()
+        grads[dev] = {n: p.grad.cpu() for n, p in lm.named_parameters()}
+        del lm, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpu, cpu = logits["cuda"], logits["cpu"]
+    assert gpu.shape == (2, 128, cfg.vocab_size) and torch.isfinite(gpu).all()
+    err = (gpu - cpu).abs().max().item()
+    rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    worst = max(((grads["cuda"][n] - g).abs().max() / g.abs().max()).item()
+                for n, g in grads["cpu"].items())
+    log(f"gpt2 parity: 2-layer fp32 at full width, card vs CPU: prefill "
+        f"logits max|diff| {err:.3e} (logit std {cpu.std().item():.3f}, "
+        f"tolerance {LOGITS_ATOL}); loss {loss['cuda']:.6f} vs "
+        f"{loss['cpu']:.6f} (rel {rel:.3e}, limit {TRAIN_LOSS_RTOL}); "
+        f"gradients: largest max|diff| / max|grad| over "
+        f"{len(grads['cpu'])} tensors {worst:.3e} (limit {GPT2_GRAD_RTOL})")
+    assert err <= LOGITS_ATOL, f"card and CPU logits differ by {err:.3e}"
+    assert rel <= TRAIN_LOSS_RTOL, (loss, rel)
+    assert worst <= GPT2_GRAD_RTOL, f"gradients differ by {worst:.3e}"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -2066,6 +2712,14 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import deepspeed_tpu_torch  # noqa: F401  (fails outside the repository)
 
+    # ``--gpt2-only``: the build and phases 15-18 alone, for work on the
+    # GPT-2 path; it prints no result lines
+    if sys.argv[1:] == ["--gpt2-only"]:
+        t0 = time.perf_counter()
+        phase_report()
+        gpt2_phases(t0)
+        log(f"gpt2 phases done at {time.perf_counter() - t0:.1f} s")
+        return 0
     t0 = time.perf_counter()
     phase_report()
     entry = phase_kernel()
@@ -2105,15 +2759,43 @@ def main() -> int:
     phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager, bf16_greedy,
                  v1_eager)
     log(f"phase 14 done at {time.perf_counter() - t0:.1f} s")
+    gpt2 = gpt2_phases(t0)
     log(json.dumps({"kernels": [entry, paged, paged_quant] +
                     [train[k] for k in ("flash_bwd_dq", "flash_bwd_dkv",
                                         "fused_adam", "fused_lion")] +
                     [quant[f"{op}_int8_g{gs}"] for gs in (128, 2048)
-                     for op in ("quantize", "dequantize")]}))
+                     for op in ("quantize", "dequantize")] + gpt2}))
+    log(f"chip_smoke: all phases done in {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def gpt2_phases(t0):
+    """Phases 15-18; returns their kernel-line entries with the launches
+    of phases 16 and 17's main-path runs."""
+    entries = phase_gpt2_kernels()
+    log(f"phase 15 done at {time.perf_counter() - t0:.1f} s")
+    fwd_launches, (q_launches, dq_launches) = phase_gpt2_serve()
+    entries["flash_fwd_gpt2_125m_prefill"]["launches"] = fwd_launches
+    for name in ("c_fc", "wte"):
+        entries[f"quantize_int8_g128_gpt2_{name}"]["launches"] = q_launches
+        entries[f"dequantize_int8_g128_gpt2_{name}"]["launches"] = \
+            dq_launches
+    log(f"phase 16 done at {time.perf_counter() - t0:.1f} s")
+    launches = phase_gpt2_train()
+    for shape, counts in launches.items():
+        for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            entries[f"{kname}_{shape}"]["launches"] = counts[kname]
+    entries["fused_adam_gpt2_125m"]["launches"] = \
+        launches["gpt2_125m_train"]["fused_adam"]
+    entries["fused_adam_gpt2_1.3b"]["launches"] = \
+        launches["gpt2_1.3b_train"]["fused_adam"]
+    log(f"phase 17 done at {time.perf_counter() - t0:.1f} s")
+    phase_gpt2_cpu_parity()
+    log(f"phase 18 done at {time.perf_counter() - t0:.1f} s")
+    return list(entries.values())
 
 
 if __name__ == "__main__":

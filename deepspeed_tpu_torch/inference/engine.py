@@ -86,8 +86,9 @@ def init_inference(model: nn.Module, config: Any = None,
     """Create an :class:`InferenceEngine` (reference
     ``deepspeed.init_inference``, ``deepspeed/__init__.py:291``).
 
-    ``model``: a causal-LM module of this package whose ``config``
-    dataclass has ``decode`` and ``max_cache_len`` fields.  Build it under
+    ``model``: a causal-LM module of this package (``models/llama.py``,
+    ``models/gpt2.py``) whose ``config`` dataclass has ``decode`` and
+    ``max_cache_len`` fields and a ``kv_cache_shape``.  Build it under
     ``torch.device("meta")`` to have its weights made directly in the
     serving dtype on the card.  ``params``: a ``state_dict`` to load;
     without one a meta model gets random weights from ``generator``.
@@ -160,15 +161,18 @@ class InferenceEngine:
         mcfg = getattr(model, "config", None)
         if not (dataclasses.is_dataclass(mcfg) and
                 {"decode", "max_cache_len"} <= {
-                    f.name for f in dataclasses.fields(mcfg)}):
+                    f.name for f in dataclasses.fields(mcfg)} and
+                hasattr(mcfg, "kv_cache_shape")):
             raise TypeError(
                 "init_inference needs a decoder model whose config "
-                "dataclass has 'decode' and 'max_cache_len' fields "
-                "(models/llama.py)")
-        # rotary position tables bound usable positions; clamp the cache
-        # so generate() can't run past them
+                "dataclass has 'decode' and 'max_cache_len' fields and a "
+                "'kv_cache_shape' (models/llama.py, models/gpt2.py)")
+        # learned and rotary position tables bound usable positions; clamp
+        # the cache so generate() can't run past them (a position past a
+        # learned table faults in the embedding's gather on the card)
         cache_len = mcfg.max_cache_len or config.max_out_tokens
-        pos_bound = getattr(mcfg, "max_position_embeddings", None)
+        pos_bound = (getattr(mcfg, "n_positions", None) or
+                     getattr(mcfg, "max_position_embeddings", None))
         if pos_bound is not None and cache_len > pos_bound:
             logger.warning(
                 f"max_out_tokens={cache_len} exceeds the model's position "
@@ -220,10 +224,10 @@ class InferenceEngine:
     # ------------------------------------------------------------------
 
     def _state(self, B: int, L: int) -> _DecodeState:
-        cfg = self.module.config
+        layers, kv_heads, head_dim = self.module.config.kv_cache_shape
         return _DecodeState(
-            init_cache(cfg.num_hidden_layers, L, B, cfg.num_key_value_heads,
-                       cfg.head_dim, self.dtype, self.device, fixed=True),
+            init_cache(layers, L, B, kv_heads, head_dim, self.dtype,
+                       self.device, fixed=True),
             B, L, self.device)
 
     @torch.inference_mode()

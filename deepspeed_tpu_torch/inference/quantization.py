@@ -10,8 +10,8 @@ The product itself stays ``F.linear`` (cuBLAS), as the JAX package leaves
 it to XLA outside any Pallas kernel.
 
 :func:`quantize_model_` swaps each quantized ``nn.Linear`` for a
-:class:`QuantizedLinear` and each ``nn.Embedding`` for a
-:class:`QuantizedEmbedding` in place.  The leaf filter is the
+:class:`QuantizedLinear` and each ``nn.Embedding`` (GPT-2's ``Embed``
+too) for a :class:`QuantizedEmbedding` in place.  The leaf filter is the
 reference's: the flax matmul leaves ``kernel`` (an ``nn.Linear`` weight)
 and ``embedding`` (an ``nn.Embedding`` weight) with ``ndim >= 2`` and at
 least ``min_size`` elements; norm scales and biases stay in the serving
@@ -96,10 +96,12 @@ class QuantizedLinear(_Quantized):
 
 class QuantizedEmbedding(_Quantized):
     """``nn.Embedding`` over an int8 ``[vocab, hidden]`` table, dequantized
-    at every call."""
+    at every call: a lookup, or with ``attend`` the tied head ``x @
+    table^T`` (GPT-2's ``Embed``), each call one dequantize launch."""
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.dequantized())
+    def forward(self, x: torch.Tensor, attend: bool = False) -> torch.Tensor:
+        table = self.dequantized()
+        return F.linear(x, table) if attend else F.embedding(x, table)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -119,7 +121,7 @@ def quantize_model_(module: nn.Module, fmt: str = "int8",
     check_format(fmt)
     before = sum(_nbytes(p) for p in module.parameters())
     names = [name for name, mod in module.named_modules()
-             if type(mod) in (nn.Linear, nn.Embedding)
+             if isinstance(mod, (nn.Linear, nn.Embedding))
              and mod.weight.dim() >= 2 and mod.weight.numel() >= min_size]
     for name in names:
         mod = module.get_submodule(name)

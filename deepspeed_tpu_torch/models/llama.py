@@ -29,11 +29,12 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
-from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.inference.kv_cache import KVCache, cached_attention
 from deepspeed_tpu_torch.inference.paged import (KV_CACHE_DTYPES,
                                                  PagedKVPool, RaggedMeta)
+from deepspeed_tpu_torch.models.gpt2 import (next_token_loss, remat_call,
+                                             remat_policy_fn)
 from deepspeed_tpu_torch.ops.flash_attention import (flash_attention,
                                                      mha_reference)
 from deepspeed_tpu_torch.ops.ragged_paged_attention import (
@@ -45,9 +46,9 @@ class LlamaConfig:
     """Same fields as the flax ``LlamaConfig``, so one converts to the other
     field for field.  ``dtype``/``param_dtype`` are torch dtypes; modules
     are built in ``param_dtype`` and compute in their weights' dtype.
-    ``remat`` checkpoints every block under autograd
-    (``torch.utils.checkpoint``, the whole block recomputed in the
-    backward: ``remat_policy`` "full"; "none" turns it off).
+    ``remat`` checkpoints every block under autograd with
+    ``remat_policy`` (``models/gpt2.py::remat_policy_fn``; "none" turns it
+    off).
     ``scan_layers``, ``decode``, ``pipeline_microbatches`` and the
     paged-cache fields (``paged_decode``, ``kv_page_size``,
     ``kv_num_pages``, ``kv_cache_dtype``, set by the v2 engine) change
@@ -99,18 +100,17 @@ class LlamaConfig:
             "tensor_parallel": (self.tensor_parallel,
                                 "ROADMAP A7a (tensor-parallel serving)"),
             "ragged_decode": (self.ragged_decode,
-                              "ROADMAP A8 (the slot-row ragged cache; the "
+                              "ROADMAP A12 (the slot-row ragged cache; the "
                               "v2 engine uses paged_decode)"),
             "weight_quant": (self.weight_quant != "none",
                              "ROADMAP A9.6 (W8A8 serving)"),
-            "remat_policy": (self.remat_policy not in ("full", "none"),
-                             "ROADMAP A4 (remat policies that save "
-                             "selected activations)"),
         }
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype must be one of "
                              f"{KV_CACHE_DTYPES}, got "
                              f"{self.kv_cache_dtype!r}")
+        if self.remat_policy != "none":
+            remat_policy_fn(self.remat_policy)
         for name, (is_set, item) in unported.items():
             if is_set:
                 raise NotImplementedError(
@@ -120,6 +120,12 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    @property
+    def kv_cache_shape(self):
+        """(layers, KV heads, head dim) of the v1 engine's KV cache."""
+        return (self.num_hidden_layers, self.num_key_value_heads,
+                self.head_dim)
 
 
 PRESETS = {
@@ -346,14 +352,13 @@ class LlamaModel(nn.Module):
             else angles[:, :, None]
         rope = (angles.cos(), angles.sin())
         x = self.embed_tokens(input_ids)
-        remat = (cfg.remat and cfg.remat_policy == "full"
+        remat = (cfg.remat and cfg.remat_policy != "none"
                  and torch.is_grad_enabled() and kv_cache is None)
         for i, layer in enumerate(self.layers):
             if remat:
                 # recompute the block in the backward (nn.remat of the
-                # flax model): only its input is kept
-                x = checkpoint(layer, x, positions, rope,
-                               use_reentrant=False)
+                # flax model): its input and what the policy saves are kept
+                x = remat_call(layer, cfg.remat_policy, x, positions, rope)
             else:
                 x = layer(x, positions, rope,
                           None if kv_cache is None else kv_cache[i],
@@ -407,19 +412,6 @@ class LlamaForCausalLM(nn.Module):
             mod.weight.normal_(0.0, 1.0, generator=generator)
         elif isinstance(mod, RMSNorm):
             mod.weight.fill_(1.0)
-
-
-def next_token_loss(logits: torch.Tensor,
-                    input_ids: torch.Tensor) -> torch.Tensor:
-    """Next-token cross entropy, ``mean(logsumexp(logits) - target
-    logit)`` (``deepspeed_tpu/models/gpt2.py::next_token_loss``): the
-    logits stay in the compute dtype, the log-sum-exp and the gathered
-    target logits are fp32."""
-    logits = logits[:, :-1]
-    targets = input_ids[:, 1:]
-    lse = torch.logsumexp(logits.float(), dim=-1)
-    tgt = logits.gather(-1, targets[..., None])[..., 0]
-    return (lse - tgt.float()).mean()
 
 
 class LlamaLMLoss(nn.Module):

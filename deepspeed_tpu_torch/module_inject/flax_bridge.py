@@ -1,20 +1,23 @@
-"""Weight bridge between the JAX package's flax Llama params and this
-port's ``state_dict``, both ways.
+"""Weight bridge between the JAX package's flax params and this port's
+``state_dict``, both ways, for the Llama and GPT-2 families.
 
 Takes the param tree as nested dicts of numpy arrays (optionally under a
 ``{"params": ...}`` wrapper) in either layer layout:
 
-- scan-stacked: ``model/layers/block/<leaf>`` with a leading ``L`` axis
+- scan-stacked: ``model/layers/block/<leaf>`` (Llama) or
+  ``transformer/h/block/<leaf>`` (GPT-2) with a leading ``L`` axis
   (``scan_layers=True``, the training default; the unstacking rule is the
   reference's ``inference/common.py::unroll_scan_params``);
-- unrolled: ``model/layers_<i>/<leaf>``.
+- unrolled: ``model/layers_<i>/<leaf>`` or ``transformer/h_<i>/<leaf>``.
 
 Renames: Dense ``kernel [in, out]`` -> Linear ``weight [out, in]``,
-``Embed.embedding`` -> ``weight``, RMSNorm ``scale`` -> ``weight``,
-``bias`` -> ``bias``.  The trees of ``LlamaLMLoss`` carry one more level,
-``lm``, on both sides.  Any module or leaf name outside the Llama family's
-raises, so a tree of another model is refused rather than half-loaded.
-:func:`state_dict_to_flax` is the way back, into either layer layout.
+``Embed.embedding`` -> ``weight``, RMSNorm and LayerNorm ``scale`` ->
+``weight``, ``bias`` -> ``bias``.  The trees of ``LlamaLMLoss`` carry one
+more level, ``lm``, on both sides (``GPT2LMLoss``'s ``transformer`` level
+is the model's own).  The family is the one whose module names cover the
+tree's; a name of neither family raises, so a tree of another model is
+refused rather than half-loaded.  :func:`state_dict_to_flax` is the way
+back, into either layer layout.
 
 A tree the JAX package quantized (``quantize_param_tree``, "int8") carries
 across too: each ``QuantizedWeight`` leaf (payload, scale and offset as
@@ -27,19 +30,59 @@ flattening, so a ``kernel``'s payload is not transposed.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Set
 
 import numpy as np
 import torch
 
-_MODULES = frozenset({
-    "lm", "model", "embed_tokens", "layers", "norm", "lm_head",
-    "input_layernorm", "post_attention_layernorm", "self_attn", "mlp",
-    "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
-    "down_proj"})
+_FAMILIES = {
+    "llama": dict(
+        layers="layers",
+        owners={"embed_tokens": "embedding", "norm": "scale",
+                "input_layernorm": "scale",
+                "post_attention_layernorm": "scale", "q_proj": "kernel",
+                "k_proj": "kernel", "v_proj": "kernel", "o_proj": "kernel",
+                "gate_proj": "kernel", "up_proj": "kernel",
+                "down_proj": "kernel", "lm_head": "kernel"},
+        containers={"lm", "model", "self_attn", "mlp"}),
+    "gpt2": dict(
+        layers="h",
+        owners={"wte": "embedding", "wpe": "embedding", "ln_1": "scale",
+                "ln_2": "scale", "ln_f": "scale", "c_attn": "kernel",
+                "c_proj": "kernel", "c_fc": "kernel", "lm_head": "kernel"},
+        containers={"transformer", "attn", "mlp"}),
+}
+for _fam in _FAMILIES.values():
+    _fam["modules"] = frozenset(
+        {_fam["layers"], *_fam["owners"], *_fam["containers"]})
+    _fam["unrolled"] = re.compile(_fam["layers"] + r"_(\d+)")
 _LEAVES = {"kernel": "weight", "embedding": "weight", "scale": "weight",
            "bias": "bias"}
-_UNROLLED = re.compile(r"layers_(\d+)")
+
+
+def _family(names: Set[str], where: str) -> Dict[str, Any]:
+    """The family whose module names cover ``names``; a ``KeyError``
+    naming what neither family maps otherwise."""
+    misses = {}
+    for fam in _FAMILIES.values():
+        miss = {n for n in names if n not in fam["modules"]
+                and not fam["unrolled"].fullmatch(n)}
+        if not miss:
+            return fam
+        misses[len(miss)] = miss
+    raise KeyError(f"unmapped {where} name(s) {sorted(misses[min(misses)])}")
+
+
+def _module_names(node: Mapping[str, Any]) -> Set[str]:
+    """The keys of ``node``'s subtrees, all levels, but the scan level
+    ``block``."""
+    out = set()
+    for key, val in node.items():
+        if isinstance(val, Mapping):
+            if key != "block":
+                out.add(key)
+            out |= _module_names(val)
+    return out
 
 
 def _first_leaf(node: Mapping[str, Any]) -> np.ndarray:
@@ -83,10 +126,11 @@ def _quantized_leaf(path: List[str], q, layer: Optional[int]
 
 
 def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for a flax Llama param tree, quantized
-    leaves included."""
+    """The port's ``state_dict`` for a flax Llama or GPT-2 param tree,
+    quantized leaves included."""
     if set(params) == {"params"}:
         params = params["params"]
+    fam = _family(_module_names(params), "flax")
     out: Dict[str, torch.Tensor] = {}
 
     def leaf(path: List[str], arr, layer: Optional[int]) -> None:
@@ -106,12 +150,12 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     def walk(node: Mapping[str, Any], path: List[str],
              layer: Optional[int]) -> None:
         for key, val in node.items():
-            m = _UNROLLED.fullmatch(key)
+            m = fam["unrolled"].fullmatch(key)
             if m:
-                walk(val, path + ["layers", m.group(1)], layer)
+                walk(val, path + [fam["layers"], m.group(1)], layer)
             elif key in _LEAVES and not isinstance(val, Mapping):
                 leaf(path + [key], val, layer)
-            elif key not in _MODULES or not isinstance(val, Mapping):
+            elif key not in fam["modules"] or not isinstance(val, Mapping):
                 raise KeyError(f"unmapped flax name {'/'.join(path + [key])}")
             elif set(val) == {"block"}:
                 # scan-stacked layers: leading L axis on every leaf
@@ -124,53 +168,46 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-_FLAX_LEAVES = {"q_proj": "kernel", "k_proj": "kernel", "v_proj": "kernel",
-                "o_proj": "kernel", "gate_proj": "kernel",
-                "up_proj": "kernel", "down_proj": "kernel",
-                "lm_head": "kernel", "embed_tokens": "embedding",
-                "input_layernorm": "scale",
-                "post_attention_layernorm": "scale", "norm": "scale"}
-
-
 def state_dict_to_flax(state: Mapping[str, torch.Tensor],
                        scan_layers: bool = True) -> Dict[str, Any]:
     """The flax param tree (nested dicts of fp32 numpy arrays, without the
     ``{"params": ...}`` wrapper) of a port ``state_dict``: scan-stacked
-    under ``layers/block`` with a leading L axis, or unrolled as
-    ``layers_<i>``.  Linear weights ``[out, in]`` become kernels
-    ``[in, out]``."""
+    under ``layers/block`` (``h/block``) with a leading L axis, or
+    unrolled as ``layers_<i>`` (``h_<i>``).  Linear weights ``[out, in]``
+    become kernels ``[in, out]``."""
+    fam = _family({p for name in state for p in name.split(".")[:-1]
+                   if not p.isdigit()}, "port")
+    layers = fam["layers"]
     tree: Dict[str, Any] = {}
     stacked: Dict[tuple, Dict[int, np.ndarray]] = {}
     for name, t in state.items():
         parts = name.split(".")
         arr = t.detach().float().cpu().numpy()
         owner = parts[-2]
-        if owner not in _MODULES:
-            raise KeyError(f"unmapped port name {name}")
-        if parts[-1] == "weight":
-            leaf = _FLAX_LEAVES[owner]
+        if parts[-1] == "weight" and owner in fam["owners"]:
+            leaf = fam["owners"][owner]
             if leaf == "kernel":
                 arr = arr.T
-        elif parts[-1] == "bias":
+        elif parts[-1] == "bias" and owner in fam["owners"]:
             leaf = "bias"
         else:
             raise KeyError(f"unmapped port name {name}")
         path = parts[:-1] + [leaf]
-        if "layers" in path:
-            i = path.index("layers")
+        if layers in path:
+            i = path.index(layers)
             layer = int(path[i + 1])
             if scan_layers:
                 key = tuple(path[:i + 1] + ["block"] + path[i + 2:])
                 stacked.setdefault(key, {})[layer] = arr
                 continue
-            path = path[:i] + [f"layers_{layer}"] + path[i + 2:]
+            path = path[:i] + [f"{layers}_{layer}"] + path[i + 2:]
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = np.ascontiguousarray(arr)
-    for key, layers in stacked.items():
+    for key, stack in stacked.items():
         node = tree
         for k in key[:-1]:
             node = node.setdefault(k, {})
-        node[key[-1]] = np.stack([layers[i] for i in range(len(layers))])
+        node[key[-1]] = np.stack([stack[i] for i in range(len(stack))])
     return tree

@@ -529,7 +529,9 @@ class UnitGatherHooks:
     A unit whose leaves are all the parameters below one module (a
     decoder block, the embedding) hooks that module.  Otherwise it hooks
     each module that owns one of its leaves and is released after the
-    last of them has run.
+    last of them has run; a module called more than once in a forward
+    (GPT-2's tied embedding: the lookup, then the head) says so in its
+    ``calls_per_forward``, and the release waits for its last call.
 
     ``handles`` removes the hooks; the engine does when it is freed, so
     a module kept after its engine is dropped keeps none of the
@@ -564,17 +566,18 @@ class UnitGatherHooks:
             else:
                 targets = [module.get_submodule(m)
                            for m in dict.fromkeys(mods)]
+            calls = sum(getattr(m, "calls_per_forward", 1) for m in targets)
             for mod in targets:
                 self.handles += [
                     mod.register_forward_pre_hook(self._pre(u)),
-                    mod.register_forward_hook(self._post(u, len(targets)))]
+                    mod.register_forward_hook(self._post(u, calls))]
 
     def _pre(self, u: int):
         def hook(module, args):
             self.zb.gather(u)
         return hook
 
-    def _post(self, u: int, n_targets: int):
+    def _post(self, u: int, n_calls: int):
         def regather(grad):
             self.zb.gather(u)
 
@@ -587,7 +590,7 @@ class UnitGatherHooks:
                     if isinstance(t, torch.Tensor) and t.requires_grad:
                         t.register_hook(regather)
             self._fwd_count[u] = self._fwd_count.get(u, 0) + 1
-            if self._fwd_count[u] < n_targets:
+            if self._fwd_count[u] < n_calls:
                 return
             self._fwd_count[u] = 0
             if not zb.in_backward:

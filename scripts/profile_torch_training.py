@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
 """Where the time goes in one training step of the PyTorch port, on one GPU.
 
-    python3 scripts/profile_torch_training.py [--layers 22] [--top 16]
+    python3 scripts/profile_torch_training.py [--model llama-1b]
+                                              [--layers N] [--top 16]
                                               [--out FILE]
 
-Builds ``llama-1b`` (TinyLlama shape) with random seeded weights on the
-card and the training engine of ``chip_smoke.py`` phase 9 (bf16 with fp32
-master weights, fused AdamW, clipping 1.0, micro-batch 4 x 2048 tokens,
-2 accumulation steps), takes two warm-up steps, then traces one
-``train_batch`` with ``torch.profiler``.  It prints the wall time, the
+Builds a model with random seeded weights on the card and the training
+engine of ``chip_smoke.py``, takes two warm-up steps, then traces one
+``train_batch`` with ``torch.profiler``.  ``--model``: ``llama-1b``
+(TinyLlama shape; phase 9: bf16 with fp32 master weights, fused AdamW,
+clipping 1.0, micro-batch 4 x 2048 tokens, 2 accumulation steps),
+``gpt2-125m`` (phase 17's config 1, ``bench.py``'s: ZeRO 0, fused AdamW,
+micro-batch 12 x 1024, remat off) or ``gpt2-1.3b`` (config 2: ZeRO 2
+over one NCCL rank, FusedAdam, micro-batch 4 x 1024, ``dots_saveable``).
+``--layers`` cuts the depth.  It prints the wall time, the
 device busy share (the union of device intervals over wall time), the
 kernels that take the most device time, and the device time by class:
 GEMMs (cuBLAS), the port's flash forward and backward kernels, the fused
@@ -66,7 +71,9 @@ def by_class(step_fn):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--layers", type=int, default=22)
+    ap.add_argument("--model", default="llama-1b",
+                    choices=("llama-1b", "gpt2-125m", "gpt2-1.3b"))
+    ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--top", type=int, default=16)
     ap.add_argument("--out", default=None, help="write the JSON here")
     args = ap.parse_args()
@@ -74,22 +81,47 @@ def main() -> int:
         print("profile_torch_training: needs a CUDA GPU", file=sys.stderr)
         return 2
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models.llama import LlamaLMLoss, get_config
 
-    cfg = get_config("llama-1b", num_hidden_layers=args.layers)
-    with torch.device("meta"):
-        model = LlamaLMLoss(cfg)
-    config = {"train_micro_batch_size_per_gpu": 4,
-              "gradient_accumulation_steps": 2, "bf16": {"enabled": True},
-              "optimizer": {"type": "AdamW", "params": {
-                  "lr": 3e-4, "weight_decay": 0.1, "fused": True,
-                  "betas": [0.9, 0.95]}},
-              "gradient_clipping": 1.0, "steps_per_print": 1000}
+    if args.model == "llama-1b":
+        from deepspeed_tpu_torch.models.llama import LlamaLMLoss, get_config
+
+        cfg = get_config("llama-1b", **({} if args.layers is None else
+                                        {"num_hidden_layers": args.layers}))
+        with torch.device("meta"):
+            model = LlamaLMLoss(cfg)
+        config = {"train_micro_batch_size_per_gpu": 4,
+                  "gradient_accumulation_steps": 2,
+                  "bf16": {"enabled": True},
+                  "optimizer": {"type": "AdamW", "params": {
+                      "lr": 3e-4, "weight_decay": 0.1, "fused": True,
+                      "betas": [0.9, 0.95]}},
+                  "gradient_clipping": 1.0, "steps_per_print": 1000}
+        shape = (8, 2048)
+    else:
+        from chip_smoke import gpt2_train_config
+        from deepspeed_tpu_torch.models.gpt2 import GPT2LMLoss, get_config
+
+        small = args.model == "gpt2-125m"
+        cfg = get_config(args.model, n_positions=1024,
+                         use_flash_attention=True, remat=not small,
+                         remat_policy="none" if small else "dots_saveable",
+                         **({} if args.layers is None else
+                            {"n_layer": args.layers}))
+        with torch.device("meta"):
+            model = GPT2LMLoss(cfg)
+        micro = 12 if small else 4
+        config = gpt2_train_config("AdamW" if small else "FusedAdam", micro,
+                                   0 if small else 2)
+        shape = (micro, 1024)
+        if not small:
+            from deepspeed_tpu_torch import comm
+
+            comm.init_distributed(dist_backend="nccl")
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=model, config=config,
         generator=torch.Generator(device="cuda").manual_seed(0))
     batch = np.random.default_rng(0).integers(0, cfg.vocab_size,
-                                              size=(8, 2048))
+                                              size=shape)
     for _ in range(2):                                   # warm-up
         engine.train_batch(batch=batch)
     torch.cuda.synchronize()
@@ -97,8 +129,9 @@ def main() -> int:
     engine.train_batch(batch=batch)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    out = {"device": torch.cuda.get_device_name(0), "layers": args.layers,
-           "tokens_per_step": 8 * 2048, "step_ms_unprofiled": plain_ms}
+    out = {"device": torch.cuda.get_device_name(0), "model": args.model,
+           "layers": args.layers, "tokens_per_step": shape[0] * shape[1],
+           "step_ms_unprofiled": plain_ms}
     out["train_step"] = profile(lambda: engine.train_batch(batch=batch),
                                 args.top)
     out["device_ms_by_class"] = by_class(
@@ -106,6 +139,10 @@ def main() -> int:
     print(f"step without the profiler: {plain_ms:.1f} ms")
     print("device ms by class: " + ", ".join(
         f"{k} {v:.1f}" for k, v in out["device_ms_by_class"].items()))
+    if args.model == "gpt2-1.3b":
+        from deepspeed_tpu_torch import comm
+
+        comm.destroy_process_group()
     return report(out, ("train_step",), args.out)
 
 

@@ -329,6 +329,47 @@ def test_flash_bwd_kernels_match_plain(cuda, shape, dtype):
         assert (got[0][:, :, :S - Sk] == 0).all()
 
 
+# GPT-2's attention: q, k and v strided [B, H, S, D] views into one
+# [B, S, 3E] c_attn output (a row stride of 3E, no copy), one KV head per
+# query head, D 64, causal; the forward and the backward through
+# flash_attention's autograd, at phase 2's and phase 8's limits.
+# B, H, S: a ragged tail at GPT-2 small's 12 heads, and 32 heads (1.3b)
+MHA_SHAPES = [(2, 12, 300), (1, 32, 1030)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", MHA_SHAPES)
+def test_fused_qkv_views_mha_d64_match_plain(cuda, shape):
+    B, H, S = shape
+    D, E = 64, shape[1] * 64
+    g = torch.Generator().manual_seed(sum(shape))
+    qkv = torch.randn(B, S, 3 * E, generator=g).to(cuda, torch.bfloat16)
+    qkv.requires_grad_()
+    q, k, v = (t.view(B, S, H, D).transpose(1, 2)
+               for t in qkv.split(E, dim=-1))
+    assert q.stride() == (S * 3 * E, D, 3 * E, 1)
+    before = [c.launches for c in (fa.flash_fwd, fa.flash_bwd_dq,
+                                   fa.flash_bwd_dkv)]
+    o = fa.flash_attention(q, k, v, causal=True)
+    do = torch.randn(B, S, H, D, generator=g).to(
+        cuda, torch.bfloat16).transpose(1, 2)
+    (got,) = torch.autograd.grad(o, qkv, do)
+    assert [c.launches - b for c, b in zip(
+        (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv), before)] == \
+        [1, 1, 1]
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    ro, rlse = fa.flash_fwd_reference(qd, kd, vd, causal=True)
+    want = fa.flash_bwd_reference(qd, kd, vd, o.detach(), rlse, do,
+                                  causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.detach().float(), ro.float(), atol=2e-2,
+                               rtol=2e-2)
+    for name, a, b in zip(("dq", "dk", "dv"), got.split(E, dim=-1), want):
+        torch.testing.assert_close(
+            a.view(B, S, H, D).transpose(1, 2).float(), b.float(),
+            atol=3e-3, rtol=2e-2, msg=name)
+
+
 # The TMA/wgmma bf16 kernels' own paths, same limits: more units than the
 # card has SMs with q and key tails off the 128-row tiles (dQ: 9 q tiles x
 # 16 heads x 2; dK/dV: 9 key tiles x 8 KV heads x 2), and D=128 (64-row q

@@ -52,6 +52,7 @@ def _forbidden(module: str) -> bool:
 def test_import_loads_no_jax():
     code = ("import sys, deepspeed_tpu_torch, "
             "deepspeed_tpu_torch.models.llama, "
+            "deepspeed_tpu_torch.models.gpt2, "
             "deepspeed_tpu_torch.module_inject.flax_bridge, "
             "deepspeed_tpu_torch.inference.v2.ragged_engine, "
             "deepspeed_tpu_torch.inference.paged, "

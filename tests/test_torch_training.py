@@ -528,11 +528,14 @@ def test_activation_checkpointing_policy_drives_remat(policy, remat):
             "policy": policy}})
     assert all(m.config.remat == remat for m in eng.module.modules()
                if hasattr(m, "config"))
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        deepspeed_tpu_torch.initialize(
-            model=_port_model(), device="cpu",
-            config={"train_batch_size": 2, "activation_checkpointing": {
-                "policy": "dots_saveable"}})
+    # the selective policy reaches the model (models/gpt2.py's remat)
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=_port_model(), device="cpu",
+        config={"train_batch_size": 2, "activation_checkpointing": {
+            "policy": "dots_saveable"}})
+    assert {(m.config.remat, m.config.remat_policy)
+            for m in eng.module.modules() if hasattr(m, "config")} == {
+        (True, "dots_saveable")}
 
 
 def test_wall_clock_breakdown_times_the_step():
@@ -550,5 +553,8 @@ def test_imperative_triple_and_dots_saveable_raise():
     for fn in (eng.forward, eng.backward, eng.step):
         with pytest.raises(NotImplementedError, match="A4"):
             fn()
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        llama.LlamaConfig(remat_policy="dots_saveable")
+    # every JAX policy name is ported; a name JAX does not know raises
+    assert llama.LlamaConfig(
+        remat_policy="dots_saveable").remat_policy == "dots_saveable"
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        llama.LlamaConfig(remat_policy="dots_everything")

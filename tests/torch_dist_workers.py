@@ -73,6 +73,19 @@ def spawn(worker, world: int, workdir: str, timeout: float = 240.0, **kw):
     return [results[r] for r in range(world)]
 
 
+GPT2_TINY = dict(vocab_size=128, n_positions=64, n_embd=128, n_layer=2,
+                 n_head=2)
+
+
+def tiny_gpt2(**kw):
+    from deepspeed_tpu_torch.models import gpt2
+
+    with torch.device("meta"):
+        return gpt2.GPT2LMLoss(gpt2.GPT2Config(
+            **GPT2_TINY, dtype=torch.float32, param_dtype=torch.float32,
+            use_flash_attention=True, **kw))
+
+
 def tiny_model(remat: bool = True):
     from deepspeed_tpu_torch.models import llama
 
@@ -308,4 +321,48 @@ def zero_worker(rank, world, init_method, state, batches, cases,
         out["loaded"] = {"again": again, "client": client,
                          "global_steps": eng.global_steps,
                          "state": full if rank == 0 else None}
+    return out
+
+
+def gpt2_zero_worker(rank, world, init_method, state, batches, configs,
+                     ckpt_dir):
+    """A tiny GPT-2 (tied head) trained under each engine config of
+    ``configs`` ({stage: config}) over ``batches``: losses, collectives
+    per step against the plan's, the gather units.  Then a run under
+    ``configs[2]`` saves after 2 steps and goes on; a fresh engine loads
+    and retakes the rest."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+
+    comm.init_distributed(device="cpu", init_method=init_method, rank=rank,
+                          world_size=world)
+    params = {k: torch.from_numpy(v) for k, v in state.items()}
+
+    def make(stage):
+        return deepspeed_tpu_torch.initialize(
+            model=tiny_gpt2(), model_parameters=params,
+            config={**configs[stage], "comms_logger": {"enabled": True}},
+            device="cpu")[0]
+
+    out = {}
+    for stage in configs:
+        eng = make(stage)
+        losses, per_step, backend = _train(eng, batches)
+        out[stage] = {
+            "losses": losses, "per_step": per_step, "backend": backend,
+            "want_per_step": eng.plan.step_collectives(eng.gas),
+            "units": [u.name for u in eng.plan.units]}
+        del eng
+    eng = make(2)
+    for b in batches[:2]:
+        eng.train_batch(batch=b)
+    eng.save_checkpoint(ckpt_dir)
+    cont = [float(eng.train_batch(batch=b)) for b in batches[2:]]
+    fresh = make(2)
+    path, _ = fresh.load_checkpoint(ckpt_dir)
+    again = [float(fresh.train_batch(batch=b)) for b in batches[2:]]
+    out["resume"] = {"cont": cont, "again": again,
+                     "bit_identical": bool(torch.equal(
+                         fresh.state.params, eng.state.params)),
+                     "loaded": path is not None}
     return out
