@@ -93,7 +93,7 @@ Phases (any failed check raises; nothing is caught):
    ``quantize_weights="int8"`` (groups of 2048) serving phase 6's 24
    requests twice (identical tokens); #7 226 times per model tick.
    Resident weight bytes and peak memory while serving beside the bf16
-   runs'.  (c) 2 layers at full width in fp32: weights quantized on the
+   runs'.  (c) 1 layer at full width in fp32: weights quantized on the
    card and on the CPU are byte-identical, and 4 greedy v2 requests give
    the same tokens (the margin rule of phase 7).
 
@@ -164,9 +164,32 @@ Phases (any failed check raises; nothing is caught):
    logits through v1, and one training step's loss and gradients, on
    the card against the port on the CPU.
 
+19. KV tiering and the prefix cache on ``llama3-8b`` at full width and
+   depth, bf16, with CUDA graphs as in phase 14.  Tiering: phase 6's
+   tight pool (129 pages) under its 16 x (100 + 500) traffic, with a host
+   tier of 8 pages (pinned) that overflows to an NVMe tier of 128 pages
+   (``build/smoke_kvtier``, removed afterwards), on a bf16 pool (#9) and
+   an int8 pool (#8), pipeline on and off (the same tokens), beside an
+   evicting run (bf16 pool) with graphs and the pipeline: sequences
+   spill, the host tier demotes to NVMe, every restored page is
+   digest-verified and
+   read back from the pool equal to the bytes spilled, the NVMe tier
+   never fails; spills, restores, evictions, re-prefilled tokens
+   avoided, copy and digest ms a page, wall and decode tokens/s against
+   the evicting run.  The prefix cache: 24 requests on one 1024-token
+   prefix (request 0 first, then 23, one of them the prefix alone: a
+   full match and a COW), cache on with the pipeline on and off (the
+   same tokens and counters) and off: hits, prefill tokens computed and
+   cached, TTFT p50/p99 with and without.  Then a second tenant's prefix
+   in a 65-page pool with tiering: the first prefix's index pages
+   demote into the tiers and revive for its later requests.  #9 and #8
+   launched under spilled, restored and shared pages.
+
 Phases 3 and 6 (serving) keep their full depth: the whole run stays well
-inside its time limit.  ``--gpt2-only`` runs the build and phases 15-18
-alone and prints no result lines.  The line before the last is the ``kernels`` JSON;
+inside its time limit.  Phase 12's CPU parity runs one layer (two until
+phase 19 came).  ``--gpt2-only`` runs the build and phases 15-18
+alone, ``--tiering-only`` the build and phase 19; neither prints result
+lines.  The line before the last is the ``kernels`` JSON;
 the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits nonzero
 and prints no result.
@@ -858,9 +881,16 @@ def serve(engine, reqs):
             f"uid {uid}: {got.shape[0]} tokens, want "
             f"{len(p) + kw['max_new_tokens']}")
         assert np.array_equal(got[:len(p)], p)
-    engine.audit_kv_sharing()
-    assert engine.allocator.free_pages == engine.num_pages - 1, \
+    audit = engine.audit_kv_sharing()
+    st = engine.serving_stages()
+    # a prefix cache keeps its resident entries' pages, the tiers its
+    # demoted ones; a run leaves nothing else behind
+    held = st.get("prefix_cache", {})
+    assert audit["referenced"] == held.get("resident_entries", 0), \
         "pages still held after the run"
+    if engine.tiering is not None:
+        assert engine.tiering.audit()["sessions"] == held.get(
+            "spilled_entries", 0), "spilled payloads left after the run"
     return [outs[u] for u in uids], dict(
         wall_s=wall, fused_s=fused_s, block_s=block_s,
         block_tokens=block_tokens, blocks=blocks, block_gets=block_gets,
@@ -1737,7 +1767,10 @@ def phase_int8_cpu_parity():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("llama3-8b", num_hidden_layers=2, dtype=torch.float32)
+    # one layer (two before phase 19, whose minutes were found here): on
+    # the CPU every tick dequantizes each int8 weight, and the width, not
+    # the depth, is what the byte-identical check covers
+    cfg = get_config("llama3-8b", num_hidden_layers=1, dtype=torch.float32)
     state = flax_to_state_dict(flax_tree(cfg, np.random.default_rng(SEED + 4)))
     phase_v2_cpu_parity(cfg, state, runs=(("none", "int8"),))
     del state
@@ -2705,6 +2738,290 @@ def phase_gpt2_cpu_parity():
     assert worst <= GPT2_GRAD_RTOL, f"gradients differ by {worst:.3e}"
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: KV tiering and the prefix cache on the v2 engine
+# ---------------------------------------------------------------------------
+
+# the tiering leg's tiers: phase 6's decode-heavy traffic spills two
+# sequences of 8 pages a run, so a host tier of 8 pages (64 MiB pinned)
+# sends the older spill on to the NVMe tier (128 pages, 1 GiB on disk);
+# the spill files go under the git-ignored build/, removed afterwards
+TIER = dict(host_pages=8, nvme_pages=128)
+TIER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_kvtier")
+SAMPLED = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.9)
+
+
+def hold_restores(engine):
+    """Hold every restore and prefix revival of ``engine``: the pages read
+    back from the pool after the write equal, byte for byte, the bytes
+    the tiers took at spill (the store also verifies every page against
+    its spill-time digest).  Counts the pages held and the live tokens
+    restores brought back without a re-prefill."""
+    t = engine.tiering
+    kept, keys = {}, []
+    held = {"pages": 0, "tokens": 0}
+    spill, restore = t.spill, t.restore
+    scatter, restore_req = engine._scatter_pages, engine._restore
+
+    def spill_(key, buf, n):
+        spill(key, buf, n)
+        kept[key] = buf.copy()
+
+    def restore_(key):
+        buf = restore(key)
+        keys.append(key)
+        return buf
+
+    def scatter_(pages, buf):
+        scatter(pages, buf)
+        n = len(pages)
+        want = kept.pop(keys.pop()).reshape(n, t.page_stride)
+        idx = torch.tensor(pages, device=engine.device)
+        back = torch.cat([v.index_select(0, idx) for v in engine._page_views],
+                         dim=1).cpu().numpy()
+        assert np.array_equal(back, want[:, :t.used_bytes]), (
+            f"restored pages {pages} differ from the spilled bytes")
+        held["pages"] += n
+
+    def restore_req_(req):
+        live = req.spilled["live_tokens"]
+        restore_req(req)
+        if req.spilled is None and req.slot >= 0:
+            held["tokens"] += live
+
+    t.spill, t.restore = spill_, restore_
+    engine._scatter_pages, engine._restore = scatter_, restore_req_
+    return held
+
+
+def count_reprefill(engine):
+    """Count the context tokens ``engine``'s evictions send back to
+    prefill."""
+    evict = engine._evict
+    got = {"tokens": 0}
+
+    def evict_(r):
+        evict(r)
+        got["tokens"] += int(r.ctx.size)
+
+    engine._evict = evict_
+    return got
+
+
+def prefix_traffic(vocab, two_tenants=False, n=24):
+    """24 requests on one 1024-token prefix, each with 64..512 suffix
+    tokens of its own and 32..128 new tokens (numpy seed 3); every third
+    samples; request 19's prompt is the prefix alone.  ``two_tenants``:
+    requests 8..15 carry a second 1024-token prefix instead."""
+    rng = np.random.default_rng(SEED + 3)
+    first, second = (rng.integers(0, vocab, size=1024) for _ in range(2))
+    sfx = rng.integers(64, 513, size=n)
+    news = rng.integers(32, 129, size=n)
+    reqs = []
+    for i in range(n):
+        prefix = second if two_tenants and 8 <= i < 16 else first
+        prompt = (prefix if i == 19 else np.concatenate(
+            [prefix, rng.integers(0, vocab, size=int(sfx[i]))]))
+        kw = dict(max_new_tokens=int(news[i]))
+        if i % 3 == 2:
+            kw.update(SAMPLED)
+        reqs.append((prompt, kw))
+    return reqs
+
+
+def phase_tiering():
+    """Phase 19: KV tiering (A9.2) and the prefix cache (A9.3) on
+    ``llama3-8b`` at full width and depth, bf16, with CUDA graphs and the
+    pipeline as in phase 14.  Returns the launches of #9 and #8 in the
+    phase's tiering and prefix runs."""
+    import shutil
+
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
+    from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+
+    cfg = get_config("llama3-8b")
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    engine = RaggedInferenceEngineV2(
+        model, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda", **V2)
+    module = engine.module
+    del engine
+    shutil.rmtree(TIER_DIR, ignore_errors=True)
+    tiering = dict(TIER, nvme_dir=TIER_DIR)
+    graph = {"enable_cuda_graph": True}
+
+    def run(batches, **kw):
+        """Serve ``batches`` in turn on one engine (graphs on); the run's
+        numbers summed over them, the engine's counters and stats."""
+        engine = RaggedInferenceEngineV2(
+            module, device="cuda", config=graph, **{**V2, **kw})
+        held = hold_restores(engine) if engine.tiering is not None else None
+        evicted = count_reprefill(engine)
+        kernels = (rpa.ragged_paged_attention, rpa.ragged_paged_attention_quant)
+        before = [k.launches for k in kernels]
+        outs, tot = [], {}
+        for traffic in batches:
+            out, r = serve(engine, traffic)
+            outs += out
+            for k, v in r.items():
+                tot[k] = tot.get(k, 0) + v
+        tot["decode_tps"] = tot["block_tokens"] / max(tot["block_s"], 1e-9)
+        st = engine.serving_stages()
+        res = dict(tot, outs=outs, st=st, held=held,
+                   launches=[k.launches - b for k, b in zip(kernels, before)],
+                   reprefill=evicted["tokens"], spills=engine.spills,
+                   restores=engine.restores, evictions=engine.evictions,
+                   ticks=engine.host_stats.ticks,
+                   backend=(engine.tiering.aio_backend
+                            if engine.tiering is not None else None))
+        engine.close()
+        del engine
+        torch.cuda.empty_cache()
+        return res
+
+    def same(a, b):
+        return sum(np.array_equal(x, y) for x, y in zip(a, b))
+
+    def check_tiers(label, r, nvme=True):
+        kt = r["st"]["kv_tiering"]
+        assert r["spills"] > 0, f"{label}: nothing spilled"
+        if nvme:
+            assert kt["demotions"] > 0 and kt["nvme_spills"] > 0, (
+                f"{label}: the host tier never overflowed to NVMe")
+        assert kt["pages_verified"] == kt["pages_restored"] == \
+            r["held"]["pages"] > 0, (label, kt, r["held"])
+        assert kt["nvme_offline"] == 0 and kt["nvme_failures"] == 0, (
+            f"{label}: the NVMe tier failed: {kt}")
+        assert kt["quarantined"] == 0, label
+        return kt
+
+    def per_page(kt, stage, pages):
+        return 1e3 * kt.get(f"{stage}_s", 0.0) / max(kt[pages], 1)
+
+    # -- the tiering leg: phase 6's tight pool and decode-heavy traffic
+    tight = 1 + V2["max_seqs"] * (V2["max_seq_len"] // V2["page_size"] // 4)
+    rng = np.random.default_rng(SEED + 2)
+    heavy = [(rng.integers(0, cfg.vocab_size, size=100),
+              dict(max_new_tokens=500)) for _ in range(V2["max_seqs"])]
+    # launches of #9 and #8 in the phase's tiering and prefix runs (the
+    # evicting and cache-off runs beside them are not counted)
+    launched = [0, 0]
+    evict = run([heavy], num_pages=tight, pipeline=True)
+    assert evict["evictions"] > 0, "the evicting run never evicted"
+    for fmt in ("none", "int8"):
+        on = run([heavy], num_pages=tight, pipeline=True,
+                 kv_cache_dtype=fmt, kv_tiering=tiering)
+        off = run([heavy], num_pages=tight, pipeline=False,
+                  kv_cache_dtype=fmt, kv_tiering=tiering)
+        assert same(on["outs"], off["outs"]) == len(heavy), (
+            f"tiering, {fmt} pool: pipeline on and off give other tokens")
+        assert (on["spills"], on["restores"]) == (off["spills"],
+                                                  off["restores"])
+        kts = [check_tiers(f"tiering, {fmt} pool, pipeline {p}", r)
+               for p, r in (("on", on), ("off", off))]
+        kt = kts[0]
+        # the evicting run serves a bf16 pool: tokens compare with bf16's
+        share = (f"{same(on['outs'], evict['outs'])}/16 outputs equal to "
+                 "the evicting run's; " if fmt == "none" else "")
+        log(f"tiering, {fmt} pool ({tight} pages; host {TIER['host_pages']} "
+            f"+ NVMe {TIER['nvme_pages']} pages of "
+            f"{on['st']['kv_tiering']['bytes_spilled'] // max(kt['pages_spilled'], 1) / 2**20:.3f}"
+            f" MiB; O_DIRECT asked: no; aio backend {on['backend']}), "
+            f"16 x (100 + 500) with graphs: pipeline on and off give the "
+            f"same tokens; spills {on['spills']}, restores "
+            f"{on['restores']}, evictions {on['evictions']} (the evicting "
+            f"run: evictions {evict['evictions']}, spills "
+            f"{evict['spills']}); re-prefilled tokens avoided "
+            f"{on['held']['tokens']} (the evicting run re-prefilled "
+            f"{evict['reprefill']}); {kt['pages_restored']} pages "
+            f"restored, every one digest-verified and read back equal to "
+            f"its spilled bytes; demotions {kt['demotions']}, NVMe spills "
+            f"{kt['nvme_spills']}, prefetch hits {kt['prefetch_hits']} "
+            f"misses {kt['prefetch_misses']}; ms a page: pinned buffers "
+            f"{per_page(kt, 'spill_alloc', 'pages_spilled'):.3f} at spill "
+            f"and {per_page(kt, 'restore_alloc', 'pages_restored'):.3f} at "
+            f"restore, device->host copy "
+            f"{per_page(kt, 'd2h', 'pages_spilled'):.3f}, host->device "
+            f"{per_page(kt, 'h2d', 'pages_restored'):.3f}, host-tier copy "
+            f"{per_page(kt, 'restore_copy', 'pages_restored'):.3f}, digest "
+            f"verify {per_page(kt, 'restore_verify', 'pages_verified'):.3f}"
+            f", NVMe read {per_page(kt, 'restore_read', 'pages_restored'):.3f}"
+            f"; wall {on['wall_s']:.2f} s (evicting {evict['wall_s']:.2f} s),"
+            f" decode {on['decode_tps']:.1f} tokens/s in blocks (evicting "
+            f"{evict['decode_tps']:.1f}); {share}"
+            f"{on['ticks']} ticks (evicting {evict['ticks']}); "
+            f"pipeline off: wall {off['wall_s']:.2f} s, decode "
+            f"{off['decode_tps']:.1f} tokens/s; kv_tiering stats {kt}")
+        # the kernel of this pool, launched under spilled and restored
+        # pages; never the other pool's
+        mine = 0 if fmt == "none" else 1
+        for r in (on, off):
+            assert r["launches"][mine] > 0 and r["launches"][1 - mine] == 0
+            launched[mine] += r["launches"][mine]
+
+    # -- the prefix leg: the system prompt is warm (request 0 served
+    # first), then the other 23 arrive; the same schedule cache off
+    reqs = prefix_traffic(cfg.vocab_size)
+    batches = [reqs[:1], reqs[1:]]
+    cold = run(batches, pipeline=True)
+    on = run(batches, pipeline=True, prefix_cache=True)
+    off = run(batches, pipeline=False, prefix_cache=True)
+    assert same(on["outs"], off["outs"]) == len(reqs), \
+        "prefix cache: pipeline on and off give other tokens"
+    pcs = [r["st"]["prefix_cache"] for r in (on, off)]
+    assert pcs[0] == pcs[1], pcs
+    pc, rq, rq0 = pcs[0], on["st"]["requests"], cold["st"]["requests"]
+    assert pc["hit_requests"] > 0 and pc["cow_copies"] >= 1, pc
+    for r in (on, off):
+        assert r["launches"][0] > 0, "#9 never ran over shared pages"
+        launched[0] += r["launches"][0]
+    log(f"prefix cache, 24 requests on a 1024-token prefix (request 0 "
+        f"first, then 23; graphs): pipeline on and off give the same "
+        f"tokens; hits {pc['hit_requests']}/{pc['hit_requests'] + pc['miss_requests']}"
+        f" (hit rate {pc['hit_rate']}), hit pages {pc['hit_pages']}, COW "
+        f"copies {pc['cow_copies']}; prefill tokens computed "
+        f"{rq['prefill_computed_tokens']} + cached "
+        f"{rq['prefill_cached_tokens']} (cache off: computed "
+        f"{rq0['prefill_computed_tokens']}); TTFT p50 {rq['ttft_ms_p50']} "
+        f"ms p99 {rq['ttft_ms_p99']} ms (cache off: p50 "
+        f"{rq0['ttft_ms_p50']} p99 {rq0['ttft_ms_p99']}); wall "
+        f"{on['wall_s']:.2f} s (cache off {cold['wall_s']:.2f} s); "
+        f"{same(on['outs'], cold['outs'])}/24 outputs equal to cache-off's")
+
+    # -- demotion and revival: a second tenant's prefix (requests 8..15)
+    # takes the pool while the first prefix is cold; under pressure its
+    # index pages demote into the tiers and revive for requests 16..23
+    small = 1 + 64
+    r2 = run([prefix_traffic(cfg.vocab_size, two_tenants=True)],
+             num_pages=small, pipeline=True, prefix_cache=True,
+             kv_tiering=tiering)
+    pc, kt = r2["st"]["prefix_cache"], r2["st"]["kv_tiering"]
+    assert pc["demotions"] > 0 and pc["revivals"] > 0, pc
+    assert kt["pages_verified"] == kt["pages_restored"] == \
+        r2["held"]["pages"] > 0, (kt, r2["held"])
+    assert kt["nvme_offline"] == 0 and kt["nvme_failures"] == 0, kt
+    log(f"prefix cache + tiering, two tenants in {small} pages: demotions "
+        f"{pc['demotions']}, revivals {pc['revivals']}, drops "
+        f"{pc['drops']}, hits {pc['hit_requests']}, spills {r2['spills']}, "
+        f"evictions {r2['evictions']}; {kt['pages_restored']} pages "
+        f"restored, each read back equal to its spilled bytes; wall "
+        f"{r2['wall_s']:.2f} s; {r2['ticks']} ticks")
+    assert r2["launches"][0] > 0
+    launched[0] += r2["launches"][0]
+    shutil.rmtree(TIER_DIR, ignore_errors=True)
+    log(f"phase 19 launches in its tiering and prefix runs: "
+        f"ragged_paged_attn {launched[0]} (bf16 pools), "
+        f"ragged_paged_attn_quant {launched[1]} (int8 pools); counted at "
+        "eager ticks, warm-ups and captures, as in phase 14")
+    del module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -2719,6 +3036,14 @@ def main() -> int:
         phase_report()
         gpt2_phases(t0)
         log(f"gpt2 phases done at {time.perf_counter() - t0:.1f} s")
+        return 0
+    # ``--tiering-only``: the build and phase 19 alone, for work on the KV
+    # tiers and the prefix cache; it prints no result lines
+    if sys.argv[1:] == ["--tiering-only"]:
+        t0 = time.perf_counter()
+        phase_report()
+        phase_tiering()
+        log(f"phase 19 done at {time.perf_counter() - t0:.1f} s")
         return 0
     t0 = time.perf_counter()
     phase_report()
@@ -2760,6 +3085,8 @@ def main() -> int:
                  v1_eager)
     log(f"phase 14 done at {time.perf_counter() - t0:.1f} s")
     gpt2 = gpt2_phases(t0)
+    phase_tiering()
+    log(f"phase 19 done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [entry, paged, paged_quant] +
                     [train[k] for k in ("flash_bwd_dq", "flash_bwd_dkv",
                                         "fused_adam", "fused_lion")] +

@@ -34,8 +34,10 @@ class HostStageStats:
     The stage names and counters are the reference's, so the engines
     report the same keys.  In the ragged v2 engine a dispatch is one
     fused tick or one decode block, and ``ticks`` counts model ticks (a
-    K-tick block counts K); the stages and ``prefix_*`` counters of
-    features not ported yet (speculation, tiering, prefix cache) stay 0.
+    K-tick block counts K); ``spill``, ``restore``, ``prefix`` and the
+    ``prefix_*`` counters are KV tiering's and the prefix cache's, and
+    the speculation stages (``draft``, ``verify``) stay 0 until it is
+    ported (A9.4).
     ``replica`` is the reference's metric label of a scale-out replica.
     The reference's trace-span and metrics-histogram hooks arrive with the
     telemetry port.  With ``enable_cuda_graph`` an engine's decode work

@@ -13,11 +13,9 @@ from typing import Any, Dict, List, Optional, Union
 from pydantic import Field, model_validator
 
 from deepspeed_tpu_torch.config.config_utils import ConfigModel
+from deepspeed_tpu_torch.resilience.sdc import CHECKSUM_ALGOS
 from deepspeed_tpu_torch.telemetry.slo import parse_objective
 from deepspeed_tpu_torch.utils.logging import logger
-
-# resilience/sdc.py CHECKSUM_ALGOS of the JAX package
-CHECKSUM_ALGOS = ("sum64", "adler32", "crc32")
 
 
 class InferenceTPConfig(ConfigModel):

@@ -1,0 +1,816 @@
+"""Tiered paged-KV store: HBM -> host RAM -> NVMe spill tiers.
+
+Counterpart of ``deepspeed_tpu/inference/kv_tiering.py`` (host-side Python
+copied and adapted, not imported).  Concurrent serving sessions are capped
+by device memory because KV pages live only in the device pool
+(:mod:`~deepspeed_tpu_torch.inference.paged`): an idle or page-stalled
+session holds device memory until the engine evicts it and repays its
+whole prefill.  This store extends the pool past the card::
+
+    device pool (PageAllocator)  --spill-->  host RAM  --overflow-->  NVMe
+         live decode pages          pinned, 4096-aligned     io_uring / pread
+                                    packed page buffers      spill files
+
+A spilled sequence's pages travel as ONE packed buffer, page-major: page
+i's bytes of every cache leaf at fixed offsets inside a slice of
+``page_stride`` bytes, padded (with zeros) to the 4096-byte O_DIRECT
+alignment.  The engine packs on the device and moves the buffer with one
+copy between the card and page-locked host memory (``pinned``), so the
+store never sees a device tensor; :meth:`pack`/:meth:`unpack` give the
+same layout to numpy callers.  Every page is digested at spill
+(:mod:`~deepspeed_tpu_torch.resilience.sdc`, on a side thread) and
+demoted to NVMe through the native async I/O engine
+(:mod:`~deepspeed_tpu_torch.io.aio`) when the host budget overflows.  A
+restore verifies every page against its spill-time digest behind the
+``kv.read_page`` fault site: a transient flip heals by re-read (NVMe) or
+re-copy (host tier); persistent corruption quarantines the payload (a
+``.quarantine`` rename for the postmortem) and raises
+:class:`KVRestoreError`, so the engine re-prefills instead of decoding on
+garbage.
+
+The NVMe write-back and the predictive NVMe -> host prefetch run on the
+bounded-async-stage substrate (:mod:`~deepspeed_tpu_torch.utils.
+async_stage`): bounded windows, forced drains, per-stage timers.
+
+**Degraded mode**: ``nvme_fail_threshold`` hard NVMe failures since the
+last clean probe (EIO at write submit or cold read, or a quarantine of an
+NVMe-backed payload) take the tier offline: ``can_spill`` and demotion
+fall back to the host tier, every parked NVMe-backed payload is folded
+(its session re-prefills through :class:`KVRestoreError`, loudly), and
+while offline every ``probe_every`` blocked spills run
+:meth:`probe_nvme`, a write/read/verify round trip through the same
+``kv.write`` fault site, whose success re-arms the tier.
+
+The reference's tracer, flight-record and metric calls are ROADMAP A10:
+the counters stay in :meth:`stats` and the failures in the log.  Its
+partial-residency page-in (``peek``) comes with long context (A9.5).
+"""
+from __future__ import annotations
+
+import atexit
+import os
+import shutil
+import tempfile
+from typing import Any, Dict, List, Optional, Sequence, Set, Union
+
+import numpy as np
+
+from deepspeed_tpu_torch.io.aio import DIRECT_ALIGN, aligned_empty
+from deepspeed_tpu_torch.resilience import faults
+from deepspeed_tpu_torch.resilience.sdc import DigestPool, digest as sdc_digest
+from deepspeed_tpu_torch.utils.async_stage import (BoundedAsyncStage,
+                                                   HostBufferPool,
+                                                   StageTimers)
+from deepspeed_tpu_torch.utils.logging import logger
+
+__all__ = ["TieredKVStore", "KVRestoreError"]
+
+# Payload key: a request uid (int) for sequence spills, or an opaque
+# string for payloads of other subsystems: the prefix cache demotes index
+# pages under their prefix-hash key ("pfx-<hash>"), so one tier entry
+# serves every later requester of that prefix
+Key = Union[int, str]
+
+_WRITE_DEPTH = 4     # NVMe write-backs in flight
+_READ_DEPTH = 2      # NVMe read-aheads in flight (the staging ring holds +1)
+
+
+class KVRestoreError(RuntimeError):
+    """A spilled page failed verification beyond recovery; the payload
+    is quarantined and the session must re-prefill."""
+
+    def __init__(self, uid: Key, page: int, msg: str) -> None:
+        super().__init__(msg)
+        self.uid = uid
+        self.page = page
+
+
+class _Entry:
+    """One spilled sequence's payload in the tiers."""
+
+    __slots__ = ("uid", "n_pages", "state", "buf", "slot", "path", "seq")
+
+    def __init__(self, uid: Key, n_pages: int) -> None:
+        self.uid = uid
+        self.n_pages = n_pages
+        self.state = "host"         # host | writing | nvme | reading
+        self.buf: Optional[np.ndarray] = None    # packed bytes (host/writing)
+        self.slot: Optional[int] = None          # staging slot (reading)
+        self.path: Optional[str] = None          # spill file (writing/nvme)
+        self.seq = 0                # spill order (demotion takes the oldest)
+
+
+class TieredKVStore:
+    """Host-RAM + NVMe spill tiers for paged KV, verified per page.
+
+    ``page_shapes`` / ``page_dtypes``: per cache leaf, the per-PAGE shape
+    (the leaf's shape without its leading page dim) and numpy dtype; they
+    fix the packed layout.  ``host_pages`` / ``nvme_pages``: the tier
+    budgets in KV pages (0 disables a tier).  ``pinned``: host buffers
+    are page-locked (needs CUDA), so that the engine's copies between
+    them and the card run asynchronously.
+    """
+
+    def __init__(self, *, page_shapes: Sequence[tuple],
+                 page_dtypes: Sequence[Any], pages_per_seq: int,
+                 host_pages: int, nvme_pages: int = 0,
+                 nvme_dir: Optional[str] = None, use_odirect: bool = False,
+                 prefetch: bool = True, verify: bool = True,
+                 checksum: str = "sum64", max_reread: int = 2,
+                 nvme_fail_threshold: int = 3, probe_every: int = 8,
+                 pinned: bool = False) -> None:
+        self.pages_per_seq = int(pages_per_seq)
+        self.host_budget = int(host_pages)
+        self.nvme_budget = int(nvme_pages)
+        self.verify = bool(verify)
+        self.algo = str(checksum)
+        self.max_reread = max(0, int(max_reread))
+        self.prefetch_enabled = bool(prefetch) and self.nvme_budget > 0
+        self.use_odirect = bool(use_odirect)
+        self.pinned = bool(pinned)
+        # degraded mode: nvme_fail_threshold hard NVMe failures since the
+        # last clean probe take the tier offline (host only until a clean
+        # probe_nvme round trip, tried every probe_every spills blocked
+        # on the missing tier)
+        self.nvme_fail_threshold = max(1, int(nvme_fail_threshold))
+        self.probe_every = max(1, int(probe_every))
+        self.nvme_offline = False
+        self._nvme_streak = 0        # hard failures since the last probe
+        self._probe_backoff = 0      # blocked spills since the last probe
+        self._lost: Set[Key] = set()  # folded at a trip: restore re-prefills
+
+        # packed page layout: each leaf's bytes at a fixed offset inside
+        # the page's aligned slice (the padding is zeroed, so digests and
+        # spill files are deterministic)
+        self._shapes = [tuple(s) for s in page_shapes]
+        self._dtypes = [np.dtype(d) for d in page_dtypes]
+        self.widths = [int(np.prod(s)) * d.itemsize
+                       for s, d in zip(self._shapes, self._dtypes)]
+        self.offsets = [int(o) for o in np.cumsum([0] + self.widths[:-1])]
+        self.used_bytes = int(sum(self.widths))
+        self.page_stride = -(-self.used_bytes // DIRECT_ALIGN) * DIRECT_ALIGN
+
+        self._entries: Dict[Key, _Entry] = {}
+        self._host_used = 0          # pages resident in host buffers
+        self._nvme_used = 0          # pages on (or being written to) NVMe
+        self._seq = 0
+
+        self.timers = StageTimers()
+        self._digests = DigestPool(algo=self.algo, workers=2,
+                                   timers=self.timers,
+                                   thread_name_prefix="dstpu-kvtier")
+        self._aio = None             # lazy aio_handle (NVMe tier only)
+        self._writes = BoundedAsyncStage(self._wait_op, depth=_WRITE_DEPTH,
+                                         timers=self.timers, name="kv-write")
+        self._reads = BoundedAsyncStage(self._wait_op, depth=_READ_DEPTH,
+                                        timers=self.timers, name="kv-read")
+        # staging ring for NVMe reads (prefetch); writes stream from the
+        # entry's own buffer, alive and immutable until the window joins
+        self._staging: Optional[HostBufferPool] = None
+
+        self.counters: Dict[str, int] = {
+            "spills": 0, "restores": 0, "pages_spilled": 0,
+            "pages_restored": 0, "pages_verified": 0, "demotions": 0,
+            "nvme_spills": 0, "prefetch_hits": 0, "prefetch_misses": 0,
+            "rereads": 0, "reread_recovered": 0, "quarantined": 0,
+            "spill_fallbacks": 0, "bytes_spilled": 0, "bytes_restored": 0,
+            "exports": 0, "imports": 0,
+            # degraded mode (persistent NVMe failure -> host only)
+            "nvme_failures": 0, "tier_degraded": 0, "tier_rearmed": 0,
+            "degraded_folds": 0, "probes": 0, "probe_failures": 0}
+
+        self.spill_dir: Optional[str] = None
+        if self.nvme_budget > 0:
+            if not nvme_dir:
+                raise ValueError("nvme_pages > 0 requires nvme_dir")
+            os.makedirs(nvme_dir, exist_ok=True)
+            self.spill_dir = tempfile.mkdtemp(prefix="kvtier-",
+                                              dir=nvme_dir)
+            atexit.register(shutil.rmtree, self.spill_dir,
+                            ignore_errors=True)
+            # open the I/O engine now (its first use builds it, seconds):
+            # the first spill of a serving loop must not wait for g++
+            self._handle()
+
+    # -- substrate plumbing ----------------------------------------------
+
+    def _wait_op(self, op: int) -> int:
+        return self._handle().wait(op)
+
+    def _handle(self):
+        if self._aio is None:
+            from deepspeed_tpu_torch.io.aio import aio_handle
+
+            self._aio = aio_handle(queue_depth=128, thread_count=2,
+                                   use_odirect=self.use_odirect)
+        return self._aio
+
+    @property
+    def aio_backend(self) -> Optional[str]:
+        """The native I/O backend in use ("uring" or "threadpool"), None
+        without an NVMe tier."""
+        return None if self._aio is None else self._aio.backend
+
+    def _stage_ring(self) -> HostBufferPool:
+        if self._staging is None:
+            self._staging = HostBufferPool(
+                self._reads.depth + 1,
+                self.pages_per_seq * self.page_stride, pinned=self.pinned)
+        return self._staging
+
+    # -- packed layout ---------------------------------------------------
+
+    def empty(self, n_pages: int) -> np.ndarray:
+        """An uninitialized packed buffer for ``n_pages`` pages
+        (4096-byte aligned, pinned when the store is)."""
+        return aligned_empty(n_pages * self.page_stride, pinned=self.pinned)
+
+    def pack(self, arrs: List[np.ndarray], n_pages: int) -> np.ndarray:
+        """Per-leaf ``[n_pages, *page_shape]`` host arrays into one packed
+        buffer."""
+        with self.timers.stage("spill_pack"):
+            buf = self.empty(n_pages)
+            b2 = buf.reshape(n_pages, self.page_stride)
+            b2[:, self.used_bytes:] = 0
+            for a, off, w in zip(arrs, self.offsets, self.widths):
+                a = np.ascontiguousarray(a)
+                b2[:, off:off + w] = a.reshape(n_pages, -1).view(np.uint8)
+        return buf
+
+    def unpack(self, buf: np.ndarray, n_pages: int) -> List[np.ndarray]:
+        """A packed buffer back into per-leaf ``[n_pages, *page_shape]``
+        arrays."""
+        b2 = buf[:n_pages * self.page_stride].reshape(n_pages,
+                                                      self.page_stride)
+        return [np.ascontiguousarray(b2[:, off:off + w]).view(d).reshape(
+                    (n_pages,) + s)
+                for s, d, off, w in zip(self._shapes, self._dtypes,
+                                        self.offsets, self.widths)]
+
+    # -- capacity --------------------------------------------------------
+
+    @property
+    def budget_pages(self) -> int:
+        """Total spill capacity in pages (what ``put_request`` may admit
+        beyond the device pool)."""
+        return self.host_budget + self.nvme_budget
+
+    def free_pages(self) -> int:
+        nvme_budget = 0 if self.nvme_offline else self.nvme_budget
+        return ((self.host_budget - self._host_used)
+                + max(0, nvme_budget - self._nvme_used))
+
+    def can_spill(self, n_pages: int) -> bool:
+        """Whether an ``n_pages`` spill can land somewhere (host, host
+        after a demotion, or straight to NVMe).  With the NVMe tier
+        offline only the host budget counts, and a spill blocked on the
+        missing tier now and then probes it for revival."""
+        if self.nvme_offline and self.nvme_budget > 0:
+            host_free = self.host_budget - self._host_used
+            if n_pages <= self.host_budget and host_free >= n_pages:
+                return True
+            # the dead tier is the binding constraint: probe for revival
+            self._probe_backoff += 1
+            if self._probe_backoff >= self.probe_every:
+                self._probe_backoff = 0
+                if not self.probe_nvme():
+                    return False
+                # fall through re-armed
+            else:
+                return False
+        if n_pages > max(self.host_budget,
+                         0 if self.nvme_offline else self.nvme_budget):
+            return False
+        return self.free_pages() >= n_pages
+
+    def holds(self, uid: Key) -> bool:
+        return uid in self._entries
+
+    # -- spill -----------------------------------------------------------
+
+    def spill(self, uid: Key, buf: np.ndarray, n_pages: int) -> None:
+        """Take ownership of ``uid``'s packed pages (a buffer from
+        :meth:`empty` or :meth:`pack`, complete: no copy into it may be
+        in flight), digest them, and park them in the cheapest tier with
+        room.  Raises ``RuntimeError`` when no tier fits (the caller
+        falls back to destructive eviction)."""
+        assert uid not in self._entries, f"uid {uid} already spilled"
+        assert buf.nbytes == n_pages * self.page_stride, (
+            buf.nbytes, n_pages, self.page_stride)
+        if not self.can_spill(n_pages):
+            self.counters["spill_fallbacks"] += 1
+            raise RuntimeError(
+                f"kv tiers full: need {n_pages} pages, host "
+                f"{self.host_budget - self._host_used}/{self.host_budget} "
+                f"nvme {self.nvme_budget - self._nvme_used}/"
+                f"{self.nvme_budget} free")
+        with self.timers.stage("spill"):
+            ent = _Entry(uid, n_pages)
+            self._seq += 1
+            ent.seq = self._seq
+            ent.buf = buf
+            self._install(ent)
+            # write-side digests overlap the write-back: the buffer stays
+            # immutable until the entry is restored or its write joined
+            if self.verify:
+                self._digests.submit(
+                    uid, lambda: [sdc_digest(b, self.algo)
+                                  for b in buf.reshape(
+                                      n_pages, self.page_stride)])
+            self.counters["spills"] += 1
+            self.counters["pages_spilled"] += n_pages
+            self.counters["bytes_spilled"] += buf.nbytes
+
+    def _install(self, ent: _Entry) -> None:
+        """Park a new entry on the host tier (demoting the oldest host
+        entries to NVMe for room) or, oversized for the host, straight on
+        NVMe.  Raises ``RuntimeError`` with nothing installed when
+        neither works."""
+        n = ent.n_pages
+        host_free = self.host_budget - self._host_used
+        try:
+            if n <= self.host_budget:
+                if n > host_free:
+                    self._demote(n - host_free)
+                self._entries[ent.uid] = ent
+                self._host_used += n
+            else:
+                self._entries[ent.uid] = ent
+                self._nvme_spill(ent)
+        except RuntimeError:
+            self._entries.pop(ent.uid, None)
+            self.counters["spill_fallbacks"] += 1
+            raise
+
+    # -- NVMe write-back -------------------------------------------------
+
+    def _fname(self, uid: Key) -> str:
+        return os.path.join(self.spill_dir, f"kv-{uid}.bin")
+
+    def _nvme_spill(self, ent: _Entry) -> None:
+        """Queue ``ent``'s buffer for NVMe write-back on the bounded
+        window (the buffer stays alive until the window joins the op).  A
+        hard I/O error at submit, or one injected at the ``kv.write``
+        site, feeds the degraded-mode streak and raises ``RuntimeError``
+        so that callers take their no-room fallbacks."""
+        assert self.spill_dir is not None
+        if self.nvme_offline:
+            raise RuntimeError(
+                "kv tiering: NVMe tier offline (degraded mode)")
+        path = self._fname(ent.uid)
+        try:
+            faults.hook("kv.write", uid=ent.uid, path=path)
+            with self.timers.stage("spill_write_submit"):
+                op = self._handle().async_pwrite(ent.buf, path)
+        except OSError as e:
+            self._nvme_failure(e, f"write-back submit for uid {ent.uid}")
+            raise RuntimeError(
+                f"kv tiering: NVMe write-back failed for uid "
+                f"{ent.uid}: {e}") from e
+        ent.path = path
+        ent.state = "writing"
+        self._nvme_used += ent.n_pages
+        buf = ent.buf               # keep a reference until the join
+
+        def _done(st, ent=ent, buf=buf):
+            del buf
+            if ent.state == "writing":      # not restored meanwhile
+                ent.state = "nvme"
+                ent.buf = None
+            return st
+
+        self._writes.submit(("w", ent.uid), op, on_done=_done)
+        self.counters["nvme_spills"] += 1
+
+    def _demote(self, need_pages: int) -> None:
+        """Move the oldest host-resident entries to NVMe until
+        ``need_pages`` of host budget are free."""
+        if self.nvme_offline:
+            raise RuntimeError(
+                "kv tiering: cannot demote, the NVMe tier is offline "
+                "(degraded mode)")
+        moved = 0
+        for ent in sorted((e for e in self._entries.values()
+                           if e.state == "host"), key=lambda e: e.seq):
+            if moved >= need_pages:
+                break
+            if self.nvme_budget - self._nvme_used < ent.n_pages:
+                continue
+            self._nvme_spill(ent)
+            self._host_used -= ent.n_pages
+            self.counters["demotions"] += 1
+            moved += ent.n_pages
+        if moved < need_pages:
+            raise RuntimeError(
+                f"kv tiering: could not demote {need_pages} pages to "
+                "NVMe (budget full)")
+
+    # -- prefetch --------------------------------------------------------
+
+    def prefetch(self, uids: Sequence[Key]) -> int:
+        """Start async NVMe -> host reads for the spilled sequences
+        predicted to be scheduled next; returns how many started.  Runs
+        under a decode block, so restores overlap device work."""
+        if not self.prefetch_enabled:
+            return 0
+        started = 0
+        for uid in uids:
+            ent = self._entries.get(uid)
+            if ent is None or ent.state != "nvme":
+                continue
+            if self._stage_ring().free == 0:
+                break
+            slot, sbuf = self._stage_ring().acquire()
+            ent.slot = slot
+            ent.state = "reading"
+            with self.timers.stage("prefetch_submit"):
+                op = self._handle().async_pread(
+                    sbuf[:ent.n_pages * self.page_stride], ent.path)
+            self._reads.submit(("r", uid), op)
+            started += 1
+        return started
+
+    # -- restore ---------------------------------------------------------
+
+    def restore(self, uid: Key) -> np.ndarray:
+        """Hand back ``uid``'s packed pages (a private working buffer,
+        pinned when the store is), each page verified against its
+        spill-time digest (when ``verify``).  Drops the entry on success:
+        the pages are the device's again.  Raises
+        :class:`KVRestoreError` after quarantining on unrecoverable
+        corruption (the caller re-prefills)."""
+        self._check_lost(uid)
+        ent = self._entries.get(uid)
+        assert ent is not None, f"uid {uid} not spilled"
+        with self.timers.stage("restore"):
+            work = self._fetch(ent)
+            if self.verify:
+                with self.timers.stage("restore_verify"):
+                    self._verify_pages(ent, work, self._digests.pop(uid))
+        self._drop(ent)
+        self.counters["restores"] += 1
+        self.counters["pages_restored"] += ent.n_pages
+        self.counters["bytes_restored"] += ent.n_pages * self.page_stride
+        return work
+
+    def spill_digests(self, uid: Key) -> Optional[List[tuple]]:
+        """``uid``'s per-page spill-time digests ``(value, nbytes)``, or
+        None with ``verify`` off; the entry stays parked."""
+        assert uid in self._entries, f"uid {uid} not spilled"
+        if not self.verify:
+            return None
+        digests = self._digests.pop(uid)
+        self._digests.submit(uid, lambda d=digests: d)   # still the entry's
+        return digests
+
+    def _fetch(self, ent: _Entry) -> np.ndarray:
+        """The entry's packed bytes in a private working buffer (the tier
+        copy or file stays pristine, so a re-read heals a transient flip
+        in the working copy)."""
+        n = ent.n_pages * self.page_stride
+        with self.timers.stage("restore_alloc"):
+            work = self.empty(ent.n_pages)
+        if ent.state == "writing":
+            # write-back in flight: the in-memory bytes are authoritative;
+            # take them before the join (whose on_done drops the buffer)
+            buf = ent.buf
+            self._writes.pop(("w", ent.uid))
+            with self.timers.stage("restore_copy"):
+                np.copyto(work, buf[:n])
+            return work
+        if ent.state == "host":
+            with self.timers.stage("restore_copy"):
+                np.copyto(work, ent.buf[:n])
+            return work
+        if ent.state == "reading":
+            self._reads.pop(("r", ent.uid))
+            self.counters["prefetch_hits"] += 1
+            with self.timers.stage("restore_copy"):
+                np.copyto(work, self._staging.peek(ent.slot)[:n])
+            return work
+        # cold NVMe read (prefetch missed this one)
+        self.counters["prefetch_misses"] += 1
+        with self.timers.stage("restore_read"):
+            try:
+                self._handle().sync_pread(work, ent.path)
+            except OSError as e:
+                self._nvme_failure(e, f"cold read of spilled uid "
+                                      f"{ent.uid}")
+                # the trip may already have folded this entry; if not,
+                # fold it here: either way the session re-prefills
+                if ent.uid in self._entries:
+                    self._drop(ent)
+                self._lost.discard(ent.uid)
+                raise KVRestoreError(
+                    ent.uid, -1,
+                    f"kv tiering: NVMe read for spilled uid {ent.uid} "
+                    f"failed ({e}): payload unreachable, the session "
+                    "must re-prefill") from e
+        return work
+
+    def _verify_pages(self, ent: _Entry, work: np.ndarray,
+                      digests: List[tuple]) -> None:
+        w2 = work.reshape(ent.n_pages, self.page_stride)
+        src = ent.buf if ent.buf is not None else (
+            self._staging.peek(ent.slot) if ent.slot is not None else None)
+        for i in range(ent.n_pages):
+            page = w2[i]
+            action = faults.hook("kv.read_page", uid=ent.uid, page=i,
+                                 path=ent.path)
+            if action and action[0] == "bitflip":
+                faults.apply_bitflip(page, action[1])
+            ok = sdc_digest(page, self.algo) == tuple(digests[i])
+            tries = 0
+            while not ok and tries < self.max_reread:
+                tries += 1
+                self.counters["rereads"] += 1
+                # re-read from the authoritative copy, the spill file
+                # (NVMe) or the tier buffer (host), then give the fault
+                # site its next firing (a count=1 flip stays healed, a
+                # persistent fault flips again)
+                if src is not None:
+                    page[:] = src[:ent.n_pages * self.page_stride].reshape(
+                        ent.n_pages, self.page_stride)[i]
+                else:
+                    self._handle().sync_pread(page, ent.path,
+                                              offset=i * self.page_stride)
+                action = faults.hook("kv.read_page", uid=ent.uid,
+                                     page=i, path=ent.path)
+                if action and action[0] == "bitflip":
+                    faults.apply_bitflip(page, action[1])
+                ok = sdc_digest(page, self.algo) == tuple(digests[i])
+                if ok:
+                    self.counters["reread_recovered"] += 1
+            if not ok:
+                self._quarantine(ent, i)
+                raise KVRestoreError(
+                    ent.uid, i,
+                    f"kv tiering: page {i} of spilled uid {ent.uid} "
+                    f"failed {self.algo} verification after "
+                    f"{tries} re-read(s): payload quarantined, the "
+                    "session must re-prefill")
+            self.counters["pages_verified"] += 1
+
+    def _quarantine(self, ent: _Entry, page: int) -> None:
+        """Never decode on garbage, never delete the evidence."""
+        self.counters["quarantined"] += 1
+        where = ent.path if ent.path else "host tier"
+        if ent.path and os.path.exists(ent.path):
+            dst = ent.path + ".quarantine"
+            n = 0
+            while os.path.exists(dst):
+                n += 1
+                dst = f"{ent.path}.quarantine.{n}"
+            try:
+                os.rename(ent.path, dst)
+                where = dst
+            except OSError:
+                pass
+        logger.error(
+            f"kv tiering: QUARANTINED corrupt spilled page {page} of "
+            f"uid {ent.uid} ({where}); the session will re-prefill")
+        self._drop(ent)
+        if ent.path is not None:
+            # a corrupt NVMe-backed payload counts toward the degraded-
+            # mode streak: a dying device shows as repeated quarantines
+            # as readily as hard EIO
+            self._nvme_failure(None, f"quarantine of uid {ent.uid} "
+                                     f"page {page}")
+
+    def _drop(self, ent: _Entry) -> None:
+        if self._entries.pop(ent.uid, None) is None:
+            return
+        if ent.state == "writing":
+            self._writes.pop(("w", ent.uid))
+            self._nvme_used -= ent.n_pages
+        elif ent.state == "host":
+            self._host_used -= ent.n_pages
+        else:                                   # nvme | reading
+            if ent.state == "reading":
+                self._reads.pop(("r", ent.uid))
+            self._nvme_used -= ent.n_pages
+        if ent.slot is not None:
+            self._staging.release(ent.slot)
+            ent.slot = None
+        if ent.path and os.path.exists(ent.path):
+            try:
+                os.remove(ent.path)
+            except OSError:
+                pass
+        self._digests.discard(ent.uid)
+        ent.buf = None
+
+    def drop(self, uid: Key) -> None:
+        """Discard a spilled payload (session finished or re-prefills)."""
+        self._lost.discard(uid)
+        ent = self._entries.get(uid)
+        if ent is not None:
+            self._drop(ent)
+
+    # -- degraded mode (NVMe tier offline) --------------------------------
+
+    def _check_lost(self, uid: Key) -> None:
+        """A payload folded at a degraded-mode trip is gone: raise the
+        typed error of a quarantine, so the caller's re-prefill path
+        takes over."""
+        if uid in self._lost:
+            self._lost.discard(uid)
+            raise KVRestoreError(
+                uid, -1,
+                f"kv tiering: spilled uid {uid} was folded when the NVMe "
+                "tier went offline (degraded mode): the session must "
+                "re-prefill")
+
+    def _nvme_failure(self, exc: Optional[BaseException],
+                      why: str) -> None:
+        """Record one hard NVMe failure; take the tier offline at
+        ``nvme_fail_threshold`` failures since the last clean probe.
+        Successful I/O in between does NOT reset the streak: on a dying
+        device reads of old data often succeed while new writes fail;
+        only a full :meth:`probe_nvme` round trip vouches for health."""
+        self.counters["nvme_failures"] += 1
+        self._nvme_streak += 1
+        logger.error(
+            f"kv tiering: NVMe failure {self._nvme_streak}/"
+            f"{self.nvme_fail_threshold} ({why}): {exc}")
+        if (not self.nvme_offline
+                and self._nvme_streak >= self.nvme_fail_threshold):
+            self._trip_nvme(why)
+
+    def _trip_nvme(self, why: str) -> None:
+        """Take the NVMe tier offline: fold every parked NVMe-backed
+        payload (each session re-prefills through
+        :class:`KVRestoreError`) and stop demoting.  Host-tier payloads
+        are untouched."""
+        self.nvme_offline = True
+        self._probe_backoff = 0
+        folded: List[Key] = []
+        for ent in list(self._entries.values()):
+            if ent.state == "host":
+                continue
+            folded.append(ent.uid)
+            if ent.state == "writing":
+                # the write targets a dead device: abandon it unjoined
+                # (joining could wedge or raise EIO again)
+                self._writes.discard(("w", ent.uid))
+            elif ent.state == "reading":
+                self._reads.discard(("r", ent.uid))
+                # leak the staging slot on purpose: the abandoned read may
+                # still scribble into it, so reissuing it would race
+                ent.slot = None
+            self._nvme_used -= ent.n_pages
+            self._entries.pop(ent.uid, None)
+            self._digests.discard(ent.uid)
+            ent.buf = None
+            self._lost.add(ent.uid)
+        self.counters["tier_degraded"] += 1
+        self.counters["degraded_folds"] += len(folded)
+        logger.error(
+            f"kv tiering: NVMe tier OFFLINE after {self._nvme_streak} "
+            f"consecutive failures ({why}); folded {len(folded)} parked "
+            "payload(s) to re-prefill, demotions fall back to the host")
+
+    def probe_nvme(self) -> bool:
+        """Degraded-mode recovery probe: write, read back and verify one
+        page-stride block through the spill path's ``kv.write`` fault
+        site.  A clean round trip re-arms the NVMe tier; a failed probe
+        leaves it offline (and does not feed the streak: the tier is
+        already down)."""
+        if self.nvme_budget <= 0 or self.spill_dir is None:
+            return False
+        self.counters["probes"] += 1
+        path = os.path.join(self.spill_dir, "probe.bin")
+        buf = aligned_empty(self.page_stride)
+        buf[:] = (np.arange(self.page_stride) % 251).astype(np.uint8)
+        back = aligned_empty(self.page_stride)
+        try:
+            faults.hook("kv.write", uid="probe", path=path)
+            self._handle().sync_pwrite(buf, path)
+            self._handle().sync_pread(back, path)
+            if not np.array_equal(buf, back):
+                raise OSError("probe read-back mismatch")
+        except OSError as e:
+            self.counters["probe_failures"] += 1
+            logger.warning(f"kv tiering: NVMe revival probe failed: {e}")
+            return False
+        finally:
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+        self._nvme_streak = 0       # a clean round trip vouches for it
+        if self.nvme_offline:
+            self.nvme_offline = False
+            self.counters["tier_rearmed"] += 1
+            logger.info("kv tiering: NVMe tier re-armed after a clean "
+                        "revival probe")
+        return True
+
+    # -- cross-replica handoff -------------------------------------------
+
+    def export_spilled(self, uid: Key) -> Dict[str, Any]:
+        """Hand off ``uid``'s payload in SPILL FORMAT, the packed page
+        bytes plus the spill-time digests, without unpacking.  The
+        receiver installs the donor's digests beside the bytes, so its
+        ``restore()`` verifies the pages against what the DONOR computed
+        at spill time.  Drops the entry (ownership moves with the
+        bytes)."""
+        self._check_lost(uid)
+        ent = self._entries.get(uid)
+        assert ent is not None, f"uid {uid} not spilled"
+        n = ent.n_pages
+        work = self._fetch(ent)
+        digests = self._digests.pop(uid) if self.verify else None
+        self._drop(ent)
+        self.counters["exports"] += 1
+        return {"n_pages": n,
+                "page_stride": int(self.page_stride),
+                "algo": self.algo,
+                "payload": bytes(work[:n * self.page_stride]),
+                "digests": ([tuple(d) for d in digests]
+                            if digests is not None else None)}
+
+    def import_spilled(self, uid: Key, blob: Dict[str, Any]) -> None:
+        """The receiving half of the handoff: install an exported payload
+        under ``uid`` as a host-tier entry (demoting or overflowing to
+        NVMe like a local spill).  Raises ``ValueError`` on a layout
+        mismatch and ``RuntimeError`` when no tier has room: the caller
+        falls back to a re-prefill continuation."""
+        assert uid not in self._entries, f"uid {uid} already spilled"
+        if int(blob["page_stride"]) != self.page_stride:
+            raise ValueError(
+                f"kv tiering: imported payload page_stride "
+                f"{blob['page_stride']} != local {self.page_stride}: the "
+                "handoff needs replicas with the same cache layout")
+        n = int(blob["n_pages"])
+        if not self.can_spill(n):
+            self.counters["spill_fallbacks"] += 1
+            raise RuntimeError(
+                f"kv tiers full: cannot import {n} pages "
+                f"(free {self.free_pages()})")
+        raw = np.frombuffer(blob["payload"], np.uint8)
+        if raw.size != n * self.page_stride:
+            raise ValueError(
+                f"kv tiering: imported payload holds {raw.size} bytes, "
+                f"want {n} x {self.page_stride}")
+        buf = self.empty(n)
+        buf[:] = raw
+        ent = _Entry(uid, n)
+        self._seq += 1
+        ent.seq = self._seq
+        ent.buf = buf
+        self._install(ent)
+        if self.verify:
+            donor = blob.get("digests")
+            if donor is not None and str(blob.get("algo")) == self.algo:
+                # the donor's spill-time digests ARE the reference
+                self._digests.submit(
+                    uid, lambda d=donor: [tuple(x) for x in d])
+            else:
+                # another algorithm (or an unverified donor): digest what
+                # arrived; integrity from here on, not end to end
+                self._digests.submit(
+                    uid, lambda: [sdc_digest(b, self.algo)
+                                  for b in buf.reshape(n, self.page_stride)])
+        self.counters["imports"] += 1
+        self.counters["pages_spilled"] += n
+        self.counters["bytes_spilled"] += buf.nbytes
+
+    # -- accounting --------------------------------------------------------
+
+    def audit(self) -> Dict[str, int]:
+        """Tier-side conservation check (the spill tiers' counterpart of
+        ``PageAllocator.audit``): recomputes each tier's use from the
+        entry table and asserts that it matches the running counts."""
+        host = sum(e.n_pages for e in self._entries.values()
+                   if e.state == "host")
+        nvme = sum(e.n_pages for e in self._entries.values()
+                   if e.state in ("writing", "nvme", "reading"))
+        assert host == self._host_used, (host, self._host_used)
+        assert nvme == self._nvme_used, (nvme, self._nvme_used)
+        assert host <= self.host_budget and nvme <= self.nvme_budget
+        return {"sessions": len(self._entries), "host_pages_used": host,
+                "nvme_pages_used": nvme, "host_budget": self.host_budget,
+                "nvme_budget": self.nvme_budget}
+
+    def stats(self) -> Dict[str, Any]:
+        """Flat numeric stats: stage seconds and counters."""
+        out = dict(self.timers.snapshot())
+        out.update(self.counters)
+        out["resident_spilled_sessions"] = len(self._entries)
+        out["host_pages_used"] = self._host_used
+        out["nvme_pages_used"] = self._nvme_used
+        out["nvme_offline"] = int(self.nvme_offline)
+        return out
+
+    def close(self) -> None:
+        for uid in list(self._entries):
+            self.drop(uid)
+        self._writes.drain()
+        self._reads.drain()
+        self._digests.close()
+        if self._aio is not None:
+            self._aio.close()
+            self._aio = None
+        if self.spill_dir:
+            shutil.rmtree(self.spill_dir, ignore_errors=True)

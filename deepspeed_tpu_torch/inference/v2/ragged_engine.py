@@ -54,16 +54,41 @@ JAX's threefry streams (:mod:`~deepspeed_tpu_torch.inference.sampling`).
   the engine is built and dequantized at use in every model tick
   (:mod:`~deepspeed_tpu_torch.inference.quantization`).
 
+- **KV tiering** (``kv_tiering``, :mod:`~deepspeed_tpu_torch.inference.
+  kv_tiering`).  When every live sequence is page-stalled, the coldest
+  one is parked in pinned host RAM, overflowing to NVMe, instead of being
+  evicted: its live pages are packed on the device and copied to the
+  host in one transfer, digested per page, and on re-admission verified
+  and written back into fresh pages in place (``index_copy_``: the pool
+  tensors a captured decode block replays over are never rebound).  A
+  payload that fails verification beyond repair is quarantined and the
+  request re-prefills from the front of the queue.  Eviction remains
+  for when the tiers are full.  ``export_parked``/``import_parked`` move
+  parked sessions between engines in spill format.  The pipelined loop
+  starts NVMe -> host reads for the queue's spilled head while a block
+  runs.
+- **The prefix cache** (``prefix_cache``, :mod:`~deepspeed_tpu_torch.
+  inference.prefix_cache`).  Admission attaches every fully matched,
+  resident prefix page read-only (refcounted) and prefills only the
+  suffix; a full match copies its last page on write (COW) and
+  re-prefills one token, so the first token comes from the same fused
+  tick as without the cache.  Full prefill pages register as they
+  complete.  With tiering on, cold index pages demote into the tiers
+  under their prefix hash and revive at a later match, and a spilled
+  sequence keeps its shared prefix pages resident behind spill-holds.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: speculation (A9.4, with its pipelined branch), KV tiering
-(A9.2, with the pipeline's prefetch), the prefix cache (A9.3), long
-context (A9.5), the fp8, fp6 and w8a8 weight formats (A9.6), handoff export/import (A9.7), tensor
-parallelism (A7a), and the control plane, SLOs and trace sampling (A10).
+ROADMAP item: speculation (A9.4, with its pipelined branch), long context
+(``kv_tiering.long_context``, A9.5), the fp8, fp6 and w8a8 weight formats
+(A9.6), handoff export/import (A9.7), tensor parallelism (A7a), and the
+control plane, SLOs and trace sampling (A10).
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import time
+import weakref
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
@@ -80,10 +105,14 @@ from deepspeed_tpu_torch.inference.config import (ControlConfig,
                                                   PrefixCacheConfig,
                                                   SpeculationConfig,
                                                   load_inference_config)
+from deepspeed_tpu_torch.inference.kv_tiering import (KVRestoreError,
+                                                      TieredKVStore)
 from deepspeed_tpu_torch.inference.paged import (KV_CACHE_DTYPES,
                                                  PageAllocator, PagedKVPool,
                                                  RaggedMeta, kv_dequant_path,
                                                  pages_for)
+from deepspeed_tpu_torch.inference.prefix_cache import (ROOT_HASH,
+                                                        PrefixCacheIndex)
 from deepspeed_tpu_torch.inference.quantization import (check_format,
                                                         quantize_model_)
 from deepspeed_tpu_torch.inference.sampling import (position_keys,
@@ -105,6 +134,23 @@ def _unported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to the PyTorch v2 engine yet: ROADMAP {item}")
 
 
+def _tiering_config(kv_tiering) -> KVTieringConfig:
+    """A dict means ``enabled`` unless it says otherwise."""
+    if isinstance(kv_tiering, dict):
+        return KVTieringConfig(**{"enabled": True, **kv_tiering})
+    return kv_tiering
+
+
+def _prefix_config(prefix_cache) -> PrefixCacheConfig:
+    """A bool switches the cache; a dict means ``enabled`` unless it
+    says otherwise."""
+    if isinstance(prefix_cache, bool):
+        return PrefixCacheConfig(enabled=prefix_cache)
+    if isinstance(prefix_cache, dict):
+        return PrefixCacheConfig(**{"enabled": True, **prefix_cache})
+    return prefix_cache
+
+
 @dataclasses.dataclass
 class Request:
     uid: int
@@ -123,6 +169,18 @@ class Request:
     # prefill SOURCE: the prompt, or prompt + already-generated tokens
     # after an eviction (the continuation re-prefills its own output)
     ctx: Optional[np.ndarray] = None
+    # tiered-KV spill metadata while the sequence's pages sit in host RAM
+    # or on NVMe (None: not spilled); the page bytes live in the engine's
+    # TieredKVStore under the uid.  With a prefix cache, "shared_pages"
+    # are shared prefix pages held resident by spill-holds instead of
+    # spilled (only private pages go to the tiers)
+    spilled: Optional[Dict[str, Any]] = None
+    # prefix-cache registration cursor: pc_pages full pages of ctx are in
+    # the index, pc_parent is the chain hash there, and pc_cached counts
+    # the prefill tokens this admission skipped by attaching
+    pc_parent: int = ROOT_HASH
+    pc_pages: int = 0
+    pc_cached: int = 0
 
     @property
     def ctx_len(self) -> int:
@@ -192,7 +250,13 @@ class RaggedInferenceEngineV2:
         ``None`` takes the config's ``v2`` subtree (on, 2, 4 by
         default).  ``config["enable_cuda_graph"]`` replays decode blocks
         from CUDA graphs on ``cuda`` (a failed capture raises); a CPU
-        engine runs the same static buffers eagerly.  Every other
+        engine runs the same static buffers eagerly.
+        ``kv_tiering``: ``None`` (the config's ``v2.kv_tiering`` decides;
+        off by default), a dict (``enabled`` unless it says otherwise) or
+        a :class:`KVTieringConfig`: the host-RAM and NVMe spill tiers
+        (module docstring); needs ``kv_reserve="on_demand"``.
+        ``prefix_cache``: ``None`` (the config decides; off by default),
+        a bool, a dict or a :class:`PrefixCacheConfig`.  Every other
         feature kwarg raises ``NotImplementedError`` when it asks for a
         feature."""
         mcfg = getattr(model, "config", None)
@@ -205,11 +269,15 @@ class RaggedInferenceEngineV2:
                 "paged-cache config)")
         icfg = load_inference_config(config)      # defaults without one
         v2cfg = icfg.v2
+        kv_tiering = _tiering_config(
+            v2cfg.kv_tiering if kv_tiering is None else kv_tiering)
+        prefix_cache = _prefix_config(
+            v2cfg.prefix_cache if prefix_cache is None else prefix_cache)
         self._check_unported(topology, quantize_weights, draft_model,
                              draft_params, draft_kv_cache_dtype,
                              v2cfg if config is not None else None,
-                             speculation, kv_tiering, prefix_cache, control,
-                             slo, trace_sample)
+                             speculation, kv_tiering, control, slo,
+                             trace_sample)
         # kwarg > config > default, as for every v2 knob
         pipeline = v2cfg.pipeline if pipeline is None else pipeline
         async_depth = (v2cfg.async_depth if async_depth is None
@@ -227,6 +295,11 @@ class RaggedInferenceEngineV2:
         if kv_reserve not in ("on_demand", "worst_case"):
             raise ValueError(f"kv_reserve must be on_demand|worst_case, "
                              f"got {kv_reserve!r}")
+        if kv_tiering.enabled and kv_reserve != "on_demand":
+            raise ValueError(
+                "kv_tiering needs kv_reserve='on_demand': the spill tiers "
+                "are the on-demand model's overflow, and a worst-case "
+                "reservation could never admit what they hold")
         self.kv_cache_dtype = kv_cache_dtype
         self.device = resolve_device(device)
         self.dtype = mcfg.dtype
@@ -304,13 +377,69 @@ class RaggedInferenceEngineV2:
         # uid (stream_deltas); cancels counts cancellations at any stage
         self._stream_cursor: Dict[int, int] = {}
         self.cancels = 0
+
+        # every pool leaf as [num_pages, bytes a page] uint8 views: the
+        # spill gather, the restore scatter and the COW copy move page
+        # bytes through them, in place (float8 has no index_copy_ on
+        # every backend, bytes do)
+        self._page_views = [
+            t.view(torch.uint8).view(self.num_pages, -1)
+            for pool in self.cache for t in (pool.pages, pool.scales)
+            if t is not None]
+        # -- tiered KV spill store (device pool -> host RAM -> NVMe)
+        self._tier_cfg = kv_tiering
+        self.tiering: Optional[TieredKVStore] = None
+        # queued spilled sequences prefetched ahead of a possible reap
+        self.prefetch_lookahead = max(int(kv_tiering.prefetch_lookahead), 1)
+        self._sched_seq = 0            # step counter for victim coldness
+        self._last_sched = np.zeros((max_seqs,), np.int64)
+        self.spills = 0                # sessions spilled to the tiers
+        self.restores = 0              # sessions restored from them
+        if kv_tiering.enabled:
+            self.tiering = TieredKVStore(
+                page_shapes=[(v.shape[1],) for v in self._page_views],
+                page_dtypes=[np.uint8] * len(self._page_views),
+                pages_per_seq=self.pages_per_seq,
+                host_pages=kv_tiering.host_pages,
+                nvme_pages=kv_tiering.nvme_pages,
+                nvme_dir=kv_tiering.nvme_dir,
+                use_odirect=kv_tiering.use_odirect,
+                prefetch=kv_tiering.prefetch, verify=kv_tiering.verify,
+                checksum=kv_tiering.checksum,
+                max_reread=kv_tiering.max_reread,
+                nvme_fail_threshold=kv_tiering.nvme_fail_threshold,
+                probe_every=kv_tiering.probe_every,
+                pinned=self.device.type == "cuda")
+        # -- cross-request prefix cache over the paged pool
+        self._pfx_cfg = prefix_cache
+        self._pfx: Optional[PrefixCacheIndex] = None
+        if prefix_cache.enabled:
+            self._pfx = PrefixCacheIndex(
+                self.allocator, self.page_size,
+                max_entries=prefix_cache.max_index_entries,
+                min_match_pages=prefix_cache.min_match_pages)
+            if self.tiering is not None:
+                # under pool pressure, cold single-reference prefix pages
+                # demote into the tiers keyed by prefix hash (one restore
+                # serves every waiter) instead of being dropped; through
+                # a proxy, so that the index holds no cycle to the engine
+                me = weakref.proxy(self)
+                self._pfx.demote = lambda e: me._pfx_demote(e)
+                self._pfx.drop_spilled = self.tiering.drop
+        note = ""
+        if self.tiering is not None:
+            note = (f" kv_tiering=host:{kv_tiering.host_pages}"
+                    f"+nvme:{kv_tiering.nvme_pages}p")
+        if self._pfx is not None:
+            note += (f" prefix_cache=max:{prefix_cache.max_index_entries}"
+                     f"/min:{prefix_cache.min_match_pages}p")
         log_dist(
             f"RaggedInferenceEngineV2: max_seqs={max_seqs} "
             f"max_seq_len={max_seq_len} prefill_chunk={prefill_chunk} "
             f"pages={self.num_pages}x{self.page_size} "
             f"kv={kv_cache_dtype} decode_block={self.decode_block_size} "
-            f"pipeline={self.pipeline} cuda_graph={self.enable_cuda_graph} "
-            f"device={self.device} (paged KV, fused SplitFuse step)",
+            f"pipeline={self.pipeline} cuda_graph={self.enable_cuda_graph}"
+            f"{note} device={self.device} (paged KV, fused SplitFuse step)",
             ranks=[0])
 
     # -- construction helpers -------------------------------------------
@@ -318,11 +447,11 @@ class RaggedInferenceEngineV2:
     @staticmethod
     def _check_unported(topology, quantize_weights, draft_model,
                         draft_params, draft_kv_cache_dtype, v2,
-                        speculation, kv_tiering, prefix_cache, control,
-                        slo, trace_sample) -> None:
+                        speculation, kv_tiering, control, slo,
+                        trace_sample) -> None:
         """Raise for every feature asked for that this port lacks; kwargs
         win over the config's ``v2`` subtree (``v2``: None without a
-        config), as in the reference."""
+        config), as in the reference.  ``kv_tiering`` comes resolved."""
         if topology is not None:
             raise _unported("tensor-parallel serving (topology)", "A7a")
         if quantize_weights is not None:
@@ -333,9 +462,6 @@ class RaggedInferenceEngineV2:
         if v2 is not None:
             speculation = v2.speculation if speculation is None \
                 else speculation
-            kv_tiering = v2.kv_tiering if kv_tiering is None else kv_tiering
-            prefix_cache = (v2.prefix_cache if prefix_cache is None
-                            else prefix_cache)
             control = v2.control if control is None else control
             slo = v2.slo if slo is None else slo
             trace_sample = (v2.trace_sample if trace_sample is None
@@ -347,20 +473,9 @@ class RaggedInferenceEngineV2:
         if speculation is not None and speculation.mode != "off":
             raise _unported(f"speculation (mode={speculation.mode!r})",
                             "A9.4")
-        if isinstance(kv_tiering, dict):
-            kv_tiering = KVTieringConfig(**{"enabled": True, **kv_tiering})
-        if kv_tiering is not None and kv_tiering.long_context:
+        if kv_tiering.long_context:
             raise _unported("long context (kv_tiering.long_context)",
                             "A9.5")
-        if kv_tiering is not None and kv_tiering.enabled:
-            raise _unported("kv_tiering", "A9.2")
-        if isinstance(prefix_cache, bool):
-            prefix_cache = PrefixCacheConfig(enabled=prefix_cache)
-        elif isinstance(prefix_cache, dict):
-            prefix_cache = PrefixCacheConfig(
-                **{"enabled": True, **prefix_cache})
-        if prefix_cache is not None and prefix_cache.enabled:
-            raise _unported("prefix_cache", "A9.3")
         if isinstance(control, bool):
             control = ControlConfig(enabled=control)
         elif isinstance(control, dict):
@@ -411,12 +526,29 @@ class RaggedInferenceEngineV2:
                 f"{total} exceeds the engine token budget "
                 f"max_seq_len={self.max_seq_len} — the request can never "
                 "be scheduled; shorten the prompt or raise max_seq_len")
-        if self.allocator.pages_for(total) > self.num_pages - 1:
+        total_pages = self.allocator.pages_for(total)
+        usable = self.num_pages - 1
+        if self.tiering is None:
+            if total_pages > usable:
+                raise ValueError(
+                    f"request needs {total_pages} KV pages but the engine "
+                    f"owns {usable} usable pages — even after evicting "
+                    "every other sequence it could never be scheduled; "
+                    "raise num_pages")
+            return
+        # with tiering the bound is the combined tiers: a request beyond
+        # the device pool is accepted while the others can spill
+        # (max_new_tokens is a budget, not a promise); admission keeps
+        # the working-set bound of the device tier
+        cap = usable + self.tiering.budget_pages
+        if total_pages > cap:
             raise ValueError(
-                f"request needs {self.allocator.pages_for(total)} KV "
-                f"pages but the engine owns {self.num_pages - 1} "
-                "usable pages — even after evicting every other "
-                "sequence it could never be scheduled; raise num_pages")
+                f"request needs {total_pages} KV pages in total but the "
+                f"combined tiers — HBM ({usable} usable) + host "
+                f"({self.tiering.host_budget}) + NVMe "
+                f"({self.tiering.nvme_budget}) — hold only {cap} — it "
+                "could never be scheduled; raise num_pages or the "
+                "kv_tiering host_pages/nvme_pages budgets")
 
     def put_request(self, prompt, **kw) -> int:
         """Queue a request; raises ``ValueError`` AT SUBMIT TIME for a
@@ -466,9 +598,11 @@ class RaggedInferenceEngineV2:
 
     def cancel(self, uid: int) -> Optional[str]:
         """Cancel one request at any stage, releasing its slot and pool
-        pages.  Returns the stage it was cancelled at (``"queued"`` /
-        ``"prefill"`` / ``"decode"`` / ``"finished"``) or ``None`` for an
-        unknown uid (never submitted, or already collected)."""
+        pages, or its spilled payload and the spill-holds on its shared
+        prefix pages.  Returns the stage it was cancelled at
+        (``"queued"`` / ``"spilled"`` / ``"prefill"`` / ``"decode"`` /
+        ``"finished"``) or ``None`` for an unknown uid (never submitted,
+        or already collected)."""
         stage: Optional[str] = None
         # fold an active pipelined carry first: the target may be
         # mid-decode inside it, and the teardown re-anchors host state so
@@ -481,6 +615,9 @@ class RaggedInferenceEngineV2:
             if r.uid == uid:
                 self.waiting.remove(r)
                 stage = "queued"
+                if r.spilled is not None:
+                    self._drop_spilled(r)
+                    stage = "spilled"
                 break
         if stage is None:
             for i, r in enumerate(self.slots):
@@ -520,11 +657,113 @@ class RaggedInferenceEngineV2:
             return 0
         return self._pipeline_harvest()
 
-    def export_parked(self):
-        raise _unported("export_parked", "A9.2")
+    def _drop_spilled(self, r: Request) -> None:
+        """Release a parked request's spill-holds on shared prefix pages
+        and its payload in the tiers."""
+        for p in r.spilled.get("shared_pages", ()):
+            self.allocator.decref(p)
+        if self.tiering is not None:
+            self.tiering.drop(r.uid)
 
-    def import_parked(self, sessions):
-        raise _unported("import_parked", "A9.2")
+    def _reprefill(self, r: Request) -> None:
+        """Make ``r`` a continuation that re-prefills prompt + its own
+        generated tokens (greedy continuations are exact)."""
+        r.ctx = np.concatenate([r.prompt, np.asarray(r.generated, np.int32)])
+        r.prefill_done = 0
+        r.pc_parent, r.pc_pages, r.pc_cached = ROOT_HASH, 0, 0
+
+    def export_parked(self) -> List[Dict[str, Any]]:
+        """Pop every PARKED session (the waiting queue: not yet admitted,
+        spilled, or queued as a re-prefill continuation) as portable
+        blobs for :meth:`import_parked` on another engine.  A spilled
+        session's private pages travel in spill format (packed bytes and
+        the spill-time digests, ``TieredKVStore.export_spilled``), so the
+        receiver's restore verifies them end to end.  Shared prefix pages
+        are rows of THIS engine's pool and cannot travel: a session
+        holding any folds to a re-prefill continuation, which gives the
+        same greedy output and pays its prefill again."""
+        sessions = [self._session_blob(r) for r in self.waiting]
+        self.waiting.clear()
+        return sessions
+
+    def _session_blob(self, r: Request) -> Dict[str, Any]:
+        """The portable blob of one parked session (the reference's keys)."""
+        blob: Dict[str, Any] = {
+            "uid": int(r.uid),
+            "prompt": np.asarray(r.prompt, np.int32),
+            "max_new_tokens": int(r.max_new_tokens),
+            "eos_token_id": r.eos_token_id,
+            "do_sample": bool(r.do_sample),
+            "temperature": float(r.temperature),
+            "top_k": int(r.top_k),
+            "top_p": float(r.top_p),
+            "generated": [int(t) for t in r.generated],
+            "ctx": None if r.ctx is None else np.asarray(r.ctx, np.int32),
+            "prefill_done": int(r.prefill_done),
+            "spill": None}
+        if r.spilled is None:
+            return blob
+        shared = r.spilled.get("shared_pages", ())
+        n_priv = int(r.spilled.get("n_pages", 0))
+        holds = self.tiering is not None and self.tiering.holds(r.uid)
+        if shared or (n_priv > 0 and not holds):
+            # fold to a re-prefill continuation; release the spill-holds
+            # and the orphaned payload
+            self._drop_spilled(r)
+            blob["ctx"] = np.concatenate(
+                [r.prompt, np.asarray(r.generated, np.int32)])
+            blob["prefill_done"] = 0
+        else:
+            blob["spill"] = {
+                "last_tok": int(r.spilled["last_tok"]),
+                "live_tokens": int(r.spilled["live_tokens"]),
+                "payload": (self.tiering.export_spilled(r.uid)
+                            if n_priv > 0 else None)}
+        return blob
+
+    def import_parked(self, sessions: List[Dict[str, Any]]) -> List[int]:
+        """Install exported sessions as waiting requests under FRESH uids
+        (uids are per engine), each spill payload parked in the local
+        tiers with the donor's digests.  Returns the new uids in input
+        order.  A payload the local tiers cannot hold folds to a
+        re-prefill continuation."""
+        new_uids: List[int] = []
+        for s in sessions:
+            req = Request(uid=next(self._uid),
+                          prompt=np.asarray(s["prompt"], np.int32),
+                          max_new_tokens=int(s.get("max_new_tokens", 64)),
+                          eos_token_id=s.get("eos_token_id"),
+                          do_sample=bool(s.get("do_sample", False)),
+                          temperature=float(s.get("temperature", 1.0)),
+                          top_k=int(s.get("top_k", 0)),
+                          top_p=float(s.get("top_p", 1.0)))
+            req.generated = [int(t) for t in s.get("generated", ())]
+            ctx = s.get("ctx")
+            req.ctx = None if ctx is None else np.asarray(ctx, np.int32)
+            req.prefill_done = int(s.get("prefill_done", 0))
+            sp = s.get("spill")
+            if sp is not None:
+                payload = sp.get("payload")
+                installed = payload is None
+                if payload is not None and self.tiering is not None:
+                    try:
+                        self.tiering.import_spilled(req.uid, payload)
+                        installed = True
+                    except (ValueError, RuntimeError):
+                        installed = False
+                if installed:
+                    req.spilled = {
+                        "last_tok": int(sp["last_tok"]),
+                        "n_pages": (int(payload["n_pages"])
+                                    if payload is not None else 0),
+                        "live_tokens": int(sp["live_tokens"]),
+                        "shared_pages": []}
+                else:
+                    self._reprefill(req)
+            self.waiting.append(req)
+            self.request_latency.on_submit(req.uid)
+            new_uids.append(req.uid)
+        return new_uids
 
     def export_handoff(self):
         raise _unported("export_handoff", "A9.7")
@@ -538,8 +777,20 @@ class RaggedInferenceEngineV2:
         """Per-dispatch host-path breakdown + ``host_bound_fraction``
         (:class:`~deepspeed_tpu_torch.inference.common.HostStageStats`),
         the quantized pool's ``kv_quant`` block, pool pressure and the
-        per-request latency percentiles."""
+        per-request latency percentiles; with tiering the tier store's
+        stats (``kv_tiering``), with the prefix cache the index's and the
+        admissions' counters (``prefix_cache``)."""
         out = self.host_stats.serving_stages()
+        if self.tiering is not None:
+            out["kv_tiering"] = self.tiering.stats()
+        if self._pfx is not None:
+            st = self.host_stats
+            pc = self._pfx.stats()
+            pc.update(hit_requests=st.prefix_hits,
+                      miss_requests=st.prefix_misses,
+                      hit_tokens=st.prefix_hit_tokens,
+                      cow_copies=st.prefix_cow_copies)
+            out["prefix_cache"] = pc
         if self.kv_cache_dtype != "none":
             out["kv_quant"] = kv_quant_block(
                 self.cache, self.kv_cache_dtype,
@@ -561,8 +812,20 @@ class RaggedInferenceEngineV2:
     def audit_kv_sharing(self) -> Dict[str, int]:
         """Refcount-conservation audit: every slot's page-table row is
         exactly the pages the allocator says it owns, and every page's
-        refcount equals the page-table rows that reach it.  Raises
-        ``AssertionError`` on a leak; returns the allocator's counts."""
+        refcount equals the holders that reach it: page-table rows,
+        resident prefix-index entries and spill-holds on parked
+        requests' shared prefixes (spilled payloads hold no pool page).
+        Raises ``AssertionError`` on a leak; returns the allocator's
+        counts."""
+        external: Dict[int, int] = {}
+        if self._pfx is not None:
+            for e in self._pfx._entries.values():
+                if e.state == "resident":
+                    external[e.page] = external.get(e.page, 0) + 1
+        for r in self.waiting:
+            if r.spilled is not None:
+                for p in r.spilled.get("shared_pages", ()):
+                    external[p] = external.get(p, 0) + 1
         for s, r in enumerate(self.slots):
             if r is None:
                 continue
@@ -571,7 +834,23 @@ class RaggedInferenceEngineV2:
             assert row == owned, (
                 f"slot {s}: page-table row {row} != allocator "
                 f"ownership {owned}")
-        return self.allocator.audit(external={})
+        return self.allocator.audit(external=external)
+
+    def close(self) -> None:
+        """Release the tier store (AIO handle, staging buffers, digest
+        pool, spill files) and the prefix cache's holds.  Idempotent; a
+        no-op with both off."""
+        for r in self.waiting:
+            if r.spilled is not None:
+                for p in r.spilled.get("shared_pages", ()):
+                    self.allocator.decref(int(p))
+                r.spilled["shared_pages"] = []
+        if self._pfx is not None:
+            self._pfx.clear()
+            self._pfx = None
+        if self.tiering is not None:
+            self.tiering.close()
+            self.tiering = None
 
     def cache_bytes(self) -> int:
         """Device bytes held by the paged KV pools (scales with
@@ -747,8 +1026,18 @@ class RaggedInferenceEngineV2:
         the steps where ``pipeline=False`` admits."""
         if not self.waiting or not any(s is None for s in self.slots):
             return False
-        need = self._admit_need(self.waiting[0])
-        return self.allocator.pages_for(need) <= self.allocator.free_pages
+        req = self.waiting[0]
+        fresh, entries = self._fresh_pages_needed(req, self._admit_need(req))
+        return fresh <= self._avail_pages(entries)
+
+    def _avail_pages(self, entries) -> int:
+        """Pages an admission can take: the free list plus the prefix
+        index's reclaimable pages, less those the admission's own match
+        (``entries``) would attach."""
+        avail = self.allocator.free_pages
+        if self._pfx is not None:
+            avail += self._pfx.reclaimable(exclude={e.key for e in entries})
+        return avail
 
     def _block_ready(self, block):
         """The window's waiter: joining a block waits for its device work
@@ -830,8 +1119,7 @@ class RaggedInferenceEngineV2:
     def _pipeline_step(self) -> int:
         """One pipelined iteration: plan and dispatch block k+1 while the
         device still runs block k; harvest only when forced.  (Without
-        the reference's speculation and tiering-prefetch branches, A9.4
-        and A9.2.)"""
+        the reference's speculation branch, A9.4.)"""
         dv = self._dev
         st = self.host_stats
         K = self.decode_block_size
@@ -849,6 +1137,7 @@ class RaggedInferenceEngineV2:
             grow_ok = bool(slots_active)
             table_dirty = False
             for s in slots_active:
+                self._last_sched[s] = self._sched_seq
                 want = int(min(dv["plen"][s] + min(K, dv["rem"][s]),
                                self.max_seq_len))
                 before = self.allocator.owned(s)
@@ -884,6 +1173,14 @@ class RaggedInferenceEngineV2:
                 if (dv["has_eos"][s] or dv["rem"][s] <= 0 or
                         dv["plen"][s] >= self.max_seq_len):
                     finish_possible = True
+            if self.tiering is not None and finish_possible:
+                # a slot may free at the next harvest: start NVMe -> host
+                # reads for the spilled sequences the FIFO queue would
+                # admit first, under the block the device still runs
+                self.tiering.prefetch(
+                    [q.uid for q in itertools.islice(
+                        self.waiting, self.prefetch_lookahead)
+                     if q.spilled is not None])
         pending = dv["window"].in_flight + len(dv["ready"])
         if finish_possible or pending >= self.harvest_interval:
             return self._pipeline_harvest()
@@ -940,6 +1237,7 @@ class RaggedInferenceEngineV2:
         the K-tick decode block, pipelined across steps when
         ``pipeline``; any prefilling sequence falls back to the fused
         SplitFuse tick."""
+        self._sched_seq += 1
         if self._dev is not None:
             return self._pipeline_step()
         st = self.host_stats
@@ -969,12 +1267,25 @@ class RaggedInferenceEngineV2:
             if self._stalled and live:
                 if len(live) == 1 and not self.waiting:
                     raise RuntimeError(
-                        "KV pool too small for the only live sequence "
+                        ("HBM KV tier" if self.tiering is not None
+                         else "KV pool") +
+                        " too small for the only live sequence "
                         f"(uid={live[0].uid}, needs "
                         f"{pages_for(live[0].length + 1, self.page_size)}"
                         f" pages of {self.allocator.num_pages - 1}) — "
-                        "raise num_pages or lower max_new_tokens")
-                self._evict(max(self._stalled, key=lambda r: r.uid))
+                        "raise num_pages or lower max_new_tokens" +
+                        (" (spill tiers hold parked sessions, not the "
+                         "live working set)" if self.tiering is not None
+                         else ""))
+                if self.tiering is not None:
+                    # park the coldest stalled sequence in the tiers
+                    # (restore is a page upload); evict only when the
+                    # tiers are full
+                    victim = self._pick_victim(self._stalled)
+                    if not self._spill(victim):
+                        self._evict(victim)
+                else:
+                    self._evict(max(self._stalled, key=lambda r: r.uid))
             return 0
         (token_ids, positions, kv_lens, page_indices, cu_q_lens, num_seqs,
          new_kv_dest, sample_rows, samplers) = plan
@@ -1007,57 +1318,175 @@ class RaggedInferenceEngineV2:
             need = self._admit_need(req)
             if self.allocator.pages_for(need) > self.num_pages - 1:
                 # defense in depth behind put_request's submit-time check:
-                # an unschedulable head would deadlock the FIFO queue
+                # an unschedulable head would deadlock the FIFO queue.
+                # The device bound stays hard with tiering: a working set
+                # decodes only resident; the tiers hold parked sessions
                 self.waiting.popleft()
+                if self.tiering is not None:
+                    self.tiering.drop(req.uid)
+                    raise ValueError(
+                        f"request uid={req.uid} needs "
+                        f"{self.allocator.pages_for(need)} KV pages to "
+                        f"admit ({need} tokens) but the HBM tier owns "
+                        f"{self.num_pages - 1} usable pages — a working "
+                        "set can only decode device-resident; raise "
+                        "num_pages (spill tiers hold parked sessions, "
+                        "not live ones)")
                 raise ValueError(
                     f"request uid={req.uid} needs "
                     f"{self.allocator.pages_for(need)} KV pages to admit "
                     f"({need} tokens) but the engine owns "
                     f"{self.num_pages - 1} usable pages — it can never "
                     "be scheduled, even after full eviction")
-            if self.allocator.pages_for(need) > self.allocator.free_pages:
+            fresh, probe = self._fresh_pages_needed(req, need)
+            if fresh > self._avail_pages(probe):
                 break                      # FIFO: wait for pages to free
             self.waiting.popleft()
             req.slot = i
-            req.prefill_done = 0
+            if req.spilled is None:
+                req.prefill_done = 0       # a spilled request keeps its rows
+                req.pc_parent, req.pc_pages, req.pc_cached = ROOT_HASH, \
+                    0, 0
             self.slots[i] = req
             self.page_table[i, :] = -1
-            self._attach_and_allocate(req, need)
+            if not self._attach_and_allocate(req, need):
+                # a tombstone revival failed mid-attach and the shorter
+                # match needs more fresh pages than the pool holds: undo
+                # and retry this head next step (rare: the probe assumed
+                # the revivals would land)
+                self.allocator.free(i)
+                self.page_table[i, :] = -1
+                self.slots[i] = None
+                req.slot = -1
+                self.waiting.appendleft(req)
+                break
             self.request_latency.on_admit(req.uid)
+            if req.spilled is not None:
+                self._restore(req)
 
-    def _attach_and_allocate(self, req: Request, need: int) -> None:
+    def _attach_and_allocate(self, req: Request, need: int) -> bool:
         """Build slot ``req.slot``'s page run for an admission covering
-        ``need`` tokens: fresh pages only (the prefix cache's attaches
-        are ROADMAP A9.3)."""
-        n = self.allocator.pages_for(need)
-        pages = self.allocator.grow(req.slot, n)
-        self.page_table[req.slot, :n] = pages
+        ``need`` tokens: prefix-cache attaches (and tombstone revivals)
+        first, spill-hold re-attaches for a restoring request, COW of the
+        last page on a FULL prefix match, then fresh pages for the rest.
+        False when failed revivals shrank the match below what the pool
+        can cover (the caller undoes the admission)."""
+        i = req.slot
+        st = self.host_stats
+        attached = 0
+        full = False
+        if req.spilled is not None:
+            shared = [int(p) for p in req.spilled.get("shared_pages", ())]
+            if shared:
+                self.allocator.attach(i, shared)
+                self.page_table[i, :len(shared)] = shared
+                attached = len(shared)
+        elif self._pfx is not None:
+            with st.stage("prefix"):
+                entries = self._pfx.match(req.ctx, touch=True)
+                pages_att: List[int] = []
+                parent = ROOT_HASH
+                for e in entries:
+                    if e.state == "spilled" and not self._pfx_revive(e):
+                        break
+                    pages_att.append(int(e.page))
+                    parent = e.key
+                attached = len(pages_att)
+                if attached:
+                    self.allocator.attach(i, pages_att)
+                    self.page_table[i, :attached] = pages_att
+                    full = attached * self.page_size == req.ctx_len
+                    # the matched pages are prefilled: schedule only the
+                    # suffix.  A FULL match re-prefills its last token
+                    # (after the COW below), so that the first token's
+                    # logits come from the same fused tick as without
+                    # the cache
+                    req.prefill_done = attached * self.page_size - (
+                        1 if full else 0)
+                    req.pc_parent = parent
+                    req.pc_pages = attached
+                    req.pc_cached = req.prefill_done
+                    st.prefix_hits += 1
+                    st.prefix_hit_pages += attached
+                    st.prefix_hit_tokens += req.prefill_done
+                else:
+                    st.prefix_misses += 1
+        grow_n = self.allocator.pages_for(need) - attached
+        want_free = grow_n + (1 if full else 0)
+        self._reclaim_for(want_free)
+        if want_free > self.allocator.free_pages:
+            return False
+        if full:
+            # the write frontier (position ctx_len - 1) lands in the last
+            # matched page: make it private before the re-prefill
+            old, new = self.allocator.cow(i, attached - 1)
+            if new != old:
+                self._cow_copy(old, new)
+                self.page_table[i, attached - 1] = new
+        if grow_n > 0:
+            pages = self.allocator.grow(i, grow_n)
+            self.page_table[i, attached:attached + grow_n] = pages
+        return True
 
     def _admit_need(self, req: Request) -> int:
-        """Token coverage ``_admit`` reserves for ``req``."""
+        """Token coverage ``_admit`` reserves for ``req``: one formula
+        shared with ``_admittable``, so the pipelined loop reconciles at
+        exactly the steps where ``pipeline=False`` admits."""
         ctx_len = req.ctx_len
         rem = max(req.max_new_tokens - len(req.generated), 1)
         if self.kv_reserve == "worst_case":
             # worst case INCLUDING re-prefilled output for evicted
             # continuations (their ctx carries earlier tokens)
             return ctx_len + req.max_new_tokens - len(req.generated)
+        if req.spilled is not None and req.prefill_done >= ctx_len:
+            # a spilled decode-phase sequence: its full restored length
+            return req.length + min(self.decode_block_size, rem)
         # on-demand: context + the first decode block; growth per block
         return ctx_len + min(self.decode_block_size, rem)
+
+    def _fresh_pages_needed(self, req: Request, need: int):
+        """Free pages an admission of ``req`` would take, after
+        prefix-cache attaches (resident matched pages cost nothing; a
+        FULL match costs one extra page for the COW re-prefill) and
+        spill-hold re-attaches.  Returns ``(fresh, matched_entries)``.
+        A probe: it leaves the index's LRU order as it is."""
+        total = self.allocator.pages_for(need)
+        if req.spilled is not None:
+            return total - len(req.spilled.get("shared_pages", ())), []
+        if self._pfx is None:
+            return total, []
+        ctx = req.ctx if req.ctx is not None else req.prompt
+        entries = self._pfx.match(ctx, touch=False)
+        resident = sum(1 for e in entries if e.state == "resident")
+        full = bool(entries) and len(entries) * self.page_size == ctx.size
+        return total - resident + (1 if full else 0), entries
 
     def _ensure_pages(self, slot: int, upto_tokens: int) -> bool:
         """Grow ``slot``'s page run to cover ``upto_tokens`` cache
         positions; False when the pool can't (the sequence sits this
-        tick out, or gets evicted)."""
+        tick out, or gets spilled or evicted)."""
         upto_tokens = min(upto_tokens, self.max_seq_len)
         need = pages_for(upto_tokens, self.page_size)
         have = self.allocator.owned(slot)
         if need <= have:
             return True
+        self._reclaim_for(need - have)
         if need - have > self.allocator.free_pages:
             return False
         pages = self.allocator.grow(slot, need - have)
         self.page_table[slot, have:have + len(pages)] = pages
         return True
+
+    def _reclaim_for(self, n_pages: int) -> None:
+        """Ask the prefix index to give back cold single-reference pages
+        when the free list can't cover ``n_pages``.  A page a live slot
+        uses holds the slot's reference on top of the index's, so the
+        index never reclaims it."""
+        if self._pfx is None:
+            return
+        short = n_pages - self.allocator.free_pages
+        if short > 0:
+            self._pfx.reclaim(short)
 
     def _evict(self, r: Request) -> None:
         """Requeue ``r`` as a CONTINUATION: its pages return to the pool,
@@ -1066,15 +1495,210 @@ class RaggedInferenceEngineV2:
         self.allocator.free(r.slot)
         self.page_table[r.slot, :] = -1
         self.slots[r.slot] = None
-        r.ctx = np.concatenate(
-            [r.prompt, np.asarray(r.generated, np.int32)])
-        r.prefill_done = 0
+        self._reprefill(r)
         r.slot = -1
         self.waiting.append(r)             # back of the queue: the freed
         self.evictions += 1                # pages go to older work first
         logger.info(f"ragged engine: evicted uid={r.uid} "
                     f"({r.ctx.size} ctx tokens) — KV pool exhausted; "
                     "requeued as continuation")
+
+    # -- tiered KV spill and restore (device <-> host RAM <-> NVMe) -------
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _gather_pages(self, pages: List[int]) -> np.ndarray:
+        """``pages``' bytes of every pool leaf in the tier store's packed
+        layout, packed on the device and copied to a (pinned, on
+        ``cuda``) host buffer in one transfer.  The copy is queued on the
+        compute stream, after every block that wrote the pages, and
+        complete on return."""
+        t = self.tiering
+        n = len(pages)
+        idx = self._upload(np.asarray(pages, np.int64))
+        with t.timers.stage("spill_alloc"):
+            buf = t.empty(n)
+        self._sync()                # the copy's time, not earlier work
+        with t.timers.stage("d2h"), torch.inference_mode():
+            parts = [v.index_select(0, idx) for v in self._page_views]
+            if t.page_stride > t.used_bytes:
+                parts.append(torch.zeros((n, t.page_stride - t.used_bytes),
+                                         dtype=torch.uint8,
+                                         device=self.device))
+            torch.from_numpy(buf).view(n, t.page_stride).copy_(
+                torch.cat(parts, dim=1), non_blocking=True)
+            self._sync()
+        return buf
+
+    def _scatter_pages(self, pages: List[int], buf: np.ndarray) -> None:
+        """Write a packed host buffer back into ``pages`` of every pool
+        leaf, in place (``index_copy_``; the pool tensors that captured
+        decode blocks replay over are never rebound).  Complete on
+        return: ``buf`` may be freed, and the next dispatch reads the
+        pages."""
+        t = self.tiering
+        n = len(pages)
+        idx = self._upload(np.asarray(pages, np.int64))
+        with t.timers.stage("h2d"), torch.inference_mode():
+            src = torch.from_numpy(buf[:n * t.page_stride]).view(
+                n, t.page_stride).to(self.device, non_blocking=True)
+            for v, off, w in zip(self._page_views, t.offsets, t.widths):
+                v.index_copy_(0, idx, src[:, off:off + w])
+            self._sync()
+
+    def _live_tokens(self, r: Request) -> int:
+        """Cache rows that hold real KV for ``r`` now.  Decode phase: the
+        last sampled token's row is written by the NEXT tick (at position
+        length-1), so ``length - 1`` rows are live.  Prefill phase: the
+        prefilled prefix."""
+        if r.prefill_done >= r.ctx_len:
+            return r.length - 1
+        return r.prefill_done
+
+    def _spill(self, r: Request) -> bool:
+        """Park ``r`` in the tiers instead of destroying its KV: its live
+        pages go to the tier store and it is requeued as a RESTORABLE
+        continuation.  False when the tiers can't take it (the caller
+        falls back to ``_evict``'s re-prefill).  A restore gives back the
+        exact page bytes, ``prefill_done`` and the pending last token."""
+        live = self._live_tokens(r)
+        n_live = pages_for(live, self.page_size) if live > 0 else 0
+        if n_live == 0 or self.tiering is None:
+            return False
+        # shared prefix pages (refcount > 1: the index or another
+        # sequence holds them too) are the hottest and stay resident: a
+        # spill-hold (+1 ref) on the maximal shared PREFIX of the live
+        # run, and only the private suffix spills.  No owner writes a
+        # shared page (COW comes first), so the rows stay valid
+        j = 0
+        while j < n_live and self.allocator.refcount(
+                int(self.page_table[r.slot, j])) > 1:
+            j += 1
+        n_priv = n_live - j
+        if n_priv > 0 and not self.tiering.can_spill(n_priv):
+            return False
+        shared = [int(p) for p in self.page_table[r.slot, :j]]
+        with self.host_stats.stage("spill"):
+            if n_priv > 0:
+                buf = self._gather_pages(
+                    [int(p) for p in self.page_table[r.slot, j:n_live]])
+                try:
+                    self.tiering.spill(r.uid, buf, n_priv)
+                except RuntimeError:
+                    return False           # tiers full: the caller evicts
+            r.spilled = {"last_tok": int(self._last_tokens[r.slot]),
+                         "n_pages": n_priv, "live_tokens": live,
+                         "shared_pages": shared}
+            for p in shared:
+                self.allocator.incref(p)   # the spill-hold outlives free()
+        self.allocator.free(r.slot)
+        self.page_table[r.slot, :] = -1
+        self.slots[r.slot] = None
+        r.slot = -1
+        self.waiting.append(r)             # back of the queue, as evict
+        self.spills += 1
+        self.request_latency.on_spill(r.uid)
+        logger.info(f"ragged engine: spilled uid={r.uid} ({n_live} pages, "
+                    f"{live} live tokens) to the KV tiers — restore is a "
+                    "page upload, not a re-prefill")
+        return True
+
+    def _restore(self, req: Request) -> None:
+        """Write ``req``'s spilled pages into its freshly allocated pages
+        (``_admit`` assigned the slot).  On unrecoverable corruption
+        (:class:`KVRestoreError`: the store quarantined the payload) the
+        request re-prefills from the FRONT of the queue, loudly."""
+        info = req.spilled
+        n = info["n_pages"]                 # private pages in the tiers
+        shared = info.get("shared_pages", [])
+        jn = len(shared)                    # re-attached by _attach_...
+        t0 = time.perf_counter()
+        try:
+            if n > 0:
+                with self.host_stats.stage("restore"):
+                    buf = self.tiering.restore(req.uid)
+                    self._scatter_pages(
+                        [int(p) for p in self.page_table[req.slot,
+                                                         jn:jn + n]], buf)
+            self._last_tokens[req.slot] = info["last_tok"]
+            req.spilled = None
+            # release the spill-holds: the slot's attach holds its refs
+            for p in shared:
+                self.allocator.decref(p)
+            self.restores += 1
+            self.request_latency.on_restore_stall(
+                req.uid, time.perf_counter() - t0)
+        except KVRestoreError as e:
+            self.allocator.free(req.slot)
+            self.page_table[req.slot, :] = -1
+            self.slots[req.slot] = None
+            for p in shared:
+                self.allocator.decref(p)
+            self._reprefill(req)
+            req.spilled = None
+            req.slot = -1
+            self.waiting.appendleft(req)   # front: it already waited
+            self.request_latency.on_restore_stall(
+                req.uid, time.perf_counter() - t0)
+            self.request_latency.on_error(req.uid)
+            logger.error(
+                f"ragged engine: restore of uid={req.uid} failed "
+                f"verification (page {e.page}; payload quarantined) — "
+                "re-prefilling the session from its own tokens")
+
+    def _pfx_demote(self, e) -> bool:
+        """Index LRU hook: move a single-reference prefix page's KV into
+        the tiers under the entry's PREFIX-HASH key (not a uid: one
+        restore serves every later waiter).  False when the tiers can't
+        take it; the index then drops the entry."""
+        if self.tiering is None or not self.tiering.can_spill(1):
+            return False
+        with self.host_stats.stage("spill"):
+            buf = self._gather_pages([int(e.page)])
+            try:
+                self.tiering.spill(PrefixCacheIndex.tier_key(e.key), buf, 1)
+            except RuntimeError:
+                return False
+        return True
+
+    def _pfx_revive(self, e) -> bool:
+        """Bring a demoted prefix page back into a fresh pool page so that
+        an admission can attach it.  On failure the tombstone is dropped:
+        the requester computes that page itself."""
+        if self.tiering is None:
+            self._pfx._drop(e)
+            return False
+        if self.allocator.free_pages < 1:
+            return False
+        page = self.allocator.take_page()
+        try:
+            with self.host_stats.stage("restore"):
+                buf = self.tiering.restore(PrefixCacheIndex.tier_key(e.key))
+                self._scatter_pages([page], buf)
+        except KVRestoreError:
+            self.allocator.decref(page)
+            self._pfx._drop(e)             # payload quarantined: forget
+            return False
+        self._pfx.revive(e, page)
+        return True
+
+    def _cow_copy(self, src: int, dst: int) -> None:
+        """Copy one page's bytes across every pool leaf on the device, in
+        place: the copy half of copy-on-write."""
+        with self.host_stats.stage("prefix"), torch.inference_mode():
+            for v in self._page_views:
+                v[dst].copy_(v[src])
+        self.host_stats.prefix_cow_copies += 1
+
+    def _pick_victim(self, stalled: List[Request]) -> Request:
+        """The coldest page-stalled sequence: least recently scheduled
+        (tie: the youngest); it has waited longest for pages and will
+        wait longest, so parking it frees the most useful device
+        memory."""
+        return min(stalled,
+                   key=lambda r: (self._last_sched[r.slot], -r.uid))
 
     def _flat_dest(self, slot: int, pos: int) -> int:
         page = self.page_table[slot, pos // self.page_size]
@@ -1121,8 +1745,13 @@ class RaggedInferenceEngineV2:
                 continue                   # batch-budget-limited, not stalled
             if not self._ensure_pages(r.slot, r.prefill_done + take):
                 # partial growth: cover what the pool allows this tick
+                # (cold prefix-index pages count: _ensure_pages reclaims
+                # them on demand)
                 coverable = (self.allocator.owned(r.slot) +
-                             self.allocator.free_pages) * self.page_size
+                             self.allocator.free_pages +
+                             (self._pfx.reclaimable()
+                              if self._pfx is not None else 0)
+                             ) * self.page_size
                 take = min(take, coverable - r.prefill_done)
                 if take <= 0:
                     self._stalled.append(r)     # page-limited
@@ -1139,6 +1768,7 @@ class RaggedInferenceEngineV2:
         for r in [s for s in self.slots if s is not None]:
             if r.done or r.uid in stalled_uids:
                 continue
+            self._last_sched[r.slot] = self._sched_seq
             if r.prefill_done >= r.ctx_len:                 # decode: 1 tok
                 p = min(r.length - 1, self.max_seq_len - 1)
                 token_ids[t] = self._last_tokens[r.slot]
@@ -1164,12 +1794,25 @@ class RaggedInferenceEngineV2:
                 new_kv_dest[t:t + take] = (pg * self.page_size +
                                            pos % self.page_size)
                 r.prefill_done += take
+                if self._pfx is not None:
+                    # publish every freshly completed full page to the
+                    # index, chained onto the request's registered prefix:
+                    # keyed on prefill progress, not on dispatch timing,
+                    # so both pipeline modes register the same pages
+                    page = self.page_size
+                    while (r.pc_pages + 1) * page <= r.prefill_done:
+                        k = r.pc_pages
+                        r.pc_parent = self._pfx.register(
+                            r.pc_parent, r.ctx[k * page:(k + 1) * page],
+                            int(self.page_table[r.slot, k]))
+                        r.pc_pages += 1
                 page_indices[j] = self.page_table[r.slot]
                 kv_lens[j] = r.prefill_done
                 cu_q_lens[j + 1] = cu_q_lens[j] + take
                 finishes = r.prefill_done >= r.ctx_len
                 if finishes:
-                    self.request_latency.on_prefill_done(r.uid, r.ctx_len)
+                    self.request_latency.on_prefill_done(
+                        r.uid, r.ctx_len - r.pc_cached, r.pc_cached)
                 sample_rows[j] = t + take - 1
                 samplers.append((r, j, finishes))
                 t += take
@@ -1227,6 +1870,23 @@ class RaggedInferenceEngineV2:
     def _reap(self) -> None:
         for i, r in enumerate(self.slots):
             if r is not None and r.done:
+                if self._pfx is not None and self._pfx_cfg.include_generated:
+                    # opt-in: publish full pages of generated tokens
+                    # before the references drop.  Decode pages come from
+                    # the decode block, not the fused prefill, so equal
+                    # bits against a cache-off run are not promised for
+                    # hits on them (the config knob says so)
+                    seq = np.concatenate(
+                        [r.ctx, np.asarray(r.generated, np.int32)[
+                            r.ctx_len - r.prompt.size:]])
+                    written = r.length - 1   # the last token is unwritten
+                    page = self.page_size
+                    while (r.pc_pages + 1) * page <= written:
+                        k = r.pc_pages
+                        r.pc_parent = self._pfx.register(
+                            r.pc_parent, seq[k * page:(k + 1) * page],
+                            int(self.page_table[i, k]))
+                        r.pc_pages += 1
                 self.finished.append(r)
                 self.slots[i] = None
                 self.allocator.free(i)

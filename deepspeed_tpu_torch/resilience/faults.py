@@ -23,12 +23,19 @@ Instrumented sites:
 ``comm.all_to_all``       once per all_to_all call
 ``comm.ppermute``         once per ppermute call
 ``comm.barrier``          once per ``comm.barrier()`` call
+``kv.read_page``          per spilled-KV page per restore attempt
+                          (inference/kv_tiering.py), before the page's
+                          digest check; fires again per re-read, so
+                          ``count`` models a transient flip (healed) or a
+                          persistent one (quarantine, re-prefill)
+``kv.write``              per tiered-KV NVMe write submit (spill
+                          write-back and the degraded-mode probe):
+                          ``io_error`` models a failing device
 ========================  ==================================================
 
-The swap sites (``swap.*``) come with ROADMAP A11, the KV-tier, handoff
-and serving sites with A9 and A10, and with them the kinds that only
-those sites honour (``sigterm``, ``io_error``, ``bitflip``, ``hang``,
-``slow``).
+The swap sites (``swap.*``) come with ROADMAP A11, the handoff and
+serving sites with A9.7 and A10, and with them ``sigterm``, ``hang`` and
+``slow``.
 
 Fault kinds:
 
@@ -42,6 +49,10 @@ Fault kinds:
               collective (a slow rank; peers stall waiting for it)
 ``drop``      comm sites: skip the collective entirely on this rank, so
               peers hang in it (the collective watchdog's quarry)
+``bitflip``   kv read sites: flip ``param`` random bit(s) of the buffer
+              just read (:func:`apply_bitflip`; silent corruption)
+``io_error``  raise ``OSError(EIO)``: a hard device error, which the KV
+              tiers count toward their degraded mode
 
 A fault is scheduled with ``inject(site, kind, ...)`` (or the named
 helpers); ``after`` skips that many firings first and ``count`` bounds
@@ -51,10 +62,12 @@ faults handed to worker processes.
 """
 from __future__ import annotations
 
+import errno
 import random
 from typing import Any, Dict, List, Optional, Tuple
 
-__all__ = ["FaultInjector", "SimulatedCrash", "hook", "active"]
+__all__ = ["FaultInjector", "SimulatedCrash", "hook", "active",
+           "apply_bitflip"]
 
 
 class SimulatedCrash(BaseException):
@@ -81,7 +94,8 @@ class FaultInjector:
 
     ``fired`` records every triggered fault as ``(site, kind, call#)``."""
 
-    KINDS = ("oserror", "torn", "crash", "corrupt", "straggle", "drop")
+    KINDS = ("oserror", "torn", "crash", "corrupt", "straggle", "drop",
+             "bitflip", "io_error")
 
     def __init__(self, seed: int = 0):
         self.rng = random.Random(seed)
@@ -133,6 +147,23 @@ class FaultInjector:
         watchdog deadline fires."""
         return self.inject(site, "drop", count=count, after=after)
 
+    def io_error(self, site: str, after: int = 0,
+                 count: int = 1) -> "FaultInjector":
+        """Raise a hard ``OSError(EIO)`` at ``site``: a failing device
+        (against :meth:`transient_oserror`); repeated firings trip the
+        KV tiers' degraded mode."""
+        return self.inject(site, "io_error", count=count, after=after)
+
+    def bitflip(self, site: str, bits: int = 1, after: int = 0,
+                count: int = 1) -> "FaultInjector":
+        """Flip ``bits`` random bit(s) of the buffer a read site just
+        filled (silent corruption between the tier and the device).
+        ``count=1`` models a transient flip (a re-read returns clean
+        bytes); a large ``count`` corrupts every re-read too, the
+        quarantine path's quarry."""
+        return self.inject(site, "bitflip", count=count, after=after,
+                           param=bits)
+
     @classmethod
     def from_spec(cls, spec: str, seed: int = 0) -> "FaultInjector":
         """Parse the subprocess wire format: ``;``-separated faults, each
@@ -178,12 +209,16 @@ class FaultInjector:
             if f.kind == "oserror":
                 raise OSError(f"[fault-injection] transient I/O error at "
                               f"{site} (call {n})")
+            if f.kind == "io_error":
+                raise OSError(errno.EIO, f"[fault-injection] hard I/O "
+                              f"error at {site} (call {n})")
             if f.kind == "crash":
                 raise SimulatedCrash(f"[fault-injection] crash at {site} "
                                      f"(call {n})")
             # directives the site honours: torn (fraction of bytes kept),
             # corrupt (fraction of payload), straggle (delay seconds),
-            # drop (skip the op)
+            # drop (skip the op), bitflip (bits to flip in the buffer
+            # just read)
             return (f.kind, f.param)
         return None
 
@@ -212,7 +247,22 @@ def hook(site: str, **ctx: Any) -> Optional[Tuple[str, float]]:
     case), raises an injected failure, or returns a ``(kind, param)``
     directive the site must honour: ``("torn", fraction)`` at write
     sites; ``("corrupt", fraction)``, ``("straggle", delay_s)`` or
-    ``("drop", 0)`` at comm sites."""
+    ``("drop", 0)`` at comm sites; ``("bitflip", bits)`` at kv read sites
+    (honoured via :func:`apply_bitflip`)."""
     if _ACTIVE is None:
         return None
     return _ACTIVE.fire(site, **ctx)
+
+
+def apply_bitflip(buf, nbits: float) -> None:
+    """Honour a ``("bitflip", nbits)`` directive: flip ``nbits`` random
+    bit(s) of ``buf`` (a contiguous numpy array) in place, at positions
+    drawn from the active injector's seeded rng, so the corruption is
+    reproducible from the seed alone."""
+    import numpy as np
+
+    rng = _ACTIVE.rng if _ACTIVE is not None else random.Random(0)
+    view = buf.reshape(-1).view(np.uint8)
+    for _ in range(max(1, int(nbits))):
+        i = rng.randrange(view.size)
+        view[i] ^= np.uint8(1 << rng.randrange(8))

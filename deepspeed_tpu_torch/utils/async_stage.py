@@ -1,7 +1,8 @@
 """Bounded-async-stage substrate for the host-side pipelines.
 
-Counterpart of ``deepspeed_tpu/utils/async_stage.py`` (``StageTimers`` and
-``BoundedAsyncStage``), host-only Python copied and adapted, not imported.
+Counterpart of ``deepspeed_tpu/utils/async_stage.py`` (``StageTimers``,
+``BoundedAsyncStage`` and ``HostBufferPool``), host-only Python copied and
+adapted, not imported.
 The serving host path is its first user here: a pipelined v2 decode loop
 keeps at most ``async_depth`` decode blocks in flight, each tracked as
 one op whose waiter synchronizes the block's ``torch.cuda.Event``.
@@ -18,14 +19,21 @@ one op whose waiter synchronizes the block's ``torch.cuda.Event``.
     ``{"<stage>_s": seconds}`` floats plus the raw counters, the shape
     the engines' ``serving_stages()`` report.
 
+``HostBufferPool``
+    a fixed ring of 4096-byte aligned host staging buffers (the O_DIRECT
+    requirement), page-locked when asked so that copies between them and
+    the card run asynchronously: the KV tiers' NVMe read-ahead ring.  A
+    slot is reissued only after its previous tenant released it.
+
+The KV tiers (:mod:`~deepspeed_tpu_torch.inference.kv_tiering`) are the
+substrate's second user: their NVMe write-back and read-ahead windows
+and the digest side pool (:mod:`~deepspeed_tpu_torch.resilience.sdc`).
 The reference's trace-span and metrics-histogram hooks arrive with the
-telemetry port; its non-blocking probes (``ready``, ``discard``,
-``abandon``) and its ``HostBufferPool`` (page-aligned staging buffers for
-O_DIRECT reads) arrive with their users, the KV tiers and their I/O
-(ROADMAP A9.2) and the replica feeds (A10).  The substrate has no worker
-thread of its own: asynchrony comes from what the caller submits (CUDA
-work already enqueued, futures); the substrate only bounds, times and
-drains it.
+telemetry port, and its ``ready`` and ``abandon`` probes with their user,
+the replica feeds (A10).  The substrate has no worker thread of its own:
+asynchrony comes from what the caller submits (CUDA work already
+enqueued, AIO ops, futures); the substrate only bounds, times and drains
+it.
 """
 from __future__ import annotations
 
@@ -34,7 +42,7 @@ from collections import OrderedDict
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-__all__ = ["BoundedAsyncStage", "StageTimers"]
+__all__ = ["BoundedAsyncStage", "HostBufferPool", "StageTimers"]
 
 
 class StageTimers:
@@ -87,6 +95,9 @@ class BoundedAsyncStage:
     def in_flight(self) -> int:
         return len(self._inflight)
 
+    def keys(self) -> List[Any]:
+        return list(self._inflight)
+
     def submit(self, key: Any, op: Any,
                on_done: Optional[Callable[[Any], Any]] = None) -> None:
         """Track ``op`` under ``key``, joining the oldest op first while
@@ -124,6 +135,12 @@ class BoundedAsyncStage:
             raise first_err
         return results
 
+    def discard(self, key: Any) -> bool:
+        """Drop exactly one keyed op without joining it (no waiter, no
+        ``on_done``): for an op whose backing device just failed, which
+        joining could wedge.  Returns whether the key was in flight."""
+        return self._inflight.pop(key, None) is not None
+
     def _finish(self, ent: Tuple[Any, Any]) -> Any:
         op, on_done = ent
         res = self._waiter(op)
@@ -131,3 +148,51 @@ class BoundedAsyncStage:
         if on_done is not None:
             res = on_done(res)
         return res
+
+
+class HostBufferPool:
+    """Fixed ring of 4096-byte aligned host staging buffers, page-locked
+    when ``pinned`` (needs CUDA).
+
+    Reuse invariant: ``acquire`` hands a slot out only after its previous
+    tenant's ``release``; it raises when every slot is checked out, so a
+    bounded pipeline (window depth < pool size) can never scribble over
+    bytes an in-flight op still owns.
+    """
+
+    def __init__(self, count: int, nbytes: int,
+                 pinned: bool = False) -> None:
+        from deepspeed_tpu_torch.io.aio import DIRECT_ALIGN, aligned_empty
+
+        self.count = max(1, int(count))
+        self.nbytes = int(nbytes)
+        self.pinned = bool(pinned)
+        self._bufs = [aligned_empty(self.nbytes, pinned=self.pinned)
+                      for _ in range(self.count)]
+        assert all(b.ctypes.data % DIRECT_ALIGN == 0 for b in self._bufs), (
+            "staging buffers must be 4096-byte aligned for O_DIRECT")
+        self._free = list(range(self.count))
+
+    @property
+    def free(self) -> int:
+        return len(self._free)
+
+    def acquire(self) -> Tuple[int, Any]:
+        """``(slot, buffer)``; the buffer is the caller's until
+        ``release(slot)``."""
+        if not self._free:
+            raise RuntimeError(
+                f"HostBufferPool exhausted ({self.count} slots all "
+                "checked out): the in-flight window must drain before a "
+                "staging buffer is reused")
+        slot = self._free.pop()
+        return slot, self._bufs[slot]
+
+    def peek(self, slot: int) -> Any:
+        """The slot's buffer (the holder's view while checked out)."""
+        return self._bufs[slot]
+
+    def release(self, slot: int) -> None:
+        if slot in self._free:
+            raise RuntimeError(f"HostBufferPool slot {slot} double-freed")
+        self._free.append(slot)

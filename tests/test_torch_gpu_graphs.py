@@ -14,7 +14,11 @@ exactly (the same kernels at the same shapes); the paged kernel's Python
 counter ticks at warm-ups and captures only, so it equals the layers x
 (eager ticks + 2 K x captures).  Capturing both graphs mid-run leaves
 every live page byte-identical (warm-up and capture write the trash page
-only).  v1: the captured step gives the eager step's tokens, greedy, with
+only).  With KV tiering over a tight pool, sequences spilled and restored
+between replayed blocks read back their spilled page bytes (the restore
+writes the pool the graphs replay over in place), and the tokens equal
+the same traffic's eager unpipelined run's.  v1: the captured step gives
+the eager step's tokens, greedy, with
 EOS (held in a buffer: no new capture) and at a second prompt length
 (one decode state kept), and sampled (where torch can register a
 generator with a graph; elsewhere a sampled graph raises).
@@ -27,6 +31,7 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
 from deepspeed_tpu_torch.models import llama
 from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+from deepspeed_tpu_torch.resilience import sdc
 
 TINY = dict(vocab_size=256, hidden_size=256, intermediate_size=512,
             num_hidden_layers=2, num_attention_heads=4,
@@ -132,6 +137,51 @@ def test_capture_leaves_live_pages_untouched(cuda):
     while eng.has_work():
         eng.step()
     eng.audit_kv_sharing()
+
+
+def _watch_restores(eng):
+    """Wrap ``eng._restore``: every restored page's bytes, read back from
+    the pool, equal its spill-time digest.  Returns the list of the
+    engine's replay counts at each checked restore."""
+    seen = []
+    restore = eng._restore
+
+    def checked(req):
+        n, jn = req.spilled["n_pages"], len(req.spilled["shared_pages"])
+        want = eng.tiering.spill_digests(req.uid) if n else None
+        restore(req)
+        if want is None or req.slot < 0:
+            return
+        pages = [int(p) for p in eng.page_table[req.slot, jn:jn + n]]
+        got = eng._gather_pages(pages).reshape(n, -1)
+        assert [sdc.digest(b) for b in got] == want
+        seen.append(eng.host_stats.graph_replays)
+
+    eng._restore = checked
+    return seen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pipeline", [False, True], ids=["unpiped", "piped"])
+def test_v2_spill_restore_between_replayed_blocks(cuda, pipeline):
+    tight = dict(num_pages=14, kv_tiering={"host_pages": 64})
+    eager = _v2(cuda, pipeline=False, **tight)
+    want = _serve(eager, False)
+    assert eager.spills > 0 and eager.evictions == 0
+    eng = _v2(cuda, module=eager.module, pipeline=pipeline,
+              config={"enable_cuda_graph": True}, **tight)
+    restores = _watch_restores(eng)
+    got = _serve(eng, False)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    replays = eng.host_stats.graph_replays
+    assert any(0 < r < replays for r in restores), (
+        "no restore landed between two replayed blocks")
+    st = eng.serving_stages()["kv_tiering"]
+    assert st["pages_verified"] == st["pages_restored"] > 0
+    assert (eng.spills, eng.restores) == (eager.spills, eager.restores)
+    eng.close()
+    eager.close()
 
 
 def _v1(cuda, module, graph):

@@ -272,9 +272,7 @@ def test_stream_deltas_report_each_token_once(served):
     (dict(speculation="ngram"), "A9.4"),
     (dict(config={"v2": {"speculation": {"mode": "ngram"}}}), "A9.4"),
     (dict(draft_model=object()), "A9.4"),
-    (dict(kv_tiering={"host_pages": 8}), "A9.2"),
     (dict(kv_tiering={"host_pages": 8, "long_context": True}), "A9.5"),
-    (dict(prefix_cache=True), "A9.3"),
     (dict(quantize_weights="fp8"), "A9.6"),
     (dict(topology=object()), "A7a"),
     (dict(control=True), "A10"),
@@ -291,8 +289,7 @@ def test_config_defaults_and_unported_methods(served):
     eng = port_engine(served["state"], config={"v2": {"async_depth": 3}},
                       pipeline=None)
     assert eng.pipeline is True
-    for name, item in (("export_parked", "A9.2"), ("import_parked", "A9.2"),
-                       ("export_handoff", "A9.7"),
+    for name, item in (("export_handoff", "A9.7"),
                        ("import_handoff", "A9.7")):
         with pytest.raises(NotImplementedError, match=item):
             getattr(eng, name)(*([[]] if name.startswith("import") else []))
