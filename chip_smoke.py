@@ -37,11 +37,13 @@ Phases (any failed check raises; nothing is caught):
    and e4m3 pages (kernels #9 and #8) against their plain versions at
    the v2 path's shapes (decode, mixed decode + prefill chunk, a
    few-sequence decode of 2 x 2048 keys, a long decode of 16 x 8192,
-   sliding window, page-table holes, D=64) and an fp32 case; two decode
+   sliding window, page-table holes, D=64; speculation's verify tick,
+   the draft's decode, its two-row first step and its catch-up chunk,
+   and a ``kv_len`` past the page table) and an fp32 case; two decode
    calls bit-identical.  Times the kernels on the device (20 calls in a
    CUDA graph, replayed) beside the wrapper's host loop and the bound at
-   the four decode and mixed shapes, and the plain versions at decode
-   and mixed.
+   the four decode and mixed shapes, the verify tick and the draft's
+   three shapes, and the plain versions at decode, mixed and verify.
 6. The v2 slice: ``RaggedInferenceEngineV2`` on ``llama3-8b`` at full
    width and depth, bf16, serving 24 requests (16 slots) twice with
    identical tokens, eager and unpipelined (phase 14's reference); the paged kernel launched once per layer per model
@@ -185,12 +187,33 @@ Phases (any failed check raises; nothing is caught):
    demote into the tiers and revive for its later requests.  #9 and #8
    launched under spilled, restored and shared pages.
 
+20. Speculative decoding (A9.4) on ``llama3-8b`` at full width and
+   depth, bf16, phase 6's engine with CUDA graphs and the pipeline, phase
+   6's prompts and budgets: n-gram drafting (k 4), greedy, twice
+   identical, equal with the pipeline off and eager, and how many of the
+   24 equal speculation off's (run in the same call) with the first
+   divergence; sampled (t 0.8, top-p 0.95) twice identical; over an int8
+   pool (#8); draft mode with TinyLlama's shape and Llama 3's vocabulary
+   (22 layers, D 64), greedy twice identical, pipeline on and off equal.
+   Then 2 layers at full width in fp32 through one bridged flax tree:
+   n-gram, a 2-layer draft and self-draft greedy against speculation off
+   by phase 7's margin rule; self-draft accepts at least 95% of its
+   proposals.  Per run: acceptance, mean accepted length, speculative
+   dispatches, blocking fetches against dispatches (fewer when
+   pipelined), decode tokens/s in blocks beside speculation off's and
+   phase 14's, capture seconds and peak GiB; #9's and #8's Python
+   counters held to the ticks, captures and draft catch-ups, and the
+   device launches derived from the replays.  Phase 5 holds #9 and #8
+   at the verify tick's shape (16 x 5 tokens), the draft's decode, first
+   step (16 x 2) and catch-up chunk (512 over 1536 keys; H 32/4, D 64)
+   and a ``kv_len`` past the page table.
+
 Phases 3 and 6 (serving) keep their full depth: the whole run stays well
 inside its time limit.  Phase 12's CPU parity runs one layer (two until
 phase 19 came).  ``--gpt2-only`` runs the build and phases 15-18
-alone, ``--tiering-only`` the build and phase 19; neither prints result
-lines.  The line before the last is the ``kernels`` JSON;
-the last line is
+alone, ``--tiering-only`` the build and phase 19, ``--spec-only`` the
+build and phase 20; none prints result lines.  The line before the
+last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits nonzero
 and prints no result.
 """
@@ -629,19 +652,21 @@ def phase_cpu_parity():
 
 def paged_case(seed, q_lens, kv_lens, H=32, Hkv=8, D=128, page=64,
                qdtype=torch.bfloat16, pdtype=torch.bfloat16, holes=False,
-               pad=0):
+               pad=0, pp=None):
     """q, a pool of just the pages the sequences use (plus the trash page
     0, in a shuffled order), fp32 scales for 1-byte pages, and the tick's
     metadata, on the card.  K and V are standard normal; 1-byte pages hold
     them as the pool's own write quantizes them (scale = row absmax /
     qmax), so every page type dequantizes to values of the same size.
     ``holes`` marks every other page before a sequence's first query
-    token -1; ``pad`` adds padding tokens."""
+    token -1; ``pad`` adds padding tokens; ``pp`` caps the page table's
+    width, so that a ``kv_len`` may pass ``pp * page`` (a verify tick
+    near ``max_seq_len``)."""
     from deepspeed_tpu_torch.inference.paged import PagedKVPool
 
     g = torch.Generator().manual_seed(seed)
     S = len(q_lens)
-    cols = [-(-kv // page) for kv in kv_lens]
+    cols = [min(-(-kv // page), pp or kv) for kv in kv_lens]
     n_pages = 1 + sum(cols)
     ids = (torch.randperm(n_pages - 1, generator=g) + 1).tolist()
     table = torch.full((S, max(cols)), -1, dtype=torch.int32)
@@ -684,13 +709,16 @@ def paged_bound(q_lens, kv_lens, table, H, Hkv, D, page, qdtype, pdtype,
     row = 2 * Hkv * (D * pe + (4 if pe == 1 else 0))
     nbytes = 2 * sum(q_lens) * H * D * qe
     pairs = 0
+    span = table.shape[1] * page       # keys past the table do not exist
     for j, (n, kv) in enumerate(zip(q_lens, kv_lens)):
         qpos = np.arange(kv - n, kv)
         lo = np.maximum(0, qpos - window + 1) if window else np.zeros_like(
             qpos)
-        pairs += int((qpos + 1 - lo).sum()) * H
+        pairs += int(np.maximum(np.minimum(qpos + 1, span) - lo, 0).sum()
+                     ) * H
         first = int(lo.min()) // page
-        cols = [c for c in range(first, -(-kv // page))
+        cols = [c for c in range(first, min(-(-kv // page),
+                                            table.shape[1]))
                 if int(table[j, c]) >= 0]
         nbytes += len(cols) * page * row
     ops = 4 * D * pairs
@@ -716,7 +744,21 @@ def phase_paged_kernels():
               ("holes", ([1] * 4 + [200], [700, 900, 1000, 1300, 1500]),
                {"holes": True, "pad": 7}, False),
               ("d64", ([1] * 8 + [300], [200 * (j + 1) for j in range(9)]),
-               {"D": 64, "H": 16, "Hkv": 4}, False)]
+               {"D": 64, "H": 16, "Hkv": 4}, False),
+              # speculation: the verify tick (k+1 = 5 rows a sequence),
+              # the draft's decode (llama-1b's heads, D 64), and a verify
+              # tick near max_seq_len whose kv_len passes pp * page (last)
+              ("verify", ([5] * 16, [128 * (j + 1) for j in range(16)]), {},
+               True),
+              ("draft_decode", decode, {"D": 64, "H": 32, "Hkv": 4}, True),
+              # the draft's first step of a tick (2 rows a sequence) and
+              # its catch-up chunk (one sequence, 8 query heads a KV head)
+              ("draft_first", ([2] * 16, decode[1]),
+               {"D": 64, "H": 32, "Hkv": 4}, True),
+              ("draft_prefill", ([512], [1536]),
+               {"D": 64, "H": 32, "Hkv": 4}, True),
+              ("past_table", ([5, 5, 1], [4 * 64 + 3, 300, 4 * 64]),
+               {"pp": 4, "pad": 3}, False)]
     cases = [(n, qk, opt, timed, pd) for n, qk, opt, timed in shapes
              for pd in (bf16, i8, e4m3)]
     cases.append(("fp32", ([1, 1, 37], [65, 200, 150]),
@@ -782,7 +824,7 @@ def phase_paged_kernels():
                      f"a call); kernel {ms:.4f} ms on the device, "
                      f"{host_ms:.4f} ms in a host loop, bound {bound:.4f} ms "
                      f"({by}), {bound / ms:.1%} of bound")
-            if name in ("decode", "mixed"):
+            if name in ("decode", "mixed", "verify"):
                 plain_ms = time_ms(lambda: ref(*args, sm_scale=sm), reps=3,
                                    warmup=1)
                 line += f", plain {plain_ms:.3f} ms"
@@ -1926,7 +1968,9 @@ def phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager, v1_greedy,
     x (eager ticks + 2 K x captures); the device's launches, (eager
     ticks + K x (captures + replays)) times a tick's count, are derived
     from the engine's counters, not traced.  v1 then serves prompts of
-    three lengths in turn, each a recapture."""
+    three lengths in turn, each a recapture.  Returns the numbers of the
+    bf16 run with graphs and the pipeline (phase 20 prints its decode
+    rate beside speculation's)."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
@@ -1982,6 +2026,7 @@ def phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager, v1_greedy,
             f"{st.get('pipeline_window')}")
         del engine
         torch.cuda.empty_cache()
+        return r
 
     # bf16: the module of phase 6, made again from its seed
     with torch.device("meta"):
@@ -1994,8 +2039,8 @@ def phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager, v1_greedy,
     del engine
     graph = {"config": {"enable_cuda_graph": True}}
     paged = [(rpa.ragged_paged_attention, L)]
-    v2_run("bf16 v2, pipeline on", module, bf16_outs, paged, v2_eager,
-           pipeline=True, **graph)
+    piped = v2_run("bf16 v2, pipeline on", module, bf16_outs, paged,
+                   v2_eager, pipeline=True, **graph)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"graphs bf16 v2: peak memory {peak:.2f} GiB with graphs and the "
         f"pipeline, {v2_eager['peak']:.2f} GiB eager (phase 6)")
@@ -2124,6 +2169,7 @@ def phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager, v1_greedy,
     del engine, eager, model
     gc.collect()
     torch.cuda.empty_cache()
+    return piped
 
 
 # ---------------------------------------------------------------------------
@@ -3022,6 +3068,304 @@ def phase_tiering():
     return launched
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: speculative decoding on the v2 engine
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+# the draft of draft mode: TinyLlama's shape with Llama 3's vocabulary
+DRAFT_PRESET = dict(vocab_size=128256, rope_theta=500000.0,
+                    max_position_embeddings=8192)
+
+
+def spec_launches(engine, L, Ld, k):
+    """The paged kernel's launches over ``engine``'s life, for a target
+    of ``L`` layers and a draft of ``Ld`` (0 for n-gram drafting), as
+    ``(python, device)``: a fused or plain decode tick launches L, a
+    speculative tick L + k x Ld (k draft steps), a draft catch-up chunk
+    Ld.  The Python counters tick at eager ticks and at a capture's
+    warm-up and capture, never at a replay; the device's launches are
+    derived from the replays, not traced.  By block: the captured keys
+    are ``(spec, sampled)``, and a capturing engine replays every block
+    it dispatches."""
+    st, g, K = engine.host_stats, engine._graphs, engine.decode_block_size
+    spec, plain = L + k * Ld, L
+    cap = {b: sum(key[0] == b for key in g.graphs) for b in (False, True)}
+    rep = {True: st.spec_dispatches if g.capturing else 0}
+    rep[False] = st.graph_replays - rep[True]
+    spec_eager = K * (st.spec_dispatches - rep[True])
+    plain_eager = st.ticks - K * st.spec_dispatches - K * rep[False]
+    catchup = Ld * engine.draft_catchup_chunks
+    python = (plain * (plain_eager + 2 * K * cap[False]) +
+              spec * (spec_eager + 2 * K * cap[True]) + catchup)
+    device = (plain * (plain_eager + K * (cap[False] + rep[False])) +
+              spec * (spec_eager + K * (cap[True] + rep[True])) + catchup)
+    return python, device
+
+
+def first_divergence(got, want):
+    """(request, token) of the first position where two runs' outputs
+    differ, or None."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        diff = np.nonzero(a != b)[0]
+        if diff.size:
+            return i, int(diff[0])
+    return None
+
+
+def phase_spec(spec_off_piped=None):
+    """Phase 20: speculative decoding (A9.4) on ``llama3-8b`` at full
+    width and depth, bf16, phase 6's engine (``V2``) with CUDA graphs and
+    the pipeline, n-gram (k 4) and draft mode (TinyLlama's shape with
+    Llama 3's vocabulary, 22 layers, D 64); then 2 layers at full width in
+    fp32 against speculation off.  Returns the launches of #9 (bf16
+    pools) and #8 (the int8 pool) in the phase's speculative runs.
+    ``spec_off_piped``: phase 14's graphed, pipelined bf16 run, printed
+    beside this phase's decode rates."""
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
+    from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+
+    cfg = get_config("llama3-8b")
+    dcfg = get_config("llama-1b", **DRAFT_PRESET)
+    L, Ld = cfg.num_hidden_layers, dcfg.num_hidden_layers
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    engine = RaggedInferenceEngineV2(
+        model, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda", **V2)
+    module = engine.module
+    del engine
+    with torch.device("meta"):
+        draft = LlamaForCausalLM(dcfg)
+    t0 = time.perf_counter()
+    engine = RaggedInferenceEngineV2(
+        module, device="cuda", speculation={"mode": "draft", "k": SPEC_K},
+        draft_model=draft,
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 20),
+        **V2)
+    draft = engine._draft_module
+    log(f"spec: draft model (llama-1b shape, vocab {dcfg.vocab_size}, "
+        f"{Ld} layers, D {dcfg.head_dim}) up in "
+        f"{time.perf_counter() - t0:.1f} s, draft pool "
+        f"{sum(p.nbytes() for p in engine._draft_cache) / 2**30:.3f} GiB")
+    del engine
+    torch.cuda.empty_cache()
+    graph = {"enable_cuda_graph": True}
+    # phase 6's prompts and budgets, every request greedy; and sampled at
+    # t 0.8, top-p 0.95
+    greedy = [(p, dict(max_new_tokens=kw["max_new_tokens"]))
+              for p, kw in v2_traffic()]
+    sampled = [(p, dict(kw, do_sample=True, temperature=0.8, top_p=0.95))
+               for p, kw in greedy]
+    launched = [0, 0]
+
+    def run(label, traffic, mode="ngram", count=True, **kw):
+        """One engine over ``traffic``; checks the paged kernels' Python
+        counts against the ticks, prints the run's numbers."""
+        spec = {"mode": mode, "k": SPEC_K}
+        if mode == "draft":
+            kw["draft_model"] = draft
+        fmt = kw.get("kv_cache_dtype", "none")
+        kernel = (rpa.ragged_paged_attention_quant if fmt != "none"
+                  else rpa.ragged_paged_attention)
+        other = (rpa.ragged_paged_attention if fmt != "none"
+                 else rpa.ragged_paged_attention_quant)
+        engine = RaggedInferenceEngineV2(module, device="cuda",
+                                         speculation=spec, **{**V2, **kw})
+        before, before_other = kernel.launches, other.launches
+        torch.cuda.reset_peak_memory_stats()
+        out, r = serve(engine, traffic)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        st = engine.serving_stages()
+        hs = engine.host_stats
+        python, device = spec_launches(engine, L,
+                                       Ld if mode == "draft" else 0, SPEC_K)
+        got = kernel.launches - before
+        assert got == python, (
+            f"spec {label}: {kernel.__name__} counted {got} launches, want "
+            f"{python} from the ticks, captures and catch-ups")
+        assert other.launches == before_other, f"spec {label}: {other}"
+        if count:
+            launched[fmt != "none"] += got
+        sp = st["speculation"]
+        assert sp["spec_dispatches"] > 0 and sp["proposed"] > 0
+        if engine.pipeline:
+            assert hs.blocking_gets < hs.dispatches, (
+                f"spec {label}: a pipelined run fetched {hs.blocking_gets} "
+                f"times over {hs.dispatches} dispatches")
+        g = engine._graphs
+        off = ("" if spec_off_piped is None else
+               f"; phase 14's spec-off {spec_off_piped['decode_tps']:.1f}")
+        log(f"spec {label}: {len(traffic)} requests in {r['wall_s']:.2f} s; "
+            f"acceptance {sp['acceptance_rate']} ({sp['accepted']}/"
+            f"{sp['proposed']}), mean accepted length "
+            f"{sp['mean_accepted_len']}, {sp['effective_tokens_per_dispatch']}"
+            f" tokens a speculative block; spec dispatches "
+            f"{sp['spec_dispatches']} of {hs.dispatches}, blocking fetches "
+            f"{hs.blocking_gets}; decode {r['decode_tps']:.1f} tokens/s in "
+            f"blocks ({r['block_tokens']} tokens, {r['block_s']:.2f} s, "
+            f"{r['blocks']} blocks){off}; verify {sp['verify_ms']} ms and "
+            f"draft catch-up {sp['draft_ms']} ms a speculative dispatch "
+            f"(host clock); captured (spec, sampled) {sorted(g.graphs)} "
+            f"({st.get('graph_capture_s', 0.0):.3f} s), replays "
+            f"{hs.graph_replays};"
+            f" peak {peak:.2f} GiB; {kernel.__name__} launches {got} "
+            f"(device, derived from the replays: {device}); catch-up chunks "
+            f"{engine.draft_catchup_chunks}")
+        del engine
+        torch.cuda.empty_cache()
+        return out, dict(r, peak=peak, spec=sp)
+
+    # -- n-gram drafting, greedy: spec off first, in this call
+    engine = RaggedInferenceEngineV2(module, device="cuda", config=graph,
+                                     **{**V2, "pipeline": True})
+    off, roff = serve(engine, greedy)
+    del engine
+    torch.cuda.empty_cache()
+    log(f"spec off, greedy traffic, graphs and the pipeline: decode "
+        f"{roff['decode_tps']:.1f} tokens/s in blocks ({roff['blocks']} "
+        f"blocks, {roff['block_tokens']} tokens)")
+    on1, r1 = run("ngram greedy, graphs + pipeline", greedy, config=graph,
+                  pipeline=True)
+    on2, _ = run("ngram greedy, graphs + pipeline (again)", greedy,
+                 config=graph, pipeline=True, count=False)
+    assert all(np.array_equal(a, b) for a, b in zip(on1, on2)), \
+        "two ngram runs differ"
+    on3, _ = run("ngram greedy, graphs, pipeline off", greedy, config=graph,
+                 count=False)
+    assert all(np.array_equal(a, b) for a, b in zip(on1, on3)), \
+        "ngram tokens with the pipeline off differ"
+    on4, _ = run("ngram greedy, eager, pipeline off", greedy, count=False)
+    assert all(np.array_equal(a, b) for a, b in zip(on1, on4)), \
+        "ngram tokens through graphs differ from the eager run's"
+    same = sum(np.array_equal(a, b) for a, b in zip(on1, off))
+    log(f"spec ngram greedy: identical twice, pipeline on and off, graphs "
+        f"and eager; {same}/24 outputs equal speculation off's in bf16 at "
+        f"full depth (first divergence (request, token): "
+        f"{first_divergence(on1, off)}; the verify GEMMs run at M = "
+        f"{V2['max_seqs'] * (SPEC_K + 1)} where the plain block's run at "
+        f"M = {V2['max_seqs']}: other kernels, other roundings); decode "
+        f"{r1['decode_tps']:.1f} tokens/s against {roff['decode_tps']:.1f} "
+        "off")
+    s1, _ = run("ngram sampled", sampled, config=graph, pipeline=True)
+    s2, _ = run("ngram sampled (again)", sampled, config=graph,
+                pipeline=True, count=False)
+    assert all(np.array_equal(a, b) for a, b in zip(s1, s2)), \
+        "two sampled ngram runs differ"
+    run("ngram greedy, int8 KV pool", greedy[:8], config=graph,
+        pipeline=True, kv_cache_dtype="int8")
+    # -- draft mode
+    d1, rd = run("draft greedy, graphs + pipeline", greedy, mode="draft",
+                 config=graph, pipeline=True)
+    d2, _ = run("draft greedy, graphs + pipeline (again)", greedy,
+                mode="draft", config=graph, pipeline=True, count=False)
+    assert all(np.array_equal(a, b) for a, b in zip(d1, d2)), \
+        "two draft runs differ"
+    d3, _ = run("draft greedy, graphs, pipeline off", greedy, mode="draft",
+                config=graph, count=False)
+    assert all(np.array_equal(a, b) for a, b in zip(d1, d3)), \
+        "draft tokens with the pipeline off differ"
+    log(f"spec draft greedy: identical twice, pipeline on and off; "
+        f"{sum(np.array_equal(a, b) for a, b in zip(d1, off))}/24 equal "
+        f"speculation off's; decode {rd['decode_tps']:.1f} tokens/s against "
+        f"{roff['decode_tps']:.1f} off")
+    del module, model, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_spec_fp32()
+    log(f"phase 20 launches in its counted speculative runs: "
+        f"ragged_paged_attn {launched[0]} (bf16 pools, target and draft), "
+        f"ragged_paged_attn_quant {launched[1]} (int8 pool)")
+    assert launched[0] > 0 and launched[1] > 0
+    return launched
+
+
+NEW_FP32 = 161
+
+
+def phase_spec_fp32():
+    """2 layers at full width in fp32 (TF32 off), weights bridged from one
+    flax-layout tree: greedy speculation (n-gram, a 2-layer draft of the
+    draft's shape, and self-draft) against speculation off on the card,
+    by phase 7's margin rule; self-draft accepts at least 95% of its
+    proposals."""
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
+    from deepspeed_tpu_torch.module_inject.flax_bridge import \
+        flax_to_state_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("llama3-8b", num_hidden_layers=2, dtype=torch.float32)
+    dcfg = get_config("llama-1b", num_hidden_layers=2, dtype=torch.float32,
+                      **DRAFT_PRESET)
+    rng = np.random.default_rng(SEED + 20)
+    state = flax_to_state_dict(flax_tree(cfg, rng))
+    dstate = flax_to_state_dict(flax_tree(dcfg, rng))
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in (37, 100, 300, 513)]
+    # 160 tokens after the first: the budget clamp of each request's last
+    # tick (proposals counted, fewer accepted) weighs little
+    kw = dict(max_seqs=4, max_seq_len=704, prefill_chunk=128, page_size=64,
+              decode_block_size=4)
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    off_eng = RaggedInferenceEngineV2(model, params=state, device="cuda",
+                                      **kw)
+    outs = off_eng.generate_all(prompts, max_new_tokens=NEW_FP32)
+    want = [outs[u] for u in sorted(outs)]
+    module = off_eng.module
+    del off_eng
+    margins = []
+    with torch.no_grad():
+        for p, w in zip(prompts, want):
+            logits = module(torch.from_numpy(w[None, :-1]).cuda())[0]
+            top2 = logits[len(p) - 1:].topk(2, dim=-1).values
+            margins.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+    for mode, label in (("ngram", "ngram"), ("draft", "draft"),
+                        ("draft", "self-draft")):
+        extra = {}
+        if label == "draft":
+            with torch.device("meta"):
+                extra = dict(draft_model=LlamaForCausalLM(dcfg),
+                             draft_params=dstate)
+        elif label == "self-draft":
+            extra = dict(draft_model=module)
+        eng = RaggedInferenceEngineV2(
+            module, device="cuda", speculation={"mode": mode, "k": SPEC_K},
+            **kw, **extra)
+        outs = eng.generate_all(prompts, max_new_tokens=NEW_FP32)
+        got = [outs[u] for u in sorted(outs)]
+        eng.audit_kv_sharing()
+        sp = eng.serving_stages()["speculation"]
+        for p, g, w, m in zip(prompts, got, want, margins):
+            diff = np.nonzero(g != w)[0]
+            if diff.size:
+                i = int(diff[0]) - len(p)
+                log(f"spec fp32 {label}: prompt {len(p)}: first differing "
+                    f"token {i}, spec-off top-2 margin {m[i]:.3e}")
+                assert m[i] < MARGIN, (
+                    f"spec fp32 {label}: tokens differ from speculation "
+                    f"off at {i} with margin {m[i]:.3e}")
+        same = sum(np.array_equal(a, b) for a, b in zip(got, want))
+        log(f"spec fp32, 2 layers, {label}: {same}/4 requests token-equal "
+            f"to speculation off; acceptance {sp['acceptance_rate']} "
+            f"({sp['accepted']}/{sp['proposed']}), mean accepted length "
+            f"{sp['mean_accepted_len']}; smallest spec-off top-2 margin "
+            f"{min(float(m.min()) for m in margins):.3e}")
+        if label == "self-draft":
+            assert sp["acceptance_rate"] >= 0.95, (
+                f"self-draft accepted {sp['acceptance_rate']:.1%} of its "
+                "proposals")
+        del eng, extra
+        gc.collect()
+        torch.cuda.empty_cache()
+    del module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -3044,6 +3388,14 @@ def main() -> int:
         phase_report()
         phase_tiering()
         log(f"phase 19 done at {time.perf_counter() - t0:.1f} s")
+        return 0
+    # ``--spec-only``: the build and phase 20 alone, for work on
+    # speculative decoding; it prints no result lines
+    if sys.argv[1:] == ["--spec-only"]:
+        t0 = time.perf_counter()
+        phase_report()
+        phase_spec()
+        log(f"phase 20 done at {time.perf_counter() - t0:.1f} s")
         return 0
     t0 = time.perf_counter()
     phase_report()
@@ -3081,12 +3433,17 @@ def main() -> int:
     log(f"phase 12 done at {time.perf_counter() - t0:.1f} s")
     phase_zero(stage0)
     log(f"phase 13 done at {time.perf_counter() - t0:.1f} s")
-    phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager, bf16_greedy,
-                 v1_eager)
+    spec_off = phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager,
+                            bf16_greedy, v1_eager)
     log(f"phase 14 done at {time.perf_counter() - t0:.1f} s")
     gpt2 = gpt2_phases(t0)
     phase_tiering()
     log(f"phase 19 done at {time.perf_counter() - t0:.1f} s")
+    # phase 20's speculative launches join #9's and #8's entries
+    spec = phase_spec(spec_off)
+    paged["launches"] += spec[0]
+    paged_quant["launches"] += spec[1]
+    log(f"phase 20 done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [entry, paged, paged_quant] +
                     [train[k] for k in ("flash_bwd_dq", "flash_bwd_dkv",
                                         "fused_adam", "fused_lion")] +

@@ -35,9 +35,13 @@ class HostStageStats:
     report the same keys.  In the ragged v2 engine a dispatch is one
     fused tick or one decode block, and ``ticks`` counts model ticks (a
     K-tick block counts K); ``spill``, ``restore``, ``prefix`` and the
-    ``prefix_*`` counters are KV tiering's and the prefix cache's, and
-    the speculation stages (``draft``, ``verify``) stay 0 until it is
-    ported (A9.4).
+    ``prefix_*`` counters are KV tiering's and the prefix cache's.
+    Speculation times its draft catch-up under ``draft`` and its blocks
+    under ``verify``; ``spec_dispatches`` counts speculative blocks,
+    ``spec_proposed`` and ``spec_accepted`` the draft tokens the blocks
+    proposed and accepted (device counts, folded at harvests) and
+    ``spec_tokens`` the tokens they emitted, reported as
+    ``serving_stages()['speculation']``.
     ``replica`` is the reference's metric label of a scale-out replica.
     The reference's trace-span and metrics-histogram hooks arrive with the
     telemetry port.  With ``enable_cuda_graph`` an engine's decode work
@@ -61,6 +65,10 @@ class HostStageStats:
         self.meta_uploads = 0     # host->device metadata arrays sent
         self.blocking_gets = 0    # blocking device->host fetches
         self.harvests = 0         # deferred-harvest fold-backs
+        self.spec_dispatches = 0  # speculative draft+verify blocks
+        self.spec_proposed = 0    # draft tokens proposed (device count)
+        self.spec_accepted = 0    # draft tokens accepted (device count)
+        self.spec_tokens = 0      # tokens emitted by speculative blocks
         self.prefix_hits = 0      # admissions that attached cached pages
         self.prefix_misses = 0    # admissions that attached nothing
         self.prefix_hit_pages = 0   # cached pages attached
@@ -93,6 +101,23 @@ class HostStageStats:
                    meta_uploads=self.meta_uploads,
                    blocking_gets=self.blocking_gets,
                    harvests=self.harvests)
+        if self.spec_dispatches:
+            sd = self.spec_dispatches
+            out["speculation"] = {
+                "spec_dispatches": sd,
+                "draft_ms": round(self.seconds["draft"] * 1e3 / sd, 4),
+                "verify_ms": round(self.seconds["verify"] * 1e3 / sd, 4),
+                "proposed": self.spec_proposed,
+                "accepted": self.spec_accepted,
+                "acceptance_rate": round(
+                    self.spec_accepted / max(self.spec_proposed, 1), 4),
+                "mean_accepted_len": round(
+                    self.spec_accepted / max(self.spec_tokens -
+                                             self.spec_accepted, 1), 4),
+                "tokens": self.spec_tokens,
+                "effective_tokens_per_dispatch": round(
+                    self.spec_tokens / sd, 2),
+            }
         return out
 
     def graph_stages(self) -> Dict[str, Any]:

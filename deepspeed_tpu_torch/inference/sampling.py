@@ -15,6 +15,13 @@ counter-based integer hash of (engine seed, request uid, cache position,
 token id) computed in int64 tensor ops on the logits' device.  With no
 generator state, the token drawn for (uid, position) is the same whatever
 else is batched, and whether a fused tick or a decode block draws it.
+
+Speculative decoding's accept/rollback core, :func:`speculative_verify`,
+draws the same way: each of its draws (the accept uniform, the residual
+and bonus draws, and the draft model's proposals in the engine) is keyed
+by (engine seed, uid, cache position) and a role (:func:`role_keys`),
+so a speculative block holds no generator state either and can be
+captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -146,3 +153,112 @@ def sample_logits_batched(logits: torch.Tensor,
     lg = filter_logits_batched(logits, temperature, top_k, top_p)
     sampled = (lg + gumbel_noise(keys, lg.shape[-1])).argmax(dim=-1)
     return torch.where(do_sample, sampled, greedy)
+
+
+# the draws of a speculative tick, each keyed apart from the plain
+# sampler's (role 0: position_keys itself)
+ROLE_ACCEPT, ROLE_RESIDUAL, ROLE_BONUS, ROLE_DRAFT = 1, 2, 3, 4
+
+
+def role_keys(keys: torch.Tensor, role: int) -> torch.Tensor:
+    """Keys for draw ``role`` at the same (seed, uid, position) as
+    ``keys``: independent of role 0's and of every other role's."""
+    return _mix64(keys + _i64((role * 0x94D049BB133111EB) % (1 << 64)))
+
+
+def uniform01(keys: torch.Tensor) -> torch.Tensor:
+    """One uniform in (0, 1) per key, fp32 with 24 bits."""
+    h = _mix64(keys)
+    return (_srl(h, 40).float() + 0.5) * float(np.float32(2.0 ** -24))
+
+
+def _categorical(probs: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """One draw per row of ``probs`` [..., V] (unnormalized) keyed by
+    ``keys`` [...]: Gumbel-max over the log-probabilities."""
+    V = probs.shape[-1]
+    lg = torch.log(probs.clamp_min(1e-30)).reshape(-1, V)
+    noise = gumbel_noise(keys.reshape(-1), V)
+    return (lg + noise).argmax(dim=-1).reshape(keys.shape)
+
+
+def speculative_verify(logits: torch.Tensor, draft_toks: torch.Tensor,
+                       draft_probs: Optional[torch.Tensor],
+                       keys: Optional[torch.Tensor], do_sample: torch.Tensor,
+                       temperature: torch.Tensor, top_k: torch.Tensor,
+                       top_p: torch.Tensor):
+    """Accept/rollback core of speculative decoding (reference
+    ``speculative_verify``).
+
+    ``logits`` [S, k+1, V]: the target's logits over a drafted chunk, row
+    ``i`` conditioned on the sequence plus drafted tokens ``< i``.
+    ``draft_toks`` [S, k]: the proposals.  ``draft_probs`` [S, k, V]: the
+    draft's filtered proposal distribution, or ``None`` for point-mass
+    (n-gram) drafts.  ``keys`` [S, k+1]: the chunk rows' position keys
+    (:func:`position_keys` at the cache position of row ``i``), or
+    ``None`` for the pure-greedy path.
+
+    Returns ``(out_toks [S, k+1] int64, accept_len [S])``: the first
+    ``accept_len`` entries of a row are accepted draft tokens and entry
+    ``accept_len`` is the correction or bonus token.
+
+    - Greedy rows accept the longest prefix that matches the target's
+      argmax and emit the argmax everywhere, so greedy output is the
+      non-speculative output whatever the draft proposes.
+    - Sampled rows: accept ``d_i`` when ``u_i < p_i(d_i) / q_i(d_i)``; at
+      the first rejection draw from the residual ``max(p_i - q_i, 0)``;
+      with every draft accepted draw the bonus from ``p_k``.  ``p`` is
+      the filtered distribution the plain sampler draws from
+      (:func:`filter_logits_batched`), so the output is distributed as
+      plain sampling (Leviathan et al.).
+
+    Every draw is keyed, not drawn from a generator: the accept uniform
+    at row ``i`` by (seed, uid, position of row ``i``, ROLE_ACCEPT), the
+    residual by ROLE_RESIDUAL, the bonus by ROLE_BONUS (and the draft
+    model's proposals by ROLE_DRAFT, in the engine).  A key is reused
+    when a later tick covers the same position, and that is sound: the
+    output at a position consumes its keys at most once, since draws
+    after a row's first rejection are computed and never emitted, and
+    the next tick starts past the last emitted token.  Whether a tick
+    stopped at row ``i`` depends on the noise at positions up to ``i``
+    only, so the noise that the next tick draws at ``i + 1`` is
+    independent of everything that brought it there.  With no generator
+    state, the block can be captured in a CUDA graph."""
+    S, K1, V = logits.shape
+    k = K1 - 1
+    lf = logits.float()
+    greedy = lf.argmax(dim=-1)                                    # [S, K1]
+    g_match = draft_toks == greedy[:, :k]
+    a_greedy = torch.cumprod(g_match.long(), dim=1).sum(dim=1)
+    if keys is None:
+        return greedy, a_greedy
+
+    rep = lambda x: x.repeat_interleave(K1, dim=0)
+    lg = filter_logits_batched(lf.reshape(S * K1, V), rep(temperature),
+                               rep(top_k), rep(top_p))
+    p = torch.softmax(lg, dim=-1).reshape(S, K1, V)
+    p_d = torch.gather(p[:, :k], 2, draft_toks[..., None])[..., 0]
+    if draft_probs is None:
+        # point mass: accept with probability p(d); the residual is p
+        # without the drafted token
+        ratio = p_d
+        residual = p[:, :k].scatter(2, draft_toks[..., None], 0.0)
+    else:
+        q = draft_probs.float()
+        q_d = torch.gather(q, 2, draft_toks[..., None])[..., 0]
+        ratio = p_d / q_d.clamp_min(1e-30)
+        residual = (p[:, :k] - q).clamp_min(0.0)
+    u = uniform01(role_keys(keys[:, :k], ROLE_ACCEPT))
+    accept = u < ratio
+    a_samp = torch.cumprod(accept.long(), dim=1).sum(dim=1)
+    # an all-zero residual (p <= q everywhere) falls back to p itself
+    res_sum = residual.sum(dim=-1, keepdim=True)
+    res = torch.where(res_sum > 1e-30, residual, p[:, :k])
+    corr = _categorical(res, role_keys(keys[:, :k], ROLE_RESIDUAL))
+    bonus = _categorical(p[:, k], role_keys(keys[:, k], ROLE_BONUS))
+    fixes = torch.cat([corr, bonus[:, None]], dim=1)
+    d_pad = torch.cat([draft_toks, torch.zeros_like(draft_toks[:, :1])],
+                      dim=1)
+    j = torch.arange(K1, device=logits.device)[None, :]
+    out_samp = torch.where(j < a_samp[:, None], d_pad, fixes)
+    out = torch.where(do_sample[:, None], out_samp, greedy)
+    return out, torch.where(do_sample, a_samp, a_greedy)

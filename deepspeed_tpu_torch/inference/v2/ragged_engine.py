@@ -76,12 +76,31 @@ JAX's threefry streams (:mod:`~deepspeed_tpu_torch.inference.sampling`).
   complete.  With tiering on, cold index pages demote into the tiers
   under their prefix hash and revive at a later match, and a spilled
   sequence keeps its shared prefix pages resident behind spill-holds.
+- **Speculative decoding** (``speculation``, A9.4).  Each tick of a
+  speculative decode block drafts ``k`` tokens a slot, by prompt lookup
+  over a device-resident token history (``ngram``) or with a small
+  same-vocab draft model that keeps its own paged pools on the target's
+  page table and cursors (``draft``), and the target scores all ``k+1``
+  positions in one ragged chunk of ``k+1`` rows a slot, for about one
+  weight read.  Greedy slots accept the longest prefix that matches the
+  target's argmax, so their output is the non-speculative output;
+  sampled slots use rejection sampling with keyed draws, so their output
+  is distributed as plain sampling
+  (:func:`~deepspeed_tpu_torch.inference.sampling.speculative_verify`).
+  Rollback is position rollback: rows written for rejected positions are
+  written again before any query attends to them.  The block runs with
+  no host read, is captured in a CUDA graph like the plain block, and
+  pipelines: the host keeps bounds on each slot's advance (one to
+  ``k+1`` tokens a tick), grows pages to the fast bound and forces a
+  harvest as soon as a finish is possible.  Unlike the reference, each
+  tick's first draft step also writes the draft's row one below the
+  cursor, which after a tick that accepted every proposal holds the
+  last proposal, a token no draft step processed.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: speculation (A9.4, with its pipelined branch), long context
-(``kv_tiering.long_context``, A9.5), the fp8, fp6 and w8a8 weight formats
-(A9.6), handoff export/import (A9.7), tensor parallelism (A7a), and the
-control plane, SLOs and trace sampling (A10).
+ROADMAP item: long context (``kv_tiering.long_context``, A9.5), the fp8,
+fp6 and w8a8 weight formats (A9.6), handoff export/import (A9.7), tensor
+parallelism (A7a), and the control plane, SLOs and trace sampling (A10).
 """
 from __future__ import annotations
 
@@ -115,8 +134,13 @@ from deepspeed_tpu_torch.inference.prefix_cache import (ROOT_HASH,
                                                         PrefixCacheIndex)
 from deepspeed_tpu_torch.inference.quantization import (check_format,
                                                         quantize_model_)
-from deepspeed_tpu_torch.inference.sampling import (position_keys,
-                                                    sample_logits_batched)
+from deepspeed_tpu_torch.inference.sampling import (ROLE_DRAFT,
+                                                    filter_logits_batched,
+                                                    gumbel_noise,
+                                                    position_keys,
+                                                    role_keys,
+                                                    sample_logits_batched,
+                                                    speculative_verify)
 from deepspeed_tpu_torch.inference.v2.graphs import DecodeBlockGraphs
 from deepspeed_tpu_torch.ops.ragged_paged_attention import PAGE_SIZES
 from deepspeed_tpu_torch.telemetry.requests import RequestLatencyTracker
@@ -139,6 +163,23 @@ def _tiering_config(kv_tiering) -> KVTieringConfig:
     if isinstance(kv_tiering, dict):
         return KVTieringConfig(**{"enabled": True, **kv_tiering})
     return kv_tiering
+
+
+def _spec_config(speculation) -> SpeculationConfig:
+    """A mode string or a dict means a :class:`SpeculationConfig`."""
+    if isinstance(speculation, str):
+        return SpeculationConfig(mode=speculation)
+    if isinstance(speculation, dict):
+        return SpeculationConfig(**speculation)
+    return speculation
+
+
+def _llama_family(cfg) -> bool:
+    """A Llama-family module config of this package: per-token positions
+    through attention and a paged-cache config."""
+    return dataclasses.is_dataclass(cfg) and {
+        "rope_theta", "paged_decode", "decode"} <= {
+            f.name for f in dataclasses.fields(cfg)}
 
 
 def _prefix_config(prefix_cache) -> PrefixCacheConfig:
@@ -256,13 +297,19 @@ class RaggedInferenceEngineV2:
         a :class:`KVTieringConfig`: the host-RAM and NVMe spill tiers
         (module docstring); needs ``kv_reserve="on_demand"``.
         ``prefix_cache``: ``None`` (the config decides; off by default),
-        a bool, a dict or a :class:`PrefixCacheConfig`.  Every other
-        feature kwarg raises ``NotImplementedError`` when it asks for a
-        feature."""
+        a bool, a dict or a :class:`PrefixCacheConfig`.
+        ``speculation``: ``None`` (the config's ``v2.speculation``
+        decides; off by default), a mode string ("off", "ngram",
+        "draft"), a dict or a :class:`SpeculationConfig` (``k`` drafted
+        tokens a tick, the ``ngram`` length).  ``mode="draft"`` needs
+        ``draft_model`` (a Llama-family module of this package with the
+        target's vocabulary, built under ``torch.device("meta")`` to have
+        its weights made on the card) and ``draft_params`` as
+        ``params``; ``draft_kv_cache_dtype`` is its pools' format, the
+        target's by default.  Every other feature kwarg raises
+        ``NotImplementedError`` when it asks for a feature."""
         mcfg = getattr(model, "config", None)
-        if not (dataclasses.is_dataclass(mcfg) and
-                {"rope_theta", "paged_decode", "decode"} <= {
-                    f.name for f in dataclasses.fields(mcfg)}):
+        if not _llama_family(mcfg):
             raise TypeError(
                 "the ragged engine needs a Llama-family module of this "
                 "package (per-token positions through attention and a "
@@ -273,11 +320,11 @@ class RaggedInferenceEngineV2:
             v2cfg.kv_tiering if kv_tiering is None else kv_tiering)
         prefix_cache = _prefix_config(
             v2cfg.prefix_cache if prefix_cache is None else prefix_cache)
-        self._check_unported(topology, quantize_weights, draft_model,
-                             draft_params, draft_kv_cache_dtype,
+        speculation = _spec_config(
+            v2cfg.speculation if speculation is None else speculation)
+        self._check_unported(topology, quantize_weights,
                              v2cfg if config is not None else None,
-                             speculation, kv_tiering, control, slo,
-                             trace_sample)
+                             kv_tiering, control, slo, trace_sample)
         # kwarg > config > default, as for every v2 knob
         pipeline = v2cfg.pipeline if pipeline is None else pipeline
         async_depth = (v2cfg.async_depth if async_depth is None
@@ -347,12 +394,21 @@ class RaggedInferenceEngineV2:
         self.allocator = PageAllocator(self.num_pages, self.page_size)
         self.page_table = np.full((max_seqs, self.pages_per_seq), -1,
                                   np.int32)
-        self.cache = self._make_pools()
-        # decode-block constants: every slot is one 1-token sequence
+        self.cache = self._make_pools(self.cfg, kv_cache_dtype)
+        # decode-block constants: every slot is one 1-token sequence (a
+        # k+1-token one in a verify tick); a draft catch-up chunk is one
+        # sequence
         self._block_cu = torch.arange(max_seqs + 1, dtype=torch.int32,
                                       device=self.device)
         self._block_ns = torch.tensor([max_seqs], dtype=torch.int32,
                                       device=self.device)
+        self._one_seq = torch.ones((1,), dtype=torch.int32,
+                                   device=self.device)
+        self._no_rows = torch.zeros((0,), dtype=torch.int64,
+                                    device=self.device)
+        self._setup_speculation(speculation, mcfg, draft_model,
+                                draft_params, draft_kv_cache_dtype,
+                                generator)
         self.enable_cuda_graph = bool(icfg.enable_cuda_graph)
         # every decode block runs over these static buffers, replayed
         # from CUDA graphs with enable_cuda_graph on cuda, eagerly else
@@ -365,7 +421,7 @@ class RaggedInferenceEngineV2:
         # ahead of the host (None: host state is authoritative), and the
         # harvest ring each pipelined block's outputs are copied into
         self._dev: Optional[Dict[str, Any]] = None
-        self._ring: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._rings: Dict[bool, Tuple[torch.Tensor, ...]] = {}
         self._uid = itertools.count()
         self.waiting: Deque[Request] = deque()
         self.slots: List[Optional[Request]] = [None] * max_seqs
@@ -433,6 +489,8 @@ class RaggedInferenceEngineV2:
         if self._pfx is not None:
             note += (f" prefix_cache=max:{prefix_cache.max_index_entries}"
                      f"/min:{prefix_cache.min_match_pages}p")
+        if self.spec_mode != "off":
+            note += f" spec={self.spec_mode}/k={self.spec_k}"
         log_dist(
             f"RaggedInferenceEngineV2: max_seqs={max_seqs} "
             f"max_seq_len={max_seq_len} prefill_chunk={prefill_chunk} "
@@ -445,10 +503,8 @@ class RaggedInferenceEngineV2:
     # -- construction helpers -------------------------------------------
 
     @staticmethod
-    def _check_unported(topology, quantize_weights, draft_model,
-                        draft_params, draft_kv_cache_dtype, v2,
-                        speculation, kv_tiering, control, slo,
-                        trace_sample) -> None:
+    def _check_unported(topology, quantize_weights, v2, kv_tiering,
+                        control, slo, trace_sample) -> None:
         """Raise for every feature asked for that this port lacks; kwargs
         win over the config's ``v2`` subtree (``v2``: None without a
         config), as in the reference.  ``kv_tiering`` comes resolved."""
@@ -456,23 +512,11 @@ class RaggedInferenceEngineV2:
             raise _unported("tensor-parallel serving (topology)", "A7a")
         if quantize_weights is not None:
             check_format(quantize_weights)
-        if (draft_model is not None or draft_params is not None
-                or draft_kv_cache_dtype is not None):
-            raise _unported("draft-model speculation", "A9.4")
         if v2 is not None:
-            speculation = v2.speculation if speculation is None \
-                else speculation
             control = v2.control if control is None else control
             slo = v2.slo if slo is None else slo
             trace_sample = (v2.trace_sample if trace_sample is None
                             else trace_sample)
-        if isinstance(speculation, str):
-            speculation = SpeculationConfig(mode=speculation)
-        elif isinstance(speculation, dict):
-            speculation = SpeculationConfig(**speculation)
-        if speculation is not None and speculation.mode != "off":
-            raise _unported(f"speculation (mode={speculation.mode!r})",
-                            "A9.4")
         if kv_tiering.long_context:
             raise _unported("long context (kv_tiering.long_context)",
                             "A9.5")
@@ -488,12 +532,66 @@ class RaggedInferenceEngineV2:
             raise _unported("tail-based trace sampling (trace_sample)",
                             "A10")
 
-    def _make_pools(self) -> List[PagedKVPool]:
-        c = self.cfg
+    def _make_pools(self, c, fmt: str) -> List[PagedKVPool]:
+        """One pool a layer of model config ``c``, in page format
+        ``fmt``, over this engine's page ids."""
         return [PagedKVPool(self.num_pages, self.page_size,
-                            c.num_key_value_heads, c.head_dim,
-                            self.kv_cache_dtype, self.dtype, self.device)
+                            c.num_key_value_heads, c.head_dim, fmt,
+                            c.dtype, self.device)
                 for _ in range(c.num_hidden_layers)]
+
+    def _setup_speculation(self, speculation: SpeculationConfig, mcfg,
+                           draft_model, draft_params, draft_kv_cache_dtype,
+                           generator) -> None:
+        """Speculative decoding's settings and, in draft mode, the draft
+        model: its weights through :func:`normalize_params` as the
+        target's, and its own paged pools over the target's page ids (the
+        page table and cursors are shared; storage format
+        ``draft_kv_cache_dtype``, the target's by default)."""
+        self.spec_mode = speculation.mode
+        self.spec_k = int(speculation.k)
+        self.spec_ngram = int(speculation.ngram)
+        # draft KV coverage per slot: positions below it hold the draft
+        # model's K/V (reset whenever a slot changes hands); a
+        # speculative block writes the two rows below its cursor itself
+        self._draft_len = np.zeros((self.max_seqs,), np.int64)
+        self.draft_catchup_chunks = 0      # catch-up prefill calls
+        self._draft_module: Optional[nn.Module] = None
+        self._draft_cache: List[PagedKVPool] = []
+        self.draft_kv_cache_dtype: Optional[str] = None
+        if self.spec_mode != "draft":
+            return
+        if draft_model is None:
+            raise ValueError(
+                "speculation.mode='draft' needs a draft model: pass "
+                "draft_model=<a small same-vocab Llama-family module of "
+                "this package> and draft_params=... (the config's "
+                "speculation.draft_model preset name is for CLIs to build "
+                "one)")
+        dmcfg = getattr(draft_model, "config", None)
+        if not _llama_family(dmcfg):
+            raise TypeError("the draft model must be a Llama-family module "
+                            "of this package (the ragged paged decode "
+                            "path's requirement)")
+        if dmcfg.vocab_size != mcfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {dmcfg.vocab_size} != target vocab "
+                f"{mcfg.vocab_size}: speculative verify compares token "
+                "ids, the models must share a tokenizer")
+        fmt = str(self.kv_cache_dtype if draft_kv_cache_dtype is None
+                  else draft_kv_cache_dtype)
+        if fmt not in KV_CACHE_DTYPES:
+            raise ValueError(f"draft_kv_cache_dtype must be one of "
+                             f"{KV_CACHE_DTYPES}, got {fmt!r}")
+        self.draft_kv_cache_dtype = fmt
+        self._draft_cfg = dataclasses.replace(
+            dmcfg, decode=True, paged_decode=True,
+            max_cache_len=self.max_seq_len, kv_page_size=self.page_size,
+            kv_num_pages=self.num_pages, kv_cache_dtype=fmt)
+        self._draft_module = normalize_params(
+            draft_model, draft_params, dtype=dmcfg.dtype,
+            device=self.device, generator=generator).eval()
+        self._draft_cache = self._make_pools(self._draft_cfg, fmt)
 
     def _page_bytes(self, mcfg) -> int:
         """Device bytes ONE page costs across every layer's pool (payload
@@ -625,9 +723,7 @@ class RaggedInferenceEngineV2:
                     continue
                 stage = ("prefill" if r.prefill_done < r.ctx_len
                          else "decode")
-                self.allocator.free(i)
-                self.page_table[i, :] = -1
-                self.slots[i] = None
+                self._release_slot(i)
                 break
         if stage is None:
             for r in list(self.finished):
@@ -656,6 +752,14 @@ class RaggedInferenceEngineV2:
         if self._dev is None:
             return 0
         return self._pipeline_harvest()
+
+    def _release_slot(self, i: int) -> None:
+        """Free slot ``i``: its pages, its page-table row and its draft
+        KV coverage."""
+        self.allocator.free(i)
+        self.page_table[i, :] = -1
+        self.slots[i] = None
+        self._draft_len[i] = 0
 
     def _drop_spilled(self, r: Request) -> None:
         """Release a parked request's spill-holds on shared prefix pages
@@ -987,35 +1091,303 @@ class RaggedInferenceEngineV2:
         inputs["page_table"] = self.page_table
         return inputs
 
-    def _step_decode_block(self, reqs: List[Request]) -> int:
-        """Run one decode block and fold its tokens into the host request
+    def _step_block(self, reqs: List[Request], spec: bool = False) -> int:
+        """Run one decode block, speculative when ``spec`` (after the
+        draft's catch-up), and fold its tokens into the host request
         state: one metadata upload and one blocking copy per block."""
         st = self.host_stats
-        K, S = self.decode_block_size, self.max_seqs
+        S = self.max_seqs
+        rows = self.decode_block_size * (self.spec_k + 1 if spec else 1)
         with st.stage("plan"):
-            inputs = self._block_inputs(reqs)
+            inputs = (self._spec_inputs(reqs) if spec
+                      else self._block_inputs(reqs))
             sampled = bool(inputs["do_sample"].any())
-        self._graphs.ensure(sampled)       # before the loads
+        if spec:
+            self._draft_catchup(reqs)
+        self._graphs.ensure(sampled, spec)       # before the loads
         for name, a in inputs.items():
             self._graphs.load(name, a)
-        with st.stage("dispatch"):
+        with st.stage("verify" if spec else "dispatch"):
             st.dispatches += 1
-            out = self._graphs.run(sampled)
-            new_last, toks, mask = out[0], out[4], out[5]
-            packed = torch.cat([toks.reshape(-1), mask.reshape(-1).long(),
-                                new_last])
-        st.ticks += K
+            st.spec_dispatches += int(spec)
+            out = self._graphs.run(sampled, spec)
+            packed = torch.cat([out[4].reshape(-1), out[5].reshape(-1).long(),
+                                out[0]] +
+                               ([torch.stack(out[6:8])] if spec else []))
+        st.ticks += self.decode_block_size
         packed = self._fetch(packed)
         st.harvests += 1
         with st.stage("harvest"):
-            toks = packed[:K * S].reshape(K, S)
-            mask = packed[K * S:2 * K * S].reshape(K, S).astype(bool)
-            self._last_tokens = np.array(packed[2 * K * S:], np.int64)
+            n = rows * S
+            toks = packed[:n].reshape(rows, S)
+            mask = packed[n:2 * n].reshape(rows, S).astype(bool)
+            self._last_tokens = np.array(packed[2 * n:2 * n + S], np.int64)
             produced = self._fold_block(reqs, toks, mask)
             for r in reqs:
                 self._maybe_finish(r)
+            if spec:
+                self._fold_spec(reqs, produced, int(packed[-2]),
+                                int(packed[-1]))
             self._reap()
         return produced
+
+    # -- speculative decoding (A9.4) --------------------------------------
+
+    def _spec_grow_want(self, plen: int, rem: int) -> int:
+        """Token coverage one speculative block needs for a slot at cache
+        length ``plen`` with ``rem`` budget left: every tick WRITES k+1
+        rows ahead of the cursor however many are accepted, so pages
+        cover the widest span (writes past ``max_seq_len`` go to the
+        trash page and need no backing)."""
+        K1 = self.spec_k + 1
+        ticks = min(self.decode_block_size, max(int(rem), 1))
+        return int(min(plen + ticks * K1, self.max_seq_len))
+
+    def _hist_array(self, reqs: List[Request]) -> np.ndarray:
+        """The drafters' token history ``[S, max_seq_len + 1]``:
+        ``hist[s, i]`` is the token at cache position ``i`` (prompt +
+        generated, exact in the decode phase); the last column is the
+        trash column inactive rows write to.  Built from host state at
+        every block entry and pipeline start."""
+        hist = np.zeros((self.max_seqs, self.max_seq_len + 1), np.int64)
+        for r in reqs:
+            seq = np.concatenate([r.prompt,
+                                  np.asarray(r.generated, np.int32)])
+            n = min(r.length, self.max_seq_len)
+            hist[r.slot, :n] = seq[:n]
+        return hist
+
+    def _spec_inputs(self, reqs: List[Request]) -> Dict[str, np.ndarray]:
+        """A speculative block's inputs: the decode block's, and the
+        token history."""
+        return dict(self._block_inputs(reqs), hist=self._hist_array(reqs))
+
+    def _draft_catchup(self, reqs: List[Request]) -> None:
+        """Bring the draft model's paged KV up to one below each slot's
+        cursor (positions ``< length - 2``; the speculative block's first
+        draft step processes the last two), in chunks of
+        ``prefill_chunk`` tokens, one sequence a call.  A no-op for covered slots: inside a decode
+        phase the speculative block keeps the draft's KV in step, so
+        this runs at admission and re-admission (evict, spill and
+        restore included).  A shared prefix page's draft rows are
+        written by each sharer with the same tokens at the same
+        positions."""
+        if self.spec_mode != "draft":
+            return
+        st = self.host_stats
+        C, page = self.prefill_chunk, self.page_size
+        with st.stage("draft"):
+            for r in reqs:
+                target = r.length - 2
+                lo = int(self._draft_len[r.slot])
+                if lo >= target:
+                    continue
+                seq = np.concatenate([r.prompt,
+                                      np.asarray(r.generated, np.int32)])
+                while lo < target:
+                    take = min(C, target - lo)
+                    pos = np.arange(lo, lo + take)
+                    pg = self.page_table[r.slot, pos // page]
+                    assert (pg > 0).all(), "write into unallocated page"
+                    ids, positions, kv_lens, table, cu, dest = [
+                        self._upload(a) for a in (
+                            seq[lo:lo + take][None].astype(np.int64),
+                            pos[None].astype(np.int64),
+                            np.asarray([lo + take], np.int32),
+                            self.page_table[r.slot][None],
+                            np.asarray([0, take], np.int32),
+                            (pg * page + pos % page).astype(np.int64))]
+                    meta = RaggedMeta(kv_lens, table, cu, self._one_seq,
+                                      dest)
+                    with torch.inference_mode():
+                        self._draft_module(ids, positions=positions,
+                                           kv_cache=self._draft_cache,
+                                           ragged_meta=meta,
+                                           logit_rows=self._no_rows)
+                    self.draft_catchup_chunks += 1
+                    lo += take
+                self._draft_len[r.slot] = target
+
+    def _ngram_propose(self, hist, pos, last_tok):
+        """Prompt-lookup drafting: the most recent earlier occurrence of
+        the trailing n-gram proposes the k tokens that followed it; no
+        match proposes the last token repeated (any proposal is safe:
+        bad drafts are rejected).  Positions past the history read the
+        reference's zero padding."""
+        S, L = hist.shape[0], self.max_seq_len
+        n, k = self.spec_ngram, self.spec_k
+        dev = hist.device
+        ar = torch.arange(L, device=dev)
+        histp = torch.nn.functional.pad(hist[:, :L], (0, n + k))
+        tpos = (pos[:, None] - (n - 1) +
+                torch.arange(n, device=dev)[None, :]).clamp(0, L - 1)
+        tail = hist.gather(1, tpos)                              # [S, n]
+        match = torch.ones((S, L), dtype=torch.bool, device=dev)
+        for t in range(n):
+            match &= histp[:, t:t + L] == tail[:, t:t + 1]
+        match &= ar[None, :] <= (pos[:, None] - n)
+        best = torch.where(match, ar[None, :] + 1, 0).argmax(dim=1)
+        cidx = best[:, None] + n + torch.arange(k, device=dev)[None, :]
+        cand = histp.gather(1, cidx)                             # [S, k]
+        return torch.where(match.any(dim=1)[:, None], cand,
+                           last_tok[:, None].expand(S, k))
+
+    def _draft_propose(self, sampled, hist, last_tok, pos, active,
+                       page_table, table0, do_sample, temperature, top_k,
+                       top_p, seeds):
+        """k draft-model decode steps against the shared page table over
+        the draft's pools: the proposals ``[S, k]`` and, when ``sampled``,
+        the draft's filtered distributions ``[S, k, V]`` (sampled rows
+        draw their proposal from it, keyed by ROLE_DRAFT at the position
+        they process).  The first step is a ``[1, 2S]`` tick over the
+        tokens at ``pos - 1`` (from ``hist``) and ``pos``: after a tick
+        that accepted all k proposals the row at ``pos - 1`` holds the
+        last proposal, which no draft step processed (the reference's
+        draft attends to a stale row there); otherwise it writes the same
+        token again.  A decoding slot has ``pos >= 1``.  The later steps
+        are ``[1, S]`` ticks."""
+        S, L = self.max_seqs, self.max_seq_len
+        page, pp = self.page_size, self.pages_per_seq
+        rows = torch.arange(S, device=pos.device)
+        cur = last_tok
+        toks, probs = [], []
+        for i in range(self.spec_k):
+            w = 2 if i == 0 else 1
+            dpos = pos + i
+            qtok = (torch.stack([hist[rows, (pos - 1).clamp_min(0)], cur],
+                                dim=1) if i == 0 else cur[:, None])
+            qpos = dpos[:, None] + torch.arange(1 - w, 1, device=pos.device)
+            qvalid = active[:, None] & (qpos >= 0) & (qpos < L)
+            dp = table0.gather(1, (qpos.clamp_min(0) // page).clamp(
+                max=pp - 1))
+            meta = RaggedMeta(
+                kv_lens=torch.where(active, dpos + 1, w).int(),
+                page_indices=page_table, cu_q_lens=self._block_cu * w,
+                num_seqs=self._block_ns,
+                new_kv_dest=torch.where(qvalid, dp * page + qpos % page,
+                                        0).reshape(-1))
+            dlg = self._draft_module(
+                qtok.reshape(1, -1),
+                positions=torch.where(qvalid, qpos, 0).reshape(1, -1),
+                kv_cache=self._draft_cache, ragged_meta=meta,
+                logit_rows=rows * w + w - 1).float()
+            nxt = dlg.argmax(dim=-1)
+            if sampled:
+                flg = filter_logits_batched(dlg, temperature, top_k, top_p)
+                probs.append(torch.softmax(flg, dim=-1))
+                keys = role_keys(position_keys(self.seed, seeds, dpos),
+                                 ROLE_DRAFT)
+                drawn = (flg + gumbel_noise(keys, flg.shape[-1])).argmax(
+                    dim=-1)
+                nxt = torch.where(do_sample, drawn, nxt)
+            toks.append(nxt)
+            cur = nxt
+        return (torch.stack(toks, dim=1),
+                torch.stack(probs, dim=1) if sampled else None)
+
+    @torch.inference_mode()
+    def _spec_block(self, sampled: bool, hist, last_tok, pos, active,
+                    remaining, page_table, eos_ids, do_sample, temperature,
+                    top_k, top_p, seeds):
+        """K speculative ticks (the reference's ``_spec_block_fn``),
+        enqueued with no host read.  Each tick drafts k tokens a slot
+        (n-gram lookup over ``hist``, or k draft-model steps), scores all
+        k+1 positions with the target as one ragged chunk of k+1 rows a
+        slot, and accepts or rolls back on the device
+        (:func:`~deepspeed_tpu_torch.inference.sampling.
+        speculative_verify`).  Rollback is position rollback: rows
+        written for rejected positions lie between the new cursor and
+        the old write frontier, a span the next tick writes again before
+        any query attends to it.  ``hist``, the token history both
+        drafters read, is updated in place; rows that are inactive or
+        past ``max_seq_len`` write its trash column, and their K/V the
+        trash page.  Returns ``(last_tok,
+        pos, active, remaining, toks [K*(k+1), S], mask [K*(k+1), S],
+        prop, accd)``: the carry, the tick-major tokens and mask, and the
+        draft tokens proposed and accepted."""
+        S, L = self.max_seqs, self.max_seq_len
+        page, pp = self.page_size, self.pages_per_seq
+        k = self.spec_k
+        K1 = k + 1
+        ngram = self.spec_mode == "ngram"
+        table0 = page_table.clamp_min(0).long()
+        rows = torch.arange(S, device=pos.device)
+        j = torch.arange(K1, device=pos.device)[None, :]
+        cu = self._block_cu * K1
+        prop = torch.zeros((), dtype=torch.int64, device=pos.device)
+        accd = torch.zeros_like(prop)
+        toks, masks = [], []
+        for _ in range(self.decode_block_size):
+            # the cursor token joins the history before drafting
+            hist[rows, torch.where(active, pos, L)] = last_tok
+            if ngram:
+                d_toks = self._ngram_propose(hist, pos, last_tok)
+                q_probs = None
+            else:
+                d_toks, q_probs = self._draft_propose(
+                    sampled, hist, last_tok, pos, active, page_table,
+                    table0, do_sample, temperature, top_k, top_p, seeds)
+            # verify: one ragged chunk of k+1 rows a slot.  kv_lens may
+            # pass the page table's span near max_seq_len: those rows are
+            # never emitted, and the kernel clamps its key range
+            chunk = torch.cat([last_tok[:, None], d_toks], dim=1)
+            cpos = pos[:, None] + j
+            valid = active[:, None] & (cpos < L)
+            dest_page = table0.gather(1, (cpos // page).clamp(max=pp - 1))
+            dest = torch.where(valid, dest_page * page + cpos % page, 0)
+            meta = RaggedMeta(
+                kv_lens=torch.where(active, pos + K1, 1).int(),
+                page_indices=page_table, cu_q_lens=cu,
+                num_seqs=self._block_ns, new_kv_dest=dest.reshape(-1))
+            logits = self._forward(chunk.reshape(1, -1),
+                                   torch.where(valid, cpos, 0).reshape(1, -1),
+                                   meta).reshape(S, K1, -1)
+            keys = (position_keys(self.seed, seeds[:, None].expand(S, K1),
+                                  cpos) if sampled else None)
+            out_toks, acc = speculative_verify(logits, d_toks, q_probs, keys,
+                                               do_sample, temperature,
+                                               top_k, top_p)
+            # the emission clamp: budget, max_seq_len, first eos
+            emit = torch.minimum(acc + 1, remaining)
+            emit = torch.minimum(emit, L - 1 - pos)
+            eos_hit = out_toks == eos_ids[:, None]
+            first_eos = eos_hit.long().argmax(dim=1)
+            emit = torch.where(eos_hit.any(dim=1),
+                               torch.minimum(emit, first_eos + 1), emit)
+            emit = torch.where(active, emit.clamp(1, K1), 0)
+            mask_out = active[:, None] & (j < emit[:, None])
+            # advance, or roll back, the carry
+            new_last = out_toks.gather(1, (emit - 1).clamp_min(0)[:, None])
+            ended_eos = (eos_hit & (j < emit[:, None])).any(dim=1)
+            hidx = torch.where(mask_out, pos[:, None] + 1 + j, L)
+            hist[rows[:, None].expand(S, K1), hidx] = out_toks
+            last_tok = torch.where(active, new_last[:, 0], last_tok)
+            pos = torch.where(active, pos + emit, pos)
+            remaining = remaining - emit
+            prop = prop + torch.where(active, k, 0).sum()
+            accd = accd + torch.where(active, emit - 1, 0).sum()
+            active = (active & ~ended_eos & (remaining > 0) &
+                      (pos + 1 < L))
+            toks.append(out_toks)
+            masks.append(mask_out)
+        KK = self.decode_block_size * K1
+        return (last_tok, pos, active, remaining,
+                torch.stack(toks).transpose(1, 2).reshape(KK, S),
+                torch.stack(masks).transpose(1, 2).reshape(KK, S),
+                prop, accd)
+
+    def _fold_spec(self, reqs: List[Request], produced: int, prop: int,
+                   accd: int) -> None:
+        """Count a harvest's speculative blocks and record the draft's KV
+        coverage of every slot that goes on: the block wrote every row
+        below one under the cursor."""
+        st = self.host_stats
+        st.spec_proposed += prop
+        st.spec_accepted += accd
+        st.spec_tokens += produced
+        for r in reqs:
+            if not r.done:
+                self._draft_len[r.slot] = max(r.length - 2, 0)
 
     # -- the pipelined decode loop (A8a) ----------------------------------
 
@@ -1047,14 +1419,23 @@ class RaggedInferenceEngineV2:
                 block[2].synchronize()
         return block
 
-    def _pipeline_start(self, reqs: List[Request]) -> None:
-        """Enter the pipelined decode loop: the decode-block carry and
-        the samplers' settings go to the device ONCE; later blocks chain
-        the device-resident state.  (The reference's ``spec`` branch is
-        speculation, ROADMAP A9.4.)"""
+    def _pipeline_start(self, reqs: List[Request],
+                        spec: bool = False) -> None:
+        """Enter the pipelined decode loop: the block's carry and the
+        samplers' settings go to the device ONCE; later blocks chain the
+        device-resident state.  With ``spec`` the speculative block runs
+        instead of the plain one, and the projection becomes bounds on
+        each slot's advance (1..k+1 a tick, data-dependent): ``plen`` and
+        ``rem`` the slow bound (one token a tick, the floor),
+        ``plen_hi`` and ``rem_lo`` the fast one (k+1 a tick).  Pages grow
+        to the fast bound's write span, and a harvest is forced as soon
+        as the fast bound says a finish is possible."""
         st = self.host_stats
+        if spec:
+            self._draft_catchup(reqs)
         with st.stage("plan"):
-            inputs = self._block_inputs(reqs)
+            inputs = (self._spec_inputs(reqs) if spec
+                      else self._block_inputs(reqs))
             S = self.max_seqs
             # exact host projection of each slot's cache length and token
             # budget: for eos-free sequences the device's active and
@@ -1071,6 +1452,7 @@ class RaggedInferenceEngineV2:
         dv: Dict[str, Any] = {
             "reqs": list(reqs),
             "sampled": bool(inputs["do_sample"].any()),
+            "spec": spec,
             "plen": plen, "rem": rem, "has_eos": has_eos,
             # un-harvested blocks ride the bounded window: past
             # async_depth a submit first joins the oldest block (its
@@ -1082,55 +1464,68 @@ class RaggedInferenceEngineV2:
             "ready": [],
             "block_seq": 0,
         }
-        self._graphs.ensure(dv["sampled"])     # before the loads
+        if spec:
+            dv["plen_hi"] = plen.copy()
+            dv["rem_lo"] = rem.copy()
+        self._graphs.ensure(dv["sampled"], spec)     # before the loads
         for name, a in inputs.items():
             self._graphs.load(name, a)
         self._dev = dv
 
     def _dispatch_block(self, dv: Dict[str, Any]):
         """Enqueue one pipelined block; returns ``(toks, mask, event)``,
-        its tokens and the event recorded after it (None on the CPU): one
-        block (a replay when captured), the carry copied back into the
-        static inputs, and the tokens copied into a slot of the harvest
-        ring before the next replay overwrites the graph's outputs."""
-        out = self._graphs.run(dv["sampled"])
+        and for a speculative block its ``[proposed, accepted]`` counts
+        after them: its tokens, the event recorded after it (None on the
+        CPU) and the counts.  One block (a replay when captured), the
+        carry copied back into the static inputs, and the outputs copied
+        into a slot of the harvest ring before the next replay
+        overwrites the graph's."""
+        spec = dv["spec"]
+        out = self._graphs.run(dv["sampled"], spec)
         self._graphs.chain(out)
         # a block waits in its slot until a harvest: at most
         # harvest_interval of them, so the ring never laps one
         R = self.harvest_interval + self.async_depth
-        if self._ring is None:
-            K, S = self.decode_block_size, self.max_seqs
+        ring = self._rings.get(spec)
+        if ring is None:
+            rows, S = out[4].shape
             with torch.inference_mode():
-                self._ring = (
-                    torch.empty((R, K, S), dtype=torch.int64,
+                ring = self._rings[spec] = (
+                    torch.empty((R, rows, S), dtype=torch.int64,
                                 device=self.device),
-                    torch.empty((R, K, S), dtype=torch.bool,
+                    torch.empty((R, rows, S), dtype=torch.bool,
+                                device=self.device),
+                    torch.empty((R, 2), dtype=torch.int64,
                                 device=self.device))
         slot = dv["block_seq"] % R
         with torch.inference_mode():
-            toks = self._ring[0][slot].copy_(out[4])
-            mask = self._ring[1][slot].copy_(out[5])
-        event = None
+            block = [ring[0][slot].copy_(out[4]),
+                     ring[1][slot].copy_(out[5]), None]
+            if spec:
+                block.append(ring[2][slot].copy_(torch.stack(out[6:8])))
         if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
-        return toks, mask, event
+            block[2] = torch.cuda.Event()
+            block[2].record()
+        return tuple(block)
 
     def _pipeline_step(self) -> int:
         """One pipelined iteration: plan and dispatch block k+1 while the
-        device still runs block k; harvest only when forced.  (Without
-        the reference's speculation branch, A9.4.)"""
+        device still runs block k; harvest only when forced."""
         dv = self._dev
         st = self.host_stats
         K = self.decode_block_size
+        K1 = self.spec_k + 1
+        spec = dv["spec"]
         # a queued request became admittable (put_request arrived, or a
         # reap freed capacity): reconcile so the normal path admits it
         # exactly when the unpipelined engine would
         if self._admittable():
             return self._pipeline_harvest(teardown=True)
         with st.stage("plan"):
-            # grow pages to cover the next block, exact: the projection
-            # is exact for every sequence that reaches here un-harvested
+            # grow pages to cover the next block: exact for the plain
+            # block (the projection is exact for every sequence that
+            # reaches here un-harvested); for a speculative one the fast
+            # bound's widest write span
             slots_active = [r.slot for r in dv["reqs"]
                             if dv["rem"][r.slot] > 0 and
                             dv["plen"][r.slot] < self.max_seq_len]
@@ -1138,8 +1533,12 @@ class RaggedInferenceEngineV2:
             table_dirty = False
             for s in slots_active:
                 self._last_sched[s] = self._sched_seq
-                want = int(min(dv["plen"][s] + min(K, dv["rem"][s]),
-                               self.max_seq_len))
+                if spec:
+                    want = self._spec_grow_want(int(dv["plen_hi"][s]),
+                                                int(dv["rem"][s]))
+                else:
+                    want = int(min(dv["plen"][s] + min(K, dv["rem"][s]),
+                                   self.max_seq_len))
                 before = self.allocator.owned(s)
                 if not self._ensure_pages(s, want):
                     grow_ok = False
@@ -1154,8 +1553,9 @@ class RaggedInferenceEngineV2:
         # the reference splits its rng here (:2232); sampling in the port
         # is position-keyed (sampling.position_keys), with no generator
         # state for a block to advance
-        with st.stage("dispatch"):
+        with st.stage("verify" if spec else "dispatch"):
             st.dispatches += 1
+            st.spec_dispatches += int(spec)
             block = self._dispatch_block(dv)
         dv["window"].submit(dv["block_seq"], block,
                             on_done=dv["ready"].append)
@@ -1166,13 +1566,26 @@ class RaggedInferenceEngineV2:
             # the unpipelined engine could have reaped after it
             finish_possible = False
             for s in slots_active:
-                prod = int(min(K, dv["rem"][s],
-                               self.max_seq_len - dv["plen"][s]))
-                dv["rem"][s] -= prod
-                dv["plen"][s] += prod
-                if (dv["has_eos"][s] or dv["rem"][s] <= 0 or
-                        dv["plen"][s] >= self.max_seq_len):
-                    finish_possible = True
+                if spec:
+                    # bounds: a tick advances a slot by 1..k+1 tokens
+                    slow = int(max(0, min(K, dv["rem_lo"][s])))
+                    fast = int(min(K * K1, max(dv["rem"][s], 0)))
+                    dv["plen"][s] = min(dv["plen"][s] + slow,
+                                        self.max_seq_len)
+                    dv["plen_hi"][s] = min(dv["plen_hi"][s] + fast,
+                                           self.max_seq_len)
+                    dv["rem"][s] -= slow
+                    dv["rem_lo"][s] -= K * K1
+                    ends = (dv["rem_lo"][s] <= 0 or
+                            dv["plen_hi"][s] >= self.max_seq_len)
+                else:
+                    prod = int(min(K, dv["rem"][s],
+                                   self.max_seq_len - dv["plen"][s]))
+                    dv["rem"][s] -= prod
+                    dv["plen"][s] += prod
+                    ends = (dv["rem"][s] <= 0 or
+                            dv["plen"][s] >= self.max_seq_len)
+                finish_possible |= bool(dv["has_eos"][s] or ends)
             if self.tiering is not None and finish_possible:
                 # a slot may free at the next harvest: start NVMe -> host
                 # reads for the spilled sequences the FIFO queue would
@@ -1193,7 +1606,8 @@ class RaggedInferenceEngineV2:
         the normal path plans again."""
         dv = self._dev
         st = self.host_stats
-        K, S = self.decode_block_size, self.max_seqs
+        spec = dv["spec"]
+        S = self.max_seqs
         st.harvests += 1
         # join every block the window still tracks (on_done appends them
         # to "ready" in submit order), then fetch the whole run at once
@@ -1202,19 +1616,28 @@ class RaggedInferenceEngineV2:
         with st.stage("harvest"):
             packed = torch.cat([b[0].reshape(-1) for b in blocks] +
                                [b[1].reshape(-1).long() for b in blocks] +
-                               [self._graphs.static["last_tok"]])
+                               [self._graphs.static["last_tok"]] +
+                               [b[3] for b in blocks if spec])
         packed = self._fetch(packed)
         with st.stage("harvest"):
-            n, KS = len(blocks), K * S
-            self._last_tokens = np.array(packed[2 * n * KS:], np.int64)
+            n = len(blocks)
+            KS = (self.decode_block_size * (self.spec_k + 1 if spec else 1)
+                  * S)
+            rows = KS // S
+            self._last_tokens = np.array(
+                packed[2 * n * KS:2 * n * KS + S], np.int64)
             produced = 0
             for i in range(n):
-                toks = packed[i * KS:(i + 1) * KS].reshape(K, S)
+                toks = packed[i * KS:(i + 1) * KS].reshape(rows, S)
                 mask = packed[(n + i) * KS:(n + i + 1) * KS].reshape(
-                    K, S).astype(bool)
+                    rows, S).astype(bool)
                 produced += self._fold_block(dv["reqs"], toks, mask)
             for r in dv["reqs"]:
                 self._maybe_finish(r)
+            if spec:
+                counts = packed[2 * n * KS + S:].reshape(n, 2).sum(axis=0)
+                self._fold_spec(dv["reqs"], produced, int(counts[0]),
+                                int(counts[1]))
             changed = any(r.done for r in dv["reqs"])
             self._reap()
             dv["ready"] = []
@@ -1222,10 +1645,14 @@ class RaggedInferenceEngineV2:
                 self._dev = None
             else:
                 # the device carry stays authoritative; re-anchor the
-                # projection on the now-exact lengths
+                # projection on the now-exact lengths (a speculative
+                # run's bounds collapse to them)
                 for r in dv["reqs"]:
                     dv["plen"][r.slot] = r.length
                     dv["rem"][r.slot] = r.max_new_tokens - len(r.generated)
+                if spec:
+                    np.copyto(dv["plen_hi"], dv["plen"])
+                    np.copyto(dv["rem_lo"], dv["rem"])
         return produced
 
     # -- the scheduler tick ---------------------------------------------
@@ -1234,9 +1661,10 @@ class RaggedInferenceEngineV2:
         """One engine iteration; returns the number of tokens produced
         (0 for a pipelined iteration whose harvest is still deferred: its
         tokens count at the harvest's step).  All-decoding batches take
-        the K-tick decode block, pipelined across steps when
-        ``pipeline``; any prefilling sequence falls back to the fused
-        SplitFuse tick."""
+        the K-tick speculative block when speculation is on and the pool
+        backs its write span, else the K-tick decode block, pipelined
+        across steps when ``pipeline``; any prefilling sequence falls
+        back to the fused SplitFuse tick."""
         self._sched_seq += 1
         if self._dev is not None:
             return self._pipeline_step()
@@ -1246,18 +1674,31 @@ class RaggedInferenceEngineV2:
             live = [r for r in self.slots if r is not None and not r.done]
             decoding_ready = bool(live) and all(
                 r.prefill_done >= r.ctx_len for r in live)
+            # speculation first: its block writes a k+1-wide span a tick,
+            # so it needs more pages than a plain block; when the pool
+            # cannot back it, fall back to the plain decode block (greedy
+            # outputs are the same either way).  Decided from exact
+            # state, so pipelined and unpipelined runs fall back at the
+            # same steps
+            spec_block = (decoding_ready and self.spec_mode != "off" and
+                          all(self._ensure_pages(
+                              r.slot, self._spec_grow_want(
+                                  r.length,
+                                  r.max_new_tokens - len(r.generated)))
+                              for r in live))
             all_decoding = (
+                not spec_block and
                 decoding_ready and self.decode_block_size > 1 and
                 all(self._ensure_pages(
                     r.slot,
                     r.length + min(self.decode_block_size,
                                    r.max_new_tokens - len(r.generated)))
                     for r in live))
-        if all_decoding:
+        if spec_block or all_decoding:
             if self.pipeline:
-                self._pipeline_start(live)
+                self._pipeline_start(live, spec=spec_block)
                 return self._pipeline_step()
-            return self._step_decode_block(live)
+            return self._step_block(live, spec=spec_block)
         with st.stage("plan"):
             plan = self._plan_tick()
         if plan is None:
@@ -1349,14 +1790,13 @@ class RaggedInferenceEngineV2:
                     0, 0
             self.slots[i] = req
             self.page_table[i, :] = -1
+            self._draft_len[i] = 0         # the draft catches up
             if not self._attach_and_allocate(req, need):
                 # a tombstone revival failed mid-attach and the shorter
                 # match needs more fresh pages than the pool holds: undo
                 # and retry this head next step (rare: the probe assumed
                 # the revivals would land)
-                self.allocator.free(i)
-                self.page_table[i, :] = -1
-                self.slots[i] = None
+                self._release_slot(i)
                 req.slot = -1
                 self.waiting.appendleft(req)
                 break
@@ -1492,9 +1932,7 @@ class RaggedInferenceEngineV2:
         """Requeue ``r`` as a CONTINUATION: its pages return to the pool,
         and on re-admission it re-prefills prompt + its own generated
         tokens (greedy continuations are exact)."""
-        self.allocator.free(r.slot)
-        self.page_table[r.slot, :] = -1
-        self.slots[r.slot] = None
+        self._release_slot(r.slot)
         self._reprefill(r)
         r.slot = -1
         self.waiting.append(r)             # back of the queue: the freed
@@ -1593,9 +2031,8 @@ class RaggedInferenceEngineV2:
                          "shared_pages": shared}
             for p in shared:
                 self.allocator.incref(p)   # the spill-hold outlives free()
-        self.allocator.free(r.slot)
-        self.page_table[r.slot, :] = -1
-        self.slots[r.slot] = None
+        # the draft's KV is not spilled: catch-up rebuilds it on restore
+        self._release_slot(r.slot)
         r.slot = -1
         self.waiting.append(r)             # back of the queue, as evict
         self.spills += 1
@@ -1631,9 +2068,7 @@ class RaggedInferenceEngineV2:
             self.request_latency.on_restore_stall(
                 req.uid, time.perf_counter() - t0)
         except KVRestoreError as e:
-            self.allocator.free(req.slot)
-            self.page_table[req.slot, :] = -1
-            self.slots[req.slot] = None
+            self._release_slot(req.slot)
             for p in shared:
                 self.allocator.decref(p)
             self._reprefill(req)
@@ -1888,9 +2323,7 @@ class RaggedInferenceEngineV2:
                             int(self.page_table[i, k]))
                         r.pc_pages += 1
                 self.finished.append(r)
-                self.slots[i] = None
-                self.allocator.free(i)
-                self.page_table[i, :] = -1
+                self._release_slot(i)
                 self.request_latency.on_finish(r.uid)
 
     # -- convenience ------------------------------------------------------

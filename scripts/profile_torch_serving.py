@@ -3,7 +3,9 @@
 
     python3 scripts/profile_torch_serving.py [--mode v1|v2] [--new 16]
                                              [--weights bf16|int8]
-                                             [--cuda-graph] [--out FILE]
+                                             [--cuda-graph]
+                                             [--spec ngram|draft]
+                                             [--out FILE]
 
 Builds ``llama3-8b`` at full width and depth with random seeded weights
 (bf16, made on the card; ``--weights int8`` then serves them as int8,
@@ -23,6 +25,15 @@ groups of 128 in v1 and 2048 in v2, dequantized at use) and traces with
 ``--cuda-graph`` turns on ``enable_cuda_graph``: the v2 decode block and
 the v1 decode steps replay CUDA graphs (captured during the warm-up);
 the fused tick and the prefill stay eager.
+
+``--spec ngram|draft`` (v2, graphs on): speculative decoding with k = 4,
+n-gram drafting or a draft model of TinyLlama's shape with Llama 3's
+vocabulary (random seeded weights); the traced decode block is one
+replayed speculative block (in draft mode the one after the block whose
+step caught the draft's pools up), and its device time is split by kernel
+class: GEMMs, paged attention (``rpa_*``), verify sampling (arg-max,
+softmax, sort and scan kernels) and the rest, in all and per tick (the
+draft's steps fall in the same classes as the verify's).
 
 For each window it prints the wall time, the device busy share (the
 union of device intervals over wall time: the rest is the device waiting
@@ -78,20 +89,50 @@ def profile(fn, top: int):
             "top_kernels": rows}
 
 
-def profile_v2(top: int, weights: str, graph: bool):
-    """Trace one mixed fused tick and one decode block of the v2 engine."""
+# kernel classes of a traced speculative block, by name
+CLASSES = (("gemm", ("gemm", "xmma", "nvjet", "cutlass", "cublas")),
+           ("paged_attention", ("rpa_",)),
+           ("verify_sampling", ("argmax", "softmax", "sort", "scan",
+                                "cumsum", "topk")))
+
+
+def by_class(prof_rows, ticks: int):
+    """Device ms of a traced window's kernels by class, in all and per
+    tick."""
+    out = {name: 0.0 for name, _ in CLASSES}
+    out["rest"] = 0.0
+    for row in prof_rows:
+        name = row["kernel"].lower()
+        cls = next((c for c, keys in CLASSES
+                    if any(k in name for k in keys)), "rest")
+        out[cls] += row["device_ms"]
+    return {k: {"ms": v, "ms_per_tick": v / ticks} for k, v in out.items()}
+
+
+def profile_v2(top: int, weights: str, graph: bool, spec=None):
+    """Trace one mixed fused tick and one decode block of the v2 engine
+    (a speculative block with ``spec``)."""
     from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
 
     cfg = get_config("llama3-8b")
     with torch.device("meta"):
         model = LlamaForCausalLM(cfg)
+    kw = {}
+    if spec is not None:
+        graph = True
+        kw["speculation"] = {"mode": spec, "k": 4}
+        if spec == "draft":
+            with torch.device("meta"):
+                kw["draft_model"] = LlamaForCausalLM(get_config(
+                    "llama-1b", vocab_size=cfg.vocab_size,
+                    rope_theta=500000.0, max_position_embeddings=8192))
     engine = RaggedInferenceEngineV2(
         model, generator=torch.Generator(device="cuda").manual_seed(0),
         max_seqs=16, max_seq_len=2048, prefill_chunk=512, page_size=64,
         decode_block_size=8, pipeline=False,
         config={"enable_cuda_graph": graph},
-        quantize_weights=None if weights == "bf16" else weights)
+        quantize_weights=None if weights == "bf16" else weights, **kw)
     rng = np.random.default_rng(0)
 
     def submit(n, prompt, new):
@@ -105,8 +146,8 @@ def profile_v2(top: int, weights: str, graph: bool):
     engine.get_outputs()
     submit(16, 600, 64)
     out = {"device": torch.cuda.get_device_name(0), "mode": "v2",
-           "weights": weights, "cuda_graph": graph, "requests": 16,
-           "prompt": 600, "new_tokens": 64}
+           "weights": weights, "cuda_graph": graph, "spec": spec,
+           "requests": 16, "prompt": 600, "new_tokens": 64}
     st = engine.host_stats
 
     def traced_step(want_block: bool):
@@ -117,8 +158,12 @@ def profile_v2(top: int, weights: str, graph: bool):
                     want_block or decoding):
                 break
             engine.step()
+        if want_block and spec == "draft":
+            # the first block after prefill brings the draft's pools up
+            # to the cursors (eager catch-up prefill): trace the next
+            engine.step()
         ticks = st.ticks
-        res = profile(engine.step, top)
+        res = profile(engine.step, 10**6 if spec and want_block else top)
         res["ticks"] = st.ticks - ticks
         res["tokens_in_batch"] = (len(decoding) if want_block else None)
         return res
@@ -127,6 +172,11 @@ def profile_v2(top: int, weights: str, graph: bool):
     out["decode_block"] = traced_step(want_block=True)
     assert out["fused_tick"]["ticks"] == 1
     assert out["decode_block"]["ticks"] == engine.decode_block_size
+    if spec is not None:
+        block = out["decode_block"]
+        assert engine.host_stats.graph_replays > 0
+        block["by_class"] = by_class(block["top_kernels"], block["ticks"])
+        block["top_kernels"] = block["top_kernels"][:top]
     while engine.has_work():
         engine.step()
     out["serving_stages"] = {k: v for k, v in engine.serving_stages().items()
@@ -142,14 +192,17 @@ def main() -> int:
     ap.add_argument("--weights", choices=("bf16", "int8"), default="bf16")
     ap.add_argument("--cuda-graph", action="store_true",
                     help="replay decode blocks and steps from CUDA graphs")
+    ap.add_argument("--spec", choices=("ngram", "draft"), default=None,
+                    help="trace a replayed speculative block (v2)")
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--out", default=None, help="write the JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serving: needs a CUDA GPU", file=sys.stderr)
         return 2
-    if args.mode == "v2":
-        return report(profile_v2(args.top, args.weights, args.cuda_graph),
+    if args.mode == "v2" or args.spec is not None:
+        return report(profile_v2(args.top, args.weights, args.cuda_graph,
+                                 args.spec),
                       ("fused_tick", "decode_block"),
                       args.out)
     import deepspeed_tpu_torch
@@ -187,6 +240,9 @@ def report(out, windows, path) -> int:
         for row in r["top_kernels"]:
             print(f"  {row['device_ms']:9.3f} ms {row['share']:6.1%} "
                   f"x{row['calls']:<5d} {row['kernel']}")
+        for cls, v in r.get("by_class", {}).items():
+            print(f"  {cls}: {v['ms']:.3f} ms, {v['ms_per_tick']:.3f} ms a "
+                  "tick")
     if "serving_stages" in out:
         print(f"serving_stages: {out['serving_stages']}")
     if path:

@@ -22,6 +22,12 @@ the eager step's tokens, greedy, with
 EOS (held in a buffer: no new capture) and at a second prompt length
 (one decode state kept), and sampled (where torch can register a
 generator with a graph; elsewhere a sampled graph raises).
+Speculation (n-gram and a draft model of head dim 64, k 3): greedy and
+sampled traffic through the captured speculative blocks, pipeline on
+and off, gives the eager unpipelined engine's tokens, with the paged
+kernel's Python count equal to what the ticks, captures and draft
+catch-ups launch; capturing both speculative graphs mid-run leaves
+every live page of the target's and the draft's pools byte-identical.
 """
 import numpy as np
 import pytest
@@ -233,3 +239,101 @@ def test_v1_graph_step_gives_the_eager_tokens(cuda):
     # every replay advanced the caller's generator as an eager step does:
     # no replay drew a frozen sample
     assert torch.equal(got_gen.get_state(), want_gen.get_state())
+
+
+# -- speculative blocks (v2 speculation) --------------------------------------
+
+DRAFT = dict(TINY, hidden_size=128, intermediate_size=256,
+             num_hidden_layers=1, num_attention_heads=2,
+             num_key_value_heads=1)
+
+
+def _spec(cuda, mode, module=None, draft=None, **kw):
+    """A speculative engine; draft mode gets DRAFT's model (head dim 64),
+    random seeded weights unless ``draft`` passes a built one."""
+    if mode == "draft":
+        if draft is None:
+            with torch.device("meta"):
+                draft = llama.LlamaForCausalLM(llama.LlamaConfig(**DRAFT))
+        kw["draft_model"] = draft
+    return _v2(cuda, module=module, speculation={"mode": mode, "k": 3},
+               **kw)
+
+
+def _spec_captures(eng):
+    """Captured speculative graphs (the keys are (spec, sampled))."""
+    return sum(spec for spec, _ in eng._graphs.graphs)
+
+
+def _spec_launches(eng, L, Ld, k):
+    """The paged kernel's Python count over ``eng``'s life: a fused or
+    plain decode tick launches it L times, a speculative tick L + k x Ld
+    (k draft steps), a draft catch-up chunk Ld; each counts at eager
+    ticks and at a capture's warm-up and capture, never at a replay (a
+    capturing engine replays every block it dispatches)."""
+    st, g, K = eng.host_stats, eng._graphs, eng.decode_block_size
+    spec_cap = _spec_captures(eng)
+    spec_rep = st.spec_dispatches if g.capturing else 0
+    spec_eager = K * (st.spec_dispatches - spec_rep)
+    plain_eager = (st.ticks - K * st.spec_dispatches -
+                   K * (st.graph_replays - spec_rep))
+    return (L * (plain_eager + 2 * K * (len(g.graphs) - spec_cap)) +
+            (L + k * Ld) * (spec_eager + 2 * K * spec_cap) +
+            Ld * eng.draft_catchup_chunks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["ngram", "draft"])
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_spec_graphs_give_the_eager_tokens(cuda, mode, sampled):
+    """A captured speculative block replays to the eager block's tokens,
+    pipeline on and off; the paged kernel's count follows the ticks."""
+    eager = _spec(cuda, mode, pipeline=False)
+    want = _serve(eager, sampled)
+    assert eager.host_stats.spec_dispatches > 0
+    L = TINY["num_hidden_layers"]
+    Ld = DRAFT["num_hidden_layers"] if mode == "draft" else 0
+    for pipeline in (False, True):
+        eng = _spec(cuda, mode, module=eager.module,
+                    draft=eager._draft_module, pipeline=pipeline,
+                    config={"enable_cuda_graph": True})
+        before = rpa.ragged_paged_attention.launches
+        got = _serve(eng, sampled)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert _spec_captures(eng) >= 1
+        assert eng.host_stats.spec_dispatches > 0
+        assert rpa.ragged_paged_attention.launches - before == \
+            _spec_launches(eng, L, Ld, 3)
+        if pipeline:
+            assert eng.host_stats.blocking_gets < eng.host_stats.dispatches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["ngram", "draft"])
+def test_spec_capture_leaves_live_pages_untouched(cuda, mode):
+    """Capturing both speculative graphs mid-run writes only the trash
+    page of the target's pools and of the draft's."""
+    eng = _spec(cuda, mode, config={"enable_cuda_graph": True},
+                pipeline=False)
+    r = np.random.default_rng(2)
+    for n in (30, 21, 7):
+        eng.put_request(r.integers(0, 256, size=n), max_new_tokens=20)
+    while any(s is None or s.prefill_done < s.ctx_len
+              for s in eng.slots[:3]):
+        eng.step()
+    eng._draft_catchup([s for s in eng.slots if s is not None])
+    assert eng.host_stats.graph_captures == 0
+    pools = eng.cache + eng._draft_cache
+    torch.cuda.synchronize()
+    before = [p.pages[1:].clone() for p in pools]
+    for sampled in (False, True):
+        eng._graphs.ensure(sampled, spec=True)
+    torch.cuda.synchronize()
+    assert _spec_captures(eng) == 2
+    for b, p in zip(before, pools):
+        assert torch.equal(b.view(torch.uint8),
+                           p.pages[1:].view(torch.uint8))
+    while eng.has_work():
+        eng.step()
+    eng.audit_kv_sharing()

@@ -269,9 +269,6 @@ def test_stream_deltas_report_each_token_once(served):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(speculation="ngram"), "A9.4"),
-    (dict(config={"v2": {"speculation": {"mode": "ngram"}}}), "A9.4"),
-    (dict(draft_model=object()), "A9.4"),
     (dict(kv_tiering={"host_pages": 8, "long_context": True}), "A9.5"),
     (dict(quantize_weights="fp8"), "A9.6"),
     (dict(topology=object()), "A7a"),
