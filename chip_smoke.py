@@ -44,6 +44,14 @@ Phases (any failed check raises; nothing is caught):
    CUDA graph, replayed) beside the wrapper's host loop and the bound at
    the four decode and mixed shapes, the verify tick and the draft's
    three shapes, and the plain versions at decode, mixed and verify.
+   Then both with the long-context scan's incoming carry (B4b) at its
+   shapes, a 4096-key table whose columns 1-52 are parked holes: a
+   decode row, a 64-token prefill page (one split: the carry alone sends
+   it through ``rpa_combine``) and 4 ragged decode rows with their own
+   holes, each with the neutral carry (bit-identical to no carry) and a
+   random one from ``staged_attend_stats``, bf16 queries over bf16, int8
+   and e4m3 pages and fp32 over fp32, int8 and e4m3; the random carry's
+   bf16 decode and prefill cases timed beside their bound.
 6. The v2 slice: ``RaggedInferenceEngineV2`` on ``llama3-8b`` at full
    width and depth, bf16, serving 24 requests (16 slots) twice with
    identical tokens, eager and unpipelined (phase 14's reference); the paged kernel launched once per layer per model
@@ -208,11 +216,29 @@ Phases (any failed check raises; nothing is caught):
    step (16 x 2) and catch-up chunk (512 over 1536 keys; H 32/4, D 64)
    and a ``kv_len`` past the page table.
 
+21. Long context (A9.5) on ``llama3-8b`` at full width and depth, bf16,
+   CUDA graphs on, the reference's knobs (sink 1, window 8, groups of 4):
+   one 4064 + 32 greedy request on a 17-page pool (4x over it; tiers of
+   24 host and 64 NVMe pages under ``build/smoke_lc``, removed
+   afterwards) against the same request fully resident, over a bf16 and
+   an int8 pool: tokens equal to the control and the first divergence,
+   the first sampled position's max |dlogit|, page-ins (every page
+   digest-verified), ``pagein_wait`` / ``pagein_verify`` ms a tick,
+   staged-stats dispatches a tick, decode tokens/s beside the control's,
+   the residency ratio, and the peak GiB at 2048 and at 4096 tokens of
+   context (within 0.5 GiB); #9 / #8 launched exactly 32 times a tick.
+   Then the request beside 4 normal ones (128-512 + 32-64, submitted
+   once its prompt is in), pipeline on and off: the same tokens, its own
+   equal to its solo run's, and no decode block while it is live; and 2
+   layers at full width in fp32 through one bridged flax tree, 1024 + 32
+   against the resident control by phase 7's margin rule.
+
 Phases 3 and 6 (serving) keep their full depth: the whole run stays well
 inside its time limit.  Phase 12's CPU parity runs one layer (two until
 phase 19 came).  ``--gpt2-only`` runs the build and phases 15-18
 alone, ``--tiering-only`` the build and phase 19, ``--spec-only`` the
-build and phase 20; none prints result lines.  The line before the
+build and phase 20, ``--lc-only`` the build, phase 5's carry cases and
+phase 21; none prints result lines.  The line before the
 last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits nonzero
 and prints no result.
@@ -652,7 +678,7 @@ def phase_cpu_parity():
 
 def paged_case(seed, q_lens, kv_lens, H=32, Hkv=8, D=128, page=64,
                qdtype=torch.bfloat16, pdtype=torch.bfloat16, holes=False,
-               pad=0, pp=None):
+               pad=0, pp=None, hole_cols=None):
     """q, a pool of just the pages the sequences use (plus the trash page
     0, in a shuffled order), fp32 scales for 1-byte pages, and the tick's
     metadata, on the card.  K and V are standard normal; 1-byte pages hold
@@ -661,7 +687,8 @@ def paged_case(seed, q_lens, kv_lens, H=32, Hkv=8, D=128, page=64,
     ``holes`` marks every other page before a sequence's first query
     token -1; ``pad`` adds padding tokens; ``pp`` caps the page table's
     width, so that a ``kv_len`` may pass ``pp * page`` (a verify tick
-    near ``max_seq_len``)."""
+    near ``max_seq_len``).  ``hole_cols``: per sequence, the page-table
+    columns to mark -1 (a long-context sequence's parked middle)."""
     from deepspeed_tpu_torch.inference.paged import PagedKVPool
 
     g = torch.Generator().manual_seed(seed)
@@ -675,6 +702,8 @@ def paged_case(seed, q_lens, kv_lens, H=32, Hkv=8, D=128, page=64,
         ids = ids[c:]
         if holes:
             table[j, 1:(kv_lens[j] - q_lens[j]) // page:2] = -1
+        if hole_cols is not None:
+            table[j, list(hole_cols[j])] = -1
     kv = torch.randn(n_pages, page, 2 * Hkv, D, generator=g)
     scales = None
     if pdtype in (torch.int8, torch.float8_e4m3fn):
@@ -696,26 +725,33 @@ def paged_case(seed, q_lens, kv_lens, H=32, Hkv=8, D=128, page=64,
 
 
 def paged_bound(q_lens, kv_lens, table, H, Hkv, D, page, qdtype, pdtype,
-                window=None):
+                window=None, carry=False):
     """Least time (ms) the card could take for one ragged paged attention
     call, and what bounds it.  Bytes: q and o once, every page a sequence
     attends (pages with a key in its window, holes excluded) once, with
-    its scale rows for 1-byte pages.  Operations: 4*D per valid (query
-    head, key) pair, at the bf16 tensor-core rate for bf16 queries and
-    the fp32 rate for fp32 ones."""
+    its scale rows for 1-byte pages, and a ``carry``'s m, l and acc once.
+    Operations: 4*D per valid (query head, resident key) pair, at the
+    bf16 tensor-core rate for bf16 queries and the fp32 rate for fp32
+    ones."""
     qe = torch.finfo(qdtype).bits // 8
     pe = 1 if pdtype in (torch.int8, torch.float8_e4m3fn) else \
         torch.finfo(pdtype).bits // 8
     row = 2 * Hkv * (D * pe + (4 if pe == 1 else 0))
     nbytes = 2 * sum(q_lens) * H * D * qe
+    if carry:
+        nbytes += 4 * sum(q_lens) * H * (D + 2)
     pairs = 0
     span = table.shape[1] * page       # keys past the table do not exist
     for j, (n, kv) in enumerate(zip(q_lens, kv_lens)):
         qpos = np.arange(kv - n, kv)
         lo = np.maximum(0, qpos - window + 1) if window else np.zeros_like(
             qpos)
-        pairs += int(np.maximum(np.minimum(qpos + 1, span) - lo, 0).sum()
-                     ) * H
+        # resident keys below each position: holes hold none
+        live = np.repeat(table[j].numpy() >= 0, page)[:span]
+        below = np.concatenate([[0], np.cumsum(live)])
+        hi = np.minimum(qpos + 1, span)
+        pairs += int(np.maximum(below[hi] - below[np.minimum(lo, hi)], 0
+                                ).sum()) * H
         first = int(lo.min()) // page
         cols = [c for c in range(first, min(-(-kv // page),
                                             table.shape[1]))
@@ -845,6 +881,147 @@ def phase_paged_kernels():
     for kname, e in entries.items():
         e["max_abs_err"] = worst[kname]
     log("paged kernels: no PyTorch call reads a page table, so library_ms "
+        "is null")
+    torch.cuda.empty_cache()
+    return entries["ragged_paged_attn"], entries["ragged_paged_attn_quant"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 5, the carry: #9 and #8 with the long-context scan's carry
+# ---------------------------------------------------------------------------
+
+# a long-context tick's page table: 64 pages of 64 keys (4096), columns 0
+# (the sink) and 53-63 (the window and the frontier) resident, 1-52 parked
+LC_HOLES = range(1, 53)
+LC_CARRY_SHAPES = [
+    ("lc_decode", ([1], [4096]), [LC_HOLES], True),
+    # a 64-token prefill page: one split, so the carry alone makes it
+    # take the stats path and rpa_combine
+    ("lc_prefill", ([64], [4096]), [LC_HOLES], True),
+    # four decode rows with their own holes: several splits, some of them
+    # holes only
+    ("lc_ragged", ([1, 1, 1, 1], [4096, 3000, 2500, 1800]),
+     [LC_HOLES, range(1, 40), range(2, 30, 2), ()], False)]
+
+
+def q_positions(q_lens, kv_lens, T):
+    """Every query row's absolute position (-1 past the real tokens)."""
+    qpos = torch.full((T,), -1, dtype=torch.int64)
+    t = 0
+    for n, kv in zip(q_lens, kv_lens):
+        qpos[t:t + n] = torch.arange(kv - n, kv)
+        t += n
+    return qpos.to("cuda")
+
+
+def random_carry(q, Hkv, seed, qpos):
+    """Stats of ``q`` over a random staged block of 256 parked keys (at
+    positions 64..319) from the plain ``staged_attend_stats``: what a
+    chunk dispatch hands the finish."""
+    from deepspeed_tpu_torch.inference.paged import staged_attend_stats
+
+    g = torch.Generator().manual_seed(seed)
+    D = q.shape[-1]
+    staged = torch.randn(256, 2 * Hkv, D, generator=g).to("cuda", q.dtype)
+    kpos = torch.arange(64, 320, device="cuda")
+    return staged_attend_stats(q, staged, kpos, qpos, sm_scale=D ** -0.5)
+
+
+def phase_carry_kernels():
+    """#9 and #8 with an incoming carry (B4b) against their plain versions
+    at the long-context shapes, neutral and random carries, bf16 queries
+    over bf16, int8 and e4m3 pages and fp32 queries over fp32, int8 and
+    e4m3; the neutral carry bit-identical to no carry.  Times the random
+    carry's bf16-query cases; returns the JSON rows of #9 and #8 at the
+    decode shape (launches filled by phase 21)."""
+    from deepspeed_tpu_torch.inference.paged import neutral_carry
+    from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    i8, e4m3 = torch.int8, torch.float8_e4m3fn
+    entries = {}
+    worst = {"ragged_paged_attn": 0.0, "ragged_paged_attn_quant": 0.0}
+    cases = [(shape, qd, pd) for shape in LC_CARRY_SHAPES
+             for qd, pds in ((bf16, (bf16, i8, e4m3)), (f32, (f32, i8, e4m3)))
+             for pd in pds]
+    for i, ((name, (q_lens, kv_lens), holes, timed), qd, pd) in \
+            enumerate(cases):
+        q, pages, scales, meta = paged_case(SEED + 100 + i, q_lens, kv_lens,
+                                            qdtype=qd, pdtype=pd,
+                                            hole_cols=holes)
+        T, H, D = q.shape
+        Hkv = pages.shape[2] // 2
+        sm = D ** -0.5
+        quant = scales is not None
+        fn = rpa.ragged_paged_attention_quant if quant \
+            else rpa.ragged_paged_attention
+        ref = (rpa.ref_paged_attention_quant if quant
+               else rpa.ref_paged_attention)
+        args = (q, pages, scales, *meta) if quant else (q, pages, *meta)
+        kname = "ragged_paged_attn_quant" if quant else "ragged_paged_attn"
+        plain_out = fn(*args, sm_scale=sm)
+        qpos = q_positions(q_lens, kv_lens, T)
+        for label, carry in (
+                ("neutral", neutral_carry(T, H, D, device="cuda")),
+                ("random", random_carry(q, Hkv, SEED + 200 + i, qpos))):
+            out = fn(*args, sm_scale=sm, carry=carry)
+            want = ref(*args, sm_scale=sm, carry=carry)
+            torch.cuda.synchronize()
+            of, wf = out.float(), want.float()
+            err = (of - wf).abs()
+            atol = FP32_ATOL if qd == f32 else PAGED_ATOL
+            rtol = FP32_ATOL if qd == f32 else PAGED_RTOL
+            limit = atol + rtol * wf.abs()
+            tag = f"paged carry {name} {label} q {str(qd)[6:]} pages " \
+                  f"{str(pd)[6:]}"
+            assert torch.isfinite(of).all(), f"{tag}: non-finite"
+            assert (err <= limit).all(), (
+                f"{tag}: differs from plain by up to {err.max().item():.3e}")
+            if label == "neutral":
+                # the neutral carry folds exactly
+                assert torch.equal(out, plain_out), (
+                    f"{tag}: differs from the call without a carry")
+            if qd == bf16:
+                worst[kname] = max(worst[kname], err.max().item())
+            line = (f"{kname}[{name}, {label} carry] pages {str(pd)[6:]} q "
+                    f"{str(qd)[6:]} T={T} H={H} D={D} S={len(q_lens)}: "
+                    f"max|o-plain|={err.max().item():.3e} "
+                    f"({(err / limit).max().item():.1%} of the limit)")
+            if label == "neutral":
+                line += "; bit-identical to no carry"
+            if timed and label == "random" and qd == bf16:
+                ms = graph_ms(lambda: fn(*args, sm_scale=sm, carry=carry))
+                bound, by = paged_bound(q_lens, kv_lens, meta[1].cpu(), H,
+                                        Hkv, D, pages.shape[1], qd, pd,
+                                        carry=True)
+                S, pp = meta[1].shape
+                splits = rpa.split_plan(T, S, H, Hkv, pp, pages.shape[1])[0]
+                line += (f"; splits {splits} + rpa_combine; kernel "
+                         f"{ms:.4f} ms on the device, bound {bound:.4f} ms "
+                         f"({by}: resident pages + carry + q + o), "
+                         f"{bound / ms:.1%} of bound")
+                if name == "lc_decode":
+                    plain_ms = time_ms(
+                        lambda: ref(*args, sm_scale=sm, carry=carry),
+                        reps=3, warmup=1)
+                    line += f", plain {plain_ms:.3f} ms"
+                    if pd in (bf16, i8):
+                        entries[kname] = dict(
+                            name=f"{kname}_carry", route="cuda",
+                            source="deepspeed_tpu_torch/ops/csrc/"
+                                   "ragged_paged_attn.cu",
+                            replaces=(
+                                "deepspeed_tpu/ops/ragged_paged_quant.py:51"
+                                if quant else
+                                "deepspeed_tpu/inference/paged.py:602"),
+                            launches=0, max_abs_err=0.0, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                            library_ms=None)
+            log(line)
+        del q, pages, scales, meta, out, want, plain_out
+    for kname, e in entries.items():
+        e["max_abs_err"] = worst[kname]
+    log("paged carry: no PyTorch call reads a page table, so library_ms "
         "is null")
     torch.cuda.empty_cache()
     return entries["ragged_paged_attn"], entries["ragged_paged_attn_quant"]
@@ -3366,6 +3543,298 @@ def phase_spec_fp32():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: long context (A9.5) on the v2 engine
+# ---------------------------------------------------------------------------
+
+# the reference's knobs: a resident need of sink 1 + window 8 + group 4 +
+# the frontier 1 = 14 pages.  A 4064 + 32 request is 64 pages (4096
+# tokens, 512 MiB of bf16 KV) on a 17-page pool (16 usable, 128 MiB): 4x
+# over it.  The tiers: 24 host pages (pinned) and 64 NVMe pages under
+# the git-ignored build/, removed afterwards, so most page-ins come from
+# NVMe.  One middle group is 4 pages x 32 layers x 256 KiB = 32 MiB.
+LC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      "smoke_lc")
+LC_TIER = dict(long_context=True, sink_pages=1, window_pages=8,
+               chunk_pages=4, host_pages=24, nvme_pages=64, nvme_dir=LC_DIR)
+LC_ENGINE = dict(max_seqs=8, max_seq_len=4096, prefill_chunk=512,
+                 page_size=64, decode_block_size=8,
+                 config={"enable_cuda_graph": True})
+LC_POOL, LC_CONTROL_POOL = 17, 70
+LC_PROMPT, LC_NEW = 4064, 32
+
+
+def probe_lc(engine):
+    """Record every long-context tick of ``engine``: the context it
+    attends (kv_len), whether it decodes, its wall seconds, its page-in
+    wait and verify seconds (the tier store's ``pagein_wait`` and
+    ``pagein_verify``), its staged-stats dispatches, the device's peak
+    bytes during it and the residency after it."""
+    drv, tm = engine._lc, engine.tiering.timers.seconds
+    rec, tick = [], drv.tick
+
+    def tick_(r):
+        decode = r.prefill_done >= r.ctx_len
+        kv = r.length if decode else min(r.prefill_done + engine.page_size,
+                                          r.ctx_len)
+        w0, v0 = tm.get("pagein_wait", 0.0), tm.get("pagein_verify", 0.0)
+        d0 = drv.staged_dispatches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        n = tick(r)
+        torch.cuda.synchronize()
+        rec.append(dict(kv=kv, decode=decode, s=time.perf_counter() - t,
+                        wait=tm.get("pagein_wait", 0.0) - w0,
+                        verify=tm.get("pagein_verify", 0.0) - v0,
+                        staged=drv.staged_dispatches - d0,
+                        peak=torch.cuda.max_memory_allocated(),
+                        **drv.residency(r)))
+        return n
+
+    drv.tick = tick_
+    return rec
+
+
+def first_logits(engine):
+    """The logits each request's first token was sampled from (by uid)."""
+    got, sample = {}, engine._sample
+
+    def sample_(sel, samplers):
+        for r, j, wants in samplers:
+            if wants and not r.generated:
+                got[r.uid] = sel[j].float().cpu()
+        return sample(sel, samplers)
+
+    engine._sample = sample_
+    return got
+
+
+def lc_serve(engine, prompt, new, later=()):
+    """Serve ``prompt`` (+ ``new`` greedy tokens); submit ``later``'s
+    requests once its prompt is prefilled.  Returns the outputs in
+    submission order, the wall seconds from submission to the first
+    token and from there to the end (less any CUDA-graph capture), and
+    the logits of the first token."""
+    logits = first_logits(engine)
+    uid = engine.put_request(prompt, max_new_tokens=new)
+    uids, outs = [uid], {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t1 = None
+    while engine.has_work():
+        engine.step()
+        if t1 is None and uid in logits:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cap = engine.host_stats.graph_capture_s
+            uids += [engine.put_request(p, **kw) for p, kw in later]
+        outs.update(engine.get_outputs())
+        engine.audit_kv_sharing()
+    t2 = time.perf_counter()
+    assert engine.tiering is None or engine.tiering.audit()["sessions"] == 0
+    for u, (p, kw) in zip(uids, [(prompt, dict(max_new_tokens=new))] +
+                          list(later)):
+        assert outs[u].shape == (len(p) + kw["max_new_tokens"],)
+    cap = engine.host_stats.graph_capture_s - cap
+    return [outs[u] for u in uids], t1 - t0, t2 - t1 - cap, logits[uid]
+
+
+def lc_engine(module, fmt="none", **kw):
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+
+    return RaggedInferenceEngineV2(module, device="cuda", kv_cache_dtype=fmt,
+                                   **{**LC_ENGINE, **kw})
+
+
+def phase_lc():
+    """Phase 21: long context (A9.5) on ``llama3-8b`` at full width and
+    depth, bf16, CUDA graphs on: one 4064 + 32 request on a 17-page pool
+    (4x over it) against the same request fully resident, over a bf16 and
+    an int8 pool; the request beside 4 normal requests, pipeline on and
+    off; then 2 layers in fp32 against their resident control by phase
+    7's margin rule.  Returns the launches of #9 (bf16 pool) and #8 (int8
+    pool) in the long-context runs."""
+    import shutil
+
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
+    from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    cfg = get_config("llama3-8b")
+    L = cfg.num_hidden_layers
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    module = lc_engine(
+        model, num_pages=LC_CONTROL_POOL,
+        generator=torch.Generator(device="cuda").manual_seed(SEED)).module
+    rng = np.random.default_rng(SEED + 21)
+    prompt = rng.integers(0, cfg.vocab_size, size=LC_PROMPT)
+    launches = {}
+    lc_outs = {}
+    for fmt, fn in (("none", rpa.ragged_paged_attention),
+                    ("int8", rpa.ragged_paged_attention_quant)):
+        ctl = lc_engine(module, fmt, num_pages=LC_CONTROL_POOL)
+        (want,), c_pre, c_dec, c_logits = lc_serve(ctl, prompt, LC_NEW)
+        del ctl
+        eng = lc_engine(module, fmt, num_pages=LC_POOL, kv_tiering=LC_TIER)
+        rec = probe_lc(eng)
+        fn.launches = 0                 # the main path starts here
+        (got,), pre, dec, logits = lc_serve(eng, prompt, LC_NEW)
+        launches[fmt] = fn.launches
+        drv = eng._lc
+        assert drv.ticks == eng.host_stats.ticks == len(rec)
+        assert fn.launches == L * drv.ticks, (
+            f"{fn.launches} launches of the paged kernel, want {L} x "
+            f"{drv.ticks} long-context ticks")
+        st = eng.serving_stages()["kv_tiering"]
+        assert st["pageins"] > 0 and drv.parks > 0
+        assert st["pages_verified"] == st["pagein_pages"], (
+            f"{st['pages_verified']} pages verified of "
+            f"{st['pagein_pages']} paged in")
+        assert st["quarantined"] == 0 and st["nvme_failures"] == 0
+        eng.close()
+        del eng
+        lc_outs[fmt] = got
+        new = slice(LC_PROMPT, None)
+        same = int((got[new] == want[new]).sum())
+        div = first_divergence([got[new]], [want[new]])
+        dlogit = (logits - c_logits).abs().max().item()
+        tick_ms = np.asarray([x["s"] for x in rec]) * 1e3
+        wait = np.asarray([x["wait"] for x in rec if x["staged"]]) * 1e3
+        verify = np.asarray([x["verify"] for x in rec if x["staged"]]) * 1e3
+        staged = [x["staged"] for x in rec]
+        at = {n: max(x["peak"] for x in rec if n - 64 < x["kv"] <= n)
+              for n in (2048, 4096)}
+        last = rec[-1]
+        total = last["resident_pages"] + last["parked_pages"]
+        dec_n = sum(1 for x in rec if x["decode"])
+        log(f"[{smi}] lc {fmt} pool: {LC_PROMPT} + {LC_NEW} tokens on "
+            f"{LC_POOL} pages, {same}/{LC_NEW} new tokens equal to the "
+            f"resident control ({LC_CONTROL_POOL} pages), first divergence "
+            f"{None if div is None else div[1]}; max |dlogit| of the first "
+            f"sampled position {dlogit:.4e}; {drv.ticks} ticks "
+            f"({dec_n} decode), {drv.parks} groups parked; page-ins "
+            f"{st['pageins']}, pages {st['pagein_pages']}, bytes "
+            f"{st['pagein_bytes']}, prefetch hits "
+            f"{st['pagein_prefetch_hits']} misses "
+            f"{st['pagein_prefetch_misses']}, every page digest-verified "
+            f"({st['pages_verified']}); pagein_wait ms/tick p50 "
+            f"{np.percentile(wait, 50):.2f} p99 {np.percentile(wait, 99):.2f}"
+            f", pagein_verify p50 {np.percentile(verify, 50):.2f} p99 "
+            f"{np.percentile(verify, 99):.2f}; staged-stats dispatches a "
+            f"tick mean {np.mean(staged):.1f} max {max(staged)}; tick ms "
+            f"p50 {np.percentile(tick_ms, 50):.1f} max {tick_ms.max():.1f}"
+            f"; decode {(LC_NEW - 1) / dec:.2f} tokens/s against the "
+            f"control's {(LC_NEW - 1) / c_dec:.2f} (graphs, pipeline, its "
+            f"capture left out); "
+            f"prefill {pre:.2f} s against {c_pre:.2f} s; residency "
+            f"{last['resident_pages']}/{total} pages "
+            f"({last['resident_pages'] / total:.3f}); peak "
+            f"{at[2048] / 2**30:.3f} GiB at 2048 tokens of context, "
+            f"{at[4096] / 2**30:.3f} GiB at 4096; {fn.__name__} launches "
+            f"{fn.launches} = {L} x {drv.ticks} ticks")
+        assert abs(at[4096] - at[2048]) <= 0.5 * 2**30, (
+            "device memory grew with the parked middle")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # mixed traffic: the request, and 4 normal requests submitted once its
+    # prompt is in; the normal ones take the fused tick while it is live
+    # and decode blocks after, pipeline on and off the same
+    mixed = [(rng.integers(0, cfg.vocab_size, size=int(n)),
+              dict(max_new_tokens=int(m)))
+             for n, m in zip(rng.integers(128, 513, size=4),
+                             rng.integers(32, 65, size=4))]
+    runs = {}
+    for pipeline in (True, False):
+        eng = lc_engine(module, num_pages=LC_POOL + 4 * 9,
+                        kv_tiering=LC_TIER, pipeline=pipeline)
+        during = []
+        for name in ("_pipeline_start", "_step_block"):
+            orig = getattr(eng, name)
+
+            def wrap(*a, _orig=orig, _eng=eng, **k):
+                during.append(any(s is not None and s.lc and not s.done
+                                  for s in _eng.slots))
+                return _orig(*a, **k)
+
+            setattr(eng, name, wrap)
+        outs, pre, dec, _ = lc_serve(eng, prompt, LC_NEW, later=mixed)
+        assert during and not any(during), (
+            f"decode blocks: {len(during)}, {sum(during)} while the "
+            "long-context request was live")
+        assert np.array_equal(outs[0], lc_outs["none"]), (
+            "the long-context request's tokens changed beside traffic")
+        runs[pipeline] = outs
+        log(f"[{smi}] lc mixed traffic, pipeline {pipeline}: the request "
+            f"and 4 normal ones in {pre + dec:.2f} s (graph capture left "
+            f"out); decode blocks started {len(during)} times, never while "
+            f"it was live; its tokens equal to its solo run's")
+        eng.close()
+        del eng
+    for a, b in zip(runs[True], runs[False]):
+        assert np.array_equal(a, b), "pipeline on and off differ"
+    log("lc mixed traffic: pipeline on and off give the same tokens for "
+        "all 5 requests")
+    del module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_lc_fp32(smi)
+    shutil.rmtree(LC_DIR, ignore_errors=True)
+    return launches["none"], launches["int8"]
+
+
+def phase_lc_fp32(smi):
+    """2 layers at full width in fp32 (TF32 off), weights bridged from one
+    flax-layout tree: a 1024 + 32 long-context request on the 17-page
+    pool against the fully resident control, by phase 7's margin rule."""
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
+    from deepspeed_tpu_torch.module_inject.flax_bridge import \
+        flax_to_state_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("llama3-8b", num_hidden_layers=2, dtype=torch.float32)
+    rng = np.random.default_rng(SEED + 22)
+    state = flax_to_state_dict(flax_tree(cfg, rng))
+    prompt = rng.integers(0, cfg.vocab_size, size=1024)
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    ctl = lc_engine(model, params=state, num_pages=LC_CONTROL_POOL)
+    (want,), *_ = lc_serve(ctl, prompt, LC_NEW)
+    module = ctl.module
+    del ctl, state
+    eng = lc_engine(module, num_pages=LC_POOL, kv_tiering=LC_TIER)
+    (got,), *_ = lc_serve(eng, prompt, LC_NEW)
+    parks, pageins = eng._lc.parks, eng.tiering.counters["pageins"]
+    eng.close()
+    del eng
+    assert parks > 0 and pageins > 0
+    with torch.no_grad():
+        logits = module(torch.from_numpy(want[None, :-1]).cuda())[0]
+    top2 = logits[len(prompt) - 1:].topk(2, dim=-1).values
+    margins = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    diff = np.nonzero(got != want)[0]
+    if diff.size:
+        i = int(diff[0]) - len(prompt)
+        log(f"[{smi}] lc fp32: first differing token {i}, control top-2 "
+            f"margin {margins[i]:.3e}")
+        assert margins[i] < MARGIN, (
+            f"lc fp32: tokens differ from the control at {i} with margin "
+            f"{margins[i]:.3e}")
+    log(f"[{smi}] lc fp32, 2 layers: 1024 + {LC_NEW} on {LC_POOL} pages, "
+        f"{int((got == want).sum()) - 1024}/{LC_NEW} new tokens equal to "
+        f"the resident control; {parks} groups parked, {pageins} page-ins; "
+        f"smallest control top-2 margin {float(margins.min()):.3e}")
+    del module, model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -3397,6 +3866,16 @@ def main() -> int:
         phase_spec()
         log(f"phase 20 done at {time.perf_counter() - t0:.1f} s")
         return 0
+    # ``--lc-only``: the build, phase 5's carry cases and phase 21 alone,
+    # for work on long context; it prints no result lines
+    if sys.argv[1:] == ["--lc-only"]:
+        t0 = time.perf_counter()
+        phase_report()
+        phase_carry_kernels()
+        log(f"phase 5 (carry) done at {time.perf_counter() - t0:.1f} s")
+        phase_lc()
+        log(f"phase 21 done at {time.perf_counter() - t0:.1f} s")
+        return 0
     t0 = time.perf_counter()
     phase_report()
     entry = phase_kernel()
@@ -3406,6 +3885,7 @@ def main() -> int:
     cfg2, state = phase_cpu_parity()
     log(f"phase 4 done at {time.perf_counter() - t0:.1f} s")
     paged, paged_quant = phase_paged_kernels()
+    carry, carry_quant = phase_carry_kernels()
     log(f"phase 5 done at {time.perf_counter() - t0:.1f} s")
     (paged["launches"], paged_quant["launches"], bf16_outs,
      v2_eager) = phase_v2()
@@ -3444,7 +3924,11 @@ def main() -> int:
     paged["launches"] += spec[0]
     paged_quant["launches"] += spec[1]
     log(f"phase 20 done at {time.perf_counter() - t0:.1f} s")
-    log(json.dumps({"kernels": [entry, paged, paged_quant] +
+    # the carry rows: #9 and #8 in phase 21's long-context runs
+    carry["launches"], carry_quant["launches"] = phase_lc()
+    log(f"phase 21 done at {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"kernels": [entry, paged, paged_quant, carry,
+                                carry_quant] +
                     [train[k] for k in ("flash_bwd_dq", "flash_bwd_dkv",
                                         "fused_adam", "fused_lion")] +
                     [quant[f"{op}_int8_g{gs}"] for gs in (128, 2048)

@@ -41,9 +41,14 @@ while offline every ``probe_every`` blocked spills run
 :meth:`probe_nvme`, a write/read/verify round trip through the same
 ``kv.write`` fault site, whose success re-arms the tier.
 
-The reference's tracer, flight-record and metric calls are ROADMAP A10:
-the counters stay in :meth:`stats` and the failures in the log.  Its
-partial-residency page-in (``peek``) comes with long context (A9.5).
+**Partial residency** (long context, ``inference/v2/long_context.py``):
+:meth:`peek` pages a parked middle group in without dropping it, verified
+against its spill-time digests on every call, and the tier copy stays
+authoritative for the next tick.
+
+The reference's tracer, flight-record and metric calls (among them the
+page-in stall histogram) are ROADMAP A10: the counters stay in
+:meth:`stats` and the failures in the log.
 """
 from __future__ import annotations
 
@@ -177,7 +182,10 @@ class TieredKVStore:
             "exports": 0, "imports": 0,
             # degraded mode (persistent NVMe failure -> host only)
             "nvme_failures": 0, "tier_degraded": 0, "tier_rearmed": 0,
-            "degraded_folds": 0, "probes": 0, "probe_failures": 0}
+            "degraded_folds": 0, "probes": 0, "probe_failures": 0,
+            # partial-residency page-ins (peek)
+            "pageins": 0, "pagein_pages": 0, "pagein_bytes": 0,
+            "pagein_prefetch_hits": 0, "pagein_prefetch_misses": 0}
 
         self.spill_dir: Optional[str] = None
         if self.nvme_budget > 0:
@@ -451,6 +459,46 @@ class TieredKVStore:
         self.counters["restores"] += 1
         self.counters["pages_restored"] += ent.n_pages
         self.counters["bytes_restored"] += ent.n_pages * self.page_stride
+        return work
+
+    def peek(self, uid: Key) -> np.ndarray:
+        """``uid``'s packed pages in a private working buffer (pinned when
+        the store is), WITHOUT dropping the entry: the partial-residency
+        page-in.  A parked middle group streams back into the chunked
+        attention scan every tick while the tier copy (host buffer or
+        NVMe file) stays authoritative, so nothing is spilled again
+        afterwards.  Every page is verified like :meth:`restore`'s (a
+        transient flip heals by re-read; persistent corruption
+        quarantines and raises :class:`KVRestoreError`).  The blocking
+        time is the ``pagein_wait`` stage, its verification
+        ``pagein_verify``."""
+        self._check_lost(uid)
+        ent = self._entries.get(uid)
+        assert ent is not None, f"uid {uid} not spilled"
+        was = ent.state
+        with self.timers.stage("pagein_wait"):
+            work = self._fetch(ent)
+            if self.verify:
+                digests = self._digests.pop(uid)
+                with self.timers.stage("pagein_verify"):
+                    self._verify_pages(ent, work, digests)
+                # the entry survives a peek: its (joined) digests go back
+                # to the side pool for the next page-in
+                self._digests.submit(uid, lambda d=digests: d)
+            if ent.state == "reading":
+                # a prefetch landed this group: its staging slot is done
+                # once the working copy exists; the file stays the
+                # authoritative copy
+                self._staging.release(ent.slot)
+                ent.slot = None
+                ent.state = "nvme"
+        self.counters["pageins"] += 1
+        self.counters["pagein_pages"] += ent.n_pages
+        self.counters["pagein_bytes"] += ent.n_pages * self.page_stride
+        if was == "reading":
+            self.counters["pagein_prefetch_hits"] += 1
+        elif was == "nvme":
+            self.counters["pagein_prefetch_misses"] += 1
         return work
 
     def spill_digests(self, uid: Key) -> Optional[List[tuple]]:

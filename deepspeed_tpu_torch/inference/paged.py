@@ -27,14 +27,16 @@ write there, no sequence is ever allocated it.
 - :func:`fold_stats` and :func:`neutral_carry` are the reference's
   streaming-softmax combine and its identity, as plain torch: the
   definition the split-KV kernel's combine follows.
-
-The reference's chunked long-context scan (the ``carry`` operand and
-``_staged_attend_stats``) is not ported yet: ROADMAP A9.5.
+- The long-context scan's pieces (``deepspeed_tpu/inference/v2/
+  long_context.py``): both plain versions take an incoming flash carry
+  ``(m, l, acc)`` (``carry=``) and fold it before they normalize, and
+  :func:`staged_attend_stats` attends a staged dense block of parked
+  pages and returns raw stats without touching any pool.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,13 +52,6 @@ QUANT_FORMATS = {"int8": (torch.int8, 127.0),
                  "fp8": (torch.float8_e4m3fn, 448.0),
                  "fp8_e4m3": (torch.float8_e4m3fn, 448.0)}
 KV_CACHE_DTYPES = ("none", *QUANT_FORMATS)
-
-
-def _no_carry(carry) -> None:
-    if carry is not None:
-        raise NotImplementedError(
-            "the flash (m, l, acc) carry of the chunked long-context scan "
-            "is not ported yet: ROADMAP A9.5")
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +245,29 @@ class PageAllocator:
 # Plain versions of the paged-attention kernels
 # ---------------------------------------------------------------------------
 
+def _masked_stats(att: torch.Tensor, mask: torch.Tensor, v: torch.Tensor):
+    """Streaming-softmax stats of masked logits ``att [H, T, R]`` (already
+    ``_MASK_VALUE`` where ``mask [T, R]`` is false) over values ``v
+    [R, Hkv, D]``, each KV head's for its ``H // Hkv`` q heads: ``(m [T,H],
+    l [T,H], acc [T,H,D])``, fp32.  A row with no valid key has m =
+    ``_MASK_VALUE`` and l = acc = 0: the neutral carry."""
+    H, T, R = att.shape
+    Hkv = v.shape[1]
+    m = att.amax(dim=-1)                                       # [H, T]
+    p = torch.where(mask[None], torch.exp(att - m[..., None]), 0.0)
+    acc = torch.einsum("kgtr,rkd->tkgd", p.view(Hkv, H // Hkv, T, R), v)
+    return (m.T.contiguous(), p.sum(dim=-1).T.contiguous(),
+            acc.reshape(T, H, -1))
+
+
+def _fold_out(carry, att, mask, v, token_valid, dtype) -> torch.Tensor:
+    """Output of masked attention ``att`` with an incoming ``carry``
+    folded in first, then normalized (the reference's carry path)."""
+    m, l, acc = fold_stats(carry, *_masked_stats(att, mask, v))
+    y = acc / l.clamp_min(1e-30)[..., None]
+    return torch.where(token_valid[:, None, None], y, 0.0).to(dtype)
+
+
 def fold_stats(carry, m_cur: torch.Tensor, l_cur: torch.Tensor,
                acc_cur: torch.Tensor):
     """Fold a flash-attention carry ``(m, l, acc)`` with a fresh stat
@@ -307,8 +325,12 @@ def ref_paged_attention(q: torch.Tensor, pages: torch.Tensor,
     cu_q_lens ``[S+1]``; num_seqs ``[1]``.  Tokens past
     ``cu_q_lens[num_seqs]`` give 0; masking is causal on absolute
     positions, plus the optional sliding window.  Returns ``[T, H, D]``
-    in q's dtype.  O(T * P * page): test and check scale."""
-    _no_carry(carry)
+    in q's dtype.  O(T * P * page): test and check scale.
+
+    ``carry``: optional incoming flash stats ``(m [T,H], l [T,H],
+    acc [T,H,D])`` (fp32, natural-log units) of earlier dispatches of a
+    chunked scan, folded in before normalizing; a row with no resident
+    key then returns the normalized carry."""
     T, H, D = q.shape
     P, page, combined, _ = pages.shape
     Hkv = combined // 2
@@ -335,6 +357,8 @@ def ref_paged_attention(q: torch.Tensor, pages: torch.Tensor,
     v_r = v_flat.repeat_interleave(groups, dim=1)
     att = torch.einsum("thd,rhd->htr", q.float(), k_r) * sm_scale
     att = att.masked_fill(~mask[None], _MASK_VALUE)
+    if carry is not None:
+        return _fold_out(carry, att, mask, v_flat, token_valid, q.dtype)
     p = torch.softmax(att, dim=-1)
     y = torch.einsum("htr,rhd->thd", p, v_r)
     return torch.where(token_valid[:, None, None], y, 0.0).to(q.dtype)
@@ -358,9 +382,8 @@ def ref_paged_attention_quant(q: torch.Tensor, pages: torch.Tensor,
     attend).  Reads the metadata on the host.
 
     q: ``[T, H, D]``; pages: ``[P, page, 2*Hkv, D]`` int8 or
-    float8_e4m3fn; scales: ``[P, page, 2*Hkv]`` fp32.  Other arguments
-    and the return value as :func:`ref_paged_attention`."""
-    _no_carry(carry)
+    float8_e4m3fn; scales: ``[P, page, 2*Hkv]`` fp32.  Other arguments,
+    ``carry`` too, and the return value as :func:`ref_paged_attention`."""
     T, H, D = q.shape
     P, page, combined, _ = pages.shape
     Hkv = combined // 2
@@ -388,10 +411,50 @@ def ref_paged_attention_quant(q: torch.Tensor, pages: torch.Tensor,
         qg = q[t0:t1].float().reshape(t1 - t0, Hkv, groups, D)
         att = torch.einsum("nhgd,rhd->hgnr", qg, k) * sm_scale
         att = att.masked_fill(~mask, _MASK_VALUE)
+        if carry is not None:
+            n = t1 - t0
+            out[t0:t1] = _fold_out(
+                tuple(c[t0:t1] for c in carry), att.reshape(H, n, R), mask,
+                v, torch.ones(n, dtype=torch.bool, device=q.device),
+                torch.float32)
+            continue
         p = torch.softmax(att, dim=-1)
         out[t0:t1] = torch.einsum("hgnr,rhd->nhgd", p, v).reshape(
             t1 - t0, H, D)
     return out.to(q.dtype)
+
+
+def staged_attend_stats(q: torch.Tensor, staged_kv: torch.Tensor,
+                        kpos: torch.Tensor, qpos: torch.Tensor, *,
+                        sm_scale: float,
+                        staged_scales: Optional[torch.Tensor] = None,
+                        sliding_window: Optional[int] = None, carry=None):
+    """The chunk-stats dispatch of the long-context scan (the reference's
+    ``_staged_attend_stats``): queries ``q [T, H, D]`` over a STAGED dense
+    block of parked pages, ``staged_kv [R, 2*Hkv, D]`` in the store's
+    dtype (K at even combined heads, V at odd; int8 and e4m3 rows
+    dequantize by ``staged_scales [R, 2*Hkv]``), at absolute key positions
+    ``kpos [R]`` and query positions ``qpos [T]`` (-1 for a padding row,
+    which sees no key).  Masked causally and by the optional sliding
+    window; an incoming ``carry`` is folded after.  Returns the raw
+    ``(m, l, acc)`` in fp32, natural-log units; no pool is read or
+    written.  The q heads of a KV head attend it as one group (no
+    repeated K or V)."""
+    T, H, D = q.shape
+    R, combined, _ = staged_kv.shape
+    Hkv = combined // 2
+    sf = staged_kv.float()
+    if staged_scales is not None:
+        sf = sf * staged_scales.float()[..., None]
+    qg = q.float().view(T, Hkv, H // Hkv, D)
+    att = torch.einsum("tkgd,rkd->kgtr", qg, sf[:, 0::2]).reshape(
+        H, T, R) * sm_scale
+    mask = kpos[None, :] <= qpos[:, None]                      # [T, R]
+    if sliding_window is not None:
+        mask = mask & (kpos[None, :] > qpos[:, None] - sliding_window)
+    att = att.masked_fill(~mask[None], _MASK_VALUE)
+    stats = _masked_stats(att, mask, sf[:, 1::2])
+    return stats if carry is None else fold_stats(carry, *stats)
 
 
 # ---------------------------------------------------------------------------
@@ -409,6 +472,25 @@ class RaggedMeta:
     cu_q_lens: torch.Tensor
     num_seqs: torch.Tensor
     new_kv_dest: torch.Tensor
+    # the long-context scan: a finish dispatch's incoming flash carry
+    # (m, l, acc) for the paged kernels, or a chunk dispatch's staged
+    # blocks, which make attention return stats and write no pool
+    carry: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+    staged: Optional["StagedKV"] = None
+
+
+@dataclasses.dataclass
+class StagedKV:
+    """A layer's chunk dispatches: ``blocks`` yields each parked group's
+    ``(kv [R, 2*Hkv, D], scales or None, kpos [R])`` in the store's dtype
+    (:func:`staged_attend_stats`'s operands), in order and lazily, so a
+    block may be staged into a buffer the one before it has been read
+    from; ``qpos [T]`` are the queries' absolute positions.  Attention
+    folds every block's stats, from the neutral carry."""
+
+    blocks: Iterable[Tuple[torch.Tensor, Optional[torch.Tensor],
+                           torch.Tensor]]
+    qpos: torch.Tensor
 
 
 class PagedKVPool:

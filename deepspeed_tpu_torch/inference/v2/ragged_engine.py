@@ -96,11 +96,20 @@ JAX's threefry streams (:mod:`~deepspeed_tpu_torch.inference.sampling`).
   tick's first draft step also writes the draft's row one below the
   cursor, which after a tick that accepted every proposal holds the
   last proposal, a token no draft step processed.
+- **Long context** (``kv_tiering={"long_context": True, ...}``, A9.5).
+  A request whose KV outgrows the device pool keeps only its sink pages,
+  a recent window and the group in flight resident; the middle parks in
+  the tiers in groups of ``chunk_pages`` and streams back every tick
+  through a layer-major chunked attention scan that folds flash stats
+  into the paged kernels' carry
+  (:mod:`~deepspeed_tpu_torch.inference.v2.long_context`).  Such a
+  sequence ticks eagerly, outside the fused batch and the decode block;
+  while one is live the other sequences take the fused tick.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: long context (``kv_tiering.long_context``, A9.5), the fp8,
-fp6 and w8a8 weight formats (A9.6), handoff export/import (A9.7), tensor
-parallelism (A7a), and the control plane, SLOs and trace sampling (A10).
+ROADMAP item: the fp8, fp6 and w8a8 weight formats (A9.6), handoff
+export/import (A9.7), tensor parallelism (A7a), and the control plane,
+SLOs and trace sampling (A10).
 """
 from __future__ import annotations
 
@@ -222,6 +231,13 @@ class Request:
     pc_parent: int = ROOT_HASH
     pc_pages: int = 0
     pc_cached: int = 0
+    # long context (kv_tiering.long_context): the KV outgrows the device
+    # pool, so only the sinks and the recent window stay resident and the
+    # LongContextDriver ticks the sequence outside the fused batch.
+    # lc_parked counts the middle page GROUPS parked in the tiers under
+    # "mid-<uid>-<g>" (always a contiguous prefix of the middle)
+    lc: bool = False
+    lc_parked: int = 0
 
     @property
     def ctx_len(self) -> int:
@@ -306,7 +322,11 @@ class RaggedInferenceEngineV2:
         target's vocabulary, built under ``torch.device("meta")`` to have
         its weights made on the card) and ``draft_params`` as
         ``params``; ``draft_kv_cache_dtype`` is its pools' format, the
-        target's by default.  Every other feature kwarg raises
+        target's by default.  ``kv_tiering["long_context"]`` serves a
+        request whose KV outgrows the pool by partial residency (module
+        docstring; ``sink_pages``, ``window_pages``, ``chunk_pages``);
+        it refuses ``quantize_weights`` and models outside
+        ``LlamaForCausalLM``.  Every other feature kwarg raises
         ``NotImplementedError`` when it asks for a feature."""
         mcfg = getattr(model, "config", None)
         if not _llama_family(mcfg):
@@ -386,6 +406,7 @@ class RaggedInferenceEngineV2:
         self.module = normalize_params(model, params, dtype=self.dtype,
                                        device=self.device,
                                        generator=generator).eval()
+        self.quantize_weights = quantize_weights
         if quantize_weights is not None:
             b0, b1 = quantize_model_(self.module, quantize_weights)
             log_dist(f"ragged engine weights -> {quantize_weights}: "
@@ -482,10 +503,21 @@ class RaggedInferenceEngineV2:
                 me = weakref.proxy(self)
                 self._pfx.demote = lambda e: me._pfx_demote(e)
                 self._pfx.drop_spilled = self.tiering.drop
+        # -- long context: LongContextDriver (its refusals raise here, at
+        # construction)
+        self._lc = None
+        if self.tiering is not None and kv_tiering.long_context:
+            from deepspeed_tpu_torch.inference.v2.long_context import \
+                LongContextDriver
+            self._lc = LongContextDriver(self)
         note = ""
         if self.tiering is not None:
             note = (f" kv_tiering=host:{kv_tiering.host_pages}"
                     f"+nvme:{kv_tiering.nvme_pages}p")
+            if self._lc is not None:
+                note += (f" long_context=sink:{kv_tiering.sink_pages}"
+                         f"/window:{kv_tiering.window_pages}"
+                         f"/chunk:{kv_tiering.chunk_pages}")
         if self._pfx is not None:
             note += (f" prefix_cache=max:{prefix_cache.max_index_entries}"
                      f"/min:{prefix_cache.min_match_pages}p")
@@ -517,9 +549,6 @@ class RaggedInferenceEngineV2:
             slo = v2.slo if slo is None else slo
             trace_sample = (v2.trace_sample if trace_sample is None
                             else trace_sample)
-        if kv_tiering.long_context:
-            raise _unported("long context (kv_tiering.long_context)",
-                            "A9.5")
         if isinstance(control, bool):
             control = ControlConfig(enabled=control)
         elif isinstance(control, dict):
@@ -634,10 +663,23 @@ class RaggedInferenceEngineV2:
                     "every other sequence it could never be scheduled; "
                     "raise num_pages")
             return
-        # with tiering the bound is the combined tiers: a request beyond
-        # the device pool is accepted while the others can spill
-        # (max_new_tokens is a budget, not a promise); admission keeps
-        # the working-set bound of the device tier
+        # with tiering, two bounds named apart: (1) with long context,
+        # the RESIDENT WINDOW (sinks + window + group in flight + the
+        # growth frontier) must fit the device pool; without it the
+        # working-set bound stays an admission-time check, so a request
+        # beyond the device pool is accepted while the others can spill
+        # (max_new_tokens is a budget, not a promise); (2) the total
+        # must fit the combined tiers
+        if self._tier_cfg.long_context:
+            resident_need = min(total_pages, self._lc_resident_pages())
+            if resident_need > usable:
+                raise ValueError(
+                    f"request needs {resident_need} HBM-resident KV pages "
+                    "(the partial-residency window: sink_pages + "
+                    "window_pages + chunk_pages + 1) but the HBM tier "
+                    f"owns {usable} usable pages — raise num_pages or "
+                    "shrink the kv_tiering sink_pages/window_pages/"
+                    "chunk_pages knobs")
         cap = usable + self.tiering.budget_pages
         if total_pages > cap:
             raise ValueError(
@@ -656,6 +698,11 @@ class RaggedInferenceEngineV2:
         max_new = int(kw.get("max_new_tokens", 64))
         self.validate_request(prompt, max_new)
         req = Request(uid=next(self._uid), prompt=prompt, **kw)
+        if (self._lc is not None and self.allocator.pages_for(
+                prompt.size + max_new) > self.num_pages - 1):
+            # the whole KV cannot be resident: decode it under partial
+            # residency (LongContextDriver)
+            req.lc = True
         self.waiting.append(req)
         self.request_latency.on_submit(req.uid)
         return req.uid
@@ -697,8 +744,9 @@ class RaggedInferenceEngineV2:
     def cancel(self, uid: int) -> Optional[str]:
         """Cancel one request at any stage, releasing its slot and pool
         pages, or its spilled payload and the spill-holds on its shared
-        prefix pages.  Returns the stage it was cancelled at
-        (``"queued"`` / ``"spilled"`` / ``"prefill"`` / ``"decode"`` /
+        prefix pages, and a long-context request's parked groups.
+        Returns the stage it was cancelled at (``"queued"`` /
+        ``"spilled"`` / ``"prefill"`` / ``"decode"`` / ``"lc"`` /
         ``"finished"``) or ``None`` for an unknown uid (never submitted,
         or already collected)."""
         stage: Optional[str] = None
@@ -721,8 +769,10 @@ class RaggedInferenceEngineV2:
             for i, r in enumerate(self.slots):
                 if r is None or r.uid != uid:
                     continue
-                stage = ("prefill" if r.prefill_done < r.ctx_len
+                stage = ("lc" if r.lc
+                         else "prefill" if r.prefill_done < r.ctx_len
                          else "decode")
+                self._drop_lc_parked(r)
                 self._release_slot(i)
                 break
         if stage is None:
@@ -768,6 +818,14 @@ class RaggedInferenceEngineV2:
             self.allocator.decref(p)
         if self.tiering is not None:
             self.tiering.drop(r.uid)
+
+    def _drop_lc_parked(self, r: Request) -> None:
+        """Drop a long-context request's parked middle groups from the
+        tiers."""
+        if self.tiering is not None:
+            for g in range(r.lc_parked):
+                self.tiering.drop(f"mid-{r.uid}-{g}")
+        r.lc_parked = 0
 
     def _reprefill(self, r: Request) -> None:
         """Make ``r`` a continuation that re-prefills prompt + its own
@@ -1671,9 +1729,14 @@ class RaggedInferenceEngineV2:
         st = self.host_stats
         with st.stage("plan"):
             self._admit()
-            live = [r for r in self.slots if r is not None and not r.done]
-            decoding_ready = bool(live) and all(
-                r.prefill_done >= r.ctx_len for r in live)
+            lc_live = [r for r in self.slots
+                       if r is not None and not r.done and r.lc]
+            live = [r for r in self.slots
+                    if r is not None and not r.done and not r.lc]
+            # no decode block (nor pipeline, which could orphan them)
+            # while a long-context sequence is live
+            decoding_ready = (not lc_live and bool(live) and all(
+                r.prefill_done >= r.ctx_len for r in live))
             # speculation first: its block writes a k+1-wide span a tick,
             # so it needs more pages than a plain block; when the pool
             # cannot back it, fall back to the plain decode block (greedy
@@ -1699,6 +1762,9 @@ class RaggedInferenceEngineV2:
                 self._pipeline_start(live, spec=spec_block)
                 return self._pipeline_step()
             return self._step_block(live, spec=spec_block)
+        # long-context sequences tick through the chunked scan
+        # (LongContextDriver), eagerly, before the fused tick of the others
+        lc_produced = sum(self._lc.tick(r) for r in lc_live)
         with st.stage("plan"):
             plan = self._plan_tick()
         if plan is None:
@@ -1727,7 +1793,7 @@ class RaggedInferenceEngineV2:
                         self._evict(victim)
                 else:
                     self._evict(max(self._stalled, key=lambda r: r.uid))
-            return 0
+            return lc_produced
         (token_ids, positions, kv_lens, page_indices, cu_q_lens, num_seqs,
          new_kv_dest, sample_rows, samplers) = plan
         (token_ids, positions, kv_lens, page_indices, cu_q_lens, num_seqs,
@@ -1745,7 +1811,7 @@ class RaggedInferenceEngineV2:
         st.ticks += 1
         produced = self._sample(sel_logits, samplers)
         self._reap()
-        return produced
+        return produced + lc_produced
 
     def _admit(self) -> None:
         for i in range(self.max_seqs):
@@ -1821,7 +1887,7 @@ class RaggedInferenceEngineV2:
                 self.allocator.attach(i, shared)
                 self.page_table[i, :len(shared)] = shared
                 attached = len(shared)
-        elif self._pfx is not None:
+        elif self._pfx is not None and not req.lc:
             with st.stage("prefix"):
                 entries = self._pfx.match(req.ctx, touch=True)
                 pages_att: List[int] = []
@@ -1868,12 +1934,25 @@ class RaggedInferenceEngineV2:
             self.page_table[i, attached:attached + grow_n] = pages
         return True
 
+    def _lc_resident_pages(self) -> int:
+        """Device pages a long-context sequence needs at steady state:
+        sinks + the recent window + one group not yet parked + the
+        growth frontier."""
+        t = self._tier_cfg
+        return (int(t.sink_pages) + int(t.window_pages)
+                + int(t.chunk_pages) + 1)
+
     def _admit_need(self, req: Request) -> int:
         """Token coverage ``_admit`` reserves for ``req``: one formula
         shared with ``_admittable``, so the pipelined loop reconciles at
         exactly the steps where ``pipeline=False`` admits."""
         ctx_len = req.ctx_len
         rem = max(req.max_new_tokens - len(req.generated), 1)
+        if req.lc:
+            # partial residency: the resident window, not the context
+            # (the parked middle lives in the tiers)
+            return min(ctx_len + rem,
+                       self._lc_resident_pages() * self.page_size)
         if self.kv_reserve == "worst_case":
             # worst case INCLUDING re-prefilled output for evicted
             # continuations (their ctx carries earlier tokens)
@@ -1891,6 +1970,10 @@ class RaggedInferenceEngineV2:
         spill-hold re-attaches.  Returns ``(fresh, matched_entries)``.
         A probe: it leaves the index's LRU order as it is."""
         total = self.allocator.pages_for(need)
+        if req.lc:
+            # long context skips the prefix cache: parked columns would
+            # punch holes in a shared prefix run
+            return total, []
         if req.spilled is not None:
             return total - len(req.spilled.get("shared_pages", ())), []
         if self._pfx is None:
@@ -2146,7 +2229,7 @@ class RaggedInferenceEngineV2:
         self._stalled = []
         decode_rs = []
         for r in self.slots:
-            if r is None or r.done or r.prefill_done < r.ctx_len:
+            if r is None or r.done or r.lc or r.prefill_done < r.ctx_len:
                 continue
             # the tick writes the last generated token at position
             # length-1, so pages must cover `length` tokens
@@ -2156,7 +2239,8 @@ class RaggedInferenceEngineV2:
                 self._stalled.append(r)    # out of pages: sit this tick out
         prefill_rs = sorted(
             (r for r in self.slots
-             if r is not None and r.prefill_done < r.ctx_len),
+             if r is not None and not r.lc
+             and r.prefill_done < r.ctx_len),
             key=lambda r: r.uid)
         if not decode_rs and not prefill_rs:
             return None
@@ -2201,7 +2285,7 @@ class RaggedInferenceEngineV2:
         t = 0
         j = 0
         for r in [s for s in self.slots if s is not None]:
-            if r.done or r.uid in stalled_uids:
+            if r.done or r.lc or r.uid in stalled_uids:
                 continue
             self._last_sched[r.slot] = self._sched_seq
             if r.prefill_done >= r.ctx_len:                 # decode: 1 tok
@@ -2305,7 +2389,10 @@ class RaggedInferenceEngineV2:
     def _reap(self) -> None:
         for i, r in enumerate(self.slots):
             if r is not None and r.done:
-                if self._pfx is not None and self._pfx_cfg.include_generated:
+                # a long-context session's parked groups go with it
+                self._drop_lc_parked(r)
+                if (self._pfx is not None and not r.lc
+                        and self._pfx_cfg.include_generated):
                     # opt-in: publish full pages of generated tokens
                     # before the references drop.  Decode pages come from
                     # the decode block, not the fused prefill, so equal

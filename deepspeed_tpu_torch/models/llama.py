@@ -32,7 +32,8 @@ from torch.nn import functional as F
 
 from deepspeed_tpu_torch.inference.kv_cache import KVCache, cached_attention
 from deepspeed_tpu_torch.inference.paged import (KV_CACHE_DTYPES,
-                                                 PagedKVPool, RaggedMeta)
+                                                 PagedKVPool, RaggedMeta,
+                                                 staged_attend_stats)
 from deepspeed_tpu_torch.models.gpt2 import (next_token_loss, remat_call,
                                              remat_policy_fn)
 from deepspeed_tpu_torch.ops.flash_attention import (flash_attention,
@@ -228,27 +229,32 @@ class LlamaAttention(nn.Module):
         [B, S, heads, rot/2].  A ``PagedKVPool`` cache takes the paged
         path: this tick's K/V rows are written into the pool, then ragged
         paged attention runs over it for all ``S`` tokens of the ``[1, S]``
-        batch."""
+        batch.  A ``ragged_meta`` with staged blocks (a layer's
+        long-context chunk dispatches) returns the flash stats ``(m, l,
+        acc)`` of the queries over those blocks instead, and writes
+        nothing."""
         cfg = self.config
         B, S, _ = x.shape
         H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
                       cfg.head_dim)
+        cos, sin = rope
+        rot = 2 * cos.shape[-1]
+
+        def rotate(t):
+            if rot >= Dh:
+                return apply_rotary(t, cos, sin)
+            # partial rotary (Phi family): rope the first `rot` dims
+            return torch.cat([apply_rotary(t[..., :rot], cos, sin),
+                              t[..., rot:]], dim=-1)
+
         # rotary in the projections' own [B, S, heads, Dh] layout; the
         # [B, heads, S, Dh] views below are strides only, which the flash
         # kernel reads directly
-        q = self.q_proj(x).view(B, S, H, Dh)
-        k = self.k_proj(x).view(B, S, Hkv, Dh)
+        q = rotate(self.q_proj(x).view(B, S, H, Dh))
+        if ragged_meta is not None and ragged_meta.staged is not None:
+            return self._paged(q[0], None, None, None, ragged_meta)
+        k = rotate(self.k_proj(x).view(B, S, Hkv, Dh))
         v = self.v_proj(x).view(B, S, Hkv, Dh)
-        cos, sin = rope
-        rot = 2 * cos.shape[-1]
-        if rot >= Dh:
-            q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
-        else:
-            # partial rotary (Phi family): rope the first `rot` dims
-            q = torch.cat([apply_rotary(q[..., :rot], cos, sin),
-                           q[..., rot:]], dim=-1)
-            k = torch.cat([apply_rotary(k[..., :rot], cos, sin),
-                           k[..., rot:]], dim=-1)
         if isinstance(kv_cache, PagedKVPool):
             y = self._paged(q[0], k[0], v[0], kv_cache, ragged_meta)
             return self.o_proj(y.reshape(B, S, H * Dh))
@@ -282,14 +288,27 @@ class LlamaAttention(nn.Module):
                pool: PagedKVPool, meta: Optional[RaggedMeta]
                ) -> torch.Tensor:
         """q [T, H, D], k and v [T, Hkv, D] (rotary applied): write this
-        tick's rows into ``pool``, then attend over it."""
+        tick's rows into ``pool``, then attend over it, folding
+        ``meta.carry`` in when there is one.  With ``meta.staged`` (the
+        reference's ``staged_kv`` short-circuit) the queries attend each
+        staged block in turn, their raw stats folded, and the stats come
+        back; no pool is touched."""
         if meta is None:
             raise ValueError("a paged KV cache needs the tick's ragged_meta")
+        kw = dict(sm_scale=1.0 / math.sqrt(q.shape[-1]),
+                  sliding_window=self.config.sliding_window)
+        st = meta.staged
+        if st is not None:
+            carry = None
+            for kv, scales, kpos in st.blocks:
+                carry = staged_attend_stats(q, kv, kpos, st.qpos,
+                                            staged_scales=scales,
+                                            carry=carry, **kw)
+            return carry
         pool.write(k, v, meta.new_kv_dest)
         args = (meta.kv_lens, meta.page_indices, meta.cu_q_lens,
                 meta.num_seqs)
-        kw = dict(sm_scale=1.0 / math.sqrt(q.shape[-1]),
-                  sliding_window=self.config.sliding_window)
+        kw["carry"] = meta.carry
         if pool.quantized:
             return ragged_paged_attention_quant(q, pool.pages, pool.scales,
                                                 *args, **kw)
@@ -323,8 +342,21 @@ class LlamaBlock(nn.Module):
                                kv_cache, ragged_meta)
         return x + self.mlp(self.post_attention_layernorm(x))
 
+    def chunk_stats(self, x, positions, rope, ragged_meta: RaggedMeta):
+        """The long-context chunk dispatches of this layer: input norm
+        and q once, then the folded stats over every block of
+        ``ragged_meta.staged`` (the reference's ``_ChunkScan``, which
+        applies the block's own norm and attention weights, once a
+        group)."""
+        return self.self_attn(self.input_layernorm(x), positions, rope,
+                              None, ragged_meta)
+
 
 class LlamaModel(nn.Module):
+    """``forward`` runs every layer; ``LongContextDriver`` runs them one
+    at a time through ``embed_tokens``, :meth:`rope`, ``layers[i]`` (and
+    its :meth:`LlamaBlock.chunk_stats`) and ``norm``."""
+
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         self.config = cfg
@@ -343,14 +375,7 @@ class LlamaModel(nn.Module):
         S = input_ids.shape[1]
         if positions is None:
             positions = torch.arange(S, device=input_ids.device)
-        # rotary angles once for every layer: [S, r/2] -> [1, S, 1, r/2],
-        # [B, S, r/2] -> [B, S, 1, r/2] (the [B, S, heads, Dh] layout)
-        rot = int(cfg.head_dim * cfg.partial_rotary_factor)
-        angles = rope_angles(positions, min(rot, cfg.head_dim),
-                             cfg.rope_theta)
-        angles = angles[None, :, None] if angles.dim() == 2 \
-            else angles[:, :, None]
-        rope = (angles.cos(), angles.sin())
+        rope = self.rope(positions)
         x = self.embed_tokens(input_ids)
         remat = (cfg.remat and cfg.remat_policy != "none"
                  and torch.is_grad_enabled() and kv_cache is None)
@@ -364,6 +389,18 @@ class LlamaModel(nn.Module):
                           None if kv_cache is None else kv_cache[i],
                           ragged_meta)
         return self.norm(x)
+
+    def rope(self, positions: torch.Tensor):
+        """Rotary (cos, sin) of ``positions`` for every layer: [S] ->
+        [1, S, 1, r/2], [B, S] -> [B, S, 1, r/2] (the [B, S, heads, Dh]
+        layout)."""
+        cfg = self.config
+        rot = int(cfg.head_dim * cfg.partial_rotary_factor)
+        angles = rope_angles(positions, min(rot, cfg.head_dim),
+                             cfg.rope_theta)
+        angles = angles[None, :, None] if angles.dim() == 2 \
+            else angles[:, :, None]
+        return angles.cos(), angles.sin()
 
 
 class LlamaForCausalLM(nn.Module):

@@ -20,6 +20,16 @@
 // no key (the engine never makes one: a token's own key is written
 // before attention).
 //
+// An optional incoming carry (the long-context scan's finish dispatch:
+// deepspeed_tpu/ops/ragged_paged_quant.py:84-90 seeds its accumulators
+// with it) holds raw flash stats of keys attended elsewhere, m and l
+// [T,H] and un-normalized acc [T,H,D], fp32, m in natural-log units of
+// the scaled score.  The kernel folds the carry first, then the resident
+// keys, then normalizes, so a row that sees no resident key returns the
+// normalized carry.  A carry row with l == 0 is the neutral element and
+// is skipped: its m (-0.7 * FLT_MAX) would overflow to -inf in log2
+// units, and -inf - -inf is NaN.
+//
 // What bounds it on this card: bytes.  Decode reads every attended page
 // once per tick (page * 2 * Hkv * D * elem bytes per page) for 4 * D
 // operations per (query head, key) pair, so a decode tick at 16
@@ -49,7 +59,10 @@
 //   of its splits writes raw fp32 stats (m in log2 units, l, acc) to the
 //   wrapper's scratch [splits, T, H(, D)], and a second kernel of the
 //   same call, rpa_combine, folds them in split order and normalizes.
-//   No atomics: two calls give the same bits.
+//   No atomics: two calls give the same bits.  A call with a carry
+//   always takes the stats path, at one split too: rpa_combine folds the
+//   carry as a split before split 0 (splits made only of holes have
+//   l == 0 and weigh nothing), so the direct write is never reached.
 // - A page ring several stages deep.  A unit copies its slice of the
 //   page table into shared memory once; then cp.async keeps two (bf16
 //   pages) or three (1-byte pages) stages in flight behind the one being
@@ -77,7 +90,8 @@
 //   PV product (the row sum takes p unscaled).
 // - fp32 queries take a SIMT kernel in full fp32 over fp32, int8 or e4m3
 //   pages (rpa_simt: one block per (q tile, KV head), no split), so a
-//   float32 model matches the CPU without TF32 rounding.
+//   float32 model matches the CPU without TF32 rounding.  A carry seeds
+//   its softmax state, as the Pallas kernel seeds its scratch.
 // - Masks use the finite -0.7 * FLT_MAX of the reference, so a wholly
 //   masked tile or split folds away exactly once a valid key arrives.
 // - The launcher returns cudaGetLastError(), so a refused launch is seen.
@@ -116,6 +130,10 @@ struct Args {
   float* part_m;
   float* part_l;
   float* part_acc;
+  // incoming flash carry, [T, H] and [T, H, D] fp32, or all null
+  const float* carry_m;
+  const float* carry_l;
+  const float* carry_acc;
   int T, H, Hkv, S, pp, page, window;  // window <= 0: none
   int splits, split_stages, log_page;  // page == 1 << log_page
   float scale;
@@ -382,6 +400,13 @@ __device__ __forceinline__ void load_q_tile(QT* Qs, const Args& a,
 
 __device__ __forceinline__ bool key_visible(int key, int qpos, int window) {
   return key <= qpos && (window <= 0 || key > qpos - window);
+}
+
+// Whether carry row `row` (token * H + head) holds stats: l > 0 (the
+// neutral carry has l == 0 and m = MASK)
+__device__ __forceinline__ bool carry_live(const Args& a, int64_t row) {
+  return a.carry_m != nullptr && a.carry_l[row] > 0.f &&
+         a.carry_m[row] > MASK * 0.5f;
 }
 
 // ---------------------------------------------------------------------------
@@ -798,7 +823,7 @@ __global__ void __launch_bounds__(THREADS) rpa_mma(const Args a) {
   key_range(a, u.w, kt_begin, kt_end);
   split_span(a, kt_begin, kt_end, z0, n);
   if (u.z < z0 || u.z >= z0 + n) return;  // outside the tile's keys
-  u.direct = n == 1;
+  u.direct = n == 1 && a.carry_m == nullptr;
   u.s_begin = max(kt_begin, u.z * a.split_stages);
   u.s_end = min(kt_end, (u.z + 1) * a.split_stages);
   u.live_rows = u.w.ntok * u.groups;
@@ -814,13 +839,14 @@ __global__ void __launch_bounds__(THREADS) rpa_mma(const Args a) {
   }
 }
 
-// The second kernel of a split call: one warp per (token, q head) row
-// folds the raw stats of the row's splits (the reference's fold_stats,
-// in split order, in its closed form: m = the largest m_z, and split z
-// weighs exp(m_z - m) in l and in acc) and writes o.  Lanes load the
-// splits' (m, l) together and sum l in a fixed tree; acc is summed in
-// split order.  Rows of a tile with one split were written by rpa_mma,
-// and so were padding tokens.
+// The second kernel of a split call (or of any call with a carry): one
+// warp per (token, q head) row folds the raw stats of the row's splits
+// (the reference's fold_stats, in split order, in its closed form: m =
+// the largest m_z, and split z weighs exp(m_z - m) in l and in acc) and
+// writes o.  A live carry row comes first, as a split before split 0.
+// Lanes load the splits' (m, l) together and sum l in a fixed tree; acc
+// is summed in split order.  Without a carry, rows of a tile with one
+// split were written by rpa_mma; padding tokens always were.
 template <int D>
 __global__ void __launch_bounds__(THREADS) rpa_combine(const Args a) {
   constexpr int V = D / 32;  // values per lane
@@ -845,12 +871,16 @@ __global__ void __launch_bounds__(THREADS) rpa_combine(const Args a) {
   int kt_begin, kt_end, z0, n;
   key_range(a, w, kt_begin, kt_end);
   split_span(a, kt_begin, kt_end, z0, n);
-  if (n == 1) return;
+  const int64_t crow = (int64_t)tok * a.H + h;
+  const bool carry = carry_live(a, crow);
+  if (n == 1 && a.carry_m == nullptr) return;
   const int64_t stride = (int64_t)a.T * a.H;  // from split z to z + 1
-  const int64_t row0 = (int64_t)z0 * stride + (int64_t)tok * a.H + h;
-  // m = max over the splits that ran a stage (l > 0; a split of holes
-  // only ran none)
-  float m = -INFINITY;
+  const int64_t row0 = (int64_t)z0 * stride + crow;
+  // the carry's m in the kernel's log2 units (finite: l > 0)
+  const float cm = carry ? a.carry_m[crow] * LOG2E : -INFINITY;
+  // m = max over the carry and the splits that ran a stage (l > 0; a
+  // split of holes only ran none)
+  float m = cm;
   for (int z = lane; z < n; z += 32)
     if (a.part_l[row0 + z * stride] > 0.f)
       m = fmaxf(m, a.part_m[row0 + z * stride]);
@@ -858,6 +888,12 @@ __global__ void __launch_bounds__(THREADS) rpa_combine(const Args a) {
   float l = 0.f, acc[V];
   for (int i = 0; i < V; ++i) acc[i] = 0.f;
   if (m != -INFINITY) {
+    if (carry) {  // the carry first: lane 0 adds its l, every lane its acc
+      const float c = exp2f(cm - m);
+      if (lane == 0) l = c * a.carry_l[crow];
+      const float* ca = a.carry_acc + crow * D + lane * V;
+      for (int i = 0; i < V; ++i) acc[i] = c * ca[i];
+    }
     for (int z0l = 0; z0l < n; z0l += 32) {
       const int z = z0l + lane;
       float c = 0.f;  // split z's weight
@@ -954,10 +990,19 @@ __global__ void __launch_bounds__(THREADS) rpa_simt(const Args a) {
 
   load_q_tile<float, D, LDQ>(Qs, a, w, groups, kvh);
   cp_async_commit();
-  for (int idx = threadIdx.x; idx < BM * LDQ; idx += THREADS) Os[idx] = 0.f;
+  // the softmax state starts empty, or at a live carry row's stats
+  auto carry_row = [&](int r) -> int64_t {
+    return (int64_t)(w.t0 + r / groups) * a.H + kvh * groups + r % groups;
+  };
+  for (int idx = threadIdx.x; idx < BM * LDQ; idx += THREADS) {
+    const int r = idx / LDQ, d = idx % LDQ;
+    const bool seed = r < live_rows && d < D && carry_live(a, carry_row(r));
+    Os[idx] = seed ? a.carry_acc[carry_row(r) * D + d] : 0.f;
+  }
   for (int r = threadIdx.x; r < BM; r += THREADS) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.f;
+    const bool seed = r < live_rows && carry_live(a, carry_row(r));
+    m_s[r] = seed ? a.carry_m[carry_row(r)] : -INFINITY;
+    l_s[r] = seed ? a.carry_l[carry_row(r)] : 0.f;
   }
 
   for (int kt = next_tile(a, prow, kt_begin, kt_end); kt < kt_end;
@@ -1048,8 +1093,8 @@ cudaError_t launch(K kernel, size_t smem, const Args& a, cudaStream_t stream) {
 }
 
 // rpa_mma over (q tile slots, KV heads, splits), then rpa_combine when
-// there is more than one split.  The split plan must cover the page
-// table and keep a unit's slice of it within PT_MAX entries.
+// there is more than one split or a carry.  The split plan must cover the
+// page table and keep a unit's slice of it within PT_MAX entries.
 template <typename P, int D>
 cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
   using L = SmemMma<P, D>;
@@ -1057,8 +1102,9 @@ cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
   if (a.splits < 1 || a.split_stages < 1 ||
       (int64_t)a.splits * a.split_stages < stages ||
       (((int64_t)a.split_stages * BN) >> a.log_page) + 1 > PT_MAX ||
-      (a.splits > 1 && (a.part_m == nullptr || a.part_l == nullptr ||
-                        a.part_acc == nullptr)))
+      ((a.splits > 1 || a.carry_m != nullptr) &&
+       (a.part_m == nullptr || a.part_l == nullptr ||
+        a.part_acc == nullptr)))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       rpa_mma<P, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1068,7 +1114,8 @@ cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.T + tq - 1) / tq + a.S, a.Hkv, a.splits);
   rpa_mma<P, D><<<grid, THREADS, L::bytes, stream>>>(a);
   err = cudaGetLastError();
-  if (err != cudaSuccess || a.splits == 1) return err;
+  if (err != cudaSuccess || (a.splits == 1 && a.carry_m == nullptr))
+    return err;
   const int64_t rows = (int64_t)a.T * a.H;
   rpa_combine<D><<<(unsigned)((rows + WARPS - 1) / WARPS), THREADS, 0,
                    stream>>>(a);
@@ -1114,15 +1161,19 @@ extern "C" {
 // checked shapes, D in {64, 128}, page in {16, 32, 64, 128} and
 // H / Hkv <= 64.  window <= 0 means no sliding window.  bf16 queries run
 // `splits` key splits of `split_stages` 64-key stages each (the
-// wrapper's split_plan); with splits > 1, part_m and part_l
+// wrapper's split_plan); with splits > 1 or a carry, part_m and part_l
 // [splits, T, H] and part_acc [splits, T, H, D] (fp32) are scratch.
-// fp32 queries ignore the three and the plan.  Returns a cudaError_t
-// (0 on success).
+// fp32 queries ignore the three and the plan.  carry_m, carry_l [T, H]
+// and carry_acc [T, H, D] (fp32, m in natural-log units) are the
+// incoming flash carry, or all null.  Returns a cudaError_t (0 on
+// success).
 int dstpu_ragged_paged_attn(const void* q, const void* pages,
                             const float* scales, void* o, const int* kv_lens,
                             const int* page_indices, const int* cu_q_lens,
                             const int* num_seqs, float* part_m, float* part_l,
-                            float* part_acc, int q_dtype, int page_dtype,
+                            float* part_acc, const float* carry_m,
+                            const float* carry_l, const float* carry_acc,
+                            int q_dtype, int page_dtype,
                             int T, int H, int Hkv, int D, int S, int pp,
                             int page, int window, int splits,
                             int split_stages, float scale, void* stream) {
@@ -1130,8 +1181,9 @@ int dstpu_ragged_paged_attn(const void* q, const void* pages,
   while ((1 << log_page) < page) ++log_page;
   if ((1 << log_page) != page) return cudaErrorInvalidValue;
   const Args a{q, pages, scales, o, kv_lens, page_indices, cu_q_lens,
-               num_seqs, part_m, part_l, part_acc, T, H, Hkv, S, pp, page,
-               window, splits, split_stages, log_page, scale};
+               num_seqs, part_m, part_l, part_acc, carry_m, carry_l,
+               carry_acc, T, H, Hkv, S, pp, page, window, splits,
+               split_stages, log_page, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64) return dispatch_page<64>(q_dtype, page_dtype, a, st);
   if (D == 128) return dispatch_page<128>(q_dtype, page_dtype, a, st);

@@ -20,6 +20,13 @@ when :func:`split_plan` cuts the keys into more than one split: then
 wrapper allocates.  The wrappers never read a device value on the host
 (the plan depends on shapes only), so they can run inside a captured
 decode block.
+
+Both take the long-context scan's incoming flash carry, ``carry=(m, l,
+acc)`` (fp32 ``[T,H]``, ``[T,H]``, ``[T,H,D]``, m in natural-log units):
+the kernels fold it before the resident keys and normalize after.  With
+bf16 queries a call with a carry always runs ``rpa_combine``, which
+folds the carry as a split before split 0, so its scratch is sized
+``splits x T x H`` at one split too.
 """
 from __future__ import annotations
 
@@ -74,7 +81,7 @@ def split_plan(T: int, S: int, H: int, Hkv: int, pp: int,
 
 
 def _check(q, pages, scales, kv_lens, page_indices, cu_q_lens, num_seqs,
-           sliding_window) -> None:
+           sliding_window, carry) -> None:
     if q.dim() != 3 or pages.dim() != 4:
         raise ValueError(f"want q [T,H,D] and pages [P,page,2*Hkv,D]; got "
                          f"{tuple(q.shape)}, {tuple(pages.shape)}")
@@ -111,6 +118,14 @@ def _check(q, pages, scales, kv_lens, page_indices, cu_q_lens, num_seqs,
     tensors = [q, pages, kv_lens, page_indices, cu_q_lens, num_seqs]
     if scales is not None:
         tensors.append(scales)
+    if carry is not None:
+        want = ((T, H), (T, H), (T, H, D))
+        if (len(carry) != 3 or any(c.dtype != torch.float32 for c in carry)
+                or tuple(tuple(c.shape) for c in carry) != want):
+            raise ValueError(
+                f"carry must be float32 (m, l, acc) of shapes {want}, got "
+                f"{[(str(c.dtype), tuple(c.shape)) for c in carry]}")
+        tensors += list(carry)
     if any(t.device != q.device for t in tensors):
         raise ValueError("all tensors must be on one device, got "
                          f"{sorted({str(t.device) for t in tensors})}")
@@ -121,7 +136,7 @@ def _lib() -> ctypes.CDLL:
     if lib.dstpu_ragged_paged_attn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.dstpu_ragged_paged_attn.argtypes = (
-            [ptr] * 11 + [i32] * 12 + [ctypes.c_float, ptr])
+            [ptr] * 14 + [i32] * 12 + [ctypes.c_float, ptr])
         lib.dstpu_ragged_paged_attn.restype = i32
         lib.dstpu_cuda_error_string.argtypes = [i32]
         lib.dstpu_cuda_error_string.restype = ctypes.c_char_p
@@ -129,13 +144,17 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(q, pages, scales, kv_lens, page_indices, cu_q_lens, num_seqs,
-            sm_scale: float, sliding_window: Optional[int]) -> torch.Tensor:
+            sm_scale: float, sliding_window: Optional[int],
+            carry) -> torch.Tensor:
     if q.device.type != "cuda":
         raise ValueError(f"ragged paged attention runs on cuda or cpu, not "
                          f"{q.device}")
     tensors = [q, pages, kv_lens, page_indices, cu_q_lens, num_seqs]
     if scales is not None:
         tensors.append(scales)
+    if carry is not None:
+        # stats come out of reductions in any layout: [T, H(, D)] rows
+        carry = tuple(c.contiguous() for c in carry)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel reads contiguous tensors")
     T, H, D = q.shape
@@ -148,7 +167,7 @@ def _launch(q, pages, scales, kv_lens, page_indices, cu_q_lens, num_seqs,
     o = torch.empty_like(q)
     splits, split_stages = split_plan(T, S, H, combined // 2, pp, page)
     parts = [None] * 3
-    if q.dtype == torch.bfloat16 and splits > 1:
+    if q.dtype == torch.bfloat16 and (splits > 1 or carry is not None):
         # raw stats of every split: m and l [splits,T,H], acc [..., D]
         n = splits * T * H
         stats = torch.empty(n * (D + 2), dtype=torch.float32,
@@ -162,6 +181,8 @@ def _launch(q, pages, scales, kv_lens, page_indices, cu_q_lens, num_seqs,
             None if scales is None else scales.data_ptr(), o.data_ptr(),
             kv_lens.data_ptr(), page_indices.data_ptr(),
             cu_q_lens.data_ptr(), num_seqs.data_ptr(), *parts,
+            *([None] * 3 if carry is None else
+              [c.data_ptr() for c in carry]),
             _Q_DTYPES[q.dtype], _PAGE_DTYPES[pages.dtype], T, H,
             combined // 2, D, S, pp, page,
             0 if sliding_window is None else int(sliding_window),
@@ -176,26 +197,28 @@ def ragged_paged_attention(q: torch.Tensor, pages: torch.Tensor,
                            kv_lens: torch.Tensor, page_indices: torch.Tensor,
                            cu_q_lens: torch.Tensor, num_seqs: torch.Tensor,
                            *, sm_scale: float,
-                           sliding_window: Optional[int] = None
-                           ) -> torch.Tensor:
+                           sliding_window: Optional[int] = None,
+                           carry=None) -> torch.Tensor:
     """Attention of one fused tick's tokens ``q [T,H,D]`` over full-width
     pages ``[P,page,2*Hkv,D]`` of q's dtype (bf16 or fp32), through the
     page table; returns ``[T,H,D]`` in q's dtype.  Metadata (int32):
     ``kv_lens [S]``, ``page_indices [S,pp]`` (-1 = padding or hole),
     ``cu_q_lens [S+1]``, ``num_seqs [1]``.  Page in {16, 32, 64, 128};
-    the kernel takes D in {64, 128}.  CPU tensors of any D take
+    the kernel takes D in {64, 128}.  ``carry``: an incoming flash carry
+    (module docstring), folded in.  CPU tensors of any D take
     :func:`ref_paged_attention`."""
     _check(q, pages, None, kv_lens, page_indices, cu_q_lens, num_seqs,
-           sliding_window)
+           sliding_window, carry)
     if pages.dtype != q.dtype:
         raise TypeError(f"full-width pages must have q's dtype {q.dtype}, "
                         f"got {pages.dtype}")
     if q.device.type == "cpu":
         return ref_paged_attention(q, pages, kv_lens, page_indices,
                                    cu_q_lens, num_seqs, sm_scale=sm_scale,
-                                   sliding_window=sliding_window)
+                                   sliding_window=sliding_window,
+                                   carry=carry)
     out = _launch(q, pages, None, kv_lens, page_indices, cu_q_lens,
-                  num_seqs, sm_scale, sliding_window)
+                  num_seqs, sm_scale, sliding_window, carry)
     ragged_paged_attention.launches += 1
     return out
 
@@ -208,23 +231,24 @@ def ragged_paged_attention_quant(q: torch.Tensor, pages: torch.Tensor,
                                  page_indices: torch.Tensor,
                                  cu_q_lens: torch.Tensor,
                                  num_seqs: torch.Tensor, *, sm_scale: float,
-                                 sliding_window: Optional[int] = None
-                                 ) -> torch.Tensor:
+                                 sliding_window: Optional[int] = None,
+                                 carry=None) -> torch.Tensor:
     """:func:`ragged_paged_attention` over a quantized pool: ``pages``
     int8 or float8_e4m3fn and ``scales [P,page,2*Hkv]`` fp32, one scale
     per (row, combined head).  The pages are read 1 byte wide; q may be
-    bf16 or fp32.  CPU tensors take :func:`ref_paged_attention_quant`."""
+    bf16 or fp32; ``carry`` as :func:`ragged_paged_attention`.  CPU
+    tensors take :func:`ref_paged_attention_quant`."""
     _check(q, pages, scales, kv_lens, page_indices, cu_q_lens, num_seqs,
-           sliding_window)
+           sliding_window, carry)
     if pages.dtype not in _QUANT:
         raise TypeError(f"quantized pages must be int8 or float8_e4m3fn, "
                         f"got {pages.dtype}")
     if q.device.type == "cpu":
         return ref_paged_attention_quant(
             q, pages, scales, kv_lens, page_indices, cu_q_lens, num_seqs,
-            sm_scale=sm_scale, sliding_window=sliding_window)
+            sm_scale=sm_scale, sliding_window=sliding_window, carry=carry)
     out = _launch(q, pages, scales, kv_lens, page_indices, cu_q_lens,
-                  num_seqs, sm_scale, sliding_window)
+                  num_seqs, sm_scale, sliding_window, carry)
     ragged_paged_attention_quant.launches += 1
     return out
 

@@ -10,9 +10,10 @@ entry point in the same process.
 ``kernel`` is ``ops/csrc/ragged_paged_attn.cu`` as committed.
 ``--variant`` adds another source of ``dstpu_ragged_paged_attn`` (for
 example the parent commit's, from ``git show HEAD:...`` into a
-git-ignored directory); a source without split scratch is called with
-the older argument list.  ``--ablations`` adds builds of the committed
-source with one design choice changed each: ``stages2`` (a ring of two
+git-ignored directory); a source without split scratch, or without the
+carry operand, is called with its older argument list (no carry is
+passed: the timed shapes have none).  ``--ablations`` adds builds of
+the committed source with one design choice changed each: ``stages2`` (a ring of two
 stages for every page type instead of three for bf16 and four for
 1-byte pages) and ``one_warp`` (one warp per 16 rows at decode, so three
 of four idle, instead of all four sharing the keys); and ``no_split``,
@@ -93,7 +94,7 @@ def card_name() -> str:
 
 def build(sources):
     """One library per (name, source text), all nvcc started together;
-    returns {name: (lib, new_abi)}."""
+    returns {name: (lib, abi)}."""
     from deepspeed_tpu_torch.ops import builder
 
     out_dir = builder.BUILD_DIR / "bench_paged_attn"
@@ -122,12 +123,14 @@ def build(sources):
         print(f"[{name}] ptxas, bf16-query kernels: {mma}; warnings: "
               f"{warn}", flush=True)
         lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-        new_abi = "part_acc" in sources[name]
+        # 0: no split scratch, 1: split scratch, 2: and the carry operand
+        abi = (2 if "carry_acc" in sources[name] else
+               1 if "part_acc" in sources[name] else 0)
         lib.dstpu_ragged_paged_attn.argtypes = (
-            [ptr] * 11 + [i32] * 12 + [ctypes.c_float, ptr] if new_abi
-            else [ptr] * 8 + [i32] * 10 + [ctypes.c_float, ptr])
+            [ptr] * (8 + 3 * abi) + [i32] * (10 + 2 * (abi > 0)) +
+            [ctypes.c_float, ptr])
         lib.dstpu_ragged_paged_attn.restype = i32
-        libs[name] = (lib, new_abi)
+        libs[name] = (lib, abi)
     return libs
 
 
@@ -135,7 +138,7 @@ class Call:
     """One build's call on fixed inputs, outputs and scratch allocated
     once, so that it can be captured in a CUDA graph."""
 
-    def __init__(self, lib, new_abi, q, pages, scales, meta, window,
+    def __init__(self, lib, abi, q, pages, scales, meta, window,
                  plan=None):
         from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
 
@@ -147,23 +150,23 @@ class Call:
                                                 page)
         self.stats = None
         parts = []
-        if new_abi:
-            parts = [None] * 3
+        if abi:
+            parts = [None] * (3 * abi)
             if splits > 1:
                 n = splits * T * H
                 self.stats = torch.empty(n * (D + 2), device=q.device)
-                parts = [self.stats[:n].data_ptr(),
-                         self.stats[n:2 * n].data_ptr(),
-                         self.stats[2 * n:].data_ptr()]
+                parts[:3] = [self.stats[:n].data_ptr(),
+                             self.stats[n:2 * n].data_ptr(),
+                             self.stats[2 * n:].data_ptr()]
         head = [q.data_ptr(), pages.data_ptr(),
                 None if scales is None else scales.data_ptr(),
                 self.o.data_ptr(), *(m.data_ptr() for m in meta), *parts,
                 0, rpa._PAGE_DTYPES[pages.dtype], T, H, combined // 2, D,
                 S, pp, page, window or 0]
-        self.args = head + ([splits, stages] if new_abi else [])
+        self.args = head + ([splits, stages] if abi else [])
         self.fn = lib.dstpu_ragged_paged_attn
         self.scale = D ** -0.5
-        self.splits = splits if new_abi else 1
+        self.splits = splits if abi else 1
 
     def __call__(self):
         stream = torch.cuda.current_stream().cuda_stream
@@ -234,12 +237,12 @@ def main() -> int:
         runs["no_split"] = ("kernel", "one")
 
     def call_of(run, case):
-        lib, new_abi = libs[runs[run][0]]
+        lib, abi = libs[runs[run][0]]
         q, pages, scales, meta, window = case[:5]
         plan = None
         if runs[run][1] == "one":
             plan = (1, -(-meta[1].shape[1] * pages.shape[1] // 64))
-        return Call(lib, new_abi, q, pages, scales, meta, window, plan)
+        return Call(lib, abi, q, pages, scales, meta, window, plan)
 
     failed = []
     shapes = {**TIMED, **CHECKS}

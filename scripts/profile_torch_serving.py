@@ -5,6 +5,7 @@
                                              [--weights bf16|int8]
                                              [--cuda-graph]
                                              [--spec ngram|draft]
+                                             [--long-context]
                                              [--out FILE]
 
 Builds ``llama3-8b`` at full width and depth with random seeded weights
@@ -35,6 +36,19 @@ class: GEMMs, paged attention (``rpa_*``), verify sampling (arg-max,
 softmax, sort and scan kernels) and the rest, in all and per tick (the
 draft's steps fall in the same classes as the verify's).
 
+``--long-context`` (v2, graphs on): long context (``kv_tiering``
+``long_context``, `chip_smoke.py` phase 21's settings: 64-token pages, a
+17-page pool, sink 1, window 8, groups of 4, 24 host and 64 NVMe pages
+under the git-ignored ``build/profile_lc``, removed afterwards) serves
+one 4064 + 32 request and traces one decode tick once the prompt is in
+(its middle parked: 13 groups): the busy share, the top kernels, and
+the tick split by labelled ranges, each with its host ms and the device
+ms of what it launched: ``pagein`` (the tier store's verified ``peek``
+of every parked group), ``h2d`` (each (layer, group) slice's copies
+into the device ring), ``staged_stats`` (the chunk dispatches, less the
+``h2d`` nested in them), ``finish`` (the 32 blocks over the pool with
+the carry), ``head`` (norm, LM head and sampling) and ``park``.
+
 For each window it prints the wall time, the device busy share (the
 union of device intervals over wall time: the rest is the device waiting
 on the host), and the kernels that take the most device time.  ``--out``
@@ -55,10 +69,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 
-def profile(fn, top: int):
+def profile(fn, top: int, ranges=()):
     """Wall ms, device busy share and the top kernels of one call.  Busy
     time is the union of the device events' intervals (kernels, copies,
-    memsets), so nothing is counted twice."""
+    memsets; not the device-side spans of labelled ranges), so nothing is
+    counted twice.  ``ranges``: names of ``record_function`` ranges whose
+    host ms (their own wall time) and device ms (the kernels and copies
+    launched inside them) are summed under ``"ranges"``."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -69,7 +86,9 @@ def profile(fn, top: int):
         wall = time.perf_counter() - t0
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.name != "Command Buffer Full"]
+           and e.name != "Command Buffer Full"
+           and not getattr(e, "is_user_annotation", False)
+           and e.name not in ranges]
     busy_us, end = 0.0, float("-inf")
     for start, stop in sorted((e.time_range.start, e.time_range.end)
                               for e in dev):
@@ -84,9 +103,22 @@ def profile(fn, top: int):
              "share": us / total}
             for name, (calls, us) in sorted(by_name.items(),
                                             key=lambda kv: -kv[1][1])[:top]]
-    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
-            "device_busy_share": busy_us / 1e3 / (wall * 1e3),
-            "top_kernels": rows}
+    out = {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+           "device_busy_share": busy_us / 1e3 / (wall * 1e3),
+           "top_kernels": rows}
+    if ranges:
+        out["ranges"] = {name: {"calls": 0, "host_ms": 0.0, "device_ms": 0.0}
+                         for name in ranges}
+        for e in prof.events():
+            if (e.name in ranges
+                    and e.device_type == torch.autograd.DeviceType.CPU):
+                r = out["ranges"][e.name]
+                r["calls"] += 1
+                r["host_ms"] += e.time_range.elapsed_us() / 1e3
+                r["device_ms"] += getattr(
+                    e, "device_time_total",
+                    getattr(e, "cuda_time_total", 0.0)) / 1e3
+    return out
 
 
 # kernel classes of a traced speculative block, by name
@@ -184,6 +216,75 @@ def profile_v2(top: int, weights: str, graph: bool, spec=None):
     return out
 
 
+LC_RANGES = ("pagein", "h2d", "staged_stats", "finish", "head", "park")
+
+
+def profile_lc(top: int):
+    """Trace one long-context decode tick of ``llama3-8b`` (4064 + 32 on a
+    17-page pool), split by labelled ranges."""
+    import shutil
+
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
+
+    cfg = get_config("llama3-8b")
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    spill = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "build", "profile_lc")
+    engine = RaggedInferenceEngineV2(
+        model, generator=torch.Generator(device="cuda").manual_seed(0),
+        max_seqs=8, max_seq_len=4096, prefill_chunk=512, page_size=64,
+        num_pages=17, decode_block_size=8,
+        config={"enable_cuda_graph": True},
+        kv_tiering=dict(long_context=True, sink_pages=1, window_pages=8,
+                        chunk_pages=4, host_pages=24, nvme_pages=64,
+                        nvme_dir=spill))
+    rng = np.random.default_rng(0)
+    engine.put_request(rng.integers(0, cfg.vocab_size, size=4064),
+                       max_new_tokens=32)
+    req = engine.waiting[0]
+    while len(req.generated) < 3:          # prompt in, two decode ticks
+        engine.step()
+    drv = engine._lc
+
+    def label(obj, name, tag):
+        fn = getattr(obj, name)
+
+        def wrapped(*a, **k):
+            with torch.profiler.record_function(tag):
+                return fn(*a, **k)
+
+        setattr(obj, name, wrapped)
+
+    label(engine.tiering, "peek", "pagein")
+    label(drv, "_stage", "h2d")
+    label(drv, "_park", "park")
+    label(engine, "_sample", "head")
+    label(engine.module.lm_head, "forward", "head")
+    for layer in engine.module.model.layers:
+        label(layer, "chunk_stats", "staged_stats")
+        label(layer, "forward", "finish")
+    staged = drv.staged_dispatches
+    res = profile(engine.step, top, LC_RANGES)
+    # the h2d copies run inside the staged-stats range: count them once
+    rg = res["ranges"]
+    for k in ("host_ms", "device_ms"):
+        rg["staged_stats"][k] -= rg["h2d"][k]
+    res["staged_dispatches"] = drv.staged_dispatches - staged
+    res["parked_groups"] = req.lc_parked
+    while engine.has_work():
+        engine.step()
+    out = {"device": torch.cuda.get_device_name(0), "mode": "v2",
+           "long_context": True, "prompt": 4064, "new_tokens": 32,
+           "decode_tick": res,
+           "serving_stages": {k: v for k, v in engine.serving_stages()[
+               "kv_tiering"].items() if k.startswith("pagein")}}
+    engine.close()
+    shutil.rmtree(spill, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", choices=("v1", "v2"), default="v1")
@@ -194,12 +295,16 @@ def main() -> int:
                     help="replay decode blocks and steps from CUDA graphs")
     ap.add_argument("--spec", choices=("ngram", "draft"), default=None,
                     help="trace a replayed speculative block (v2)")
+    ap.add_argument("--long-context", action="store_true",
+                    help="trace one long-context decode tick (v2)")
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--out", default=None, help="write the JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serving: needs a CUDA GPU", file=sys.stderr)
         return 2
+    if args.long_context:
+        return report(profile_lc(args.top), ("decode_tick",), args.out)
     if args.mode == "v2" or args.spec is not None:
         return report(profile_v2(args.top, args.weights, args.cuda_graph,
                                  args.spec),
@@ -243,6 +348,9 @@ def report(out, windows, path) -> int:
         for cls, v in r.get("by_class", {}).items():
             print(f"  {cls}: {v['ms']:.3f} ms, {v['ms_per_tick']:.3f} ms a "
                   "tick")
+        for tag, v in r.get("ranges", {}).items():
+            print(f"  {tag}: x{v['calls']} host {v['host_ms']:.2f} ms, "
+                  f"device {v['device_ms']:.2f} ms")
     if "serving_stages" in out:
         print(f"serving_stages: {out['serving_stages']}")
     if path:

@@ -28,6 +28,11 @@ and off, gives the eager unpipelined engine's tokens, with the paged
 kernel's Python count equal to what the ticks, captures and draft
 catch-ups launch; capturing both speculative graphs mid-run leaves
 every live page of the target's and the draft's pools byte-identical.
+Long context (KV tiering with ``long_context``): a request 4x over a
+tight pool beside a normal one that outlives it, graphs and the pipeline
+on, gives the eager unpipelined engine's tokens; no decode block starts
+while the long-context request is live, and replayed blocks resume
+after it finishes.
 """
 import numpy as np
 import pytest
@@ -337,3 +342,50 @@ def test_spec_capture_leaves_live_pages_untouched(cuda, mode):
     while eng.has_work():
         eng.step()
     eng.audit_kv_sharing()
+
+
+@pytest.mark.gpu
+def test_lc_graphs_resume_after_the_long_request(cuda, tmp_path):
+    """A 180 + 40 request (14 pages) on a 14-page pool under partial
+    residency beside a 20 + 100 request: its eager chunked-scan ticks
+    and the other's fused ticks while it is live, then replayed decode
+    blocks; the same tokens as the eager unpipelined engine."""
+    tier = {"host_pages": 16, "nvme_pages": 16, "nvme_dir": str(tmp_path),
+            "long_context": True, "sink_pages": 1, "window_pages": 2,
+            "chunk_pages": 2}
+    r = np.random.default_rng(3)
+    reqs = [(r.integers(0, 256, size=180), 40),
+            (r.integers(0, 256, size=20), 100)]
+    outs, module = [], None
+    for graphs in (False, True):
+        eng = _v2(cuda, module=module, num_pages=14, kv_tiering=tier,
+                  pipeline=graphs, config={"enable_cuda_graph": graphs})
+        module = eng.module
+        during = []
+        start = eng._pipeline_start if graphs else eng._step_block
+
+        def started(*a, _start=start, _eng=eng, **k):
+            during.append(any(s is not None and s.lc and not s.done
+                              for s in _eng.slots))
+            return _start(*a, **k)
+
+        if graphs:
+            eng._pipeline_start = started
+        else:
+            eng._step_block = started
+        uids = [eng.put_request(p, max_new_tokens=n) for p, n in reqs]
+        assert eng.waiting[0].lc and not eng.waiting[1].lc
+        got = {}
+        while eng.has_work():
+            eng.step()
+            got.update(eng.get_outputs())
+            eng.audit_kv_sharing()
+        st = eng.serving_stages()
+        assert eng._lc.ticks > 0 and st["kv_tiering"]["pageins"] > 0
+        assert during and not any(during), during
+        if graphs:
+            assert st["graph_replays"] > 0
+        outs.append([got[u] for u in uids])
+        eng.close()
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)

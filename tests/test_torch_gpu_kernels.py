@@ -19,7 +19,15 @@ page-table holes, D=64 with 16-row pages, 128-row pages with 8 q heads per
 KV head, MHA with padding tokens, and on the split-KV decode path kv_len at
 a split boundary and one key past it, one 2048-key sequence among 1-key
 ones, a window across splits, holes that empty a whole split, D=64 with
-16- and 128-row pages, and two calls bit-identical; and group-wise int8
+16- and 128-row pages, and two calls bit-identical; with the
+long-context scan's incoming carry (neutral, and random with some rows
+neutral) at its shapes, a 4096-key table with its middle parked as
+holes: a decode row (many splits, most of them holes only), a 64-token
+prefill page (one split, so the carry alone sends it through the
+combine), four ragged decode rows with their own holes, a row that sees
+no resident key and returns the carry, fp32 queries, the neutral carry
+bit-identical to no carry, and a malformed carry refused; and group-wise
+int8
 quantize and
 dequantize (``quantization.cu``) at the int8 serving path's shapes
 (``gate_proj`` at groups of 128 and 2048, the embedding table), at groups
@@ -123,12 +131,13 @@ def test_tensor_map_refusal_raises_and_launches_nothing(cuda):
 
 def paged_case(seed, q_lens, kv_lens, H=32, Hkv=8, D=128, page=64,
                qdtype=torch.bfloat16, pdtype=torch.bfloat16, holes=False,
-               pad=0, device="cuda"):
+               pad=0, device="cuda", hole_cols=None):
     """q, a pool holding just the pages the sequences use (plus the trash
     page 0, in a shuffled order), scales for 1-byte pages, and the tick's
     metadata.  K and V are standard normal for every page type.  ``holes``
     marks every other page before a sequence's first query token -1;
-    ``pad`` adds padding tokens after the last."""
+    ``hole_cols`` lists each sequence's columns to mark -1; ``pad`` adds
+    padding tokens after the last."""
     g = torch.Generator().manual_seed(seed)
     S = len(q_lens)
     cols = [-(-kv // page) for kv in kv_lens]
@@ -142,6 +151,8 @@ def paged_case(seed, q_lens, kv_lens, H=32, Hkv=8, D=128, page=64,
         if holes:
             first_q = (kv_lens[j] - q_lens[j]) // page
             table[j, 1:first_q:2] = -1
+        if hole_cols is not None:
+            table[j, list(hole_cols[j])] = -1
     kv = torch.randn(n_pages, page, 2 * Hkv, D, generator=g)
     scales = None
     if pdtype in (torch.int8, torch.float8_e4m3fn):
@@ -262,6 +273,98 @@ def test_paged_kernels_fp32_match_plain(cuda, pdtype):
               *(m.cpu() for m in meta), sm_scale=0.1, sliding_window=50)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def random_carry(seed, T, H, D, device):
+    """Raw flash stats (m, l, acc) with every third row neutral."""
+    from deepspeed_tpu_torch.inference.paged import neutral_carry
+
+    g = torch.Generator().manual_seed(seed)
+    m, l, acc = neutral_carry(T, H, D)
+    live = (torch.arange(T) % 3 != 2)[:, None]
+    m = torch.where(live, torch.randn(T, H, generator=g), m)
+    l = torch.where(live, torch.rand(T, H, generator=g) + 0.5, l)
+    acc = torch.where(live[..., None], torch.randn(T, H, D, generator=g),
+                      acc)
+    return tuple(x.to(device) for x in (m, l, acc))
+
+
+_LC_HOLES = range(1, 53)      # a 64-page table: columns 0, 53..63 resident
+# (q_lens, kv_lens, hole columns per sequence, options)
+CARRY_CASES = {
+    "lc_decode": ([1], [4096], [_LC_HOLES], {}),
+    "lc_prefill_page": ([64], [4096], [_LC_HOLES], {}),
+    "lc_ragged": ([1, 1, 1, 1], [4096, 3000, 2500, 1800],
+                  [_LC_HOLES, range(1, 40), range(2, 30, 2), ()], {}),
+    # sequence 0's only key left is parked: its row returns the carry
+    "no_resident_key": ([1, 5], [64, 600], [[0], [2, 3]],
+                        {"pad": 2}),
+    "window_d64": ([1, 20], [2000, 1500], [range(3, 20), range(5, 9)],
+                   {"D": 64, "H": 16, "Hkv": 4, "page": 16,
+                    "window": 700}),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CARRY_CASES))
+@pytest.mark.parametrize("kind", ["neutral", "random"])
+@pytest.mark.parametrize("qdtype,pdtype", [
+    ("bfloat16", "bfloat16"), ("bfloat16", "int8"),
+    ("bfloat16", "float8_e4m3fn"), ("float32", "float32"),
+    ("float32", "int8")])
+def test_paged_kernels_with_carry_match_plain(cuda, case, kind, qdtype,
+                                              pdtype):
+    from deepspeed_tpu_torch.inference.paged import neutral_carry
+    from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+
+    q_lens, kv_lens, hole_cols, opt = CARRY_CASES[case]
+    opt = dict(opt)
+    window = opt.pop("window", None)
+    qdt, pdt = getattr(torch, qdtype), getattr(torch, pdtype)
+    q, pages, scales, meta = paged_case(len(case), q_lens, kv_lens,
+                                        qdtype=qdt, pdtype=pdt, device=cuda,
+                                        hole_cols=hole_cols, **opt)
+    T, H, D = q.shape
+    carry = (neutral_carry(T, H, D, device=cuda) if kind == "neutral"
+             else random_carry(len(case), T, H, D, cuda))
+    sm = D ** -0.5
+    fn = rpa.ragged_paged_attention_quant if scales is not None \
+        else rpa.ragged_paged_attention
+    extra = () if scales is None else (scales,)
+    before = fn.launches
+    out = fn(q, pages, *extra, *meta, sm_scale=sm, sliding_window=window,
+             carry=carry)
+    assert fn.launches == before + 1
+    want = fn(q.cpu(), pages.cpu(), *(e.cpu() for e in extra),
+              *(m.cpu() for m in meta), sm_scale=sm, sliding_window=window,
+              carry=tuple(c.cpu() for c in carry))
+    torch.cuda.synchronize()
+    tol = (1e-4, 1e-4) if qdt == torch.float32 else (2e-3, 2e-2)
+    torch.testing.assert_close(out.float().cpu(), want.float(), atol=tol[0],
+                               rtol=tol[1])
+    assert torch.isfinite(out.float()).all()
+    n_real = int(meta[2][-1])
+    assert (out[n_real:] == 0).all()
+    if kind == "neutral":       # the neutral carry folds exactly
+        plain = fn(q, pages, *extra, *meta, sm_scale=sm,
+                   sliding_window=window)
+        assert torch.equal(out, plain)
+
+
+@pytest.mark.gpu
+def test_paged_kernel_refuses_a_malformed_carry(cuda):
+    from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+
+    q, pages, _, meta = paged_case(0, [1], [10], page=64, device=cuda)
+    T, H, D = q.shape
+    m, l, acc = random_carry(0, T, H, D, cuda)
+    before = rpa.ragged_paged_attention.launches
+    for bad in ((m, l), (m, l, acc[..., :64]), (m.half(), l, acc),
+                (m.cpu(), l, acc)):
+        with pytest.raises(ValueError, match="carry|one device"):
+            rpa.ragged_paged_attention(q, pages, *meta, sm_scale=0.1,
+                                       carry=bad)
+    assert rpa.ragged_paged_attention.launches == before
 
 
 @pytest.mark.gpu

@@ -233,14 +233,6 @@ def test_ref_paged_attention_quant_matches_jax_kernel8(fmt, window):
     np.testing.assert_allclose(got, want, atol=5e-6, rtol=0)
 
 
-def test_carry_is_not_ported_yet():
-    q, pool, scales, meta = _case(4, [1], [4], 2, 1, 64, 4, fmt="int8")
-    with pytest.raises(NotImplementedError, match="A9.5"):
-        paged.ref_paged_attention_quant(
-            _torch(q), _torch(pool), _torch(scales), *map(_torch, meta),
-            sm_scale=0.1, carry=object())
-
-
 # -- the write path ----------------------------------------------------------
 
 _WCFG = jax_get_config("tinyllama", vocab_size=64, hidden_size=32,

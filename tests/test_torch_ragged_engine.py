@@ -269,7 +269,6 @@ def test_stream_deltas_report_each_token_once(served):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(kv_tiering={"host_pages": 8, "long_context": True}), "A9.5"),
     (dict(quantize_weights="fp8"), "A9.6"),
     (dict(topology=object()), "A7a"),
     (dict(control=True), "A10"),
