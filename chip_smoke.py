@@ -105,7 +105,8 @@ Phases (any failed check raises; nothing is caught):
    Resident weight bytes and peak memory while serving beside the bf16
    runs'.  (c) 1 layer at full width in fp32: weights quantized on the
    card and on the CPU are byte-identical, and 4 greedy v2 requests give
-   the same tokens (the margin rule of phase 7).
+   the same tokens (the margin rule of phase 7); the CPU's half runs in a
+   worker process beside phases 13-21 and is compared in phase 22.
 
 13. ZeRO across ranks: ``init_distributed(dist_backend="nccl")`` (one
    rank: NCCL puts one rank on each card, and the run needs one card),
@@ -232,16 +233,40 @@ Phases (any failed check raises; nothing is caught):
    equal to its solo run's, and no decode block while it is live; and 2
    layers at full width in fp32 through one bridged flax tree, 1024 + 32
    against the resident control by phase 7's margin rule.
+22. The fp8, fp6 and w8a8 weight formats (A9.6): K1 ``dequant_scaled``
+   (e4m3, and int8 a scale a row), K2 ``dequantize_fp6`` (groups of 128
+   and 2048), K3 ``w8a8_quant_rows``, K4 ``w8a8_epilogue`` and the whole
+   W8A8 Linear (``torch._int_mm`` between them) bit-identical to their
+   plain versions at ``gate_proj``, ``down_proj`` and ``lm_head`` (the
+   W8A8 pieces at 1, 16, 17 and 512 rows); each timed at ``gate_proj``
+   beside its byte bound and plain version, the W8A8 Linear beside bf16
+   ``F.linear``.  Then ``llama3-8b`` at full width and depth through v2
+   with each format, phase 6's 24 requests graphed and pipelined twice
+   (the same tokens; w8a8 once more with the pipeline off, the same
+   tokens), each format's counters exact against the ticks and captures
+   as in phase 14 (K1 or K2 226 a tick; K3 and K4 225 and #7 once a tick
+   for w8a8), resident and peak GiB, decode tokens/s, TTFT p50/p99 and
+   how many requests equal the bf16 run's; v1 with each format at 4 x
+   1000 + 16, greedy twice identical, #1 32 times and the format's
+   kernels exactly per forward; and 1 layer at full hidden and MLP width
+   in fp32 per format (vocabulary 8192), card against CPU as phase 12(c),
+   where native w8a8 may also differ after a rounding flip, every W8A8
+   Linear is held bit-identical to its plain version on the card's own
+   inputs, and one request at least shows no flip; then phase 12(c)'s
+   comparison.
 
-Phases 3 and 6 (serving) keep their full depth: the whole run stays well
-inside its time limit.  Phase 12's CPU parity runs one layer (two until
-phase 19 came).  ``--gpt2-only`` runs the build and phases 15-18
+Phases 3 and 6 (serving) keep their full depth; phase 12's CPU parity
+runs one layer (two until phase 19 came).  The CPU halves of phases
+12(c) and 22 run in a worker process (``--cpu-side``, no card visible,
+4 threads, files under ``build/smoke_cpu``, removed afterwards) started
+at phase 12, so that the whole run stays inside its time limit.
+``--gpt2-only`` runs the build and phases 15-18
 alone, ``--tiering-only`` the build and phase 19, ``--spec-only`` the
 build and phase 20, ``--lc-only`` the build, phase 5's carry cases and
-phase 21; none prints result lines.  The line before the
-last is the ``kernels`` JSON; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits nonzero
-and prints no result.
+phase 21, ``--wq-only`` the build and phase 22; none prints result
+lines.  The line before the last is the ``kernels`` JSON; the last line
+is ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits
+nonzero and prints no result.
 """
 from __future__ import annotations
 
@@ -352,7 +377,8 @@ def phase_report():
 
     t0 = time.perf_counter()
     built = builder.build_all(["flash_fwd", "ragged_paged_attn",
-                               "flash_bwd", "fused_adam", "quantization"])
+                               "flash_bwd", "fused_adam", "quantization",
+                               "weight_formats"])
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)}")
     for name, b in built.items():
         log(f"[{name}] nvcc {b.seconds:.1f} s\n{b.log.strip()}")
@@ -371,6 +397,11 @@ def phase_report():
                    ("rpa_mma", "rpa_combine"), 8)
     check_no_spill(built["quantization"], "quantization",
                    ("quant_ring", "quant_kernel", "dequant_kernel"), 18)
+    # the weight formats' kernels: K1 over int8 and e4m3, K2, K3 and K4,
+    # each at both vector widths and three output types
+    check_no_spill(built["weight_formats"], "weight_formats",
+                   ("dequant_scaled_kernel", "dequant_fp6_kernel",
+                    "w8a8_rows_kernel", "w8a8_epilogue_kernel"), 30)
     return smi
 
 
@@ -1980,21 +2011,17 @@ def phase_int8_v2(bf16_outs):
 
 
 def phase_int8_cpu_parity():
-    from deepspeed_tpu_torch.models.llama import get_config
-    from deepspeed_tpu_torch.module_inject.flax_bridge import \
-        flax_to_state_dict
-
+    """Phase 12(c), the card's half: one llama3-8b layer at full width and
+    vocabulary in fp32 through v2 with int8 weights.  The CPU's half comes
+    from the :class:`CPUSide` worker, and :func:`parity_compare` holds the
+    two together in phase 22."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # one layer (two before phase 19, whose minutes were found here): on
-    # the CPU every tick dequantizes each int8 weight, and the width, not
-    # the depth, is what the byte-identical check covers
-    cfg = get_config("llama3-8b", num_hidden_layers=1, dtype=torch.float32)
-    state = flax_to_state_dict(flax_tree(cfg, np.random.default_rng(SEED + 4)))
-    phase_v2_cpu_parity(cfg, state, runs=(("none", "int8"),))
-    del state
+    card = parity_half("int8", "cuda")
+    card["module"] = None          # the int8 rule needs no card forward
     gc.collect()
     torch.cuda.empty_cache()
+    return card
 
 
 # ---------------------------------------------------------------------------
@@ -3835,7 +3862,617 @@ def phase_lc_fp32(smi):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: fp8, fp6 and w8a8 weights (K1-K4) through v2 and v1
+# ---------------------------------------------------------------------------
+
+WQ_FORMATS = ("fp8", "fp6", "w8a8")
+# llama3-8b's Linears as flax kernels [in, out]: the kernels' shapes
+WQ_WEIGHTS = {"gate_proj": (4096, 14336), "down_proj": (14336, 4096),
+              "lm_head": (4096, 128256)}
+
+
+def bits_equal(a, b) -> bool:
+    word = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+    return (a.dtype == b.dtype and a.shape == b.shape and
+            torch.equal(a.contiguous().view(word), b.contiguous().view(word)))
+
+
+def wq_counters(fmt, L, native):
+    """(wrapper, launches a forward or model tick) of a format's per-use
+    kernels: every quantized weight once (7 a layer, the embedding and the
+    head); native w8a8 runs K3 and K4 once a Linear and #7 on the int8
+    embedding, v1's w8a8 expands its Linears through K1 instead."""
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    n = 7 * L + 2
+    if fmt == "fp8":
+        return [(qz.dequant_scaled, n)]
+    if fmt == "fp6":
+        return [(qz.dequantize_fp6, n)]
+    if native:
+        return [(qz.w8a8_quant_rows, n - 1), (qz.w8a8_epilogue, n - 1),
+                (qz.dequantize, 1)]
+    return [(qz.dequant_scaled, n - 1), (qz.dequantize, 1)]
+
+
+def wq_entry(name, ms, plain_ms, nbytes, line):
+    bound = nbytes / PEAK_BYTES * 1e3
+    return dict(name=name, route="cuda",
+                source="deepspeed_tpu_torch/ops/csrc/weight_formats.cu",
+                replaces=line, launches=0, max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                library_ms=None)
+
+
+def phase_wq_kernels():
+    """K1-K4 and ``w8a8_linear`` against their plain versions, bit for
+    bit, at gate_proj, down_proj and lm_head (bf16): K1 over e4m3 (one
+    scale) and int8 (a scale a row), K2 at groups of 128 and 2048, K3, K4
+    and the whole W8A8 Linear at 1, 16, 17 and 512 rows.  Times each at
+    gate_proj (device time, graph-replayed) beside its byte bound and its
+    plain version; the W8A8 Linear beside bf16 ``F.linear``."""
+    from torch.nn import functional as F
+
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    bf16 = torch.bfloat16
+    entries = {}
+    worst = dict.fromkeys(("dequant_scaled", "dequant_fp6",
+                           "w8a8_quant_rows", "w8a8_epilogue"), 0.0)
+
+    def err(name, a, b):
+        worst[name] = max(worst[name], (a.float() - b.float()).abs().max()
+                          .item())
+
+    for i, (wname, (K, N)) in enumerate(WQ_WEIGHTS.items()):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 2200 + i)
+        # nn.Linear's [out, in], rows of mixed magnitude; flax's kernel
+        w = (torch.randn(N, K, generator=gen, device="cuda") *
+             torch.rand(N, 1, generator=gen, device="cuda") * 0.05).to(bf16)
+        kernel = w.t().contiguous()
+        n = w.numel()
+        timed = wname == "gate_proj"
+        ft = qz.quantize_fp8(kernel)
+        got = qz.dequantize_fp8(ft)
+        want = qz.dequant_scaled_reference(ft.values, ft.scale, bf16)
+        assert bits_equal(got, want), f"K1 e4m3 at {wname}"
+        err("dequant_scaled", got, want)
+        v, s = qz.quantize_per_channel(w)
+        got = qz.dequant_scaled(v, s, bf16)
+        want = qz.dequant_scaled_reference(v, s, bf16)
+        assert bits_equal(got, want), f"K1 int8 per row at {wname}"
+        err("dequant_scaled", got, want)
+        line = (f"wq[{wname}] [{K}, {N}] bf16: K1 over e4m3 and int8 a "
+                "scale a row bit-identical to plain")
+        del got, want
+        if timed:
+            ms = graph_ms(lambda: qz.dequantize_fp8(ft))
+            plain = time_ms(lambda: qz.dequant_scaled_reference(
+                ft.values, ft.scale, bf16), reps=3, warmup=1)
+            ms_row = graph_ms(lambda: qz.dequant_scaled(v, s, bf16))
+            entries["dequant_scaled"] = wq_entry(
+                "dequant_scaled", ms, plain, 3 * n + 4,
+                "deepspeed_tpu/ops/quantization.py:175")
+            e = entries["dequant_scaled"]
+            line += (f"; K1 e4m3 {ms:.4f} ms (bound {e['bound_ms']:.4f}, "
+                     f"{e['bound_ms'] / ms:.1%}; plain {plain:.3f}), int8 "
+                     f"a scale a row {ms_row:.4f} ms")
+        del ft
+        for gs in (128, 2048):
+            t6 = qz.quantize_fp6(kernel, gs)
+            got = qz.dequantize_fp6(t6)
+            want = qz.dequantize_fp6_reference(t6)
+            assert t6.group_size == gs and bits_equal(got, want), (
+                f"K2 at {wname}, groups of {gs}")
+            err("dequant_fp6", got, want)
+            del got, want
+            line += f"; K2 groups of {gs} bit-identical"
+            if timed:
+                ms = graph_ms(lambda: qz.dequantize_fp6(t6))
+                plain = time_ms(lambda: qz.dequantize_fp6_reference(t6),
+                                reps=3, warmup=1)
+                nbytes = t6.values.numel() + 4 * t6.scale.numel() + 2 * n
+                e = wq_entry(f"dequant_fp6_g{gs}", ms, plain, nbytes,
+                             "deepspeed_tpu/ops/quantization.py:274")
+                entries[e["name"]] = e
+                line += (f" ({ms:.4f} ms, bound {e['bound_ms']:.4f}, "
+                         f"{e['bound_ms'] / ms:.1%}; plain {plain:.3f})")
+            del t6
+        for M in (1, 16, 17, 512):
+            x = torch.randn(M, K, generator=gen, device="cuda").to(bf16)
+            xq, sx = qz.w8a8_quant_rows(x)
+            rq, rs = qz.w8a8_quant_rows_reference(x)
+            assert torch.equal(xq, rq) and bits_equal(sx, rs), (
+                f"K3 at {wname}, M {M}")
+            err("w8a8_quant_rows", xq, rq)
+            acc = qz.int8_product_reference(rq, v)
+            y = qz.w8a8_epilogue(acc, rs, s, bf16)
+            ry = qz.w8a8_epilogue_reference(acc, rs, s, bf16)
+            assert bits_equal(y, ry), f"K4 at {wname}, M {M}"
+            err("w8a8_epilogue", y, ry)
+            lin = qz.w8a8_linear(x, v, s)
+            assert bits_equal(lin, qz.w8a8_linear_reference(x, v, s)), (
+                f"W8A8 Linear at {wname}, M {M}")
+            line += f"; K3, K4, W8A8 Linear at M {M} bit-identical"
+            if timed and M in (16, 512):
+                Mp = max(M, qz._INT_MM_MIN_ROWS)
+                ms3 = graph_ms(lambda: qz.w8a8_quant_rows(x, Mp))
+                ms4 = graph_ms(lambda: qz.w8a8_epilogue(acc, rs, s, bf16))
+                ms_lin = graph_ms(lambda: qz.w8a8_linear(x, v, s))
+                xz = torch.zeros(Mp, K, dtype=torch.int8, device="cuda")
+                ms_mm = graph_ms(lambda: torch._int_mm(xz, v.t()))
+                # the payload's layout: [out, in] read as a column-major
+                # operand, against a row-major [in, out] copy
+                v_rows = v.t().contiguous()
+                ms_rows = graph_ms(lambda: torch._int_mm(xz, v_rows))
+                del v_rows
+                ms_bf = graph_ms(lambda: F.linear(x, w))
+                p3 = time_ms(lambda: qz.w8a8_quant_rows_reference(x),
+                             reps=3, warmup=1)
+                p4 = time_ms(lambda: qz.w8a8_epilogue_reference(
+                    acc, rs, s, bf16), reps=3, warmup=1)
+                b3 = wq_entry("w8a8_quant_rows", ms3, p3,
+                              3 * M * K + 4 * M,
+                              "deepspeed_tpu/inference/quantization.py:194")
+                b4 = wq_entry("w8a8_epilogue", ms4, p4,
+                              6 * M * N + 4 * (M + N),
+                              "deepspeed_tpu/inference/quantization.py:203")
+                if M == 16:     # the kernels line: a decode tick's shape
+                    entries[b3["name"]], entries[b4["name"]] = b3, b4
+                line += (f" (K3 {ms3:.4f} ms, {b3['bound_ms'] / ms3:.1%} "
+                         f"of bound; K4 {ms4:.4f} ms, "
+                         f"{b4['bound_ms'] / ms4:.1%}; _int_mm {ms_mm:.4f}"
+                         f" over [out, in], {ms_rows:.4f} over a row-major "
+                         f"copy; the W8A8 Linear {ms_lin:.4f} ms against "
+                         f"bf16 F.linear {ms_bf:.4f})")
+            del x, xq, rq, acc, y, ry, lin
+        log(line)
+        del w, kernel, v, s
+        torch.cuda.empty_cache()
+    for e in entries.values():
+        e["max_abs_err"] = worst[[k for k in worst
+                                  if e["name"].startswith(k)][0]]
+    log("weight-format kernels: no single PyTorch call computes a scaled "
+        "dequant, fp6 decode, per-row int8 quantization or the int32 "
+        "rescale, so library_ms is null")
+    return entries
+
+
+def phase_wq_v2(bf16_outs=None):
+    """v2 on llama3-8b at full width and depth with fp8, fp6 and w8a8
+    weights: phase 6's 24 requests, graphed and pipelined twice (the same
+    tokens), w8a8 once more with the pipeline off (the same tokens); the
+    counters of each format's kernels, #9 and #7 held exactly to the ticks
+    and captures as in phase 14.  Returns the counters' launches."""
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
+    from deepspeed_tpu_torch.ops import quantization as qz
+    from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+
+    cfg = get_config("llama3-8b")
+    L, K = cfg.num_hidden_layers, V2["decode_block_size"]
+    reqs = v2_traffic()
+    graph = {"config": {"enable_cuda_graph": True}}
+    for fmt in WQ_FORMATS:
+        counters = wq_counters(fmt, L, native=True) + [
+            (rpa.ragged_paged_attention, L)]
+        q_before = qz.quantize.launches
+        t0 = time.perf_counter()
+        with torch.device("meta"):
+            model = LlamaForCausalLM(cfg)
+        engine = RaggedInferenceEngineV2(
+            model, generator=torch.Generator(device="cuda").manual_seed(SEED),
+            device="cuda", quantize_weights=fmt, **V2)
+        torch.cuda.synchronize()
+        module = engine.module
+        del engine
+        weights = resident_bytes(module)
+        log(f"{fmt} v2: llama3-8b engine up in {time.perf_counter() - t0:.3f}"
+            f" s; resident weights {weights / 2**30:.3f} GiB; #6 launched "
+            f"{qz.quantize.launches - q_before} times at build")
+        torch.cuda.reset_peak_memory_stats()   # building held bf16 weights
+        runs = [("pipeline on", dict(pipeline=True, **graph))] * 2
+        if fmt == "w8a8":
+            runs.append(("pipeline off", graph))
+        outs = []
+        for label, kw in runs:
+            engine = RaggedInferenceEngineV2(module, device="cuda",
+                                             **{**V2, **kw})
+            before = [c.launches for c, _ in counters]
+            out, r = serve(engine, reqs)
+            st = engine.serving_stages()
+            cap = st.get("graph_captures", 0)
+            rep = st.get("graph_replays", 0)
+            eager_ticks = engine.host_stats.ticks - K * rep
+            device = {}
+            for (c, per), b in zip(counters, before):
+                got, want = c.launches - b, per * (eager_ticks + 2 * K * cap)
+                assert got == want, (
+                    f"{fmt} v2 {label}: {c.__name__} counted {got} "
+                    f"launches, want {per} x ({eager_ticks} eager ticks + "
+                    f"2 x {K} x {cap} captures)")
+                device[c.__name__] = per * (eager_ticks + K * (cap + rep))
+            rq = st["requests"]
+            log(f"{fmt} v2 {label}: 24 requests in {r['wall_s']:.2f} s; "
+                f"decode {r['decode_tps']:.1f} tokens/s in decode blocks "
+                f"({r['block_tokens']} tokens, {r['block_s']:.2f} s, the "
+                f"capture's {r['capture_s']:.3f} s apart); prefill "
+                f"{r['prompt_tokens'] / r['fused_s']:.0f} prompt tokens/s; "
+                f"TTFT p50 {rq['ttft_ms_p50']} ms p99 {rq['ttft_ms_p99']} "
+                f"ms; host_bound_fraction in blocks {r['block_hbf']:.4f}; "
+                f"captures {cap}, replays {rep}, eager ticks {eager_ticks}; "
+                f"device launches derived from the replays: {device}")
+            outs.append(out)
+            del engine
+            torch.cuda.empty_cache()
+        for i, other in enumerate(outs[1:], 1):
+            for a, b in zip(outs[0], other):
+                assert np.array_equal(a, b), (
+                    f"{fmt} v2: {runs[i][0]} run {i + 1}'s tokens differ "
+                    "from the first run's")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        same = ("n/a" if bf16_outs is None else
+                f"{sum(np.array_equal(a, b) for a, b in zip(outs[0], bf16_outs))}/24")
+        log(f"{fmt} v2: identical tokens in all {len(outs)} runs"
+            f"{' (pipeline on and off)' if fmt == 'w8a8' else ''}; {same} "
+            f"requests equal to the bf16 run's; peak memory while serving "
+            f"{peak:.2f} GiB")
+        del module, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_wq_v1():
+    """v1 on llama3-8b at full width and depth, each format (groups of
+    128), 4 x 1000 + 16 greedy twice: the same tokens, #1 once a layer a
+    ``generate``, the format's kernels exactly per forward."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
+    from deepspeed_tpu_torch.ops.flash_attention import flash_fwd
+
+    cfg = get_config("llama3-8b")
+    L = cfg.num_hidden_layers
+    B, P, NEW = 4, 1000, 16
+    prompts = torch.randint(0, cfg.vocab_size, (B, P),
+                            generator=torch.Generator().manual_seed(SEED))
+    for fmt in WQ_FORMATS:
+        counters = wq_counters(fmt, L, native=False)
+        t0 = time.perf_counter()
+        with torch.device("meta"):
+            model = LlamaForCausalLM(cfg)
+        engine = deepspeed_tpu_torch.init_inference(
+            model, config={"dtype": "bfloat16", "max_out_tokens": 2048,
+                           "quant": {"enabled": True, "qtype": fmt}},
+            generator=torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        up = time.perf_counter() - t0
+        outs, secs = [], []
+        for _ in range(2):
+            before = [flash_fwd.launches] + [c.launches for c, _ in counters]
+            t = time.perf_counter()
+            out = engine.generate(prompts, max_new_tokens=NEW)
+            secs.append(time.perf_counter() - t)
+            got = [flash_fwd.launches - before[0]] + [
+                c.launches - b for (c, _), b in zip(counters, before[1:])]
+            want = [L] + [per * NEW for _, per in counters]
+            assert got == want, (f"{fmt} v1 generate launched (flash, "
+                                 f"format kernels) {got}, want {want}")
+            assert out.shape == (B, P + NEW)
+            outs.append(out)
+        assert torch.equal(*outs), f"{fmt} v1 greedy runs differ"
+        log(f"{fmt} v1: up in {up:.3f} s (resident weights "
+            f"{resident_bytes(engine.module) / 2**30:.3f} GiB); generate "
+            f"{B}x{P}+{NEW} {secs[0]:.3f} / {secs[1]:.3f} s, greedy tokens "
+            f"identical twice; per generate flash {L}, "
+            + ", ".join(f"{c.__name__} {per * NEW}" for c, per in counters))
+        del engine, model, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The one-layer parity checks of phases 12 and 22, card against CPU
+# ---------------------------------------------------------------------------
+# Each runs one llama3-8b layer at full hidden and MLP width in fp32
+# through v2 with quantized weights, on the card and on the CPU through
+# the plain versions: the quantized buffers byte-identical, the greedy
+# tokens equal by phase 7's margin rule.  On the CPU every tick
+# dequantizes every weight, both tables included, which takes minutes at
+# llama3-8b's vocabulary; so a worker process (``--cpu-side``, no card
+# visible, CPU_SIDE_THREADS of the host's cores) computes the CPU halves
+# while the card runs the phases after phase 12, and the checks compare
+# once both halves are in.  Its files go to build/smoke_cpu, removed
+# afterwards.
+CPU_SIDE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "smoke_cpu")
+CPU_SIDE_THREADS = 4
+CPU_SIDE_WAIT_S = 900
+CPU_SIDES = []          # the workers started, stopped when the run ends
+PARITY_JOBS = ("int8",) + WQ_FORMATS
+
+
+def parity_job(name):
+    """(config, flax tree seed, prompts, v2 kwargs, new tokens) of the
+    parity check of weight format ``name``: phase 12's int8 at the full
+    vocabulary, 4 requests; phase 22's fp8, fp6 and w8a8 at a vocabulary
+    of 8192 (the CPU's plain fp6 decode of the full tables each tick
+    would take many minutes; phase 22's kernel checks hold the full
+    ``lm_head`` bit-identical), 2 requests."""
+    from deepspeed_tpu_torch.models.llama import get_config
+
+    if name not in PARITY_JOBS:
+        raise ValueError(f"no parity check {name!r}: {PARITY_JOBS}")
+    if name == "int8":
+        cfg = get_config("llama3-8b", num_hidden_layers=1,
+                         dtype=torch.float32)
+        rng = np.random.default_rng(SEED + 1)
+        sizes, seed, new = (37, 100, 300, 513), SEED + 4, 16
+        kw = dict(max_seqs=4, max_seq_len=640, prefill_chunk=128,
+                  page_size=64, decode_block_size=4)
+    else:
+        cfg = get_config("llama3-8b", num_hidden_layers=1, vocab_size=8192,
+                         dtype=torch.float32)
+        rng = np.random.default_rng(SEED + 23)
+        sizes, seed, new = (37, 100), SEED + 22, 4
+        # both prompts in one prefill tick, then one decode block
+        kw = dict(max_seqs=2, max_seq_len=256, prefill_chunk=256,
+                  page_size=64, decode_block_size=4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in sizes]
+    return cfg, seed, prompts, kw, new
+
+
+def parity_half(name, device):
+    """One side of parity check ``name``: v2 on ``device`` with weight
+    format ``name``.  Returns the greedy tokens, the sha256 of each
+    buffer's bytes, their byte count and the module."""
+    import hashlib
+
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    from deepspeed_tpu_torch.module_inject.flax_bridge import \
+        flax_to_state_dict
+
+    cfg, seed, prompts, kw, new = parity_job(name)
+    state = flax_to_state_dict(flax_tree(cfg, np.random.default_rng(seed)))
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    eng = RaggedInferenceEngineV2(model, params=state, device=device,
+                                  quantize_weights=name, **kw)
+    del state
+    outs = eng.generate_all(prompts, max_new_tokens=new)
+    eng.audit_kv_sharing()
+    digests, nbytes = {}, 0
+    for bname, b in eng.module.named_buffers():
+        raw = b.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+        digests[bname] = hashlib.sha256(raw.numpy()).hexdigest()
+        nbytes += raw.numel()
+    return dict(tokens=[torch.from_numpy(outs[u]) for u in sorted(outs)],
+                digests=digests, nbytes=nbytes, module=eng.module)
+
+
+def cpu_side_worker(names) -> int:
+    """``--cpu-side``: the CPU halves of parity checks ``names``, each with
+    the CPU's logits over its own tokens from the last prompt position
+    on, saved to CPU_SIDE_DIR/<name>.pt as it completes."""
+    torch.set_num_threads(CPU_SIDE_THREADS)
+    for name in names:
+        t = time.perf_counter()
+        half = parity_half(name, "cpu")
+        prompts = parity_job(name)[2]
+        with torch.no_grad():
+            half["logits"] = [
+                half["module"](toks[None, :-1].long())[0][len(p) - 1:]
+                for p, toks in zip(prompts, half["tokens"])]
+        del half["module"]
+        half["seconds"] = time.perf_counter() - t
+        tmp = os.path.join(CPU_SIDE_DIR, f"{name}.tmp")
+        torch.save(half, tmp)
+        os.replace(tmp, os.path.join(CPU_SIDE_DIR, f"{name}.pt"))
+        log(f"cpu side: {name} in {half['seconds']:.1f} s")
+        gc.collect()
+    return 0
+
+
+class CPUSide:
+    """The worker process of the parity checks' CPU halves: started with
+    the jobs it runs, stopped (and its files removed) by :meth:`close`."""
+
+    def __init__(self, names):
+        import shutil
+
+        shutil.rmtree(CPU_SIDE_DIR, ignore_errors=True)
+        os.makedirs(CPU_SIDE_DIR)
+        self.log_path = os.path.join(CPU_SIDE_DIR, "worker.log")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   OMP_NUM_THREADS=str(CPU_SIDE_THREADS))
+        here = os.path.dirname(os.path.abspath(__file__))
+        with open(self.log_path, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--cpu-side",
+                 ",".join(names)], stdout=out, stderr=subprocess.STDOUT,
+                env=env, cwd=here)
+        CPU_SIDES.append(self)
+
+    def result(self, name):
+        """The CPU half of ``name`` and the seconds this call waited for
+        it; raises if the worker died or took over CPU_SIDE_WAIT_S."""
+        path = os.path.join(CPU_SIDE_DIR, f"{name}.pt")
+        t = time.perf_counter()
+        while not os.path.exists(path):
+            if self.proc.poll() is not None and not os.path.exists(path):
+                with open(self.log_path) as f:
+                    tail = f.read()[-4000:]
+                raise RuntimeError(f"the CPU-side worker exited with code "
+                                   f"{self.proc.returncode} before {name}:"
+                                   f"\n{tail}")
+            assert time.perf_counter() - t < CPU_SIDE_WAIT_S, (
+                f"the CPU half of {name} took over {CPU_SIDE_WAIT_S} s")
+            time.sleep(0.5)
+        return torch.load(path), time.perf_counter() - t
+
+    def close(self):
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        shutil.rmtree(CPU_SIDE_DIR, ignore_errors=True)
+
+
+def w8a8_layers_bit_equal(module, ids):
+    """Every W8A8 Linear of ``module`` (on the card) over ``ids``: its
+    output bit-identical to the plain version's on the CPU over the same
+    input activations and buffers.  Tells a rounding flip (inputs one ulp
+    apart upstream) from a fault in the W8A8 path.  Returns the card's
+    logits and the number of layers held."""
+    from deepspeed_tpu_torch.inference.quantization import W8A8Linear
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    seen = []
+
+    def hook(mod, args, out):
+        seen.append((mod, args[0].detach(), out.detach()))
+
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, W8A8Linear)]
+    try:
+        with torch.no_grad():
+            logits = module(ids.cuda())[0].cpu()
+    finally:
+        for h in handles:
+            h.remove()
+    for mod, x, y in seen:
+        want = qz.w8a8_linear(x.cpu(), mod.values.cpu(), mod.scale.cpu())
+        if mod.bias is not None:
+            want = want + mod.bias.cpu()
+        assert bits_equal(y.cpu(), want), (
+            f"a W8A8 Linear {tuple(mod.values.shape)} on the card differs "
+            "from its plain version on the same inputs")
+    return logits, len(seen)
+
+
+def parity_compare(name, card, cpu_side):
+    """Parity check ``name``: the card's half against the worker's.  The
+    buffers byte-identical; a token may differ only where the CPU's top-2
+    margin is under MARGIN (phase 7).  w8a8 runs natively, a function that
+    is not continuous in its activations, so there a token may also
+    differ at or after a rounding flip: the first position where the two
+    devices' logits over the CPU's tokens differ beyond LOGITS_ATOL.  On
+    w8a8 every W8A8 Linear is also held bit-identical to its plain
+    version on the card's own inputs, and at least one request must show
+    no flip at all (a wrong W8A8 path differs from the first token)."""
+    cpu, waited = cpu_side.result(name)
+    prompts = parity_job(name)[2]
+    assert card["digests"].keys() == cpu["digests"].keys() and card["digests"]
+    for bname, d in card["digests"].items():
+        assert d == cpu["digests"][bname], (
+            f"{name}: {bname} quantized on the card differs from the CPU's")
+    worst, clean, held, notes = math.inf, 0, 0, []
+    for p, got, want, lc in zip(prompts, card["tokens"], cpu["tokens"],
+                                cpu["logits"]):
+        got, want = got.numpy(), want.numpy()
+        top2 = lc.topk(2, dim=-1).values
+        margins = (top2[:, 0] - top2[:, 1]).numpy()
+        worst = min(worst, float(margins.min()))
+        flips = np.zeros(0, dtype=np.int64)
+        if name == "w8a8":
+            lg, n = w8a8_layers_bit_equal(
+                card["module"], torch.from_numpy(want[None, :-1]).long())
+            held += n
+            flips = np.nonzero(((lg[len(p) - 1:] - lc).abs().amax(-1) >
+                                LOGITS_ATOL).numpy())[0]
+            clean += flips.size == 0
+        diff = np.nonzero(got != want)[0]
+        if not diff.size:
+            continue
+        i = int(diff[0]) - len(p)
+        flip = flips.size > 0 and flips[0] <= i
+        notes.append(f"prompt {len(p)}: first differing token {i}, CPU "
+                     f"margin {margins[i]:.3e}" +
+                     (f", a rounding flip at {flips[0]}" if flip else ""))
+        assert margins[i] < MARGIN or flip, (
+            f"{name}: card and CPU tokens differ at {i} with margin "
+            f"{margins[i]:.3e} and no rounding flip before it")
+    if name == "w8a8":
+        assert clean >= 1, (
+            "w8a8: every request's card logits left the CPU's beyond "
+            f"{LOGITS_ATOL}: the comparison saw no unflipped request")
+    same = sum(np.array_equal(a.numpy(), b.numpy())
+               for a, b in zip(card["tokens"], cpu["tokens"]))
+    cfg = parity_job(name)[0]
+    log(f"parity, 1 layer fp32, vocabulary {cfg.vocab_size}, {name} "
+        f"weights: {len(card['digests'])} buffers ({cpu['nbytes']} bytes) "
+        f"byte-identical card vs CPU; {same}/{len(prompts)} requests "
+        f"token-equal; smallest CPU top-2 margin {worst:.3e}"
+        + (f"; {held} W8A8 Linear calls bit-identical to plain on the "
+           f"card's inputs, {clean}/{len(prompts)} requests with no "
+           "rounding flip" if name == "w8a8" else "")
+        + ("; " + "; ".join(notes) if notes else "")
+        + f" (CPU half {cpu['seconds']:.1f} s in the worker; waited "
+          f"{waited:.1f} s for it)")
+
+
+def phase_wq_cpu_parity(cpu_side, card_halves):
+    """Phase 22's card halves of the fp8, fp6 and w8a8 parity checks, then
+    every parity check in ``card_halves`` (phase 12's too) against the
+    worker's CPU halves."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for fmt in WQ_FORMATS:
+        card_halves[fmt] = parity_half(fmt, "cuda")
+        if fmt != "w8a8":       # only the flip rule runs the card's module
+            card_halves[fmt]["module"] = None
+        gc.collect()
+    for name in PARITY_JOBS:
+        if name in card_halves:
+            parity_compare(name, card_halves.pop(name), cpu_side)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_wq(cpu_side, card_halves, bf16_outs=None):
+    """Phase 22: the kernels, then v2, v1 and the fp32 layer against the
+    CPU (with phase 12's parity check, whose card half is in
+    ``card_halves``).  Returns the kernel-line entries with the counters'
+    launches over v2's and v1's main-path runs.  ``bf16_outs``: phase 6's
+    tokens, for an informational count of equal requests."""
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    gc.collect()            # what earlier phases left for the collector
+    torch.cuda.empty_cache()
+    entries = phase_wq_kernels()
+    counters = (qz.dequant_scaled, qz.dequantize_fp6, qz.w8a8_quant_rows,
+                qz.w8a8_epilogue)
+    for c in counters:                  # the main path starts here
+        c.launches = 0
+    phase_wq_v2(bf16_outs)
+    # v2 quantizes fp6 in groups of 2048, v1 in groups of 128: K2's two
+    # entries take the launches of their own engine's runs
+    entries["dequant_fp6_g2048"]["launches"] = qz.dequantize_fp6.launches
+    phase_wq_v1()
+    entries["dequant_fp6_g128"]["launches"] = (
+        qz.dequantize_fp6.launches -
+        entries["dequant_fp6_g2048"]["launches"])
+    for name, c in (("dequant_scaled", qz.dequant_scaled),
+                    ("w8a8_quant_rows", qz.w8a8_quant_rows),
+                    ("w8a8_epilogue", qz.w8a8_epilogue)):
+        entries[name]["launches"] = c.launches
+    log("phase 22 launches over v2's and v1's runs: "
+        f"{ {c.__name__: c.launches for c in counters} } (K2: groups of "
+        f"2048 in v2 {entries['dequant_fp6_g2048']['launches']}, groups of "
+        f"128 in v1 {entries['dequant_fp6_g128']['launches']})")
+    phase_wq_cpu_parity(cpu_side, card_halves)
+    return list(entries.values())
+
+
 def main() -> int:
+    # ``--cpu-side NAMES``: the worker of the parity checks' CPU halves,
+    # which the whole run and ``--wq-only`` start themselves; it sees no
+    # card
+    if sys.argv[1:2] == ["--cpu-side"] and len(sys.argv) == 3:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return cpu_side_worker(sys.argv[2].split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 2
@@ -3865,6 +4502,14 @@ def main() -> int:
         phase_report()
         phase_spec()
         log(f"phase 20 done at {time.perf_counter() - t0:.1f} s")
+        return 0
+    # ``--wq-only``: the build and phase 22 alone, for work on the weight
+    # formats; it prints no result lines
+    if sys.argv[1:] == ["--wq-only"]:
+        t0 = time.perf_counter()
+        phase_report()
+        phase_wq(CPUSide(WQ_FORMATS), {})
+        log(f"phase 22 done at {time.perf_counter() - t0:.1f} s")
         return 0
     # ``--lc-only``: the build, phase 5's carry cases and phase 21 alone,
     # for work on long context; it prints no result lines
@@ -3904,12 +4549,15 @@ def main() -> int:
     log(f"phase 10 done at {time.perf_counter() - t0:.1f} s")
     quant = phase_quant_kernels()
     log(f"phase 11 done at {time.perf_counter() - t0:.1f} s")
+    # phase 12(c)'s and phase 22's parity checks: their CPU halves run in
+    # a worker from here on, beside the card's phases
+    cpu_side = CPUSide(PARITY_JOBS)
     int8_v1 = phase_int8_v1(bf16_greedy)
     int8_v2, int8_outs, int8_eager = phase_int8_v2(bf16_outs)
     for gs, launches in ((128, int8_v1), (2048, int8_v2)):
         quant[f"quantize_int8_g{gs}"]["launches"] = launches[0]
         quant[f"dequantize_int8_g{gs}"]["launches"] = launches[1]
-    phase_int8_cpu_parity()
+    card_halves = {"int8": phase_int8_cpu_parity()}
     log(f"phase 12 done at {time.perf_counter() - t0:.1f} s")
     phase_zero(stage0)
     log(f"phase 13 done at {time.perf_counter() - t0:.1f} s")
@@ -3927,12 +4575,14 @@ def main() -> int:
     # the carry rows: #9 and #8 in phase 21's long-context runs
     carry["launches"], carry_quant["launches"] = phase_lc()
     log(f"phase 21 done at {time.perf_counter() - t0:.1f} s")
+    wq = phase_wq(cpu_side, card_halves, bf16_outs)
+    log(f"phase 22 done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [entry, paged, paged_quant, carry,
                                 carry_quant] +
                     [train[k] for k in ("flash_bwd_dq", "flash_bwd_dkv",
                                         "fused_adam", "fused_lion")] +
                     [quant[f"{op}_int8_g{gs}"] for gs in (128, 2048)
-                     for op in ("quantize", "dequantize")] + gpt2}))
+                     for op in ("quantize", "dequantize")] + gpt2 + wq}))
     log(f"chip_smoke: all phases done in {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3967,4 +4617,8 @@ def gpt2_phases(t0):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        for worker in CPU_SIDES:
+            worker.close()

@@ -27,11 +27,14 @@ class InferenceTPConfig(ConfigModel):
 
 class QuantConfig(ConfigModel):
     """Weight quantization for serving (reference ``QuantizationConfig``):
-    int8 group-wise via ops/quantization.py; weights are stored quantized
-    and dequantized on the fly in the matmul's prologue."""
+    weights are stored quantized (``qtype`` one of
+    ``inference/quantization.py``'s ``WEIGHT_FORMATS``; ``group_size`` is
+    int8's and fp6's) and dequantized at use by the kernels of
+    ``ops/quantization.py``; v1 dequantizes "w8a8" weights too, one scale
+    an output channel, as the JAX v1 engine does."""
 
     enabled: bool = False
-    qtype: str = "int8"          # "int8" | "fp8" | "fp6"
+    qtype: str = "int8"          # "int8" | "fp8" | "fp6" | "w8a8"
     group_size: int = 128
 
 

@@ -28,9 +28,11 @@ shapes, so their tokens are equal.  Sampled steps draw from a
 through ``CUDAGraph.register_generator_state``; a torch without that
 raises for sampled graphs and captures greedy ones only).
 
-``quant.enabled`` (``qtype`` "int8") serves int8 weights: every matmul
-weight is quantized group-wise once the weights are in the serving dtype
-(``quant.group_size``, 128 by default) and dequantized at use
+``quant.enabled`` serves quantized weights (``qtype`` "int8", "fp8",
+"fp6" or "w8a8"): every matmul weight is quantized once the weights are
+in the serving dtype (int8 and fp6 in groups of ``quant.group_size``, 128
+by default) and dequantized at use, "w8a8" weights too, one scale an
+output channel, as the JAX v1 engine dequantizes its whole tree
 (:mod:`~deepspeed_tpu_torch.inference.quantization`).
 """
 from __future__ import annotations
@@ -191,7 +193,7 @@ class InferenceEngine:
                                        generator=generator).eval()
         if config.quant.enabled:
             # weight-only serving quantization, after the cast to the
-            # serving dtype as in the reference: weights persist as int8
+            # serving dtype as in the reference: weights persist quantized
             # and dequantize at use
             b0, b1 = quantize_model_(self.module, config.quant.qtype,
                                      group_size=config.quant.group_size)

@@ -32,8 +32,9 @@ writes do in a live block: in the target's pools and, in draft mode, in
 the draft model's pools too; an inactive row's history write lands on
 the trash column.  Everything the blocks launch depends on shapes only
 (the paged kernels' split plan, the ctypes launches on the current
-stream), and their temporaries (the split-KV scratch, every int8
-weight's dequantized copy) come from the graphs' pool.
+stream), and their temporaries (the split-KV scratch, every quantized
+weight's dequantized copy, a W8A8 Linear's int8 rows and int32 product)
+come from the graphs' pool.
 
 A kernel wrapper's Python ``.launches`` counter ticks when Python calls
 it: at the warm-up and at the capture, never at a replay.  On the card a

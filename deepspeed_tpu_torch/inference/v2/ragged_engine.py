@@ -48,11 +48,15 @@ Greedy outputs equal the JAX engine's token for token, pipelined or not
 outputs agree in distribution, drawn from a position-keyed hash instead of
 JAX's threefry streams (:mod:`~deepspeed_tpu_torch.inference.sampling`).
 
-- **int8 weights.**  ``quantize_weights="int8"`` stores every matmul
-  weight as an int8 payload with fp32 group scales (groups of 2048, the
+- **Quantized weights.**  ``quantize_weights`` stores every matmul
+  weight as int8 with fp32 group scales, fp8 e4m3 with one scale a
+  tensor, or packed fp6 e3m2 with group scales (groups of 2048, the
   quantizer's default, as the reference passes none), quantized once when
-  the engine is built and dequantized at use in every model tick
-  (:mod:`~deepspeed_tpu_torch.inference.quantization`).
+  the engine is built and dequantized at use in every model tick; or, with
+  ``"w8a8"`` on a module class with ``w8a8_native``, as int8 with one
+  scale an output channel that every Linear consumes natively (activations
+  quantized per row, an int8 product with int32 sums), the embedding as
+  group-wise int8 (:mod:`~deepspeed_tpu_torch.inference.quantization`).
 
 - **KV tiering** (``kv_tiering``, :mod:`~deepspeed_tpu_torch.inference.
   kv_tiering`).  When every live sequence is page-stalled, the coldest
@@ -107,9 +111,8 @@ JAX's threefry streams (:mod:`~deepspeed_tpu_torch.inference.sampling`).
   while one is live the other sequences take the fused tick.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: the fp8, fp6 and w8a8 weight formats (A9.6), handoff
-export/import (A9.7), tensor parallelism (A7a), and the control plane,
-SLOs and trace sampling (A10).
+ROADMAP item: handoff export/import (A9.7), tensor parallelism (A7a),
+and the control plane, SLOs and trace sampling (A10).
 """
 from __future__ import annotations
 
@@ -300,10 +303,12 @@ class RaggedInferenceEngineV2:
         block of pages, grow per block, evict and requeue as a
         continuation when the pool runs dry) or "worst_case" (reserve
         prompt + max_new_tokens at admission).  ``quantize_weights``:
-        ``None`` or "int8" (weight-only, groups of 2048; "fp8", "fp6" and
-        "w8a8" raise, ROADMAP A9.6).  ``replica`` is the
-        scale-out metric label.  ``pipeline``, ``async_depth``,
-        ``harvest_interval``: the pipelined host path (module docstring);
+        ``None``, "int8", "fp8", "fp6" (weight-only; int8 and fp6 in groups
+        of 2048) or "w8a8" (int8 weights and activations, products in
+        int8; needs a module class with ``w8a8_native``, else it raises).
+        ``replica`` is the scale-out metric label.  ``pipeline``,
+        ``async_depth``, ``harvest_interval``: the pipelined host path
+        (module docstring);
         ``None`` takes the config's ``v2`` subtree (on, 2, 4 by
         default).  ``config["enable_cuda_graph"]`` replays decode blocks
         from CUDA graphs on ``cuda`` (a failed capture raises); a CPU
@@ -345,6 +350,12 @@ class RaggedInferenceEngineV2:
         self._check_unported(topology, quantize_weights,
                              v2cfg if config is not None else None,
                              kv_tiering, control, slo, trace_sample)
+        if quantize_weights == "w8a8" and not getattr(
+                type(model), "w8a8_native", False):
+            raise ValueError(
+                f"quantize_weights='w8a8' needs a model whose Linear layers "
+                f"consume w8a8 weights natively (the Llama family); "
+                f"{type(model).__name__} does not: use weight-only 'int8'")
         # kwarg > config > default, as for every v2 knob
         pipeline = v2cfg.pipeline if pipeline is None else pipeline
         async_depth = (v2cfg.async_depth if async_depth is None
@@ -386,7 +397,9 @@ class RaggedInferenceEngineV2:
         self.cfg = dataclasses.replace(
             mcfg, decode=True, paged_decode=True, max_cache_len=max_seq_len,
             kv_page_size=self.page_size, kv_num_pages=self.num_pages,
-            kv_cache_dtype=kv_cache_dtype)
+            kv_cache_dtype=kv_cache_dtype,
+            **({"weight_quant": "w8a8"} if quantize_weights == "w8a8"
+               else {}))
         self.max_seqs = max_seqs
         self.max_seq_len = max_seq_len
         self.prefill_chunk = prefill_chunk
@@ -408,7 +421,8 @@ class RaggedInferenceEngineV2:
                                        generator=generator).eval()
         self.quantize_weights = quantize_weights
         if quantize_weights is not None:
-            b0, b1 = quantize_model_(self.module, quantize_weights)
+            b0, b1 = quantize_model_(self.module, quantize_weights,
+                                     native_w8a8=True)
             log_dist(f"ragged engine weights -> {quantize_weights}: "
                      f"{b0 / 2**20:.1f} MiB -> {b1 / 2**20:.1f} MiB "
                      f"({b0 / max(b1, 1):.2f}x)", ranks=[0])

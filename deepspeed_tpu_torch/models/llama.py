@@ -13,10 +13,14 @@ A KV cache is passed explicitly (``kv_cache=``, one per layer) where the
 flax model threads a mutable ``"cache"`` collection: a ``KVCache`` for the
 v1 engine, or a ``PagedKVPool`` together with the tick's ``RaggedMeta``
 (``ragged_meta=``) for the ragged v2 engine, whose token batch is
-``[1, T]`` with per-token positions ``[1, T]``.  Int8 weight-only serving
-swaps the projections, ``embed_tokens`` and ``lm_head`` in place for the
-quantized modules of ``inference/quantization.py``, which take the same
-calls, so the forward is one path for bf16 and int8 weights.
+``[1, T]`` with per-token positions ``[1, T]``.  Quantized serving (int8,
+fp8, fp6, w8a8) swaps the projections, ``embed_tokens`` and ``lm_head`` in
+place for the quantized modules of ``inference/quantization.py``, which
+take the same calls, so the forward is one path for every weight format.
+``weight_quant="w8a8"`` marks a config whose Linears consume w8a8 weights
+natively (``W8A8Linear``): native w8a8 quantization sets it, and the
+first forward refuses a model with no such Linear;
+``LlamaForCausalLM.w8a8_native`` says the class can.
 """
 from __future__ import annotations
 
@@ -103,9 +107,10 @@ class LlamaConfig:
             "ragged_decode": (self.ragged_decode,
                               "ROADMAP A12 (the slot-row ragged cache; the "
                               "v2 engine uses paged_decode)"),
-            "weight_quant": (self.weight_quant != "none",
-                             "ROADMAP A9.6 (W8A8 serving)"),
         }
+        if self.weight_quant not in ("none", "w8a8"):
+            raise ValueError(f"weight_quant must be 'none' or 'w8a8', got "
+                             f"{self.weight_quant!r}")
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype must be one of "
                              f"{KV_CACHE_DTYPES}, got "
@@ -404,12 +409,36 @@ class LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
+    # every Linear of this module tree may be a W8A8Linear: the v2 engine
+    # keys native w8a8 serving off this class flag, as the reference's
+    # engines key the int8 product path off flax's
+    w8a8_native = True
+
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         self.config = cfg
         self.model = LlamaModel(cfg)
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
                                  dtype=cfg.param_dtype)
+        self._w8a8_checked = False
+
+    def _check_w8a8(self) -> None:
+        """A ``weight_quant="w8a8"`` config consumes w8a8 weights
+        natively, so its tree must hold ``W8A8Linear`` layers, as
+        ``quantize_model_(..., "w8a8", native_w8a8=True)`` (the v2
+        engine's ``quantize_weights="w8a8"``) leaves it; that call sets
+        the field.  A Linear below the quantizer's ``min_size`` stays
+        plain and runs in float, as the reference's ``w8a8_dot_general``
+        passes a plain kernel through.  Checked at the first forward."""
+        from ..inference.quantization import W8A8Linear
+
+        if not any(isinstance(mod, W8A8Linear) for mod in self.modules()):
+            raise ValueError(
+                "weight_quant='w8a8' serves w8a8 weights natively, but no "
+                "Linear of this model holds them: quantize with "
+                "RaggedInferenceEngineV2(quantize_weights='w8a8'), or keep "
+                "weight_quant='none'")
+        self._w8a8_checked = True
 
     def forward(self, input_ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
@@ -419,6 +448,8 @@ class LlamaForCausalLM(nn.Module):
         """Logits [B, S, V] for ``input_ids`` [B, S].  With
         ``logit_rows`` (a ``[1, T]`` ragged batch), only those token rows
         reach the LM head: logits [len(logit_rows), V]."""
+        if self.config.weight_quant == "w8a8" and not self._w8a8_checked:
+            self._check_w8a8()
         h = self.model(input_ids, positions, kv_cache, ragged_meta)
         if logit_rows is not None:
             h = h[0, logit_rows]

@@ -19,13 +19,18 @@ tree's; a name of neither family raises, so a tree of another model is
 refused rather than half-loaded.  :func:`state_dict_to_flax` is the way
 back, into either layer layout.
 
-A tree the JAX package quantized (``quantize_param_tree``, "int8") carries
-across too: each ``QuantizedWeight`` leaf (payload, scale and offset as
+A tree the JAX package quantized (``quantize_param_tree``, any of its
+formats) carries across too: each ``QuantizedWeight`` leaf (its arrays as
 numpy arrays; recognised by its ``fmt`` and ``arrays``, as the port
-imports nothing of the JAX package) becomes the ``values``, ``scale`` and
-``offset`` buffers of the port's quantized module
-(``inference/quantization.py``), unchanged: both quantize over the flax
-flattening, so a ``kernel``'s payload is not transposed.
+imports nothing of the JAX package) becomes the buffers of the port's
+quantized module (``inference/quantization.py``): int8's ``values``,
+``scale`` and ``offset``, fp8's, fp6's and w8a8's ``values`` and
+``scale``.  Both quantize over the flax layout, so int8, fp8 and fp6
+payloads are not transposed; a w8a8 payload is, into the ``[out, in]``
+the port's int8 product reads.  A scan-stacked leaf quantized whole gives
+each layer its slice: int8 and fp6 by groups (refused when a group spans
+two layers), fp8 its payload slice and the one scale of the whole leaf;
+w8a8 leaves are 2-D only.
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ from typing import Any, Dict, List, Mapping, Optional, Set
 
 import numpy as np
 import torch
+
+from deepspeed_tpu_torch.inference.quantization import FORMAT_BUFFERS
 
 _FAMILIES = {
     "llama": dict(
@@ -92,37 +99,49 @@ def _first_leaf(node: Mapping[str, Any]) -> np.ndarray:
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
-    arr = np.ascontiguousarray(arr)
+    # (ascontiguousarray makes a 0-d array, fp8's scale, 1-d)
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))
     if not arr.flags.writeable:         # e.g. a view of a JAX array
         arr = arr.copy()
     if arr.dtype.name == "bfloat16":    # ml_dtypes' bfloat16: by its bits
         return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    if arr.dtype.name == "float8_e4m3fn":   # ml_dtypes' too
+        return torch.from_numpy(arr.view(np.uint8)).view(
+            torch.float8_e4m3fn)
     return torch.from_numpy(arr)
 
 
 def _quantized_leaf(path: List[str], q, layer: Optional[int]
                     ) -> Dict[str, torch.Tensor]:
-    """The buffers of one int8 ``QuantizedWeight`` leaf; of layer
-    ``layer`` when the leaf is a scan-stacked ``[L, ...]`` one quantized
-    whole (its groups split by layer only when none spans two)."""
-    if q.fmt != "int8":
-        raise NotImplementedError(
-            f"{'/'.join(path)}: weight format {q.fmt!r} is not ported yet: "
-            "ROADMAP A9.6")
+    """The buffers of one ``QuantizedWeight`` leaf; of layer ``layer``
+    when the leaf is a scan-stacked ``[L, ...]`` one quantized whole."""
+    where = "/".join(path)
+    names = FORMAT_BUFFERS.get(q.fmt)
+    if names is None:
+        raise ValueError(f"{where}: unknown weight format {q.fmt!r}")
     arrays = [np.asarray(a) for a in q.arrays]
-    if layer is not None:
+    if q.fmt == "w8a8":
+        if layer is not None or arrays[0].ndim != 2:
+            raise ValueError(f"{where}: a w8a8 leaf is a 2-D kernel, got "
+                             f"{tuple(q.shape)} (the JAX engines unroll "
+                             "before quantizing to w8a8)")
+        arrays[0] = arrays[0].T
+    elif layer is not None and q.fmt == "fp8":
+        # one scale for the whole stacked leaf: each layer's slice with it
+        arrays[0] = arrays[0][layer]
+    elif layer is not None:
         per_layer = int(np.prod(q.shape[1:]))
-        gs = arrays[0].shape[1]
+        gs = q.group_size if q.fmt == "fp6" else arrays[0].shape[1]
         if per_layer % gs:
             raise ValueError(
-                f"{'/'.join(path)}: groups of {gs} span the layers of a "
+                f"{where}: groups of {gs} span the layers of a "
                 f"scan-stacked leaf of {tuple(q.shape)} (ROADMAP §C); "
                 "quantize an unrolled tree")
         rows = per_layer // gs
         arrays = [a[layer * rows:(layer + 1) * rows] for a in arrays]
     prefix = ".".join(path[:-1])
     return {f"{prefix}.{name}": _tensor(a)
-            for name, a in zip(("values", "scale", "offset"), arrays)}
+            for name, a in zip(names, arrays)}
 
 
 def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

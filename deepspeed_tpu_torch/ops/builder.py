@@ -27,13 +27,15 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # flags a source adds to NVCC_FLAGS: the TMA/wgmma flash kernels, the
-# paged kernels and the quantize ring have ptxas name any spill or
-# local-memory use as a warning, which the smoke refuses
+# paged kernels, the quantize ring and the weight formats' kernels have
+# ptxas name any spill or local-memory use as a warning, which the smoke
+# refuses
 EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
     "flash_fwd": ("-Xptxas", "-warn-spills,-warn-lmem-usage"),
     "flash_bwd": ("-Xptxas", "-warn-spills,-warn-lmem-usage"),
     "ragged_paged_attn": ("-Xptxas", "-warn-spills,-warn-lmem-usage"),
     "quantization": ("-Xptxas", "-warn-spills,-warn-lmem-usage"),
+    "weight_formats": ("-Xptxas", "-warn-spills,-warn-lmem-usage"),
 }
 
 

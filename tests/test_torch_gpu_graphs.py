@@ -32,7 +32,9 @@ Long context (KV tiering with ``long_context``): a request 4x over a
 tight pool beside a normal one that outlives it, graphs and the pipeline
 on, gives the eager unpipelined engine's tokens; no decode block starts
 while the long-context request is live, and replayed blocks resume
-after it finishes.
+after it finishes.  Quantized weights: a w8a8 block (K3, ``_int_mm`` and
+K4 a Linear) and an fp6 block (K2 a weight) replayed from graphs give the
+eager unpipelined engine's tokens.
 """
 import numpy as np
 import pytest
@@ -389,3 +391,31 @@ def test_lc_graphs_resume_after_the_long_request(cuda, tmp_path):
         eng.close()
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["w8a8", "fp6"])
+def test_v2_graphs_with_quantized_weights(cuda, fmt):
+    """A v2 block over w8a8 weights (K3, ``_int_mm`` and K4 a Linear) and
+    over fp6 weights (K2 a weight), replayed from graphs with the pipeline
+    on, gives the eager unpipelined engine's tokens, greedy and sampled;
+    the kernels' Python counters tick at warm-ups and captures only."""
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    eager = _v2(cuda, quantize_weights=fmt, pipeline=False)
+    module = eager.module
+    want = _serve(eager, sampled=True)
+    counter = qz.w8a8_quant_rows if fmt == "w8a8" else qz.dequantize_fp6
+    per = 7 * TINY["num_hidden_layers"] + (1 if fmt == "w8a8" else 2)
+    graphed = _v2(cuda, module, pipeline=True,
+                  config={"enable_cuda_graph": True})
+    before = counter.launches
+    got = _serve(graphed, sampled=True)
+    for a, b in zip(want, got, strict=True):
+        np.testing.assert_array_equal(a, b)
+    st = graphed.serving_stages()
+    K = V2["decode_block_size"]
+    assert st["graph_captures"] >= 1 and st["graph_replays"] >= 1
+    eager_ticks = graphed.host_stats.ticks - K * st["graph_replays"]
+    assert counter.launches - before == per * (
+        eager_ticks + 2 * K * st["graph_captures"])

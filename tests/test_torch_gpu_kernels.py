@@ -33,7 +33,10 @@ dequantize (``quantization.cu``) at the int8 serving path's shapes
 (``gate_proj`` at groups of 128 and 2048, the embedding table), at groups
 of 32, 64, 256 and 4096, 4 bits at 2048, fp16 input, n off a whole tile,
 tails, and an input one value off 16 bytes, symmetric and asymmetric,
-bf16 and fp32.
+bf16 and fp32; and the serving weight formats' kernels
+(``weight_formats.cu``): K1 over e4m3 and over int8 with a scale a row,
+K2 (fp6) at groups of 128, 2048 and a searched size, and K3, K4 and the
+whole W8A8 Linear through ``torch._int_mm`` at 1, 16, 17 and 512 rows.
 
 Tolerances: bf16 flash outputs 2e-2 (p and o round to bf16 at 2^-8
 relative, in different places in the kernel and the plain version); bf16
@@ -45,8 +48,9 @@ up to 200 keys, another order); optimizer steps 1e-6 relative (fp32
 elementwise, the kernel contracts multiply-adds into FMAs); bf16 paged outputs 2e-3 absolute plus 2e-2 relative (K and V are O(1), so |o|
 is ~0.04 at 2048 keys and the absolute part stays under it); fp32 outputs
 1e-4 (full fp32 products, another summation order); lse 2e-3 absolute;
-quantize and dequantize none: payload, scale, offset and output must be
-bit-identical to the plain version (IEEE division, rint, no FMA).
+quantize, dequantize and the weight formats' kernels none: payload,
+scales and output must be bit-identical to the plain version (IEEE
+division, rint, no FMA; the int8 product is exact).
 """
 import pytest
 import torch
@@ -715,3 +719,122 @@ def test_quant_kernel_errors_propagate(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         qz.dequantize(qt)
     assert (qz.quantize.launches, qz.dequantize.launches) == before
+
+
+# --------------------------------------------------------------------------
+# The weight formats' kernels (weight_formats.cu): K1-K4 and the W8A8
+# Linear, bit-identical to their plain versions
+# --------------------------------------------------------------------------
+
+def _bits_equal(a, b):
+    word = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+    return (a.dtype == b.dtype and a.shape == b.shape and
+            torch.equal(a.contiguous().view(word), b.contiguous().view(word)))
+
+
+def _weight(seed, rows, cols, dtype, device):
+    """Rows of mixed magnitude, as trained weights have."""
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn(rows, cols, generator=g) * torch.rand(rows, 1,
+                                                          generator=g)
+    return w.to(device, dtype)
+
+
+# rows, cols: gate_proj's shape, a tail off the 16-element vector, odd
+WF_SHAPES = [(4096, 14336), (1000, 1001), (37, 53)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", WF_SHAPES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
+def test_dequant_scaled_matches_plain(cuda, shape, dtype):
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    dt = getattr(torch, dtype)
+    w = _weight(1, *shape, dt, cuda)
+    ft = qz.quantize_fp8(w)
+    assert _bits_equal(qz.dequantize_fp8(ft), qz.dequant_scaled_reference(
+        ft.values, ft.scale, dt))
+    v, s = qz.quantize_per_channel(w)
+    before = qz.dequant_scaled.launches
+    assert _bits_equal(qz.dequant_scaled(v, s, dt),
+                       qz.dequant_scaled_reference(v, s, dt))
+    assert qz.dequant_scaled.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", WF_SHAPES)
+@pytest.mark.parametrize("gs", [128, 2048, 100])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dequantize_fp6_matches_plain(cuda, shape, gs, dtype):
+    """Groups of 128 and 2048, a group size the search lowers, and 37 x 53
+    values, which pad to groups of 4 (the byte-wise path)."""
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    w = _weight(2, *shape, getattr(torch, dtype), cuda)
+    t = qz.quantize_fp6(w, gs)
+    got = qz.dequantize_fp6(t)
+    assert got.shape == shape and _bits_equal(got,
+                                              qz.dequantize_fp6_reference(t))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 16, 17, 512])
+@pytest.mark.parametrize("K,N", [(4096, 14336), (14336, 4096), (72, 40)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_w8a8_kernels_match_plain(cuda, M, K, N, dtype):
+    """K3 (and its zero padding rows), K4 and the whole W8A8 Linear through
+    ``torch._int_mm`` (M <= 16 padded to 17 rows), with a zero row."""
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    dt = getattr(torch, dtype)
+    v, s = qz.quantize_per_channel(_weight(3, N, K, dt, cuda))
+    x = _weight(4, M, K, dt, cuda)
+    x[0] = 0
+    xq, sx = qz.w8a8_quant_rows(x, M + 3)
+    rq, rs = qz.w8a8_quant_rows_reference(x)
+    assert torch.equal(xq[:M], rq) and _bits_equal(sx[:M], rs)
+    assert not xq[M:].any() and not sx[M:].any()
+    acc = qz.int8_product_reference(rq, v)
+    assert _bits_equal(qz.w8a8_epilogue(acc, rs, s, dt),
+                       qz.w8a8_epilogue_reference(acc, rs, s, dt))
+    got = qz.w8a8_linear(x, v, s)
+    assert _bits_equal(got, qz.w8a8_linear_reference(x, v, s))
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.gpu
+def test_weight_format_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    v = torch.zeros(8, 32, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        qz.dequant_scaled(v.t(), torch.ones((), device=cuda), torch.float32)
+    with pytest.raises(ValueError, match="one device"):
+        qz.dequant_scaled(v, torch.ones(()), torch.float32)
+    with pytest.raises(ValueError, match="rows_padded"):
+        qz.w8a8_quant_rows(torch.zeros(4, 32, device=cuda), 3)
+
+
+@pytest.mark.gpu
+def test_weight_format_wrappers_count_no_launch_on_empty_inputs(cuda):
+    """Empty inputs launch nothing, so the counters stay where they were."""
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    counters = (qz.dequant_scaled, qz.dequantize_fp6, qz.w8a8_quant_rows,
+                qz.w8a8_epilogue)
+    before = [c.launches for c in counters]
+    one = torch.ones((), device=cuda)
+    assert qz.dequant_scaled(torch.zeros(0, 8, dtype=torch.int8, device=cuda),
+                             one, torch.bfloat16).shape == (0, 8)
+    empty6 = qz.FP6Tensor(torch.zeros(0, 96, dtype=torch.uint8, device=cuda),
+                          torch.zeros(0, 1, device=cuda), (0, 8),
+                          torch.bfloat16, 128)
+    assert qz.dequantize_fp6(empty6).shape == (0, 8)
+    xq, sx = qz.w8a8_quant_rows(torch.zeros(0, 64, device=cuda))
+    assert xq.shape == (0, 64) and sx.shape == (0, 1)
+    y = qz.w8a8_epilogue(torch.zeros(0, 8, dtype=torch.int32, device=cuda),
+                         torch.zeros(0, 1, device=cuda),
+                         torch.ones(8, device=cuda), torch.float32)
+    assert y.shape == (0, 8)
+    assert [c.launches for c in counters] == before

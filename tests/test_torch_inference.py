@@ -180,14 +180,30 @@ def test_seeded_sampling_is_reproducible(served):
 
 
 @pytest.mark.parametrize("config,match", [
-    ({"tensor_parallel": {"tp_size": 2}}, "ROADMAP A7"),
-    ({"quant": {"enabled": True, "qtype": "fp8"}}, "ROADMAP A9")])
+    ({"tensor_parallel": {"tp_size": 2}}, "ROADMAP A7")])
 def test_unported_engine_options_raise(served, config, match):
     with torch.device("meta"):
         model = llama.LlamaForCausalLM(llama.LlamaConfig(**TINY))
     with pytest.raises(NotImplementedError, match=match):
         deepspeed_tpu_torch.init_inference(model, config=config,
                                            device="cpu")
+
+
+def test_fp8_quant_serves(served):
+    """``quant`` with fp8 (once refused here) serves: every matmul weight
+    fp8 with one scale, tokens within the seeded greedy run's shape and
+    vocabulary (its parity with the JAX engine is
+    ``test_torch_weight_formats_serving.py``)."""
+    with torch.device("meta"):
+        model = llama.LlamaForCausalLM(llama.LlamaConfig(**TINY))
+    eng = deepspeed_tpu_torch.init_inference(
+        model, config=dict(CONFIG, quant={"enabled": True, "qtype": "fp8"}),
+        params=served["state"], device="cpu")
+    assert eng.module.lm_head.values.dtype == torch.float8_e4m3fn
+    out = eng.generate(served["prompts"], max_new_tokens=NEW)
+    assert out.shape == (served["prompts"].shape[0],
+                         served["prompts"].shape[1] + NEW)
+    assert ((out >= 0) & (out < 256)).all()
 
 
 def test_generate_rejects_bad_requests(served):

@@ -6,6 +6,8 @@ Logits are compared in fp32 with atol 1e-4 (two layers of fp32 matmuls
 summed in another order).  The config is tinyllama-sized but with a head
 dim of 64, the smallest the flash kernel takes.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -104,11 +106,35 @@ def test_bridge_raises_on_unmapped_names(tree):
 
 @pytest.mark.parametrize("field,value", [
     ("sequence_parallel", "ring"), ("pipeline_stages", 2),
-    ("ragged_decode", True), ("weight_quant", "w8a8"),
-    ("tensor_parallel", True)])
+    ("ragged_decode", True), ("tensor_parallel", True)])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         llama.LlamaConfig(**{field: value})
+
+
+def test_weight_quant_w8a8_accepted():
+    """``weight_quant="w8a8"`` (once refused here) marks a model whose
+    Linears consume w8a8 weights natively: native w8a8 quantization sets
+    it, and a forward with no such Linear is refused instead of serving
+    float weights; ``LlamaForCausalLM`` carries the reference's
+    ``w8a8_native`` flag; another value is refused."""
+    from deepspeed_tpu_torch.inference import quantization as iq
+
+    cfg = llama.LlamaConfig(**{**TINY, "num_hidden_layers": 1},
+                            weight_quant="w8a8", dtype=torch.float32)
+    assert llama.LlamaForCausalLM.w8a8_native
+    torch.manual_seed(0)
+    ids = torch.randint(0, TINY["vocab_size"], (1, 5))
+    model = llama.LlamaForCausalLM(cfg)
+    with pytest.raises(ValueError, match="w8a8"):
+        model(ids)
+    model = llama.LlamaForCausalLM(dataclasses.replace(cfg,
+                                                       weight_quant="none"))
+    iq.quantize_model_(model, "w8a8", native_w8a8=True)
+    assert model.config.weight_quant == "w8a8"
+    assert model(ids).shape == (1, 5, TINY["vocab_size"])
+    with pytest.raises(ValueError, match="weight_quant"):
+        llama.LlamaConfig(weight_quant="int4")
 
 
 @pytest.mark.parametrize("kv_cache_dtype", ["none", "int8", "fp8",

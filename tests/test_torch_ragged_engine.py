@@ -269,7 +269,7 @@ def test_stream_deltas_report_each_token_once(served):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(quantize_weights="fp8"), "A9.6"),
+    (dict(config={"v2": {"slo": ["ttft_ms_p99 <= 150"]}}), "A10"),
     (dict(topology=object()), "A7a"),
     (dict(control=True), "A10"),
     (dict(slo=["ttft_ms_p99 <= 150"]), "A10"),
