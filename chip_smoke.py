@@ -234,18 +234,21 @@ Phases (any failed check raises; nothing is caught):
    layers at full width in fp32 through one bridged flax tree, 1024 + 32
    against the resident control by phase 7's margin rule.
 22. The fp8, fp6 and w8a8 weight formats (A9.6): K1 ``dequant_scaled``
-   (e4m3, and int8 a scale a row), K2 ``dequantize_fp6`` (groups of 128
-   and 2048), K3 ``w8a8_quant_rows``, K4 ``w8a8_epilogue`` and the whole
-   W8A8 Linear (``torch._int_mm`` between them) bit-identical to their
-   plain versions at ``gate_proj``, ``down_proj`` and ``lm_head`` (the
-   W8A8 pieces at 1, 16, 17 and 512 rows); each timed at ``gate_proj``
-   beside its byte bound and plain version, the W8A8 Linear beside bf16
-   ``F.linear``.  Then ``llama3-8b`` at full width and depth through v2
+   (e4m3, and int8 a scale a row) and K2 ``dequantize_fp6`` (groups of
+   128 and 2048) bit-identical to their plain versions at ``gate_proj``,
+   ``down_proj`` and ``lm_head``, and the W8A8 Linear (its row pre-pass
+   ``w8a8_quant_rows``, then the GEMM ``w8a8_gemm``) at those and
+   ``k_proj``, at 1, 16, 17, 80 and 512 rows; each
+   timed at ``gate_proj`` beside its bound and plain version, the W8A8
+   GEMM at 16 and 512 rows beside ``torch._int_mm`` and bf16
+   ``F.linear``, and at 16 rows at ``k_proj`` and ``lm_head``.  Then
+   ``llama3-8b`` at full width and depth through v2
    with each format, phase 6's 24 requests graphed and pipelined twice
    (the same tokens; w8a8 once more with the pipeline off, the same
    tokens), each format's counters exact against the ticks and captures
-   as in phase 14 (K1 or K2 226 a tick; K3 and K4 225 and #7 once a tick
-   for w8a8), resident and peak GiB, decode tokens/s, TTFT p50/p99 and
+   as in phase 14 (K1 or K2 226 a tick; the pre-pass and ``w8a8_gemm``
+   225 each and #7 once a tick for w8a8),
+   resident and peak GiB, decode tokens/s, TTFT p50/p99 and
    how many requests equal the bf16 run's; v1 with each format at 4 x
    1000 + 16, greedy twice identical, #1 32 times and the format's
    kernels exactly per forward; and 1 layer at full hidden and MLP width
@@ -285,6 +288,7 @@ SEED = 0
 PEAK_BF16 = 989e12          # dense tensor-core FLOP/s, H100 SXM data sheet
 PEAK_FP32 = 67e12           # fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12        # HBM3 bytes/s
+PEAK_INT8 = 1979e12         # dense tensor-core int8 OP/s
 # bf16 tolerance, kernel against plain: both compute fp32 scores from the
 # same bf16 inputs and cast p to bf16 before PV; they differ in summation
 # order and in where each rounds o to bf16 (half an ulp: 2^-8 relative)
@@ -378,7 +382,7 @@ def phase_report():
     t0 = time.perf_counter()
     built = builder.build_all(["flash_fwd", "ragged_paged_attn",
                                "flash_bwd", "fused_adam", "quantization",
-                               "weight_formats"])
+                               "weight_formats", "w8a8_gemm"])
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)}")
     for name, b in built.items():
         log(f"[{name}] nvcc {b.seconds:.1f} s\n{b.log.strip()}")
@@ -397,18 +401,23 @@ def phase_report():
                    ("rpa_mma", "rpa_combine"), 8)
     check_no_spill(built["quantization"], "quantization",
                    ("quant_ring", "quant_kernel", "dequant_kernel"), 18)
-    # the weight formats' kernels: K1 over int8 and e4m3, K2, K3 and K4,
-    # each at both vector widths and three output types
+    # the weight formats' kernels: K1 over int8 and e4m3 and K2, each at
+    # both vector widths and three output types
     check_no_spill(built["weight_formats"], "weight_formats",
-                   ("dequant_scaled_kernel", "dequant_fp6_kernel",
-                    "w8a8_rows_kernel", "w8a8_epilogue_kernel"), 30)
+                   ("dequant_scaled_kernel", "dequant_fp6_kernel"), 18)
+    # the W8A8 GEMM at 16, 32, 64, 128 and 256-token tiles and its row
+    # pre-pass at 512 and 128 threads a row, three types each; its wgmma
+    # must not be serialized either
+    check_no_spill(built["w8a8_gemm"], "w8a8_gemm",
+                   ("w8a8_gemm", "w8a8_rows"), 21, wgmma=True)
     return smi
 
 
-def check_no_spill(built, name, kernels, count):
+def check_no_spill(built, name, kernels, count, wgmma=False):
     """The ``count`` kernels of library ``name`` whose names contain one
     of ``kernels``, from ``ptxas -v``: no warning (the source's flags make
-    a spill or local memory one), no stack, no spill."""
+    a spill or local memory one), no stack, no spill; with ``wgmma``, no
+    wgmma that ptxas had to serialize (C7520, printed as info)."""
     from deepspeed_tpu_torch.ops import builder
 
     if not built.log:           # built before this run: build it again
@@ -416,7 +425,8 @@ def check_no_spill(built, name, kernels, count):
         built = builder.build_all([name])[name]
     lines = built.log.splitlines()
     bad = [ln for ln in lines
-           if "warning" in ln and any(k in ln for k in kernels)]
+           if ("warning" in ln and any(k in ln for k in kernels)) or
+           (wgmma and ("C7520" in ln or "serialized" in ln))]
     assert not bad, f"ptxas warns about {kernels}:\n" + "\n".join(bad)
     props = {}
     for i, ln in enumerate(lines):
@@ -3863,13 +3873,16 @@ def phase_lc_fp32(smi):
 
 
 # ---------------------------------------------------------------------------
-# Phase 22: fp8, fp6 and w8a8 weights (K1-K4) through v2 and v1
+# Phase 22: fp8, fp6 and w8a8 weights (K1, K2, the W8A8 GEMM) through v2, v1
 # ---------------------------------------------------------------------------
 
 WQ_FORMATS = ("fp8", "fp6", "w8a8")
-# llama3-8b's Linears as flax kernels [in, out]: the kernels' shapes
+# llama3-8b's Linears as flax kernels [in, out]: the kernels' shapes; the
+# W8A8 GEMM also at k_proj, whose 8 channel tiles split K the most
 WQ_WEIGHTS = {"gate_proj": (4096, 14336), "down_proj": (14336, 4096),
               "lm_head": (4096, 128256)}
+W8A8_WEIGHTS = {**WQ_WEIGHTS, "k_proj": (4096, 1024)}
+W8A8_ROWS = (1, 16, 17, 80, 512)
 
 
 def bits_equal(a, b) -> bool:
@@ -3881,8 +3894,9 @@ def bits_equal(a, b) -> bool:
 def wq_counters(fmt, L, native):
     """(wrapper, launches a forward or model tick) of a format's per-use
     kernels: every quantized weight once (7 a layer, the embedding and the
-    head); native w8a8 runs K3 and K4 once a Linear and #7 on the int8
-    embedding, v1's w8a8 expands its Linears through K1 instead."""
+    head); native w8a8 runs the W8A8 Linear's row pre-pass and GEMM once
+    a Linear and #7 on the int8 embedding, v1's w8a8 expands its Linears
+    through K1 instead."""
     from deepspeed_tpu_torch.ops import quantization as qz
 
     n = 7 * L + 2
@@ -3891,152 +3905,187 @@ def wq_counters(fmt, L, native):
     if fmt == "fp6":
         return [(qz.dequantize_fp6, n)]
     if native:
-        return [(qz.w8a8_quant_rows, n - 1), (qz.w8a8_epilogue, n - 1),
+        return [(qz.w8a8_quant_rows, n - 1), (qz.w8a8_gemm, n - 1),
                 (qz.dequantize, 1)]
     return [(qz.dequant_scaled, n - 1), (qz.dequantize, 1)]
 
 
-def wq_entry(name, ms, plain_ms, nbytes, line):
-    bound = nbytes / PEAK_BYTES * 1e3
+def wq_entry(name, ms, plain_ms, nbytes, line, ops=0,
+             source="weight_formats.cu"):
+    """A kernels-line entry bounded by ``nbytes`` at the card's memory
+    rate or ``ops`` int8 operations at its int8 rate, the larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_INT8
     return dict(name=name, route="cuda",
-                source="deepspeed_tpu_torch/ops/csrc/weight_formats.cu",
+                source=f"deepspeed_tpu_torch/ops/csrc/{source}",
                 replaces=line, launches=0, max_abs_err=0.0, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=None)
 
 
 def phase_wq_kernels():
-    """K1-K4 and ``w8a8_linear`` against their plain versions, bit for
-    bit, at gate_proj, down_proj and lm_head (bf16): K1 over e4m3 (one
-    scale) and int8 (a scale a row), K2 at groups of 128 and 2048, K3, K4
-    and the whole W8A8 Linear at 1, 16, 17 and 512 rows.  Times each at
-    gate_proj (device time, graph-replayed) beside its byte bound and its
-    plain version; the W8A8 Linear beside bf16 ``F.linear``."""
-    from torch.nn import functional as F
-
+    """K1, K2 and the W8A8 GEMM against their plain versions, bit for
+    bit (bf16): K1 over e4m3 (one scale) and int8 (a scale a row) and K2
+    at groups of 128 and 2048 at gate_proj, down_proj and lm_head; the
+    W8A8 Linear (the row pre-pass ``w8a8_quant_rows``, then the GEMM
+    ``w8a8_gemm``) at those and k_proj at 1, 16, 17,
+    80 and 512 rows, with a zero row, and the pre-pass's rows and scales
+    themselves.  Times each at gate_proj (device time, graph-replayed)
+    beside its bound and its plain version; the W8A8 GEMM at 16 and 512
+    rows beside ``torch._int_mm`` (the product alone) and bf16
+    ``F.linear``, and at 16 rows at k_proj and lm_head."""
     from deepspeed_tpu_torch.ops import quantization as qz
 
     bf16 = torch.bfloat16
     entries = {}
     worst = dict.fromkeys(("dequant_scaled", "dequant_fp6",
-                           "w8a8_quant_rows", "w8a8_epilogue"), 0.0)
+                           "w8a8_quant_rows", "w8a8_gemm"), 0.0)
 
     def err(name, a, b):
         worst[name] = max(worst[name], (a.float() - b.float()).abs().max()
                           .item())
 
-    for i, (wname, (K, N)) in enumerate(WQ_WEIGHTS.items()):
+    for i, (wname, (K, N)) in enumerate(W8A8_WEIGHTS.items()):
         gen = torch.Generator(device="cuda").manual_seed(SEED + 2200 + i)
-        # nn.Linear's [out, in], rows of mixed magnitude; flax's kernel
+        # nn.Linear's [out, in], rows of mixed magnitude
         w = (torch.randn(N, K, generator=gen, device="cuda") *
              torch.rand(N, 1, generator=gen, device="cuda") * 0.05).to(bf16)
-        kernel = w.t().contiguous()
-        n = w.numel()
-        timed = wname == "gate_proj"
-        ft = qz.quantize_fp8(kernel)
-        got = qz.dequantize_fp8(ft)
-        want = qz.dequant_scaled_reference(ft.values, ft.scale, bf16)
-        assert bits_equal(got, want), f"K1 e4m3 at {wname}"
-        err("dequant_scaled", got, want)
         v, s = qz.quantize_per_channel(w)
-        got = qz.dequant_scaled(v, s, bf16)
-        want = qz.dequant_scaled_reference(v, s, bf16)
-        assert bits_equal(got, want), f"K1 int8 per row at {wname}"
-        err("dequant_scaled", got, want)
-        line = (f"wq[{wname}] [{K}, {N}] bf16: K1 over e4m3 and int8 a "
-                "scale a row bit-identical to plain")
-        del got, want
-        if timed:
-            ms = graph_ms(lambda: qz.dequantize_fp8(ft))
-            plain = time_ms(lambda: qz.dequant_scaled_reference(
-                ft.values, ft.scale, bf16), reps=3, warmup=1)
-            ms_row = graph_ms(lambda: qz.dequant_scaled(v, s, bf16))
-            entries["dequant_scaled"] = wq_entry(
-                "dequant_scaled", ms, plain, 3 * n + 4,
-                "deepspeed_tpu/ops/quantization.py:175")
-            e = entries["dequant_scaled"]
-            line += (f"; K1 e4m3 {ms:.4f} ms (bound {e['bound_ms']:.4f}, "
-                     f"{e['bound_ms'] / ms:.1%}; plain {plain:.3f}), int8 "
-                     f"a scale a row {ms_row:.4f} ms")
-        del ft
-        for gs in (128, 2048):
-            t6 = qz.quantize_fp6(kernel, gs)
-            got = qz.dequantize_fp6(t6)
-            want = qz.dequantize_fp6_reference(t6)
-            assert t6.group_size == gs and bits_equal(got, want), (
-                f"K2 at {wname}, groups of {gs}")
-            err("dequant_fp6", got, want)
-            del got, want
-            line += f"; K2 groups of {gs} bit-identical"
-            if timed:
-                ms = graph_ms(lambda: qz.dequantize_fp6(t6))
-                plain = time_ms(lambda: qz.dequantize_fp6_reference(t6),
-                                reps=3, warmup=1)
-                nbytes = t6.values.numel() + 4 * t6.scale.numel() + 2 * n
-                e = wq_entry(f"dequant_fp6_g{gs}", ms, plain, nbytes,
-                             "deepspeed_tpu/ops/quantization.py:274")
-                entries[e["name"]] = e
-                line += (f" ({ms:.4f} ms, bound {e['bound_ms']:.4f}, "
-                         f"{e['bound_ms'] / ms:.1%}; plain {plain:.3f})")
-            del t6
-        for M in (1, 16, 17, 512):
-            x = torch.randn(M, K, generator=gen, device="cuda").to(bf16)
-            xq, sx = qz.w8a8_quant_rows(x)
-            rq, rs = qz.w8a8_quant_rows_reference(x)
-            assert torch.equal(xq, rq) and bits_equal(sx, rs), (
-                f"K3 at {wname}, M {M}")
-            err("w8a8_quant_rows", xq, rq)
-            acc = qz.int8_product_reference(rq, v)
-            y = qz.w8a8_epilogue(acc, rs, s, bf16)
-            ry = qz.w8a8_epilogue_reference(acc, rs, s, bf16)
-            assert bits_equal(y, ry), f"K4 at {wname}, M {M}"
-            err("w8a8_epilogue", y, ry)
-            lin = qz.w8a8_linear(x, v, s)
-            assert bits_equal(lin, qz.w8a8_linear_reference(x, v, s)), (
-                f"W8A8 Linear at {wname}, M {M}")
-            line += f"; K3, K4, W8A8 Linear at M {M} bit-identical"
-            if timed and M in (16, 512):
-                Mp = max(M, qz._INT_MM_MIN_ROWS)
-                ms3 = graph_ms(lambda: qz.w8a8_quant_rows(x, Mp))
-                ms4 = graph_ms(lambda: qz.w8a8_epilogue(acc, rs, s, bf16))
-                ms_lin = graph_ms(lambda: qz.w8a8_linear(x, v, s))
-                xz = torch.zeros(Mp, K, dtype=torch.int8, device="cuda")
-                ms_mm = graph_ms(lambda: torch._int_mm(xz, v.t()))
-                # the payload's layout: [out, in] read as a column-major
-                # operand, against a row-major [in, out] copy
-                v_rows = v.t().contiguous()
-                ms_rows = graph_ms(lambda: torch._int_mm(xz, v_rows))
-                del v_rows
-                ms_bf = graph_ms(lambda: F.linear(x, w))
-                p3 = time_ms(lambda: qz.w8a8_quant_rows_reference(x),
-                             reps=3, warmup=1)
-                p4 = time_ms(lambda: qz.w8a8_epilogue_reference(
-                    acc, rs, s, bf16), reps=3, warmup=1)
-                b3 = wq_entry("w8a8_quant_rows", ms3, p3,
-                              3 * M * K + 4 * M,
-                              "deepspeed_tpu/inference/quantization.py:194")
-                b4 = wq_entry("w8a8_epilogue", ms4, p4,
-                              6 * M * N + 4 * (M + N),
-                              "deepspeed_tpu/inference/quantization.py:203")
-                if M == 16:     # the kernels line: a decode tick's shape
-                    entries[b3["name"]], entries[b4["name"]] = b3, b4
-                line += (f" (K3 {ms3:.4f} ms, {b3['bound_ms'] / ms3:.1%} "
-                         f"of bound; K4 {ms4:.4f} ms, "
-                         f"{b4['bound_ms'] / ms4:.1%}; _int_mm {ms_mm:.4f}"
-                         f" over [out, in], {ms_rows:.4f} over a row-major "
-                         f"copy; the W8A8 Linear {ms_lin:.4f} ms against "
-                         f"bf16 F.linear {ms_bf:.4f})")
-            del x, xq, rq, acc, y, ry, lin
+        parts = [w8a8_checks(wname, w, v, s, gen, entries, err)]
+        if wname in WQ_WEIGHTS:
+            parts.insert(0, wq_dequant_checks(wname, w, v, s, entries, err))
+        line = f"wq[{wname}] [{K}, {N}] bf16: " + "; ".join(parts)
         log(line)
-        del w, kernel, v, s
+        del w, v, s
         torch.cuda.empty_cache()
     for e in entries.values():
         e["max_abs_err"] = worst[[k for k in worst
                                   if e["name"].startswith(k)][0]]
     log("weight-format kernels: no single PyTorch call computes a scaled "
-        "dequant, fp6 decode, per-row int8 quantization or the int32 "
-        "rescale, so library_ms is null")
+        "dequant, fp6 decode, per-row int8 quantization or the W8A8 Linear "
+        "(torch._int_mm is its int8 product alone, timed beside it; "
+        "torch._scaled_mm quantizes differently), so library_ms is null")
     return entries
+
+
+def wq_dequant_checks(wname, w, v, s, entries, err):
+    """K1 and K2 at one weight, bit for bit; timed at gate_proj."""
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    bf16 = torch.bfloat16
+    kernel = w.t().contiguous()
+    n = w.numel()
+    timed = wname == "gate_proj"
+    ft = qz.quantize_fp8(kernel)
+    got = qz.dequantize_fp8(ft)
+    want = qz.dequant_scaled_reference(ft.values, ft.scale, bf16)
+    assert bits_equal(got, want), f"K1 e4m3 at {wname}"
+    err("dequant_scaled", got, want)
+    got = qz.dequant_scaled(v, s, bf16)
+    want = qz.dequant_scaled_reference(v, s, bf16)
+    assert bits_equal(got, want), f"K1 int8 per row at {wname}"
+    err("dequant_scaled", got, want)
+    line = "K1 over e4m3 and int8 a scale a row bit-identical to plain"
+    del got, want
+    if timed:
+        ms = graph_ms(lambda: qz.dequantize_fp8(ft))
+        plain = time_ms(lambda: qz.dequant_scaled_reference(
+            ft.values, ft.scale, bf16), reps=3, warmup=1)
+        ms_row = graph_ms(lambda: qz.dequant_scaled(v, s, bf16))
+        entries["dequant_scaled"] = wq_entry(
+            "dequant_scaled", ms, plain, 3 * n + 4,
+            "deepspeed_tpu/ops/quantization.py:175")
+        e = entries["dequant_scaled"]
+        line += (f"; K1 e4m3 {ms:.4f} ms (bound {e['bound_ms']:.4f}, "
+                 f"{e['bound_ms'] / ms:.1%}; plain {plain:.3f}), int8 "
+                 f"a scale a row {ms_row:.4f} ms")
+    del ft
+    for gs in (128, 2048):
+        t6 = qz.quantize_fp6(kernel, gs)
+        got = qz.dequantize_fp6(t6)
+        want = qz.dequantize_fp6_reference(t6)
+        assert t6.group_size == gs and bits_equal(got, want), (
+            f"K2 at {wname}, groups of {gs}")
+        err("dequant_fp6", got, want)
+        del got, want
+        line += f"; K2 groups of {gs} bit-identical"
+        if timed:
+            ms = graph_ms(lambda: qz.dequantize_fp6(t6))
+            plain = time_ms(lambda: qz.dequantize_fp6_reference(t6),
+                            reps=3, warmup=1)
+            nbytes = t6.values.numel() + 4 * t6.scale.numel() + 2 * n
+            e = wq_entry(f"dequant_fp6_g{gs}", ms, plain, nbytes,
+                         "deepspeed_tpu/ops/quantization.py:274")
+            entries[e["name"]] = e
+            line += (f" ({ms:.4f} ms, bound {e['bound_ms']:.4f}, "
+                     f"{e['bound_ms'] / ms:.1%}; plain {plain:.3f})")
+        del t6
+    return line
+
+
+def w8a8_checks(wname, w, v, s, gen, entries, err):
+    """The W8A8 GEMM at one weight and every row count of W8A8_ROWS, bit
+    for bit against ``w8a8_linear_reference``; timed at gate_proj (16
+    and 512 rows) and at 16 rows at k_proj and lm_head."""
+    from torch.nn import functional as F
+
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    N, K = v.shape
+    line = "W8A8 Linear (pre-pass and GEMM) bit-identical at M"
+    for M in W8A8_ROWS:
+        x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+        x[0] = 0
+        lin = qz.w8a8_linear(x, v, s)
+        want = qz.w8a8_linear_reference(x, v, s)
+        assert bits_equal(lin, want), f"W8A8 GEMM at {wname}, M {M}"
+        err("w8a8_gemm", lin, want)
+        xq, sx = qz.w8a8_quant_rows(x)
+        rq, rs = qz.w8a8_quant_rows_reference(x)
+        assert torch.equal(xq, rq) and bits_equal(sx, rs), (
+            f"the row pre-pass at {wname}, M {M}")
+        err("w8a8_quant_rows", xq, rq)
+        line += f" {M}"
+        del lin, want, xq, sx, rq, rs
+        timed = (wname == "gate_proj" and M in (16, 512)) or (
+            wname in ("k_proj", "lm_head") and M == 16)
+        if not timed:
+            continue
+        plan = qz.w8a8_plan(M, N, K, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        ms = graph_ms(lambda: qz.w8a8_linear(x, v, s))
+        xz = torch.zeros(max(M, 17), K, dtype=torch.int8, device="cuda")
+        ms_mm = graph_ms(lambda: torch._int_mm(xz, v.t()))
+        del xz
+        ms_bf = graph_ms(lambda: F.linear(x, w))
+        # the int8 weight, x and y in bf16 and the scales, or the int8
+        # product's operations
+        e = wq_entry("w8a8_gemm", ms, None,
+                     N * K + 2 * M * K + 2 * M * N + 4 * N,
+                     "deepspeed_tpu/inference/quantization.py:180",
+                     ops=2 * M * N * K, source="w8a8_gemm.cu")
+        line += (f" [{plan.tn}-token tiles, {plan.blocks} blocks: "
+                 f"{ms:.4f} ms (both launches), bound "
+                 f"{e['bound_ms']:.4f} ({e['bound_by']}), "
+                 f"{e['bound_ms'] / ms:.1%}; _int_mm alone {ms_mm:.4f} ms; "
+                 f"bf16 F.linear {ms_bf:.4f} ms]")
+        if wname == "gate_proj" and M == 16:     # a decode tick's shape
+            e["plain_ms"] = time_ms(lambda: qz.w8a8_linear_reference(
+                x, v, s), reps=3, warmup=1)
+            entries["w8a8_gemm"] = e
+        if wname == "gate_proj" and M == 512:    # a prefill chunk's rows
+            ms_rows = graph_ms(lambda: qz.w8a8_quant_rows(x))
+            plain = time_ms(lambda: qz.w8a8_quant_rows_reference(x),
+                            reps=3, warmup=1)
+            r = wq_entry("w8a8_quant_rows", ms_rows, plain,
+                         3 * M * K + 4 * M,
+                         "deepspeed_tpu/inference/quantization.py:194",
+                         source="w8a8_gemm.cu")
+            entries["w8a8_quant_rows"] = r
+            line += (f" [the pre-pass alone {ms_rows:.4f} ms, bound "
+                     f"{r['bound_ms']:.4f}, {r['bound_ms'] / ms_rows:.1%}]")
+        del x
+    return line
 
 
 def phase_wq_v2(bf16_outs=None):
@@ -4443,7 +4492,7 @@ def phase_wq(cpu_side, card_halves, bf16_outs=None):
     torch.cuda.empty_cache()
     entries = phase_wq_kernels()
     counters = (qz.dequant_scaled, qz.dequantize_fp6, qz.w8a8_quant_rows,
-                qz.w8a8_epilogue)
+                qz.w8a8_gemm)
     for c in counters:                  # the main path starts here
         c.launches = 0
     phase_wq_v2(bf16_outs)
@@ -4456,8 +4505,9 @@ def phase_wq(cpu_side, card_halves, bf16_outs=None):
         entries["dequant_fp6_g2048"]["launches"])
     for name, c in (("dequant_scaled", qz.dequant_scaled),
                     ("w8a8_quant_rows", qz.w8a8_quant_rows),
-                    ("w8a8_epilogue", qz.w8a8_epilogue)):
+                    ("w8a8_gemm", qz.w8a8_gemm)):
         entries[name]["launches"] = c.launches
+        assert c.launches > 0, f"the main path never launched {name}"
     log("phase 22 launches over v2's and v1's runs: "
         f"{ {c.__name__: c.launches for c in counters} } (K2: groups of "
         f"2048 in v2 {entries['dequant_fp6_g2048']['launches']}, groups of "

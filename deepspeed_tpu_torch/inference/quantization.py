@@ -12,21 +12,21 @@ Counterpart of ``deepspeed_tpu/inference/quantization.py``
 - ``"fp6"``: e3m2 codes packed four to three bytes, an fp32 scale a group
   (K2, ``dequantize_fp6``, at every use);
 - ``"w8a8"``: int8 with one fp32 scale an output channel for every
-  ``nn.Linear`` weight, stored ``[out, in]`` (the layout ``torch._int_mm``
-  reads fastest, as the transpose of its column-major right operand).
-  A model that consumes it natively (v2 on a module class with
-  ``w8a8_native``, as the JAX v2 engine) runs :class:`W8A8Linear`:
-  activations quantize per row (K3), the product is int8 x int8 with
-  int32 sums, and K4 rescales, so the weight never expands.  Otherwise (v1,
-  as the JAX v1 engine dequantizes its whole tree) the weight expands at
-  use through K1, one scale a row.  Embeddings fall back to group-wise
-  int8, as the reference's leaf filter sends every non-``kernel`` leaf.
+  ``nn.Linear`` weight, stored ``[out, in]`` (K-major rows, as the int8
+  ``wgmma`` of the W8A8 GEMM reads them).  A model that consumes it
+  natively (v2 on a module class with ``w8a8_native``, as the JAX v2
+  engine) runs :class:`W8A8Linear`: activations quantize per row, the
+  product is int8 x int8 with int32 sums, and the epilogue rescales, so
+  the weight never expands.  Otherwise (v1, as the JAX v1 engine
+  dequantizes its whole tree) the weight expands at use through K1, one
+  scale a row.  Embeddings fall back to group-wise int8, as the
+  reference's leaf filter sends every non-``kernel`` leaf.
 
-Every expansion and the W8A8 activation path are hand-written kernels on
-the card (``ops/csrc/quantization.cu``, ``ops/csrc/weight_formats.cu``);
-quantizing stays PyTorch operations, once a weight.  The products
-themselves stay cuBLAS, as the JAX package leaves them to XLA outside any
-Pallas kernel.
+Every expansion and the W8A8 Linear are hand-written kernels on the card
+(``ops/csrc/quantization.cu``, ``ops/csrc/weight_formats.cu``,
+``ops/csrc/w8a8_gemm.cu``); quantizing stays PyTorch operations, once a
+weight.  The other formats' products stay cuBLAS, as the JAX package
+leaves them to XLA outside any Pallas kernel.
 
 :func:`quantize_model_` swaps each quantized ``nn.Linear`` for a
 :class:`QuantizedLinear` (:class:`W8A8Linear` when native) and each
@@ -149,9 +149,9 @@ class QuantizedLinear(_Quantized):
 
 class W8A8Linear(QuantizedLinear):
     """``nn.Linear`` over a w8a8 weight consumed natively: the JAX
-    ``w8a8_dot_general`` (rows quantized by K3, an int8 product with int32
-    sums, K4's rescale into ``x``'s dtype), then the bias, as flax's
-    Dense adds it."""
+    ``w8a8_dot_general`` (rows quantized per row, an int8 product with
+    int32 sums, the rescale into ``x``'s dtype: on the card the W8A8
+    pre-pass and GEMM), then the bias, as flax's Dense adds it."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = w8a8_linear(x, self.values, self.scale)

@@ -27,7 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # flags a source adds to NVCC_FLAGS: the TMA/wgmma flash kernels, the
-# paged kernels, the quantize ring and the weight formats' kernels have
+# paged kernels, the quantize ring, the weight formats' kernels and the
+# W8A8 GEMM have
 # ptxas name any spill or local-memory use as a warning, which the smoke
 # refuses
 EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
@@ -36,6 +37,7 @@ EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
     "ragged_paged_attn": ("-Xptxas", "-warn-spills,-warn-lmem-usage"),
     "quantization": ("-Xptxas", "-warn-spills,-warn-lmem-usage"),
     "weight_formats": ("-Xptxas", "-warn-spills,-warn-lmem-usage"),
+    "w8a8_gemm": ("-Xptxas", "-warn-spills,-warn-lmem-usage"),
 }
 
 

@@ -1,52 +1,38 @@
-// The serving weight formats' per-use kernels for Hopper (sm_90a): fp8
-// and per-channel int8 dequant, fp6 dequant, and the W8A8 activation
-// path.  A plain C interface, loaded with ctypes
-// (deepspeed_tpu_torch/ops/quantization.py).
+// The serving weight formats' per-use dequant kernels for Hopper
+// (sm_90a): fp8 and per-channel int8, and fp6.  A plain C interface,
+// loaded with ctypes (deepspeed_tpu_torch/ops/quantization.py).
 //
 // Replaces no Pallas kernel.  The JAX package writes these formats as jnp
 // code that XLA fuses into the consuming dot
 // (deepspeed_tpu/ops/quantization.py:156-281, dequantize_fp8 and
-// dequantize_fp6; deepspeed_tpu/inference/quantization.py:159-205,
-// dequantize_param_tree's w8a8 branch and w8a8_dot_general).  PyTorch has
-// no such fusion, and each expansion runs once a weight every forward or
-// model tick, so each is a kernel here:
+// dequantize_fp6; deepspeed_tpu/inference/quantization.py:159-178,
+// dequantize_param_tree's w8a8 branch).  PyTorch has no such fusion, and
+// each expansion runs once a weight every forward or model tick, so each
+// is a kernel here:
 //   K1 dequant_scaled   x = cast(v * s): v int8 or float8_e4m3fn, s one
 //                       fp32 for the tensor or one per row of [rows, cols]
 //   K2 dequant_fp6      three bytes -> four 6-bit codes (1 sign, 3
 //                       exponent bits with bias 3, 2 mantissa bits,
 //                       subnormal at exponent 0) -> +-|code| * s[group],
 //                       cast, the first n values
-//   K3 w8a8_quant_rows  per row: sx = max|x| / 127, then
-//                       clip(rint(x / max(sx, eps)), -127, 127) as int8
-//   K4 w8a8_epilogue    y = cast((float(acc) * sx[m]) * s[n])
-// The int8 x int8 -> int32 product between K3 and K4 is a plain matrix
-// product (torch._int_mm), as the JAX package leaves it to XLA.
+// W8A8's activation path (the row quantization K3, the int8 product and
+// the rescale K4 of the first design) is one GEMM kernel now,
+// csrc/w8a8_gemm.cu.
 //
 // Bit-exact with the plain PyTorch versions (and the JAX functions): every
-// step is one IEEE operation in the order the jnp code writes it, __fdiv_rn
-// and __fmul_rn (never a reciprocal, never an FMA), rint (round half to
-// even, as jnp.round), round-to-nearest-even casts, and int32 -> fp32 by
-// __int2float_rn.  e4m3 -> fp32 and the fp6 magnitudes are exact.  Two
-// definitions the jnp code leaves to its conversions: K3's max keeps a NaN
-// (as jnp.max and torch.amax do: the max is taken over |x|'s bits, which
-// order non-negative floats and put NaN above inf), and a NaN quotient
-// casts to 0 (as XLA's and PTX's float -> int conversions do).
+// step is one IEEE operation in the order the jnp code writes it,
+// __fmul_rn (never an FMA) and round-to-nearest-even casts.  e4m3 -> fp32
+// and the fp6 magnitudes are exact.
 //
 // What bounds them on this card: bytes, 3.35 TB/s.  K1 reads 1 byte and
 // writes 2 (bf16) an element: llama3-8b's gate_proj [4096, 14336] moves
 // 176 MB, 0.053 ms.  K2 reads 0.75 byte + a scale a group and writes 2:
-// 0.048 ms there.  K3 reads the activations and writes 1 byte + an fp32 a
-// row; K4 reads 4 bytes and writes 2 an output.  The first designs here
-// are simple grid-stride passes with 16-byte accesses where the shape
-// allows; making them fast, or folding K3, the product and K4 into one
-// wgmma s8 GEMM, is later work (ROADMAP B).
+// 0.048 ms there.  The designs here are simple grid-stride passes with
+// 16-byte accesses where the shape allows.
 //
 // Measured (chip_smoke.py phase 22, NVIDIA H100 80GB HBM3, 700 W,
 // graph-replayed device time): at gate_proj K1 0.079-0.080 ms (66% of its
-// bound), K2 0.073 ms at groups of 128 and 0.070 at 2048 (66-69%); K3
-// 0.0029 ms at 16 x 4096 (2%: 16 blocks on 132 SMs) and 0.0049 at 512
-// rows (38%); K4 0.0018 ms at 16 x 14336 (23-24%) and 0.013-0.014 at 512
-// rows (96-99%).
+// bound), K2 0.073 ms at groups of 128 and 0.070 at 2048 (66-69%).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -251,123 +237,12 @@ int dequant_fp6_as(const uint8_t* p, const float* s, void* x, int64_t n,
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// K3: w8a8_quant_rows
-// ---------------------------------------------------------------------------
-
-// One block a row: the max of |x| over the row (as the bits of |x|, an
-// order-independent max that keeps a NaN), then the row read again (from
-// L1/L2) to write the int8 payload.  Rows from `rows` to `rows_padded`
-// (the product's padding) are written as zeros with sx = 0.  VEC values a
-// load (16 bytes) where the row's bytes and x are 16-byte aligned.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(THREADS)
-w8a8_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
-                 float* __restrict__ sx, int64_t rows, int64_t K,
-                 float q_max, float eps) {
-  __shared__ uint32_t warp_max[THREADS / 32];
-  const int64_t r = blockIdx.x;
-  int8_t* out = xq + r * K;
-  if (r >= rows) {
-    for (int64_t i = threadIdx.x; i < K; i += THREADS) out[i] = 0;
-    if (threadIdx.x == 0) sx[r] = 0.f;
-    return;
-  }
-  const T* row = x + r * K;
-  uint32_t mx = 0;
-  for (int64_t i = threadIdx.x * VEC; i < K; i += THREADS * VEC) {
-    const Vec<T, VEC> a = *reinterpret_cast<const Vec<T, VEC>*>(row + i);
-#pragma unroll
-    for (int k = 0; k < VEC; ++k)
-      mx = max(mx, __float_as_uint(fabsf(to_float(a.v[k]))));
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = mx;
-  __syncthreads();
-  mx = warp_max[0];
-#pragma unroll
-  for (int w = 1; w < THREADS / 32; ++w) mx = max(mx, warp_max[w]);
-  const float s = __fdiv_rn(__uint_as_float(mx), q_max);
-  // max(s, eps) that keeps a NaN, as jnp.maximum and torch.clamp_min
-  const float d = s < eps ? eps : s;
-  if (threadIdx.x == 0) sx[r] = s;
-  for (int64_t i = threadIdx.x * VEC; i < K; i += THREADS * VEC) {
-    const Vec<T, VEC> a = *reinterpret_cast<const Vec<T, VEC>*>(row + i);
-    Vec<int8_t, VEC> q;
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      const float t = rintf(__fdiv_rn(to_float(a.v[k]), d));
-      q.v[k] = t != t ? 0
-                      : static_cast<int8_t>(static_cast<int>(
-                            fminf(fmaxf(t, -q_max), q_max)));
-    }
-    *reinterpret_cast<Vec<int8_t, VEC>*>(out + i) = q;
-  }
-}
-
-template <typename T>
-int w8a8_rows_as(const void* x, int8_t* xq, float* sx, int64_t rows,
-                 int64_t rows_padded, int64_t K, float q_max, float eps,
-                 cudaStream_t st) {
-  constexpr int VEC = 16 / sizeof(T);
-  const T* xt = static_cast<const T*>(x);
-  if (K % VEC == 0 && aligned(x, 16) && aligned(xq, VEC))
-    w8a8_rows_kernel<T, VEC><<<(unsigned)rows_padded, THREADS, 0, st>>>(
-        xt, xq, sx, rows, K, q_max, eps);
-  else
-    w8a8_rows_kernel<T, 1><<<(unsigned)rows_padded, THREADS, 0, st>>>(
-        xt, xq, sx, rows, K, q_max, eps);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// K4: w8a8_epilogue
-// ---------------------------------------------------------------------------
-
-// VEC = 4: four int32 (16 bytes) a thread, one row; VEC = 1 otherwise.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(THREADS)
-w8a8_epilogue_kernel(const int32_t* __restrict__ acc,
-                     const float* __restrict__ sx, const float* __restrict__ s,
-                     T* __restrict__ y, int64_t M, int64_t N) {
-  const int64_t chunks = M * N / VEC;
-  for (int64_t c = (int64_t)blockIdx.x * THREADS + threadIdx.x; c < chunks;
-       c += (int64_t)gridDim.x * THREADS) {
-    const int64_t idx = c * VEC;
-    const int64_t m = idx / N, n0 = idx - m * N;
-    const float a = sx[m];
-    const Vec<int32_t, VEC> q =
-        *reinterpret_cast<const Vec<int32_t, VEC>*>(acc + idx);
-    Vec<T, VEC> out;
-#pragma unroll
-    for (int k = 0; k < VEC; ++k)
-      out.v[k] = from_float<T>(
-          __fmul_rn(__fmul_rn(__int2float_rn(q.v[k]), a), s[n0 + k]));
-    *reinterpret_cast<Vec<T, VEC>*>(y + idx) = out;
-  }
-}
-
-template <typename T>
-int w8a8_epilogue_as(const int32_t* acc, const float* sx, const float* s,
-                     void* y, int64_t M, int64_t N, cudaStream_t st) {
-  T* yt = static_cast<T*>(y);
-  if (N % 4 == 0 && aligned(acc, 16) && aligned(y, 4 * sizeof(T)))
-    w8a8_epilogue_kernel<T, 4><<<blocks_for(M * N / 4, THREADS), THREADS, 0,
-                                 st>>>(acc, sx, s, yt, M, N);
-  else
-    w8a8_epilogue_kernel<T, 1><<<blocks_for(M * N, THREADS), THREADS, 0,
-                                 st>>>(acc, sx, s, yt, M, N);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = bfloat16, 1 = float16, 2 = float32 (the output's, or K3's
-// input's).  Every tensor contiguous.  Each returns a cudaError_t (0 on
+// dtype: 0 = bfloat16, 1 = float16, 2 = float32 (the output's).  Every
+// tensor contiguous.  Each returns a cudaError_t (0 on
 // success).
 
 // K1: x[i] = v[i] * s, n elements.  vtype 0 = int8, 1 = float8_e4m3fn;
@@ -402,40 +277,6 @@ int dstpu_dequant_fp6(const uint8_t* p, const float* s, void* x, int dtype,
     return dequant_fp6_as<__nv_bfloat16>(p, s, x, n, total, gs, st);
   if (dtype == 1) return dequant_fp6_as<__half>(p, s, x, n, total, gs, st);
   if (dtype == 2) return dequant_fp6_as<float>(p, s, x, n, total, gs, st);
-  return cudaErrorInvalidValue;
-}
-
-// K3: x [rows, K] -> xq [rows_padded, K] int8 and sx [rows_padded] fp32;
-// q_max = 127 and eps = 1e-12, rounded to fp32 by the caller.
-int dstpu_w8a8_quant_rows(const void* x, int dtype, int8_t* xq, float* sx,
-                          long long rows, long long rows_padded, long long K,
-                          float q_max, float eps, void* stream) {
-  if (rows_padded <= 0 || K <= 0) return cudaSuccess;
-  if (rows > rows_padded || rows_padded > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return w8a8_rows_as<__nv_bfloat16>(x, xq, sx, rows, rows_padded, K,
-                                       q_max, eps, st);
-  if (dtype == 1)
-    return w8a8_rows_as<__half>(x, xq, sx, rows, rows_padded, K, q_max, eps,
-                                st);
-  if (dtype == 2)
-    return w8a8_rows_as<float>(x, xq, sx, rows, rows_padded, K, q_max, eps,
-                               st);
-  return cudaErrorInvalidValue;
-}
-
-// K4: y [M, N] = (float(acc) * sx[m]) * s[n], acc int32 [M, N].
-int dstpu_w8a8_epilogue(const int32_t* acc, const float* sx, const float* s,
-                        void* y, int dtype, long long M, long long N,
-                        void* stream) {
-  if (M <= 0 || N <= 0) return cudaSuccess;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return w8a8_epilogue_as<__nv_bfloat16>(acc, sx, s, y, M, N, st);
-  if (dtype == 1) return w8a8_epilogue_as<__half>(acc, sx, s, y, M, N, st);
-  if (dtype == 2) return w8a8_epilogue_as<float>(acc, sx, s, y, M, N, st);
   return cudaErrorInvalidValue;
 }
 

@@ -31,15 +31,18 @@ the W8A8 pieces of ``deepspeed_tpu/inference/quantization.py``
 when an engine is built and stays PyTorch operations, as the JAX package
 leaves it to XLA.  What runs at every use is a hand-written kernel of
 ``csrc/weight_formats.cu`` beside its plain version, dispatched like the
-int8 pair: :func:`dequant_scaled` (fp8 and per-channel int8),
-:func:`dequantize_fp6`, and W8A8's :func:`w8a8_quant_rows` and
-:func:`w8a8_epilogue` around the int8 product (``torch._int_mm`` on the
-card, exact float64 products in the plain version).  Each counts its
-launches in ``.launches``.
+int8 pair: :func:`dequant_scaled` (fp8 and per-channel int8) and
+:func:`dequantize_fp6`.  A W8A8 Linear is two kernels of
+``csrc/w8a8_gemm.cu``: the row pre-pass :func:`w8a8_quant_rows` and the
+GEMM of :func:`w8a8_gemm` (an int8 ``wgmma`` product with the rescale in
+its epilogue), which may start while the pre-pass runs; its plain version
+chains the plain row quantization, exact float64 int8 products and the
+plain rescale.  Each counts its launches in ``.launches``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -240,9 +243,6 @@ FP8_MAX = float(torch.finfo(torch.float8_e4m3fn).max)     # 448
 FP6_MAX = 28.0                       # (1 + 3/4) * 2^(7-3)
 _FP6_BIAS = 3
 W8A8_Q_MAX = 127.0
-# torch._int_mm on CUDA refuses 16 rows or fewer: W8A8 pads its activation
-# rows up to this many with zero rows (which quantize to 0) and slices
-_INT_MM_MIN_ROWS = 17
 _VTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 
 
@@ -378,18 +378,12 @@ def dequantize_fp6_reference(ft: FP6Tensor) -> torch.Tensor:
 def _wf_lib() -> ctypes.CDLL:
     lib = builder.load("weight_formats")
     if lib.dstpu_dequant_scaled.argtypes is None:
-        ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
-                              ctypes.c_longlong, ctypes.c_float)
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.dstpu_dequant_scaled.argtypes = [ptr, i32, ptr, i32, i64, ptr,
                                              i32, i64, ptr]
         lib.dstpu_dequant_fp6.argtypes = [ptr, ptr, ptr, i32, i64, i64, i32,
                                           ptr]
-        lib.dstpu_w8a8_quant_rows.argtypes = [ptr, i32, ptr, ptr, i64, i64,
-                                              i64, f32, f32, ptr]
-        lib.dstpu_w8a8_epilogue.argtypes = [ptr, ptr, ptr, ptr, i32, i64,
-                                            i64, ptr]
-        for fn in (lib.dstpu_dequant_scaled, lib.dstpu_dequant_fp6,
-                   lib.dstpu_w8a8_quant_rows, lib.dstpu_w8a8_epilogue):
+        for fn in (lib.dstpu_dequant_scaled, lib.dstpu_dequant_fp6):
             fn.restype = i32
         lib.dstpu_cuda_error_string.argtypes = [i32]
         lib.dstpu_cuda_error_string.restype = ctypes.c_char_p
@@ -512,34 +506,55 @@ def w8a8_quant_rows_reference(x: torch.Tensor
     return xq, sx
 
 
-def w8a8_quant_rows(x: torch.Tensor, rows_padded: Optional[int] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _gemm_lib() -> ctypes.CDLL:
+    lib = builder.load("w8a8_gemm")
+    if lib.dstpu_w8a8_gemm.argtypes is None:
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.dstpu_w8a8_rows.argtypes = [ptr, i32, ptr, ptr, i64, i64, ptr]
+        lib.dstpu_w8a8_gemm.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr,
+                                        ptr, i64, i64, i64, i32, i32, i32,
+                                        i32, ptr]
+        for fn in (lib.dstpu_w8a8_rows, lib.dstpu_w8a8_gemm):
+            fn.restype = i32
+        lib.dstpu_cuda_error_string.argtypes = [i32]
+        lib.dstpu_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _w8a8_card_k(K: int) -> None:
+    """The card's W8A8 kernels read int8 rows by TMA, whose row pitch must
+    be a multiple of 16 bytes."""
+    if K <= 0 or K % 16:
+        raise ValueError(
+            f"the W8A8 kernels take K (in features) a positive multiple of "
+            f"16 on the card, got {K}: TMA reads the int8 rows in 16-byte "
+            "units (ROADMAP B10 would widen this)")
+
+
+def w8a8_quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row dynamic int8 quantization of ``x`` ``[M, K]`` (bf16, fp16 or
-    fp32, contiguous): ``sx = max|x| / 127`` (fp32 ``[M, 1]``) and ``xq =
-    clip(round(x / max(sx, 1e-12)), -127, 127)`` int8 ``[M, K]``.  On the
-    card ``rows_padded`` (>= M) rows are written, the extra ones zero
-    (with ``sx`` 0), for a product that needs more rows.  CPU tensors take
-    :func:`w8a8_quant_rows_reference`; CUDA tensors launch kernel K3
-    once."""
+    fp32): ``sx = max|x| / 127`` (fp32 ``[M, 1]``) and ``xq =
+    clip(round(x / max(sx, 1e-12)), -127, 127)`` int8 ``[M, K]``: the row
+    pre-pass of :func:`w8a8_gemm`.  CPU tensors take
+    :func:`w8a8_quant_rows_reference`; CUDA tensors (contiguous, 16-byte
+    aligned, K a multiple of 16) launch the pre-pass once."""
     if x.dtype not in _DTYPES or x.dim() != 2:
         raise TypeError(f"w8a8_quant_rows takes a 2-D bfloat16, float16 or "
                         f"float32 tensor, got {x.dtype} {tuple(x.shape)}")
     if x.device.type == "cpu":
         return w8a8_quant_rows_reference(x)
     _on_card(x, "w8a8_quant_rows")
-    if not x.is_contiguous():
-        raise ValueError("the kernel reads a contiguous tensor")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("the kernel reads a contiguous, 16-byte aligned "
+                         "tensor")
     M, K = x.shape
-    Mp = M if rows_padded is None else int(rows_padded)
-    if Mp < M:
-        raise ValueError(f"rows_padded {Mp} < {M} rows")
-    xq = torch.empty(Mp, K, dtype=torch.int8, device=x.device)
-    sx = torch.empty(Mp, 1, dtype=torch.float32, device=x.device)
-    if Mp == 0 or K == 0:
+    xq = torch.empty(M, K, dtype=torch.int8, device=x.device)
+    sx = torch.empty(M, 1, dtype=torch.float32, device=x.device)
+    if M == 0 or K == 0:
         return xq, sx.zero_()
-    _device_call(_wf_lib(), "dstpu_w8a8_quant_rows", x.device, x.data_ptr(),
-                 _DTYPES[x.dtype], xq.data_ptr(), sx.data_ptr(), M, Mp, K,
-                 W8A8_Q_MAX, _EPS)
+    _w8a8_card_k(K)
+    _device_call(_gemm_lib(), "dstpu_w8a8_rows", x.device, x.data_ptr(),
+                 _DTYPES[x.dtype], xq.data_ptr(), sx.data_ptr(), M, K)
     w8a8_quant_rows.launches += 1
     return xq, sx
 
@@ -547,49 +562,17 @@ def w8a8_quant_rows(x: torch.Tensor, rows_padded: Optional[int] = None
 def w8a8_epilogue_reference(acc: torch.Tensor, sx: torch.Tensor,
                             s: torch.Tensor,
                             dtype: torch.dtype) -> torch.Tensor:
-    """:func:`w8a8_epilogue` in plain PyTorch."""
+    """The rescale of an int32 product ``acc`` ``[M, N]``: ``(float(acc) *
+    sx) * s`` in fp32 (``sx`` ``[M, 1]`` a row's activation scale, ``s``
+    ``[N]`` a channel's weight scale), cast to ``dtype``."""
     return (acc.float() * sx * s).to(dtype)
-
-
-def w8a8_epilogue(acc: torch.Tensor, sx: torch.Tensor, s: torch.Tensor,
-                  dtype: torch.dtype) -> torch.Tensor:
-    """``(float(acc) * sx) * s`` in fp32, cast to ``dtype``: ``acc`` int32
-    ``[M, N]``, ``sx`` fp32 ``[M, 1]`` (a row's activation scale), ``s``
-    fp32 ``[N]`` (a channel's weight scale).  CPU tensors take
-    :func:`w8a8_epilogue_reference`; CUDA tensors launch kernel K4
-    once."""
-    M, N = acc.shape
-    if acc.dtype != torch.int32:
-        raise TypeError(f"acc must be int32, got {acc.dtype}")
-    if (sx.dtype, tuple(sx.shape)) != (torch.float32, (M, 1)) or (
-            s.dtype, tuple(s.shape)) != (torch.float32, (N,)):
-        raise ValueError(f"sx must be float32 [{M}, 1] and s float32 [{N}], "
-                         f"got {sx.dtype} {tuple(sx.shape)} and {s.dtype} "
-                         f"{tuple(s.shape)}")
-    if dtype not in _DTYPES:
-        raise TypeError(f"w8a8_epilogue writes bfloat16, float16 or "
-                        f"float32, not {dtype}")
-    device = _same_device(acc, sx, s)
-    if device.type == "cpu":
-        return w8a8_epilogue_reference(acc, sx, s, dtype)
-    _on_card(acc, "w8a8_epilogue")
-    if not all(t.is_contiguous() for t in (acc, sx, s)):
-        raise ValueError("the kernel reads contiguous tensors")
-    y = torch.empty(M, N, dtype=dtype, device=device)
-    if M == 0 or N == 0:
-        return y
-    _device_call(_wf_lib(), "dstpu_w8a8_epilogue", device, acc.data_ptr(),
-                 sx.data_ptr(), s.data_ptr(), y.data_ptr(), _DTYPES[dtype],
-                 M, N)
-    w8a8_epilogue.launches += 1
-    return y
 
 
 def int8_product_reference(xq: torch.Tensor,
                            v: torch.Tensor) -> torch.Tensor:
     """``xq [M, K] @ v[N, K]^T`` with int32 results from exact float64
     products and sums (exact below 2^53, where fp32's 2^24 is not:
-    127^2 x 14336 > 2^24), independent of cuBLAS's int8 path."""
+    127^2 x 14336 > 2^24), independent of any int8 GEMM."""
     return (xq.double() @ v.double().t()).to(torch.int32)
 
 
@@ -603,32 +586,133 @@ def w8a8_linear_reference(x: torch.Tensor, v: torch.Tensor,
     return y.reshape(*shape[:-1], v.shape[0])
 
 
+# The W8A8 GEMM's tiling (csrc/w8a8_gemm.cu): 128 output channels a tile,
+# K in 128-byte panels, the tokens one tile of 16, 32 or 64 rows (one
+# block an SM over equal shares of the work: stream-K) or tiles of 128 or
+# 256 (a block a tile and K range).
+W8A8_STREAM_MAX_ROWS = 64
+_W8A8_TILE = 128
+
+
+class W8A8Plan(NamedTuple):
+    """How :func:`w8a8_gemm` cuts one call into blocks."""
+    tn: int              # token rows a tile: the wgmma's N
+    token_tiles: int
+    tiles: int           # 128-channel tiles
+    ksplit: int          # 128/256-token tiles: K ranges, a block each
+    kr: int              # 128/256-token tiles: values of K a range
+    blocks: int          # the grid's blocks
+
+
+def w8a8_plan(M: int, N: int, K: int, sms: int = 132) -> W8A8Plan:
+    """The blocks of an ``[M, K] x [N, K]^T`` call on a card of ``sms``
+    SMs.  Up to ``W8A8_STREAM_MAX_ROWS`` rows the tokens, padded to 16,
+    32 or 64, are one tile, and one block an SM takes an equal share of
+    the tiles' K panels (stream-K).  Above, 128-token tiles up to 128
+    rows and 256-token ones beyond, a block a (channel tile, K range,
+    token tile), K split only where the tiles leave SMs idle, into
+    ranges of at least 8 panels."""
+    tiles = -(-N // _W8A8_TILE)
+    panels = max(1, -(-K // 128))
+    if M <= W8A8_STREAM_MAX_ROWS:
+        tn = next(t for t in (16, 32, 64) if M <= t)
+        return W8A8Plan(tn, 1, tiles, 1, panels * 128,
+                        min(sms, tiles * panels))
+    tn = 128 if M <= 128 else 256
+    token_tiles = -(-M // tn)
+    # a K range of at least 8 panels: each split adds a 128 x tn int32
+    # partial to the tile's sums
+    ksplit = min(max(1, sms // (tiles * token_tiles)), max(1, panels // 8))
+    kr = -(-panels // ksplit) * 128
+    ksplit = -(-K // kr)
+    return W8A8Plan(tn, token_tiles, tiles, ksplit, kr,
+                    tiles * ksplit * token_tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# The split-K hand-off's zeroed int32 buffers, which every call leaves
+# zeroed: a ticket and 128 x tn sums a (token tile, channel tile).  A
+# buffer is never freed, since a captured CUDA graph keeps its address,
+# and grows only outside a capture.  Calls on one device share them, so
+# they run on one stream at a time.
+_WORKSPACE: dict = {}
+
+
+def _zeroed(device: torch.device, kind: str, n: int) -> torch.Tensor:
+    held = _WORKSPACE.setdefault((device, kind), [])
+    if not held or held[-1].numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"w8a8_gemm needs {n} {kind} during a graph capture, more "
+                "than it holds; run the call once before capturing it")
+        grown = 2 * held[-1].numel() if held else 1 << 16
+        held.append(torch.zeros(max(n, grown), dtype=torch.int32,
+                                device=device))
+    return held[-1]
+
+
+def w8a8_gemm(x: torch.Tensor, v: torch.Tensor,
+              s: torch.Tensor) -> torch.Tensor:
+    """``y [M, N]`` in ``x``'s dtype for ``x [M, K]`` (bf16, fp16 or fp32)
+    through a W8A8 weight (``v`` int8 ``[N, K]``, ``s`` fp32 ``[N]``,
+    :func:`quantize_per_channel`): the JAX ``w8a8_dot_general``, bit for
+    bit.  CPU tensors take :func:`w8a8_linear_reference`.  CUDA tensors
+    (K a multiple of 16) launch the row pre-pass (:func:`w8a8_quant_rows`)
+    and then the GEMM kernel once, which may start while the pre-pass
+    runs; :func:`w8a8_plan` cuts the call into blocks."""
+    if x.dtype not in _DTYPES or x.dim() != 2:
+        raise TypeError(f"w8a8_gemm takes a 2-D bfloat16, float16 or "
+                        f"float32 x, got {x.dtype} {tuple(x.shape)}")
+    if v.dtype != torch.int8 or v.dim() != 2 or v.shape[1] != x.shape[1]:
+        raise ValueError(f"v must be int8 [N, {x.shape[1]}], got {v.dtype} "
+                         f"{tuple(v.shape)}")
+    if s.dtype != torch.float32 or tuple(s.shape) != (v.shape[0],):
+        raise ValueError(f"s must be float32 [{v.shape[0]}], got {s.dtype} "
+                         f"{tuple(s.shape)}")
+    device = _same_device(x, v, s)
+    if device.type == "cpu":
+        return w8a8_linear_reference(x, v, s)
+    _on_card(x, "w8a8_gemm")
+    if not (v.is_contiguous() and s.is_contiguous()) or v.data_ptr() % 16:
+        raise ValueError("the kernel reads a contiguous, 16-byte aligned "
+                         "weight and contiguous scales")
+    M, K = x.shape
+    N = v.shape[0]
+    _w8a8_card_k(K)
+    y = torch.empty(M, N, dtype=x.dtype, device=device)
+    if M == 0 or N == 0:
+        return y
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    xq, sx = w8a8_quant_rows(x)
+    plan = w8a8_plan(M, N, K, _sm_count(device.index))
+    units = plan.token_tiles * plan.tiles
+    sums = _zeroed(device, "sums", units * plan.tn * _W8A8_TILE)
+    tickets = _zeroed(device, "tickets", units)
+    _device_call(_gemm_lib(), "dstpu_w8a8_gemm", device, xq.data_ptr(),
+                 sx.data_ptr(), _DTYPES[x.dtype], v.data_ptr(), s.data_ptr(),
+                 y.data_ptr(), sums.data_ptr(), tickets.data_ptr(), M, N, K,
+                 plan.tn, plan.ksplit, plan.kr, plan.blocks)
+    w8a8_gemm.launches += 1
+    return y
+
+
 def w8a8_linear(x: torch.Tensor, v: torch.Tensor,
                 s: torch.Tensor) -> torch.Tensor:
     """``x [..., K]`` through a W8A8 weight (``v`` int8 ``[N, K]``, ``s``
     fp32 ``[N]``, :func:`quantize_per_channel`): the JAX
-    ``w8a8_dot_general``.  Rows quantize by :func:`w8a8_quant_rows`, the
-    int8 product accumulates in int32, and :func:`w8a8_epilogue` rescales
-    into ``x``'s dtype.  On the card the product is ``torch._int_mm``
-    against ``v``'s transpose (column-major), over at least
-    ``_INT_MM_MIN_ROWS`` rows; on the CPU it is
-    :func:`int8_product_reference`."""
+    ``w8a8_dot_general``, as :func:`w8a8_gemm` over the rows of ``x``."""
     shape = x.shape
-    x2 = x.reshape(-1, shape[-1])
-    M = x2.shape[0]
-    if x2.device.type == "cpu":
-        xq, sx = w8a8_quant_rows(x2)
-        acc = int8_product_reference(xq, v)
-    else:
-        xq, sx = w8a8_quant_rows(x2.contiguous(),
-                                 max(M, _INT_MM_MIN_ROWS))
-        acc = torch._int_mm(xq, v.t())[:M]
-        sx = sx[:M]
-    y = w8a8_epilogue(acc, sx, s, x.dtype)
+    y = w8a8_gemm(x.reshape(-1, shape[-1]), v, s)
     return y.reshape(*shape[:-1], v.shape[0])
 
 
 dequant_scaled.launches = 0
 dequantize_fp6.launches = 0
 w8a8_quant_rows.launches = 0
-w8a8_epilogue.launches = 0
+w8a8_gemm.launches = 0

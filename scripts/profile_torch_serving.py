@@ -2,15 +2,18 @@
 """Where the time goes in the PyTorch port's serving paths, on one GPU.
 
     python3 scripts/profile_torch_serving.py [--mode v1|v2] [--new 16]
-                                             [--weights bf16|int8]
+                                             [--weights bf16|int8|fp8|
+                                                        fp6|w8a8]
                                              [--cuda-graph]
                                              [--spec ngram|draft]
                                              [--long-context]
-                                             [--out FILE]
+                                             [--root DIR] [--out FILE]
 
 Builds ``llama3-8b`` at full width and depth with random seeded weights
-(bf16, made on the card; ``--weights int8`` then serves them as int8,
-groups of 128 in v1 and 2048 in v2, dequantized at use) and traces with
+(bf16, made on the card; ``--weights`` int8, fp8, fp6 or w8a8 then serves
+them in that format: int8 in groups of 128 in v1 and 2048 in v2, fp6 in
+groups of 128 in v1 and 2048 in v2, each dequantized at use; w8a8 through
+``W8A8Linear``'s GEMM in v2 and expanded at use in v1) and traces with
 ``torch.profiler``:
 
 - ``v1`` (``init_inference``): serves 4 prompts x 1000 tokens once to
@@ -48,6 +51,17 @@ of every parked group), ``h2d`` (each (layer, group) slice's copies
 into the device ring), ``staged_stats`` (the chunk dispatches, less the
 ``h2d`` nested in them), ``finish`` (the 32 blocks over the pool with
 the carry), ``head`` (norm, LM head and sampling) and ``park``.
+
+With quantized weights the v2 windows' device time is also split by
+kernel class, in all and per tick, with launches a tick: the W8A8 GEMM
+(``w8a8_*``), the first design's K3 and K4, the weight formats'
+dequants and #7 (``dequant*``), other GEMMs (cuBLAS, ``torch._int_mm``),
+paged attention (``rpa_*``) and the rest (elementwise: norms, RoPE,
+SwiGLU, residuals, sampling), and the gaps (wall less device busy time).
+
+``--root DIR`` imports the port from another checkout (for example the
+parent commit's, unpacked with ``git archive`` into a git-ignored
+directory), so that one script traces both.
 
 For each window it prints the wall time, the device busy share (the
 union of device intervals over wall time: the rest is the device waiting
@@ -128,17 +142,29 @@ CLASSES = (("gemm", ("gemm", "xmma", "nvjet", "cutlass", "cublas")),
                                 "cumsum", "topk")))
 
 
-def by_class(prof_rows, ticks: int):
-    """Device ms of a traced window's kernels by class, in all and per
-    tick."""
-    out = {name: 0.0 for name, _ in CLASSES}
-    out["rest"] = 0.0
+# kernel classes of a traced window over quantized weights, by name: the
+# first design's K3 and K4 before the W8A8 GEMM's own names
+WEIGHT_CLASSES = (("k3_k4", ("w8a8_rows_kernel", "w8a8_epilogue_kernel")),
+                  ("w8a8_gemm", ("w8a8_",)),
+                  ("dequantize", ("dequant",)),
+                  ("gemm", ("gemm", "xmma", "nvjet", "cutlass", "cublas")),
+                  ("paged_attention", ("rpa_",)))
+
+
+def by_class(prof_rows, ticks: int, classes=CLASSES):
+    """Device ms and launches of a traced window's kernels by class, in
+    all and per tick."""
+    out = {name: [0.0, 0] for name, _ in classes}
+    out["rest"] = [0.0, 0]
     for row in prof_rows:
         name = row["kernel"].lower()
-        cls = next((c for c, keys in CLASSES
+        cls = next((c for c, keys in classes
                     if any(k in name for k in keys)), "rest")
-        out[cls] += row["device_ms"]
-    return {k: {"ms": v, "ms_per_tick": v / ticks} for k, v in out.items()}
+        out[cls][0] += row["device_ms"]
+        out[cls][1] += row["calls"]
+    return {k: {"ms": ms, "ms_per_tick": ms / ticks, "launches": n,
+                "launches_per_tick": n / ticks}
+            for k, (ms, n) in out.items()}
 
 
 def profile_v2(top: int, weights: str, graph: bool, spec=None):
@@ -195,9 +221,19 @@ def profile_v2(top: int, weights: str, graph: bool, spec=None):
             # to the cursors (eager catch-up prefill): trace the next
             engine.step()
         ticks = st.ticks
-        res = profile(engine.step, 10**6 if spec and want_block else top)
+        every = (spec is not None and want_block) or weights != "bf16"
+        res = profile(engine.step, 10**6 if every else top)
         res["ticks"] = st.ticks - ticks
         res["tokens_in_batch"] = (len(decoding) if want_block else None)
+        if weights != "bf16":
+            res["by_class"] = by_class(res["top_kernels"], res["ticks"],
+                                       WEIGHT_CLASSES)
+            res["by_class"]["gaps"] = {
+                "ms": res["wall_ms"] - res["device_busy_ms"],
+                "ms_per_tick": (res["wall_ms"] - res["device_busy_ms"]) /
+                res["ticks"]}
+            if spec is None:
+                res["top_kernels"] = res["top_kernels"][:top]
         return res
 
     out["fused_tick"] = traced_step(want_block=False)
@@ -290,7 +326,10 @@ def main() -> int:
     ap.add_argument("--mode", choices=("v1", "v2"), default="v1")
     ap.add_argument("--new", type=int, default=16,
                     help="new tokens in the traced v1 generate")
-    ap.add_argument("--weights", choices=("bf16", "int8"), default="bf16")
+    ap.add_argument("--weights", default="bf16",
+                    choices=("bf16", "int8", "fp8", "fp6", "w8a8"))
+    ap.add_argument("--root", default=None,
+                    help="import the port from this checkout")
     ap.add_argument("--cuda-graph", action="store_true",
                     help="replay decode blocks and steps from CUDA graphs")
     ap.add_argument("--spec", choices=("ngram", "draft"), default=None,
@@ -303,6 +342,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_serving: needs a CUDA GPU", file=sys.stderr)
         return 2
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
     if args.long_context:
         return report(profile_lc(args.top), ("decode_tick",), args.out)
     if args.mode == "v2" or args.spec is not None:
@@ -347,7 +388,8 @@ def report(out, windows, path) -> int:
                   f"x{row['calls']:<5d} {row['kernel']}")
         for cls, v in r.get("by_class", {}).items():
             print(f"  {cls}: {v['ms']:.3f} ms, {v['ms_per_tick']:.3f} ms a "
-                  "tick")
+                  "tick" + (f", {v['launches_per_tick']:g} launches a tick"
+                            if "launches" in v else ""))
         for tag, v in r.get("ranges", {}).items():
             print(f"  {tag}: x{v['calls']} host {v['host_ms']:.2f} ms, "
                   f"device {v['device_ms']:.2f} ms")

@@ -32,8 +32,8 @@ Long context (KV tiering with ``long_context``): a request 4x over a
 tight pool beside a normal one that outlives it, graphs and the pipeline
 on, gives the eager unpipelined engine's tokens; no decode block starts
 while the long-context request is live, and replayed blocks resume
-after it finishes.  Quantized weights: a w8a8 block (K3, ``_int_mm`` and
-K4 a Linear) and an fp6 block (K2 a weight) replayed from graphs give the
+after it finishes.  Quantized weights: a w8a8 block (the W8A8 GEMM once
+a Linear) and an fp6 block (K2 a weight) replayed from graphs give the
 eager unpipelined engine's tokens.
 """
 import numpy as np
@@ -396,7 +396,7 @@ def test_lc_graphs_resume_after_the_long_request(cuda, tmp_path):
 @pytest.mark.gpu
 @pytest.mark.parametrize("fmt", ["w8a8", "fp6"])
 def test_v2_graphs_with_quantized_weights(cuda, fmt):
-    """A v2 block over w8a8 weights (K3, ``_int_mm`` and K4 a Linear) and
+    """A v2 block over w8a8 weights (the W8A8 GEMM once a Linear) and
     over fp6 weights (K2 a weight), replayed from graphs with the pipeline
     on, gives the eager unpipelined engine's tokens, greedy and sampled;
     the kernels' Python counters tick at warm-ups and captures only."""
@@ -405,7 +405,7 @@ def test_v2_graphs_with_quantized_weights(cuda, fmt):
     eager = _v2(cuda, quantize_weights=fmt, pipeline=False)
     module = eager.module
     want = _serve(eager, sampled=True)
-    counter = qz.w8a8_quant_rows if fmt == "w8a8" else qz.dequantize_fp6
+    counter = qz.w8a8_gemm if fmt == "w8a8" else qz.dequantize_fp6
     per = 7 * TINY["num_hidden_layers"] + (1 if fmt == "w8a8" else 2)
     graphed = _v2(cuda, module, pipeline=True,
                   config={"enable_cuda_graph": True})

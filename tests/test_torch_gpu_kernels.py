@@ -35,8 +35,13 @@ of 32, 64, 256 and 4096, 4 bits at 2048, fp16 input, n off a whole tile,
 tails, and an input one value off 16 bytes, symmetric and asymmetric,
 bf16 and fp32; and the serving weight formats' kernels
 (``weight_formats.cu``): K1 over e4m3 and over int8 with a scale a row,
-K2 (fp6) at groups of 128, 2048 and a searched size, and K3, K4 and the
-whole W8A8 Linear through ``torch._int_mm`` at 1, 16, 17 and 512 rows.
+K2 (fp6) at groups of 128, 2048 and a searched size; and the W8A8
+Linear (``w8a8_gemm.cu``: the row pre-pass, then the GEMM over one token
+tile up to 128 rows, over 256-token tiles above) at 1, 16, 17, 80 and
+512 rows at ``gate_proj``,
+``down_proj`` and ``k_proj``, ``lm_head`` at 16 rows, bf16, fp16 and
+fp32, with a zero, an inf and a NaN row, N off the 128-channel tile, K
+off the 128-byte panel, and the named refusal of K off 16.
 
 Tolerances: bf16 flash outputs 2e-2 (p and o round to bf16 at 2^-8
 relative, in different places in the kernel and the plain version); bf16
@@ -778,29 +783,68 @@ def test_dequantize_fp6_matches_plain(cuda, shape, gs, dtype):
                                               qz.dequantize_fp6_reference(t))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("M", [1, 16, 17, 512])
-@pytest.mark.parametrize("K,N", [(4096, 14336), (14336, 4096), (72, 40)])
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_w8a8_kernels_match_plain(cuda, M, K, N, dtype):
-    """K3 (and its zero padding rows), K4 and the whole W8A8 Linear through
-    ``torch._int_mm`` (M <= 16 padded to 17 rows), with a zero row."""
+def _w8a8_case(M, K, N, dtype, device, seed=3):
+    """quantize_per_channel's weight [N, K] and x [M, K] with a zero row,
+    an inf row and a NaN row."""
     from deepspeed_tpu_torch.ops import quantization as qz
 
     dt = getattr(torch, dtype)
-    v, s = qz.quantize_per_channel(_weight(3, N, K, dt, cuda))
-    x = _weight(4, M, K, dt, cuda)
+    v, s = qz.quantize_per_channel(_weight(seed, N, K, dt, device))
+    x = _weight(seed + 1, M, K, dt, device) * 3
     x[0] = 0
-    xq, sx = qz.w8a8_quant_rows(x, M + 3)
-    rq, rs = qz.w8a8_quant_rows_reference(x)
-    assert torch.equal(xq[:M], rq) and _bits_equal(sx[:M], rs)
-    assert not xq[M:].any() and not sx[M:].any()
-    acc = qz.int8_product_reference(rq, v)
-    assert _bits_equal(qz.w8a8_epilogue(acc, rs, s, dt),
-                       qz.w8a8_epilogue_reference(acc, rs, s, dt))
+    if M > 1:
+        x[1, K // 3] = float("inf")
+    if M > 2:
+        x[2, K // 2] = float("nan")
+    return x, v, s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 16, 17, 80, 512])
+@pytest.mark.parametrize("K,N", [(4096, 14336), (14336, 4096), (4096, 1024),
+                                 (80, 40)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_w8a8_gemm_matches_plain(cuda, M, K, N, dtype):
+    """The W8A8 Linear bit-identical to ``w8a8_linear_reference`` (NaN
+    where it has NaN): one row pre-pass and one GEMM launch a call; the
+    pre-pass's rows and scales are the plain version's too."""
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    x, v, s = _w8a8_case(M, K, N, dtype, cuda)
+    before = (qz.w8a8_gemm.launches, qz.w8a8_quant_rows.launches)
     got = qz.w8a8_linear(x, v, s)
+    assert (qz.w8a8_gemm.launches - before[0],
+            qz.w8a8_quant_rows.launches - before[1]) == (1, 1)
     assert _bits_equal(got, qz.w8a8_linear_reference(x, v, s))
     assert (got[0] == 0).all()
+    xq, sx = qz.w8a8_quant_rows(x)
+    rq, rs = qz.w8a8_quant_rows_reference(x)
+    assert torch.equal(xq, rq) and _bits_equal(sx, rs)
+
+
+@pytest.mark.gpu
+def test_w8a8_gemm_lm_head_matches_plain(cuda):
+    """The head's 128256 channels at a decode tick's 16 rows: each of
+    the 132 blocks walks several channel tiles."""
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    x, v, s = _w8a8_case(16, 4096, 128256, "bfloat16", cuda)
+    assert qz.w8a8_plan(16, 128256, 4096).blocks == 132
+    assert _bits_equal(qz.w8a8_linear(x, v, s),
+                       qz.w8a8_linear_reference(x, v, s))
+
+
+@pytest.mark.gpu
+def test_w8a8_gemm_twice_and_batched_rows(cuda):
+    """Two calls bit-identical (the split-K sums and tickets are left
+    zeroed), and x [B, S, K] through ``w8a8_linear`` as its rows."""
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    x, v, s = _w8a8_case(16, 4096, 1024, "bfloat16", cuda)
+    first = qz.w8a8_linear(x, v, s)
+    assert _bits_equal(first, qz.w8a8_linear(x, v, s))
+    got = qz.w8a8_linear(x.reshape(2, 8, 4096), v, s)
+    assert _bits_equal(got.reshape(16, 1024), first)
 
 
 @pytest.mark.gpu
@@ -812,8 +856,16 @@ def test_weight_format_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         qz.dequant_scaled(v.t(), torch.ones((), device=cuda), torch.float32)
     with pytest.raises(ValueError, match="one device"):
         qz.dequant_scaled(v, torch.ones(()), torch.float32)
-    with pytest.raises(ValueError, match="rows_padded"):
-        qz.w8a8_quant_rows(torch.zeros(4, 32, device=cuda), 3)
+    # K off 16 bytes: the W8A8 kernels' TMA rows; the refusal names the
+    # item that would widen it
+    x72, v72, s72 = _w8a8_case(16, 72, 40, "bfloat16", cuda)
+    with pytest.raises(ValueError, match="ROADMAP B10"):
+        qz.w8a8_linear(x72, v72, s72)
+    with pytest.raises(ValueError, match="ROADMAP B10"):
+        qz.w8a8_quant_rows(x72)
+    with pytest.raises(ValueError, match="one device"):
+        qz.w8a8_gemm(x72[:, :64].contiguous(), v72[:, :64].cpu().contiguous(),
+                     s72.cpu())
 
 
 @pytest.mark.gpu
@@ -822,7 +874,7 @@ def test_weight_format_wrappers_count_no_launch_on_empty_inputs(cuda):
     from deepspeed_tpu_torch.ops import quantization as qz
 
     counters = (qz.dequant_scaled, qz.dequantize_fp6, qz.w8a8_quant_rows,
-                qz.w8a8_epilogue)
+                qz.w8a8_gemm)
     before = [c.launches for c in counters]
     one = torch.ones((), device=cuda)
     assert qz.dequant_scaled(torch.zeros(0, 8, dtype=torch.int8, device=cuda),
@@ -833,8 +885,11 @@ def test_weight_format_wrappers_count_no_launch_on_empty_inputs(cuda):
     assert qz.dequantize_fp6(empty6).shape == (0, 8)
     xq, sx = qz.w8a8_quant_rows(torch.zeros(0, 64, device=cuda))
     assert xq.shape == (0, 64) and sx.shape == (0, 1)
-    y = qz.w8a8_epilogue(torch.zeros(0, 8, dtype=torch.int32, device=cuda),
-                         torch.zeros(0, 1, device=cuda),
-                         torch.ones(8, device=cuda), torch.float32)
+    v8 = torch.zeros(8, 64, dtype=torch.int8, device=cuda)
+    y = qz.w8a8_gemm(torch.zeros(0, 64, device=cuda), v8,
+                     torch.ones(8, device=cuda))
     assert y.shape == (0, 8)
+    y = qz.w8a8_gemm(torch.zeros(4, 64, device=cuda), v8[:0],
+                     torch.ones(0, device=cuda))
+    assert y.shape == (4, 0)
     assert [c.launches for c in counters] == before

@@ -11,10 +11,17 @@ functions, bit for bit, on seeded numpy inputs in fp32 and bf16.
 - W8A8: the weight's payload and per-channel scale against
   ``quantize_param_tree``'s w8a8 branch; :func:`w8a8_linear` and
   ``W8A8Linear`` against ``w8a8_dot_general`` at M 1, 16 and 17 with a
-  zero row and an inf row, exactly (NaN where the reference has NaN).
+  zero row and an inf row, exactly (NaN where the reference has NaN);
+  the card's GEMM kernel's arithmetic replayed in plain torch block by
+  block as :func:`w8a8_plan` cuts a call (the row max over slices, the
+  int32 partials of a tile shared by blocks summed in a shuffled order,
+  the epilogue's order) against ``w8a8_dot_general`` at M 1, 16, 80 and
+  300, and the plan's invariants at every ``llama3-8b`` Linear.
 - The CPU takes the plain versions (no launch counted); a tensor off the
   CPU never does.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -173,9 +180,9 @@ def test_w8a8_linear_matches_dot_general(M, dtype):
     want = jax_iq.w8a8_dot_general(jx, qt["kernel"],
                                    (((1,), (0,)), ((), ())))
     jv, js = qt["kernel"].arrays
-    before = (q.w8a8_quant_rows.launches, q.w8a8_epilogue.launches)
+    before = (q.w8a8_quant_rows.launches, q.w8a8_gemm.launches)
     got = q.w8a8_linear(_torch(jx), _torch(jv).t().contiguous(), _torch(js))
-    assert (q.w8a8_quant_rows.launches, q.w8a8_epilogue.launches) == before
+    assert (q.w8a8_quant_rows.launches, q.w8a8_gemm.launches) == before
     assert got.dtype == getattr(torch, dtype) and got.shape == (M, N)
     _same(got, want)
     out = np.asarray(want, np.float32)
@@ -200,7 +207,7 @@ def test_int8_product_is_exact():
 
 
 @pytest.mark.parametrize("wrapper", ["dequant_scaled", "dequantize_fp6",
-                                     "w8a8_quant_rows", "w8a8_epilogue"])
+                                     "w8a8_quant_rows", "w8a8_gemm"])
 def test_wrappers_never_take_the_plain_path_off_the_cpu(wrapper,
                                                         monkeypatch):
     """A tensor that is not on the CPU (the meta device, which needs no
@@ -210,7 +217,7 @@ def test_wrappers_never_take_the_plain_path_off_the_cpu(wrapper,
         raise AssertionError("took the plain path")
 
     for name in ("dequant_scaled_reference", "dequantize_fp6_reference",
-                 "w8a8_quant_rows_reference", "w8a8_epilogue_reference"):
+                 "w8a8_quant_rows_reference", "w8a8_linear_reference"):
         monkeypatch.setattr(q, name, plain)
     meta = dict(device="meta")
     calls = {
@@ -222,10 +229,10 @@ def test_wrappers_never_take_the_plain_path_off_the_cpu(wrapper,
             torch.empty(2, 1, **meta), (2, 128), torch.bfloat16, 128)),
         "w8a8_quant_rows": lambda: q.w8a8_quant_rows(
             torch.empty(4, 64, **meta)),
-        "w8a8_epilogue": lambda: q.w8a8_epilogue(
-            torch.empty(4, 8, dtype=torch.int32, **meta),
-            torch.empty(4, 1, **meta), torch.empty(8, **meta),
-            torch.float32)}
+        "w8a8_gemm": lambda: q.w8a8_gemm(
+            torch.empty(4, 64, **meta),
+            torch.empty(8, 64, dtype=torch.int8, **meta),
+            torch.empty(8, **meta))}
     with pytest.raises(ValueError, match="cuda or cpu"):
         calls[wrapper]()
 
@@ -240,6 +247,117 @@ def test_wrappers_check_their_inputs():
         q.dequantize_fp6(q.FP6Tensor(torch.zeros(2, 3, dtype=torch.uint8),
                                      torch.ones(2, 1), (100,),
                                      torch.float32, 4))
-    with pytest.raises(ValueError, match="sx must be"):
-        q.w8a8_epilogue(torch.zeros(2, 4, dtype=torch.int32),
-                        torch.ones(3, 1), torch.ones(4), torch.float32)
+    with pytest.raises(ValueError, match="s must be"):
+        q.w8a8_gemm(torch.zeros(2, 16), torch.zeros(4, 16, dtype=torch.int8),
+                    torch.ones(3))
+    with pytest.raises(ValueError, match="v must be"):
+        q.w8a8_gemm(torch.zeros(2, 16), torch.zeros(4, 8, dtype=torch.int8),
+                    torch.ones(4))
+
+
+# llama3-8b's Linears as (N, K): q/o, k/v, gate/up, down and the head
+LLAMA3_8B_LINEARS = [(4096, 4096), (1024, 4096), (14336, 4096),
+                     (4096, 14336), (128256, 4096)]
+
+
+@pytest.mark.parametrize("N,K", LLAMA3_8B_LINEARS)
+def test_w8a8_plan_covers_each_linear(N, K):
+    """At every row count up to a 528-row fused tick: up to 64 rows one
+    token tile holds every row and one block an SM takes a share of the
+    work (never more blocks than units of it); above, 128- or 256-token
+    tiles hold the rows, the K ranges tile K exactly in whole 128-byte
+    panels, the grid's y (the K ranges) stays under CUDA's 65,535, and a
+    grid whose tiles are shared fits the card's SMs at once."""
+    for M in list(range(1, 130)) + [255, 256, 257, 512, 528]:
+        p = q.w8a8_plan(M, N, K)
+        assert p.tiles == -(-N // 128)
+        assert p.tn * p.token_tiles >= M > p.tn * (p.token_tiles - 1)
+        if M <= q.W8A8_STREAM_MAX_ROWS:
+            assert p.tn in (16, 32, 64) and p.token_tiles == 1
+            assert p.ksplit == 1
+            assert p.blocks == min(132, p.tiles * -(-K // 128))
+        else:
+            assert p.tn == (128 if M <= 128 else 256)
+            assert p.kr % 128 == 0 and p.ksplit * p.kr >= K > (
+                p.ksplit - 1) * p.kr and 1 <= p.ksplit <= 65535
+            assert p.blocks == p.tiles * p.ksplit * p.token_tiles
+            assert p.ksplit == 1 or (p.blocks <= 132 and p.kr >= 1024)
+
+
+def _gemm_as_the_kernel(x, v, s, plan, rng):
+    """What ``csrc/w8a8_gemm.cu`` computes, block by block as ``plan``
+    cuts the call, in plain torch: each row's max over |x|'s bits, taken
+    over the row's slices in a shuffled order; each row quantized by the
+    one divisor; each block's exact int32 partial of each tile it touches
+    (up to 64 rows: block b takes units [b U / G, (b + 1) U / G) of the
+    tiles' 128-byte K panels, tile by tile; above: a block a tile and K
+    range); a tile's partials summed in a shuffled order; then
+    (float(acc) * sx) * s, cast."""
+    M, K = x.shape
+    N = v.shape[0]
+    bits = x.float().abs().view(torch.int32)   # ordered as the floats
+    slices = [bits[:, k:k + 128].amax(dim=1) for k in range(0, K, 128)]
+    mx = functools.reduce(torch.maximum,
+                          [slices[i] for i in rng.permutation(len(slices))])
+    sx = mx.view(torch.float32) / torch.tensor(127.0)
+    d = torch.where(sx < 1e-12, torch.tensor(1e-12), sx)  # keeps a NaN
+    t = torch.round(x.float() / d[:, None])
+    xq = torch.where(t != t, 0.0, t.clamp(-127, 127)).to(torch.int32)
+    P = -(-K // 128)
+    if plan.tn <= q.W8A8_STREAM_MAX_ROWS:   # (tile, first, end panel)
+        U, G = plan.tiles * P, plan.blocks
+        pieces = []
+        for b in range(G):
+            u = b * U // G
+            while u < (b + 1) * U // G:
+                end = min((u // P + 1) * P, (b + 1) * U // G)
+                pieces.append((u // P, u % P, (end - 1) % P + 1))
+                u = end
+    else:
+        per = plan.kr // 128
+        pieces = [(t, k, min(P, k + per)) for t in range(plan.tiles)
+                  for k in range(0, P, per)]
+    partials = {}
+    for tile, k0, k1 in pieces:
+        ch = slice(tile * 128, min(N, (tile + 1) * 128))
+        ks = slice(k0 * 128, k1 * 128)
+        partials.setdefault(tile, []).append(
+            (xq[:, ks].long() @ v[ch, ks].long().t()).to(torch.int32))
+    acc = torch.empty(M, N, dtype=torch.int32)
+    for tile, parts in partials.items():
+        acc[:, tile * 128:min(N, (tile + 1) * 128)] = functools.reduce(
+            torch.add, [parts[i] for i in rng.permutation(len(parts))])
+    return ((acc.float() * sx[:, None]) * s).to(x.dtype)
+
+
+@pytest.mark.parametrize("M", [1, 16, 80, 300])
+def test_w8a8_gemm_blocks_match_dot_general(M):
+    """The GEMM kernel's arithmetic as ``w8a8_plan`` cuts the call
+    (up to 64 rows: 12 units of work, 3 tiles x 4 panels, the last 80
+    values short of a panel, over a card of 5 SMs, so tiles are shared
+    by 2 blocks; at 80 rows a 128-token tile, at 300 rows two 256-token
+    tiles, a block a tile) equals
+    ``w8a8_dot_general`` bit for bit, with a zero row, an inf row and a
+    NaN row, whatever the order of the slices' maxima and of the
+    partials."""
+    rng = np.random.default_rng(100 + M)
+    K, N = 464, 328
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    x *= rng.uniform(0.01, 3.0, size=(M, 1)).astype(np.float32)
+    x[0] = 0.0
+    if M > 2:
+        x[1, 7] = np.inf
+        x[2, 300] = np.nan
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    qt, _, _ = jax_iq.quantize_param_tree(
+        {"kernel": jnp.asarray(w, jnp.bfloat16)}, "w8a8", min_size=1)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    want = jax_iq.w8a8_dot_general(jx, qt["kernel"],
+                                   (((1,), (0,)), ((), ())))
+    jv, js = qt["kernel"].arrays
+    v, s = _torch(jv).t().contiguous(), _torch(js)
+    plan = q.w8a8_plan(M, N, K, sms=5)
+    assert (plan.tn, plan.blocks, plan.ksplit) == (
+        (16, 5, 1) if M <= 16 else (128, 3, 1) if M <= 128 else (256, 6, 1))
+    for _ in range(3):
+        _same(_gemm_as_the_kernel(_torch(jx), v, s, plan, rng), want)
