@@ -119,10 +119,11 @@ Phases (any failed check raises; nothing is caught):
    (``comms_logger`` counts against ``plan.step_collectives``).  Step ms
    and peak GiB per stage (of the init and of the steps).  Every one of
    those collectives goes through the NCCL group (``comm.backend_calls``),
-   a world of one's too: none is a local copy.  Then the stage-3
-   engine's partitioned checkpoint at full depth
-   (``build/smoke_zero_ckpt``, removed afterwards): save, 2 more steps,
-   and a fresh engine that loads and retakes them, bit-identically.
+   a world of one's too: none is a local copy.  Then a stage-3 engine's
+   partitioned checkpoint after a step, at full width and 2 of the 22
+   layers (``build/smoke_zero_ckpt``, removed afterwards): save, 2 more
+   steps, and a fresh engine that loads and retakes them,
+   bit-identically.
 14. CUDA graphs and the pipelined host path: phase 6's 24 requests on
    ``llama3-8b`` again with ``enable_cuda_graph`` and the pipeline on,
    then graphs with the pipeline off and the pipeline without graphs;
@@ -168,16 +169,18 @@ Phases (any failed check raises; nothing is caught):
    1: 12 forward, 12 dQ, 12 dK/dV, 1 Adam; config 2: 48, 24, 24, 1).
    Config 2 one step under ``full`` and under ``none``: its peak lies
    between theirs, the losses within phase 13's limit; its ZeRO-2
-   checkpoint (``build/smoke_gpt2_ckpt``, removed afterwards): save, 2
-   steps, load, the same 2 steps bit-identically.
+   checkpoint after a step at 2 of its 24 layers
+   (``build/smoke_gpt2_ckpt``, removed afterwards): save, 2 steps, load,
+   the same 2 steps bit-identically.
 18. GPT-2 against the CPU: ``gpt2-125m`` at full width with 2 layers in
    fp32 (TF32 off), one flax-layout tree through the bridge: prefill
    logits through v1, and one training step's loss and gradients, on
    the card against the port on the CPU.
 
 19. KV tiering and the prefix cache on ``llama3-8b`` at full width and
-   depth, bf16, with CUDA graphs as in phase 14.  Tiering: phase 6's
-   tight pool (129 pages) under its 16 x (100 + 500) traffic, with a host
+   8 of its 32 layers, bf16, with CUDA graphs as in phase 14.  Tiering:
+   phase 6's tight pool (129 pages) under its 16 x (100 + 500) traffic,
+   with a host
    tier of 8 pages (pinned) that overflows to an NVMe tier of 128 pages
    (``build/smoke_kvtier``, removed afterwards), on a bf16 pool (#9) and
    an int8 pool (#8), pipeline on and off (the same tokens), beside an
@@ -204,7 +207,7 @@ Phases (any failed check raises; nothing is caught):
    divergence; sampled (t 0.8, top-p 0.95) twice identical; over an int8
    pool (#8); draft mode with TinyLlama's shape and Llama 3's vocabulary
    (22 layers, D 64), greedy twice identical, pipeline on and off equal.
-   Then 2 layers at full width in fp32 through one bridged flax tree:
+   Then 2 layers at full width in fp32, random weights made on the card:
    n-gram, a 2-layer draft and self-draft greedy against speculation off
    by phase 7's margin rule; self-draft accepts at least 95% of its
    proposals.  Per run: acceptance, mean accepted length, speculative
@@ -217,9 +220,9 @@ Phases (any failed check raises; nothing is caught):
    step (16 x 2) and catch-up chunk (512 over 1536 keys; H 32/4, D 64)
    and a ``kv_len`` past the page table.
 
-21. Long context (A9.5) on ``llama3-8b`` at full width and depth, bf16,
-   CUDA graphs on, the reference's knobs (sink 1, window 8, groups of 4):
-   one 4064 + 32 greedy request on a 17-page pool (4x over it; tiers of
+21. Long context (A9.5) on ``llama3-8b`` at full width and 8 of its 32
+   layers, bf16, CUDA graphs on, the reference's knobs (sink 1, window
+   8, groups of 4): one 4064 + 32 greedy request on a 17-page pool (4x over it; tiers of
    24 host and 64 NVMe pages under ``build/smoke_lc``, removed
    afterwards) against the same request fully resident, over a bf16 and
    an int8 pool: tokens equal to the control and the first divergence,
@@ -227,12 +230,12 @@ Phases (any failed check raises; nothing is caught):
    digest-verified), ``pagein_wait`` / ``pagein_verify`` ms a tick,
    staged-stats dispatches a tick, decode tokens/s beside the control's,
    the residency ratio, and the peak GiB at 2048 and at 4096 tokens of
-   context (within 0.5 GiB); #9 / #8 launched exactly 32 times a tick.
+   context (within 0.5 GiB); #9 / #8 launched exactly 8 times a tick.
    Then the request beside 4 normal ones (128-512 + 32-64, submitted
    once its prompt is in), pipeline on and off: the same tokens, its own
    equal to its solo run's, and no decode block while it is live; and 2
-   layers at full width in fp32 through one bridged flax tree, 1024 + 32
-   against the resident control by phase 7's margin rule.
+   layers at full width in fp32, random weights made on the card,
+   1024 + 32 against the resident control by phase 7's margin rule.
 22. The fp8, fp6 and w8a8 weight formats (A9.6): K1 ``dequant_scaled``
    (e4m3, and int8 a scale a row) and K2 ``dequantize_fp6`` (groups of
    128 and 2048) bit-identical to their plain versions at ``gate_proj``,
@@ -257,17 +260,43 @@ Phases (any failed check raises; nothing is caught):
    Linear is held bit-identical to its plain version on the card's own
    inputs, and one request at least shows no flip; then phase 12(c)'s
    comparison.
+23. Disaggregated serving (A9.7, A10a): ``llama3-8b`` at full width and
+   depth, bf16, CUDA graphs and the pipeline, one module serving
+   a fused control engine and a prefill and a decode replica (each its
+   own pool and pinned host tier) behind ``Router`` with ``set_roles``.
+   16 greedy requests, 8 x 32 and 8 x 1024 tokens + 64 each: every
+   request finishes once with its full count, every long one hands its
+   KV off (no fold), every restore is digest-verified, both pools end
+   all free; #9's Python count equals every replica's ticks, captures
+   and replays as in phase 14; after every leg no replica died, was
+   re-routed from or left ``healthy``.  The same 16 again on the router
+   and on the control, warm (no capture in the leg).  Then one
+   ``handoff.import`` bitflip (the
+   session quarantined and re-prefilled), 8 requests with the roles off
+   (both replicas capture and replay from their own threads), and 4
+   SSE streams through ``FrontDoorServer`` on ``127.0.0.1:0`` whose
+   tokens equal the engines' ``get_outputs``.  Printed beside the card:
+   TTFT p50/p99 short and long (and the control's), ``handoff_stall_ms``
+   p50/p99, restore ms a page, decode tokens/s beside the control's,
+   the share of outputs equal to the control's and the first
+   divergence (bf16: reported, not gated), peak GiB and the phase's
+   seconds.  Then 2 layers at full width in fp32, the 1P1D router
+   against the fused control by phase 7's margin rule.  Phase 23 runs
+   right after phase 21 and before phase 22.
 
-Phases 3 and 6 (serving) keep their full depth; phase 12's CPU parity
-runs one layer (two until phase 19 came).  The CPU halves of phases
+Phases 3, 6, 12, 14, 20, 22 and 23 (serving) keep their full depth;
+phases 19 and 21 (the KV tiers) run 8 of the 32 layers, and the
+checkpoint legs of phases 13 and 17 2 layers, so that the whole run
+stays well inside its time limit; phase 12's CPU parity runs one layer
+(two until phase 19 came).  The CPU halves of phases
 12(c) and 22 run in a worker process (``--cpu-side``, no card visible,
 4 threads, files under ``build/smoke_cpu``, removed afterwards) started
 at phase 12, so that the whole run stays inside its time limit.
 ``--gpt2-only`` runs the build and phases 15-18
 alone, ``--tiering-only`` the build and phase 19, ``--spec-only`` the
 build and phase 20, ``--lc-only`` the build, phase 5's carry cases and
-phase 21, ``--wq-only`` the build and phase 22; none prints result
-lines.  The line before the last is the ``kernels`` JSON; the last line
+phase 21, ``--wq-only`` the build and phase 22, ``--disagg-only`` the
+build and phase 23; none prints result lines.  The line before the last is the ``kernels`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits
 nonzero and prints no result.
 """
@@ -650,21 +679,29 @@ def phase_slice():
 
 
 def flax_tree(cfg, rng):
-    """A random flax-layout Llama param tree (unrolled layers) in numpy."""
+    """A random flax-layout Llama param tree (unrolled layers) in numpy.
+    The values come from a torch CPU generator keyed by ``rng`` (its
+    normal draws are a few times faster than numpy's), and each kernel
+    is drawn ``[out, in]`` and handed over as its transposed view, so
+    that the bridge's transpose back to torch's layout copies nothing:
+    at llama3-8b's vocabulary the tables are 0.5 G values each."""
     E, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
                   cfg.head_dim)
+    gen = torch.Generator().manual_seed(int(rng.integers(2**62)))
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen)
 
     def dense(n_in, n_out):
-        w = rng.standard_normal((n_in, n_out), dtype=np.float32)
-        return {"kernel": w * np.float32(1 / math.sqrt(n_in))}
+        w = normal(n_out, n_in).mul_(1 / math.sqrt(n_in))
+        return {"kernel": w.numpy().T}
 
     def norm():
-        return {"scale": 1 + 0.1 * rng.standard_normal(E, dtype=np.float32)}
+        return {"scale": normal(E).mul_(0.1).add_(1).numpy()}
 
-    model = {"embed_tokens": {
-        "embedding": rng.standard_normal((V, E), dtype=np.float32)},
-        "norm": norm()}
+    model = {"embed_tokens": {"embedding": normal(V, E).numpy()},
+             "norm": norm()}
     for i in range(cfg.num_hidden_layers):
         model[f"layers_{i}"] = {
             "input_layernorm": norm(), "post_attention_layernorm": norm(),
@@ -2039,6 +2076,8 @@ def phase_int8_cpu_parity():
 # ---------------------------------------------------------------------------
 
 STAGE_LOSS_RTOL = 2e-3   # the reference's tests/unit/test_engine.py:55
+# the layers of phases 13's and 17's checkpoint legs, at full width
+CKPT_LAYERS = 2
 
 
 def zero_run(cfg, config, batch, steps):
@@ -2092,8 +2131,8 @@ def zero_run(cfg, config, batch, steps):
 def phase_zero(stage0):
     """ZeRO stages 1-3 through ``initialize`` over an NCCL process group,
     at ``llama-1b``'s full width and depth on phase 9's seed and batch,
-    against phase 9's stage-0 losses; the stage-3 engine's partitioned
-    checkpoint resumes bit-identically."""
+    against phase 9's stage-0 losses; a stage-3 engine's partitioned
+    checkpoint (CKPT_LAYERS layers) resumes bit-identically."""
     import shutil
 
     from deepspeed_tpu_torch import comm
@@ -2125,10 +2164,13 @@ def phase_zero(stage0):
             f"{engine.buffer_numels()}; per step: 1 fused_adam launch, "
             f"collectives {want}, all of them through NCCL")
         assert gap <= STAGE_LOSS_RTOL, (stage, losses, stage0["AdamW"])
-        if stage < 3:
-            del engine, model
+        del engine, model
 
-    # the stage-3 engine's partitioned checkpoint, at full depth
+    # a stage-3 engine's partitioned checkpoint after a step, at
+    # CKPT_LAYERS of the 22 layers: the leg writes (fsynced) and reads
+    # back every byte of it, which the disk's rate sets
+    ccfg = get_config("llama-1b", num_hidden_layers=CKPT_LAYERS)
+    engine, model, *_ = zero_run(ccfg, conf, batch, 1)
     ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "smoke_zero_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -2138,7 +2180,7 @@ def phase_zero(stage0):
     cont = [float(engine.train_batch(batch=batch)) for _ in range(2)]
     want_p = engine.state.params.clone()
     del engine, model
-    fresh, model, _, _, _, _ = zero_run(cfg, conf, batch, 0)
+    fresh, model, _, _, _, _ = zero_run(ccfg, conf, batch, 0)
     t = time.perf_counter()
     path, _ = fresh.load_checkpoint(ckpt)
     load_s = time.perf_counter() - t
@@ -2146,7 +2188,7 @@ def phase_zero(stage0):
     same = torch.equal(fresh.state.params, want_p)
     size = sum(os.path.getsize(os.path.join(d, f))
                for d, _, fs in os.walk(ckpt) for f in fs) / 2**30
-    log(f"zero: stage-3 checkpoint of {cfg.num_hidden_layers} layers "
+    log(f"zero: stage-3 checkpoint of {ccfg.num_hidden_layers} layers "
         f"({size:.2f} GiB): saved in {save_s:.1f} s, loaded (verified) in "
         f"{load_s:.1f} s; losses {cont} then {again}; master "
         f"bit-identical: {same}")
@@ -2804,8 +2846,8 @@ def phase_gpt2_train():
     """bench.py's config 1 (gpt2-125m, ZeRO 0) and config 2 (gpt2-1.3b,
     ZeRO 2 over one NCCL rank, dots_saveable) at full width and depth;
     config 2 under the "full" and "none" policies for a step each, and
-    its ZeRO-2 checkpoint resumed bit-identically.  Returns the launches
-    of the main runs by kernel line."""
+    its ZeRO-2 checkpoint (CKPT_LAYERS layers) resumed bit-identically.
+    Returns the launches of the main runs by kernel line."""
     import shutil
 
     from deepspeed_tpu_torch import comm
@@ -2866,8 +2908,17 @@ def phase_gpt2_train():
     assert losses[-1] < losses[0], f"loss did not fall: {losses}"
     report("config 2", cfg, micro, losses, step_ms, peak)
     first = (losses[0], step_ms, peak)
+    del engine, model
 
-    # the ZeRO-2 checkpoint: save, 2 steps, load, the same 2 steps again
+    # the ZeRO-2 checkpoint of config 2 after a step, at CKPT_LAYERS of
+    # its 24 layers: save, 2 steps, load, the same 2 steps again
+    ccfg = get_config("gpt2-1.3b", n_layer=CKPT_LAYERS, n_positions=1024,
+                      remat=True, remat_policy="dots_saveable",
+                      use_flash_attention=True)
+    CL = ccfg.n_layer
+    engine, model, *_ = gpt2_train_run(
+        ccfg, conf, batch, 1, [2 * CL, CL, CL, 1],
+        f"config 2 at {CL} layers")
     ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "smoke_gpt2_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -2883,7 +2934,8 @@ def phase_gpt2_train():
     same = torch.equal(engine.state.params, want_p)
     size = sum(os.path.getsize(os.path.join(d, f))
                for d, _, fs in os.walk(ckpt) for f in fs) / 2**30
-    log(f"gpt2 train config 2: ZeRO-2 checkpoint ({size:.2f} GiB) saved in "
+    log(f"gpt2 train config 2: ZeRO-2 checkpoint of {CL} layers "
+        f"({size:.2f} GiB) saved in "
         f"{save_s:.1f} s, loaded in {load_s:.1f} s; losses {cont} then "
         f"{again}; master bit-identical: {same}")
     assert path is not None and again == cont and same, \
@@ -3002,10 +3054,16 @@ def phase_gpt2_cpu_parity():
 # Phase 19: KV tiering and the prefix cache on the v2 engine
 # ---------------------------------------------------------------------------
 
+# phases 19 and 21 serve llama3-8b at full width and this many of its 32
+# layers: their legs check what the tiers move and when, which is the
+# same at any depth, while a page's bytes (and the disk's share of the
+# run) grow with it
+TIERED_LAYERS = 8
 # the tiering leg's tiers: phase 6's decode-heavy traffic spills two
-# sequences of 8 pages a run, so a host tier of 8 pages (64 MiB pinned)
-# sends the older spill on to the NVMe tier (128 pages, 1 GiB on disk);
-# the spill files go under the git-ignored build/, removed afterwards
+# sequences of 8 pages a run, so a host tier of 8 pages (16 MiB pinned)
+# sends the older spill on to the NVMe tier (128 pages, 256 MiB on
+# disk); the spill files go under the git-ignored build/, removed
+# afterwards
 TIER = dict(host_pages=8, nvme_pages=128)
 TIER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "smoke_kvtier")
@@ -3092,16 +3150,16 @@ def prefix_traffic(vocab, two_tenants=False, n=24):
 
 def phase_tiering():
     """Phase 19: KV tiering (A9.2) and the prefix cache (A9.3) on
-    ``llama3-8b`` at full width and depth, bf16, with CUDA graphs and the
-    pipeline as in phase 14.  Returns the launches of #9 and #8 in the
-    phase's tiering and prefix runs."""
+    ``llama3-8b`` at full width and TIERED_LAYERS layers, bf16, with CUDA
+    graphs and the pipeline as in phase 14.  Returns the launches of #9
+    and #8 in the phase's tiering and prefix runs."""
     import shutil
 
     from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
     from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
 
-    cfg = get_config("llama3-8b")
+    cfg = get_config("llama3-8b", num_hidden_layers=TIERED_LAYERS)
     with torch.device("meta"):
         model = LlamaForCausalLM(cfg)
     engine = RaggedInferenceEngineV2(
@@ -3499,15 +3557,13 @@ NEW_FP32 = 161
 
 
 def phase_spec_fp32():
-    """2 layers at full width in fp32 (TF32 off), weights bridged from one
-    flax-layout tree: greedy speculation (n-gram, a 2-layer draft of the
+    """2 layers at full width in fp32 (TF32 off), random seeded weights
+    made on the card: greedy speculation (n-gram, a 2-layer draft of the
     draft's shape, and self-draft) against speculation off on the card,
     by phase 7's margin rule; self-draft accepts at least 95% of its
     proposals."""
     from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
-    from deepspeed_tpu_torch.module_inject.flax_bridge import \
-        flax_to_state_dict
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3515,8 +3571,6 @@ def phase_spec_fp32():
     dcfg = get_config("llama-1b", num_hidden_layers=2, dtype=torch.float32,
                       **DRAFT_PRESET)
     rng = np.random.default_rng(SEED + 20)
-    state = flax_to_state_dict(flax_tree(cfg, rng))
-    dstate = flax_to_state_dict(flax_tree(dcfg, rng))
     prompts = [rng.integers(0, cfg.vocab_size, size=n)
                for n in (37, 100, 300, 513)]
     # 160 tokens after the first: the budget clamp of each request's last
@@ -3525,8 +3579,9 @@ def phase_spec_fp32():
               decode_block_size=4)
     with torch.device("meta"):
         model = LlamaForCausalLM(cfg)
-    off_eng = RaggedInferenceEngineV2(model, params=state, device="cuda",
-                                      **kw)
+    off_eng = RaggedInferenceEngineV2(
+        model, generator=torch.Generator(device="cuda").manual_seed(SEED + 20),
+        device="cuda", **kw)
     outs = off_eng.generate_all(prompts, max_new_tokens=NEW_FP32)
     want = [outs[u] for u in sorted(outs)]
     module = off_eng.module
@@ -3542,8 +3597,9 @@ def phase_spec_fp32():
         extra = {}
         if label == "draft":
             with torch.device("meta"):
-                extra = dict(draft_model=LlamaForCausalLM(dcfg),
-                             draft_params=dstate)
+                extra = dict(draft_model=LlamaForCausalLM(dcfg))
+            extra["generator"] = torch.Generator(
+                device="cuda").manual_seed(SEED + 21)
         elif label == "self-draft":
             extra = dict(draft_model=module)
         eng = RaggedInferenceEngineV2(
@@ -3586,10 +3642,11 @@ def phase_spec_fp32():
 
 # the reference's knobs: a resident need of sink 1 + window 8 + group 4 +
 # the frontier 1 = 14 pages.  A 4064 + 32 request is 64 pages (4096
-# tokens, 512 MiB of bf16 KV) on a 17-page pool (16 usable, 128 MiB): 4x
-# over it.  The tiers: 24 host pages (pinned) and 64 NVMe pages under
-# the git-ignored build/, removed afterwards, so most page-ins come from
-# NVMe.  One middle group is 4 pages x 32 layers x 256 KiB = 32 MiB.
+# tokens, 128 MiB of bf16 KV over TIERED_LAYERS = 8 layers) on a 17-page
+# pool (16 usable, 32 MiB): 4x over it.  The tiers: 24 host pages
+# (pinned) and 64 NVMe pages under the git-ignored build/, removed
+# afterwards, so most page-ins come from NVMe.  One middle group is 4
+# pages x 8 layers x 256 KiB = 8 MiB.
 LC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                       "smoke_lc")
 LC_TIER = dict(long_context=True, sink_pages=1, window_pages=8,
@@ -3686,12 +3743,12 @@ def lc_engine(module, fmt="none", **kw):
 
 def phase_lc():
     """Phase 21: long context (A9.5) on ``llama3-8b`` at full width and
-    depth, bf16, CUDA graphs on: one 4064 + 32 request on a 17-page pool
-    (4x over it) against the same request fully resident, over a bf16 and
-    an int8 pool; the request beside 4 normal requests, pipeline on and
-    off; then 2 layers in fp32 against their resident control by phase
-    7's margin rule.  Returns the launches of #9 (bf16 pool) and #8 (int8
-    pool) in the long-context runs."""
+    TIERED_LAYERS layers, bf16, CUDA graphs on: one 4064 + 32 request on
+    a 17-page pool (4x over it) against the same request fully resident,
+    over a bf16 and an int8 pool; the request beside 4 normal requests,
+    pipeline on and off; then 2 layers in fp32 against their resident
+    control by phase 7's margin rule.  Returns the launches of #9 (bf16
+    pool) and #8 (int8 pool) in the long-context runs."""
     import shutil
 
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
@@ -3701,7 +3758,7 @@ def phase_lc():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    cfg = get_config("llama3-8b")
+    cfg = get_config("llama3-8b", num_hidden_layers=TIERED_LAYERS)
     L = cfg.num_hidden_layers
     with torch.device("meta"):
         model = LlamaForCausalLM(cfg)
@@ -3817,7 +3874,7 @@ def phase_lc():
         assert np.array_equal(a, b), "pipeline on and off differ"
     log("lc mixed traffic: pipeline on and off give the same tokens for "
         "all 5 requests")
-    del module, model
+    del model, module
     gc.collect()
     torch.cuda.empty_cache()
     phase_lc_fp32(smi)
@@ -3826,25 +3883,24 @@ def phase_lc():
 
 
 def phase_lc_fp32(smi):
-    """2 layers at full width in fp32 (TF32 off), weights bridged from one
-    flax-layout tree: a 1024 + 32 long-context request on the 17-page
+    """2 layers at full width in fp32 (TF32 off), random seeded weights
+    made on the card: a 1024 + 32 long-context request on the 17-page
     pool against the fully resident control, by phase 7's margin rule."""
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
-    from deepspeed_tpu_torch.module_inject.flax_bridge import \
-        flax_to_state_dict
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config("llama3-8b", num_hidden_layers=2, dtype=torch.float32)
     rng = np.random.default_rng(SEED + 22)
-    state = flax_to_state_dict(flax_tree(cfg, rng))
     prompt = rng.integers(0, cfg.vocab_size, size=1024)
     with torch.device("meta"):
         model = LlamaForCausalLM(cfg)
-    ctl = lc_engine(model, params=state, num_pages=LC_CONTROL_POOL)
+    ctl = lc_engine(
+        model, num_pages=LC_CONTROL_POOL,
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 22))
     (want,), *_ = lc_serve(ctl, prompt, LC_NEW)
     module = ctl.module
-    del ctl, state
+    del ctl
     eng = lc_engine(module, num_pages=LC_POOL, kv_tiering=LC_TIER)
     (got,), *_ = lc_serve(eng, prompt, LC_NEW)
     parks, pageins = eng._lc.parks, eng.tiering.counters["pageins"]
@@ -4516,6 +4572,427 @@ def phase_wq(cpu_side, card_halves, bf16_outs=None):
     return list(entries.values())
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: disaggregated serving on v2 behind the router (A9.7, A10a)
+# ---------------------------------------------------------------------------
+
+DISAGG_SHORT, DISAGG_LONG, DISAGG_NEW = 32, 1024, 64
+# graphed and pipelined, V2's shapes; the replicas' tiers hold every long
+# session of a leg (8 x 17 pages) with room to spare
+DISAGG = dict(V2, pipeline=True, config={"enable_cuda_graph": True})
+DISAGG_TIER = {"host_pages": 192}
+
+
+def disagg_traffic(vocab, seed):
+    """8 short (32-token) and 8 long (1024-token) greedy prompts,
+    alternating, each + 64 new tokens."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, vocab, size=DISAGG_LONG if i % 2 else
+                          DISAGG_SHORT), DISAGG_NEW) for i in range(16)]
+
+
+def drive_engine(engine, reqs):
+    """One engine over ``reqs`` from the caller's loop: outputs in order,
+    each request's submit -> first harvested token seconds, and the
+    decode rate (tokens after each first, over first token to last
+    finish; and each request's own, its tokens after the first over its
+    first token to its finish, p50)."""
+    t0 = time.perf_counter()
+    uids = [engine.put_request(p, max_new_tokens=n) for p, n in reqs]
+    first, done, outs = {}, {}, {}
+    while engine.has_work():
+        engine.step()
+        now = time.perf_counter() - t0
+        for uid, toks, _, _ in engine.stream_deltas():
+            if toks:
+                first.setdefault(uid, now)
+        for uid, toks in engine.get_outputs():
+            outs[uid], done[uid] = toks, now
+    return disagg_result(reqs, [outs[u] for u in uids],
+                         [first[u] for u in uids], [done[u] for u in uids])
+
+
+def drive_router(router, reqs):
+    """:func:`drive_engine` through a router: first tokens and finishes
+    from its event stream, each request finishing exactly once."""
+    router.collect_events = True
+    t0 = time.perf_counter()
+    rids = [router.submit(p, max_new_tokens=n) for p, n in reqs]
+    first, done, outs = {}, {}, {}
+    while router.outstanding or router.queued:
+        router.pump()
+        router.join()
+        now = time.perf_counter() - t0
+        for kind, rid, payload in router.poll_events():
+            assert kind in ("tokens", "finish"), (
+                f"disagg: router event {kind} for request {rid}")
+            first.setdefault(rid, now)
+            if kind == "finish":
+                assert rid not in outs, f"disagg: {rid} finished twice"
+                outs[rid], done[rid] = np.asarray(payload), now
+    router.collect_events = False
+    router.get_outputs()            # the finishes came as events
+    return disagg_result(reqs, [outs[r] for r in rids],
+                         [first[r] for r in rids], [done[r] for r in rids])
+
+
+def disagg_result(reqs, outs, first, done):
+    for (p, n), got in zip(reqs, outs):
+        assert got.shape == (len(p) + n,) and np.array_equal(got[:len(p)], p)
+    gen = sum(n - 1 for _, n in reqs)
+    ms = np.asarray(first) * 1e3
+    short = [m for m, (p, _) in zip(ms, reqs) if len(p) == DISAGG_SHORT]
+    long_ = [m for m, (p, _) in zip(ms, reqs) if len(p) == DISAGG_LONG]
+    own = [(n - 1) / max(d - f, 1e-9) for (_, n), f, d in
+           zip(reqs, first, done)]
+    return outs, dict(
+        ttft_short=(np.percentile(short, 50), np.percentile(short, 99)),
+        ttft_long=(np.percentile(long_, 50), np.percentile(long_, 99)),
+        decode_tps=gen / max(max(done) - min(first), 1e-9),
+        decode_tps_req=np.percentile(own, 50))
+
+
+def leg_counts(engines):
+    """Per engine: (model ticks, graph replays, graph captures)."""
+    return [(e.host_stats.ticks, e.host_stats.graph_replays,
+             e.host_stats.graph_captures) for e in engines]
+
+
+def check_leg(label, engines, before, launched, L):
+    """#9's Python count over a leg against every engine's ticks, captures
+    and replays as in phase 14 (an eager tick launches L, a capture its
+    warm-up and captured block, 2 x K x L; a replay none in Python);
+    every pool all free and audited.  Returns each engine's device
+    launches, derived from its replays."""
+    K = DISAGG["decode_block_size"]
+    python, device = 0, []
+    for e, (t0, r0, c0), (t1, r1, c1) in zip(engines, before,
+                                             leg_counts(engines)):
+        eager = (t1 - t0) - K * (r1 - r0)
+        python += L * (eager + 2 * K * (c1 - c0))
+        device.append(L * (eager + K * ((c1 - c0) + (r1 - r0))))
+        e.audit_kv_sharing()
+        assert e.allocator.free_pages == e.num_pages - 1, (
+            f"disagg {label}: pages left in use")
+    assert launched == python, (
+        f"disagg {label}: ragged_paged_attention counted {launched} "
+        f"launches, want {python} from the replicas' ticks and captures")
+    return device
+
+
+def check_replicas(label, router, rs):
+    """No replica died, was re-routed from or left ``healthy``: the
+    router catches a replica's exception (a CUDA fault, a failed
+    capture) and re-sends its greedy requests to a survivor, so a leg's
+    tokens alone would not show it."""
+    s = router.stats()
+    bad = {k: s[k] for k in ("replica_deaths", "rerouted",
+                             "failed_replica_death", "hedges") if s[k]}
+    bad.update({h.name: s[f"state_{h.name}"] for h in rs.handles
+                if not h.alive or s[f"state_{h.name}"] != "healthy"})
+    assert not bad, f"disagg {label}: a replica failed: {bad}"
+
+
+def phase_disagg():
+    """Phase 23: disaggregated serving (A9.7 + A10a) on ``llama3-8b`` at
+    full width and depth, bf16, CUDA graphs and the pipeline on, a pinned
+    host tier.  One module serves a fused control engine and a prefill
+    and a decode replica behind the port's ``Router`` (``set_roles``):
+    16 greedy requests (8 x 32 and 8 x 1024 tokens, + 64 each), cold
+    and again warm; a leg with one ``handoff.import`` bitflip; 8
+    requests with the roles off, both replicas decoding from their
+    threads; 4 requests over SSE through ``FrontDoorServer`` on
+    ``127.0.0.1:0``.  Then 2 layers at full width in fp32, the 1P1D
+    router against the fused control by phase 7's margin rule.  Returns
+    #9's launches over the router legs."""
+    import asyncio
+
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
+    from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+    from deepspeed_tpu_torch.resilience import faults
+    from deepspeed_tpu_torch.serving import (FrontDoorServer, ReplicaSet,
+                                             Router)
+    from deepspeed_tpu_torch.serving.client import sse_generate
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3-8b")
+    L = cfg.num_hidden_layers
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    module = RaggedInferenceEngineV2(
+        model, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda", **V2).module
+    torch.cuda.reset_peak_memory_stats()
+    reqs = disagg_traffic(cfg.vocab_size, SEED + 23)
+    n_long = sum(len(p) == DISAGG_LONG for p, _ in reqs)
+    control = RaggedInferenceEngineV2(module, device="cuda", **DISAGG)
+    want, rc = drive_engine(control, reqs)
+    # again with its graph captured: the warm legs compare steady states
+    caps = control.host_stats.graph_captures
+    want_w, rcw = drive_engine(control, reqs)
+    assert control.host_stats.graph_captures == caps
+    control.audit_kv_sharing()
+    del control
+    # the replicas share the module: weights on the card once, a pool
+    # and a tier store each
+    rs = ReplicaSet(lambda i: RaggedInferenceEngineV2(
+        module, device="cuda", kv_tiering=DISAGG_TIER, **DISAGG), 2)
+    router = Router(rs, policy="least_tokens")
+    router.set_roles({"r0": "prefill", "r1": "decode"})
+    pre, dec = (h.engine for h in rs.handles)
+    engines = (pre, dec)
+    try:
+        # -- the clean leg: every long request hands its KV off
+        rpa.ragged_paged_attention.launches = 0     # the main path
+        before = leg_counts(engines)
+        restore_s = dec.host_stats.seconds["restore"]
+        busy0 = [dict(e.host_stats.seconds) for e in engines]
+        got, rr = drive_router(router, reqs)
+        # each replica's host-clock seconds by stage over the leg: what
+        # one replica's step holds up the router's round with
+        busy = [{k: round(v - b[k], 3)
+                 for k, v in e.host_stats.seconds.items() if v - b[k] > 0.001}
+                for e, b in zip(engines, busy0)]
+        dev = check_leg("clean", engines, before,
+                        rpa.ragged_paged_attention.launches, L)
+        check_replicas("clean", router, rs)
+        stats = router.stats()
+        assert pre.handoffs == stats["handoffs"] == stats[
+            "handoff_kv"] == n_long, stats
+        assert pre.handoff_folds == 0 and stats["handoff_reprefill"] == 0
+        ts = dec.tiering.stats()
+        assert dec.restores == dec.tiering.counters["imports"] == n_long
+        assert ts["pages_verified"] == ts["pages_restored"] > 0, ts
+        assert ts["quarantined"] == 0
+        assert dec.host_stats.graph_replays > 0 and dev[1] > 0
+        assert dev[0] > 0, "the prefill replica never launched #9"
+        stalls = [r["handoff_stall_ms"] for r in
+                  dec.request_latency.completed() if r["handoffs"]]
+        assert len(stalls) == n_long
+        per_page = ((dec.host_stats.seconds["restore"] - restore_s) * 1e3
+                    / ts["pages_restored"])
+        same = sum(np.array_equal(a, b) for a, b in zip(got, want))
+        log(f"[{smi}] disagg 1P1D: 16 requests (8 x {DISAGG_SHORT} + 8 x "
+            f"{DISAGG_LONG}, + {DISAGG_NEW}); handoffs {pre.handoffs} (KV "
+            f"{stats['handoff_kv']}, folds {pre.handoff_folds}), restores "
+            f"{dec.restores}, pages {ts['pages_restored']} every one "
+            f"digest-verified ({ts['pages_verified']}); TTFT short p50 "
+            f"{rr['ttft_short'][0]:.1f} p99 {rr['ttft_short'][1]:.1f} ms, "
+            f"long p50 {rr['ttft_long'][0]:.1f} p99 {rr['ttft_long'][1]:.1f}"
+            f" ms (fused control: short {rc['ttft_short'][0]:.1f} / "
+            f"{rc['ttft_short'][1]:.1f}, long {rc['ttft_long'][0]:.1f} / "
+            f"{rc['ttft_long'][1]:.1f}); handoff_stall_ms p50 "
+            f"{np.percentile(stalls, 50):.2f} p99 "
+            f"{np.percentile(stalls, 99):.2f}; restore {per_page:.3f} ms a "
+            f"page; decode {rr['decode_tps']:.1f} tokens/s against the "
+            f"control's {rc['decode_tps']:.1f} (a request's own, p50: "
+            f"{rr['decode_tps_req']:.1f} against {rc['decode_tps_req']:.1f});"
+            f" #9 launches {dev} by "
+            f"replica (device, from the replays), graph replays "
+            f"{[e.host_stats.graph_replays for e in engines]}; host "
+            f"seconds by stage (prefill, decode) {busy}, capture "
+            f"{[round(e.host_stats.graph_capture_s, 3) for e in engines]} s")
+        log(f"[{smi}] disagg 1P1D bf16: {same}/16 outputs equal to the "
+            f"fused control's (reported, not gated: other batches, other "
+            f"GEMM shapes); first divergence (request, token) "
+            f"{first_divergence(got, want)}")
+        launched = rpa.ragged_paged_attention.launches
+        # -- the same traffic again, every graph it needs captured: the
+        # steady state beside the control's warm run
+        before = leg_counts(engines)
+        h0, k0, f0 = pre.handoffs, stats["handoff_kv"], pre.handoff_folds
+        pages0 = ts["pages_restored"]
+        restore_s = dec.host_stats.seconds["restore"]
+        n_done = len(dec.request_latency.completed())
+        got_w, rw = drive_router(router, reqs)
+        launched0 = rpa.ragged_paged_attention.launches
+        dev_w = check_leg("warm", engines, before, launched0 - launched, L)
+        launched = launched0
+        check_replicas("warm", router, rs)
+        stats = router.stats()
+        assert pre.handoffs - h0 == stats["handoff_kv"] - k0 == n_long
+        assert pre.handoff_folds == f0 and stats["handoff_reprefill"] == 0
+        assert [c for _, _, c in before] == [
+            c for _, _, c in leg_counts(engines)], "disagg warm: a capture"
+        ts = dec.tiering.stats()
+        assert ts["pages_verified"] == ts["pages_restored"] > pages0
+        assert ts["quarantined"] == 0
+        stalls_w = [r["handoff_stall_ms"] for r in
+                    dec.request_latency.completed()[n_done:] if r["handoffs"]]
+        assert len(stalls_w) == n_long
+        per_page_w = ((dec.host_stats.seconds["restore"] - restore_s) * 1e3
+                      / (ts["pages_restored"] - pages0))
+        log(f"[{smi}] disagg 1P1D warm (no capture in the leg): TTFT short "
+            f"p50 {rw['ttft_short'][0]:.1f} p99 {rw['ttft_short'][1]:.1f} "
+            f"ms, long p50 {rw['ttft_long'][0]:.1f} p99 "
+            f"{rw['ttft_long'][1]:.1f} ms (fused control warm: short "
+            f"{rcw['ttft_short'][0]:.1f} / {rcw['ttft_short'][1]:.1f}, long "
+            f"{rcw['ttft_long'][0]:.1f} / {rcw['ttft_long'][1]:.1f}); "
+            f"handoff_stall_ms p50 {np.percentile(stalls_w, 50):.2f} p99 "
+            f"{np.percentile(stalls_w, 99):.2f}; restore {per_page_w:.3f} ms "
+            f"a page; decode {rw['decode_tps']:.1f} tokens/s against the "
+            f"control's warm {rcw['decode_tps']:.1f} (a request's own, p50: "
+            f"{rw['decode_tps_req']:.1f} against {rcw['decode_tps_req']:.1f})"
+            f"; #9 launches {dev_w} by "
+            f"replica (device); outputs equal to the cold leg's "
+            f"{sum(np.array_equal(a, b) for a, b in zip(got_w, got))}/16, "
+            f"the control's warm to its cold "
+            f"{sum(np.array_equal(a, b) for a, b in zip(want_w, want))}/16")
+        # -- one handoff.import bitflip: quarantined, re-prefilled
+        before = leg_counts(engines)
+        q0 = dec.tiering.counters["quarantined"]
+        e0 = sum(r["errors"] for r in dec.request_latency.completed())
+        with faults.FaultInjector(seed=SEED + 23) as inj:
+            inj.bitflip("handoff.import", bits=1, count=1)
+            bad, _ = drive_router(router, reqs)
+        launched0 = rpa.ragged_paged_attention.launches
+        check_leg("bitflip", engines, before, launched0 - launched, L)
+        launched = launched0
+        check_replicas("bitflip", router, rs)
+        assert [s for s, _, _ in inj.fired] == ["handoff.import"]
+        assert dec.tiering.counters["quarantined"] - q0 == 1
+        errs = sum(r["errors"] for r in dec.request_latency.completed()) - e0
+        assert errs == 1, f"disagg bitflip: {errs} sessions re-prefilled"
+        log(f"[{smi}] disagg bitflip leg: 1 wire flip at handoff.import, "
+            f"1 session quarantined and re-prefilled; "
+            f"{sum(np.array_equal(a, b) for a, b in zip(bad, got))}/16 "
+            "outputs equal to the clean leg's")
+        # -- roles off: both replicas decode, capturing and replaying from
+        # their own threads at once
+        router.set_roles({})
+        before = leg_counts(engines)
+        mixed = reqs[:8]
+        drive_router(router, mixed)
+        launched0 = rpa.ragged_paged_attention.launches
+        dev = check_leg("fused", engines, before, launched0 - launched, L)
+        launched = launched0
+        check_replicas("roles off", router, rs)
+        assert all(e.host_stats.graph_replays > 0 for e in engines)
+        assert all(e.host_stats.graph_captures > 0 for e in engines)
+        log(f"[{smi}] disagg roles off: 8 requests over both replicas; "
+            f"captures {[e.host_stats.graph_captures for e in engines]}, "
+            f"replays {[e.host_stats.graph_replays for e in engines]}, "
+            f"#9 launches {dev} by replica (device)")
+        # -- SSE through the front door, 1P1D again; the tokens streamed
+        # are the engines' get_outputs for those requests
+        router.set_roles({"r0": "prefill", "r1": "decode"})
+        collected = {}
+        for e in engines:
+            get = e.get_outputs
+
+            def recording(get=get):
+                out = get()
+                for _, toks in out:
+                    collected[tuple(toks[:DISAGG_SHORT])] = toks
+                return out
+            e.get_outputs = recording
+        before = leg_counts(engines)
+        srv = FrontDoorServer(router, port=0).start()
+        try:
+            async def clients():
+                return await asyncio.gather(*[sse_generate(
+                    srv.host, srv.port,
+                    {"prompt": p.tolist(), "max_new_tokens": n})
+                    for p, n in reqs[:4]])
+            res = asyncio.run(clients())
+        finally:
+            srv.close()
+        for e in engines:
+            del e.get_outputs
+        launched0 = rpa.ragged_paged_attention.launches
+        check_leg("sse", engines, before, launched0 - launched, L)
+        launched = launched0
+        check_replicas("sse", router, rs)
+        for (p, n), r in zip(reqs[:4], res):
+            assert r["status"] == 200 and r["error"] is None, r
+            eng_out = collected[tuple(p[:DISAGG_SHORT])]
+            assert np.array_equal(np.asarray(r["final"]), eng_out)
+            assert r["tokens"] == eng_out[len(p):].tolist()
+        log(f"[{smi}] disagg SSE: 4 streams over 127.0.0.1:{srv.port}, "
+            f"tokens equal to the engines' get_outputs; TTFT at the socket "
+            f"{[round(r['ttft_s'] * 1e3, 1) for r in res]} ms")
+    finally:
+        rs.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del pre, dec, engines, rs, router, module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    disagg_fp32(smi)
+    log(f"[{smi}] phase 23: peak {peak:.2f} GiB (weights once, three "
+        f"pools); #9 launches over the router legs {launched}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
+def disagg_fp32(smi):
+    """2 layers at full width in fp32 (TF32 off), random weights on the
+    card: 8 of the phase's requests through the 1P1D router against the
+    fused control, by phase 7's margin rule."""
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
+    from deepspeed_tpu_torch.serving import ReplicaSet, Router
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("llama3-8b", num_hidden_layers=2, dtype=torch.float32)
+    reqs = disagg_traffic(cfg.vocab_size, SEED + 230)[:8]
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    control = RaggedInferenceEngineV2(
+        model, generator=torch.Generator(device="cuda").manual_seed(SEED + 23),
+        device="cuda", **DISAGG)
+    want, _ = drive_engine(control, reqs)
+    module = control.module
+    del control
+    rs = ReplicaSet(lambda i: RaggedInferenceEngineV2(
+        module, device="cuda", kv_tiering=DISAGG_TIER, **DISAGG), 2)
+    try:
+        router = Router(rs, policy="least_tokens")
+        router.set_roles({"r0": "prefill", "r1": "decode"})
+        got, _ = drive_router(router, reqs)
+        check_replicas("fp32", router, rs)
+        pre, dec = (h.engine for h in rs.handles)
+        assert pre.handoffs == 4 and pre.handoff_folds == 0
+        ts = dec.tiering.stats()
+        assert ts["pages_verified"] == ts["pages_restored"] > 0
+        for e in (pre, dec):
+            e.audit_kv_sharing()
+            assert e.allocator.free_pages == e.num_pages - 1
+    finally:
+        rs.close()
+    smallest = math.inf
+    for (p, _), g, w in zip(reqs, got, want):
+        with torch.no_grad():
+            logits = module(torch.from_numpy(w[None, :-1]).cuda())[0]
+        top2 = logits[len(p) - 1:].topk(2, dim=-1).values
+        margins = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        smallest = min(smallest, float(margins.min()))
+        diff = np.nonzero(g != w)[0]
+        if diff.size:
+            i = int(diff[0]) - len(p)
+            log(f"[{smi}] disagg fp32: prompt {len(p)}: first differing "
+                f"token {i}, control top-2 margin {margins[i]:.3e}")
+            assert margins[i] < MARGIN, (
+                f"disagg fp32: tokens differ from the fused control at {i} "
+                f"with margin {margins[i]:.3e}")
+        del logits
+    same = sum(np.array_equal(a, b) for a, b in zip(got, want))
+    log(f"[{smi}] disagg fp32, 2 layers: {same}/8 requests token-equal to "
+        f"the fused control (4 handed off); smallest control top-2 margin "
+        f"{smallest:.3e}")
+    del module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+
 def main() -> int:
     # ``--cpu-side NAMES``: the worker of the parity checks' CPU halves,
     # which the whole run and ``--wq-only`` start themselves; it sees no
@@ -4571,6 +5048,14 @@ def main() -> int:
         phase_lc()
         log(f"phase 21 done at {time.perf_counter() - t0:.1f} s")
         return 0
+    # ``--disagg-only``: the build and phase 23 alone, for work on
+    # disaggregated serving; it prints no result lines
+    if sys.argv[1:] == ["--disagg-only"]:
+        t0 = time.perf_counter()
+        phase_report()
+        phase_disagg()
+        log(f"phase 23 done at {time.perf_counter() - t0:.1f} s")
+        return 0
     t0 = time.perf_counter()
     phase_report()
     entry = phase_kernel()
@@ -4625,6 +5110,9 @@ def main() -> int:
     # the carry rows: #9 and #8 in phase 21's long-context runs
     carry["launches"], carry_quant["launches"] = phase_lc()
     log(f"phase 21 done at {time.perf_counter() - t0:.1f} s")
+    # phase 23's router legs join #9's entry
+    paged["launches"] += phase_disagg()
+    log(f"phase 23 done at {time.perf_counter() - t0:.1f} s")
     wq = phase_wq(cpu_side, card_halves, bf16_outs)
     log(f"phase 22 done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [entry, paged, paged_quant, carry,

@@ -1,0 +1,190 @@
+"""Typed knob surface for the closed-loop control plane.
+
+Counterpart of ``deepspeed_tpu/control/knobs.py``: ``Knob``,
+``KnobRegistry`` and ``router_knobs``.  The engine's and the swapper's
+knobs and the controller itself are not ported yet (ROADMAP A10b).
+
+Every perf-critical runtime parameter the system grew — the serving
+pipeline's ``harvest_interval``/``async_depth``, the tiered KV store's
+prefetch toggle and window depths, the router's burn-rate admission
+thresholds, the moment stream's ``buffer_count`` — is declared here as
+a :class:`Knob`: bounds, step, kind, an extra per-knob cooldown, and an
+``apply`` callback wired into the owning subsystem.  The online
+:class:`~deepspeed_tpu_torch.control.controller.Controller` only ever touches
+knobs through a :class:`KnobRegistry`, which clamps and types every
+write, so a policy bug can propose garbage and the subsystem still
+receives an in-bounds value of the right type.
+
+Knobs whose value is baked into a captured program (``decode_block``,
+speculation ``k``/mode) carry ``recompiles=True``: they are excluded
+from the online tunable set (``tunable()``), since changing them mid-run
+would invalidate the engine's captured CUDA graphs on the hot path, and
+are reachable only by an offline sweep or profile seeding, which run
+before warm-up where a capture is paid once and amortized.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
+
+__all__ = ["Knob", "KnobRegistry", "router_knobs"]
+
+
+@dataclass
+class Knob:
+    """One runtime parameter the control plane may drive.
+
+    ``get``/``apply`` close over the owning object; ``apply`` must be
+    safe at the call points the owner exposes it from (the registry
+    never defers — a deferred-apply knob hides the latency inside its
+    own callback, as the swapper's ``set_buffer_count`` does).
+    """
+
+    name: str
+    get: Callable[[], Any]
+    apply: Callable[[Any], None]
+    lo: float = 0.0
+    hi: float = 1.0
+    step: float = 1.0
+    kind: str = "int"            # "int" | "float" | "bool"
+    cooldown: int = 0            # extra settle ticks after a change
+    recompiles: bool = False     # baked into a compiled program
+    doc: str = ""
+
+    def clamp(self, value: Any) -> Any:
+        if self.kind == "bool":
+            return bool(value)
+        v = min(max(float(value), float(self.lo)), float(self.hi))
+        return int(round(v)) if self.kind == "int" else v
+
+
+class KnobRegistry:
+    """Ordered, typed collection of knobs — the controller's only
+    write path into the system.  ``set`` clamps to the declared bounds
+    and refuses recompile-triggering knobs unless the caller explicitly
+    opts in (profile seeding at construction time, before warmup)."""
+
+    def __init__(self) -> None:
+        self._knobs: "OrderedDict[str, Knob]" = OrderedDict()
+
+    def register(self, knob: Knob) -> Knob:
+        if knob.name in self._knobs:
+            raise ValueError(f"knob {knob.name!r} already registered")
+        self._knobs[knob.name] = knob
+        return knob
+
+    def merge(self, other: "KnobRegistry") -> "KnobRegistry":
+        """Fold another registry's knobs in (e.g. router + engine knobs
+        under one controller)."""
+        for k in other._knobs.values():
+            self.register(k)
+        return self
+
+    # -- introspection ---------------------------------------------------
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._knobs
+
+    def __len__(self) -> int:
+        return len(self._knobs)
+
+    def names(self) -> List[str]:
+        return list(self._knobs)
+
+    def get(self, name: str) -> Knob:
+        return self._knobs[name]
+
+    def value(self, name: str) -> Any:
+        return self._knobs[name].get()
+
+    def tunable(self) -> List[Knob]:
+        """The online-safe set: everything that does NOT force a
+        recompile when changed mid-run."""
+        return [k for k in self._knobs.values() if not k.recompiles]
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {name: k.get() for name, k in self._knobs.items()}
+
+    # -- the write path --------------------------------------------------
+
+    def set(self, name: str, value: Any, *,
+            allow_recompile: bool = False) -> tuple:
+        """Clamp, type, and apply; returns ``(old, new)``.  The apply
+        callback runs even when ``new == old`` is False — idempotent
+        re-applies are the callbacks' problem, and every one here is."""
+        knob = self._knobs[name]
+        if knob.recompiles and not allow_recompile:
+            raise RuntimeError(
+                f"knob {name!r} recompiles the hot path; online policy "
+                "must not touch it (offline sweep / profile seed only)")
+        old = knob.get()
+        new = knob.clamp(value)
+        if new != old:
+            knob.apply(new)
+        return old, new
+
+    def apply_profile(self, knobs: Dict[str, Any], *,
+                      allow_recompile: bool = True) -> Dict[str, Any]:
+        """Seed knob values from a per-host profile (unknown names are
+        skipped — profiles outlive code).  Returns what was applied.
+        Runs at construction time, so recompiling knobs are fair game
+        by default."""
+        applied: Dict[str, Any] = {}
+        for name, value in (knobs or {}).items():
+            if name not in self._knobs:
+                continue
+            knob = self._knobs[name]
+            if knob.recompiles and not allow_recompile:
+                continue
+            _, new = self.set(name, value,
+                              allow_recompile=allow_recompile)
+            applied[name] = new
+        return applied
+
+
+# -- knob builders for the non-engine owners ------------------------------
+# (the router's; the engine's ``knob_registry`` and the moment-stream
+# swapper's come with ROADMAP A10b and A11)
+
+def router_knobs(router, prefix: str = "router.") -> KnobRegistry:
+    """The scale-out router's admission thresholds: SLO-burn deferral
+    and shedding multipliers plus the per-replica queue cap — all plain
+    host attributes the dispatch path reads fresh, so runtime writes
+    are trivially safe."""
+    reg = KnobRegistry()
+    reg.register(Knob(
+        f"{prefix}burn_defer", lambda: router.burn_defer,
+        lambda v: setattr(router, "burn_defer", float(v)),
+        lo=0.25, hi=4.0, step=0.25, kind="float",
+        doc="burn rate above which low-priority work defers"))
+    reg.register(Knob(
+        f"{prefix}burn_shed", lambda: router.burn_shed,
+        lambda v: setattr(router, "burn_shed", float(v)),
+        lo=0.5, hi=8.0, step=0.5, kind="float",
+        doc="burn rate above which low-priority work sheds"))
+    reg.register(Knob(
+        f"{prefix}queue_cap", lambda: router.queue_cap,
+        lambda v: setattr(router, "queue_cap", max(int(v), 1)),
+        lo=1, hi=max(4 * int(router.queue_cap), 8), step=1, kind="int",
+        doc="per-replica admission queue cap"))
+    if hasattr(router, "set_prefill_fraction"):
+        # disaggregated serving: the controller adapts the
+        # prefill:decode replica ratio to the live prompt-length mix
+        # (set_prefill_fraction re-derives the role map, keeping >= 1
+        # replica per role; a no-op in fused mode) and bounds how many
+        # handoff export rounds may be in flight per prefill replica
+        reg.register(Knob(
+            f"{prefix}prefill_fraction",
+            lambda: router.prefill_fraction,
+            router.set_prefill_fraction,
+            lo=0.1, hi=0.9, step=0.1, kind="float",
+            doc="share of role-split replicas carrying the prefill "
+                "role"))
+        reg.register(Knob(
+            f"{prefix}handoff_depth", lambda: router.handoff_depth,
+            lambda v: setattr(router, "handoff_depth", max(int(v), 1)),
+            lo=1, hi=8, step=1, kind="int",
+            doc="in-flight prefill->decode handoff export rounds per "
+                "prefill replica"))
+    return reg

@@ -7,12 +7,16 @@ reference compiles its decode loops with ``jax.jit``.
 """
 from __future__ import annotations
 
+import threading
 import time
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
+
+from deepspeed_tpu_torch.telemetry import trace
+from deepspeed_tpu_torch.telemetry.metrics import metrics as _metrics
 
 
 class HostStageStats:
@@ -42,13 +46,15 @@ class HostStageStats:
     proposed and accepted (device counts, folded at harvests) and
     ``spec_tokens`` the tokens they emitted, reported as
     ``serving_stages()['speculation']``.
-    ``replica`` is the reference's metric label of a scale-out replica.
-    The reference's trace-span and metrics-histogram hooks arrive with the
-    telemetry port.  With ``enable_cuda_graph`` an engine's decode work
-    replays CUDA graphs: ``graph_captures`` counts captures (each after
-    one eager warm-up), ``graph_replays`` replays and ``graph_capture_s``
-    the host seconds spent capturing; the engines report the three only
-    when graphs are on (:meth:`graph_stages`).
+    Every bracket also lands as a ``cat="serving"`` tracer span when the
+    tracer is on, and in the ``dstpu_serving_stage_seconds`` histogram
+    under its stage and ``replica`` label (a scale-out replica's metric
+    identity; ``""`` for a solo engine) when the registry is on.  With
+    ``enable_cuda_graph`` an engine's decode work replays CUDA graphs:
+    ``graph_captures`` counts captures (each after one eager warm-up),
+    ``graph_replays`` replays and ``graph_capture_s`` the host seconds
+    spent capturing; the engines report the three only when graphs are on
+    (:meth:`graph_stages`).
     """
 
     STAGES = ("plan", "upload", "dispatch", "device", "harvest", "draft",
@@ -56,7 +62,16 @@ class HostStageStats:
 
     def __init__(self, replica: str = ""):
         self.replica = str(replica)
+        self._hists: Dict[str, Any] = {}
+        self._hist_fam = None
         self.reset()
+
+    def set_replica(self, replica: str) -> None:
+        """Re-label after construction (``ReplicaSet`` names the engines
+        built without one); the next bracket lands under the new label."""
+        self.replica = str(replica)
+        self._hists.clear()
+        self._hist_fam = None
 
     def reset(self) -> None:
         self.seconds: Dict[str, float] = {s: 0.0 for s in self.STAGES}
@@ -84,7 +99,25 @@ class HostStageStats:
         try:
             yield
         finally:
-            self.seconds[name] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.seconds[name] += dt
+            if trace.enabled:
+                trace.add_complete(name, t0, dt, cat="serving")
+            if _metrics.enabled:
+                self._stage_hist(name).observe(dt)
+
+    def _stage_hist(self, name: str):
+        """The registry child of this stage, looked up once."""
+        h = self._hists.get(name)
+        if h is None or self._hist_fam is not _metrics.get(
+                "dstpu_serving_stage_seconds"):
+            self._hist_fam = _metrics.histogram(
+                "dstpu_serving_stage_seconds",
+                "Serving host-path stage bracket durations (s)",
+                labels=("stage", "replica"))
+            h = self._hist_fam.labels(stage=name, replica=self.replica)
+            self._hists[name] = h
+        return h
 
     def serving_stages(self) -> Dict[str, Any]:
         d = max(self.dispatches, 1)
@@ -126,6 +159,12 @@ class HostStageStats:
                 "graph_capture_s": round(self.graph_capture_s, 4)}
 
 
+# one capture at a time in the process: the caching allocator routes a
+# capture's allocations to its graph's pool, and two engines capturing at
+# once from two replica threads would interleave their pools' traffic
+_CAPTURE_LOCK = threading.Lock()
+
+
 def capture_graph(fn: Callable[[], Any], *, warmup: Optional[Callable] = None,
                   pool=None, generators: Sequence[torch.Generator] = ()):
     """Capture ``fn()`` into a ``torch.cuda.CUDAGraph``; returns
@@ -136,22 +175,35 @@ def capture_graph(fn: Callable[[], Any], *, warmup: Optional[Callable] = None,
     (``torch.cuda.graph_pool_handle()``).  ``generators``: CUDA
     generators the captured work draws from, registered so that every
     replay advances them (``CUDAGraph.register_generator_state``).  A
-    failure raises; nothing falls back to eager execution."""
+    failure raises; nothing falls back to eager execution.
+
+    Several engines may share the process and the card, each stepped
+    from its own thread (the scale-out replicas).  So the capture runs
+    in ``thread_local`` error mode: the default ``global`` mode forbids
+    unsafe CUDA calls (an allocation, a pinned host buffer, a stream
+    sync) from every thread while one captures, and another replica's
+    work would fail or invalidate the capture.  ``thread_local`` holds
+    only the capturing thread to that, and the capture's own stream
+    (non-blocking, like every stream torch makes) takes no implicit
+    dependency on the other threads' work.  Captures themselves take
+    one process-wide lock, so that two never interleave."""
     graph = torch.cuda.CUDAGraph()
     if generators and not hasattr(graph, "register_generator_state"):
         raise NotImplementedError(
             f"torch {torch.__version__} cannot register a generator with a "
             "CUDA graph (CUDAGraph.register_generator_state): sampled v1 "
             "decoding under enable_cuda_graph needs it (ROADMAP A8b)")
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        (warmup or fn)()
-    torch.cuda.current_stream().wait_stream(side)
-    for gen in generators:
-        graph.register_generator_state(gen)
-    with torch.cuda.graph(graph, pool=pool):
-        out = fn()
+    with _CAPTURE_LOCK:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            (warmup or fn)()
+        torch.cuda.current_stream().wait_stream(side)
+        for gen in generators:
+            graph.register_generator_state(gen)
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            out = fn()
     return graph, out
 
 

@@ -46,9 +46,11 @@ while offline every ``probe_every`` blocked spills run
 against its spill-time digests on every call, and the tier copy stays
 authoritative for the next tick.
 
-The reference's tracer, flight-record and metric calls (among them the
-page-in stall histogram) are ROADMAP A10: the counters stay in
-:meth:`stats` and the failures in the log.
+Telemetry: every timer bracket is a ``cat="kv"`` tracer span when the
+tracer is on; a page-in's blocking wait feeds the
+``dstpu_kv_pagein_stall_ms`` histogram; a degraded-mode trip writes a
+``tier_degraded`` flight record, trace event and counter, a re-arm a
+``tier_rearmed`` event.  The counters stay in :meth:`stats`.
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ import atexit
 import os
 import shutil
 import tempfile
+import time
 from typing import Any, Dict, List, Optional, Sequence, Set, Union
 
 import numpy as np
@@ -63,6 +66,9 @@ import numpy as np
 from deepspeed_tpu_torch.io.aio import DIRECT_ALIGN, aligned_empty
 from deepspeed_tpu_torch.resilience import faults
 from deepspeed_tpu_torch.resilience.sdc import DigestPool, digest as sdc_digest
+from deepspeed_tpu_torch.telemetry import flight, trace
+from deepspeed_tpu_torch.telemetry import metrics as _mmod
+from deepspeed_tpu_torch.telemetry.metrics import metrics as _metrics
 from deepspeed_tpu_torch.utils.async_stage import (BoundedAsyncStage,
                                                    HostBufferPool,
                                                    StageTimers)
@@ -160,7 +166,10 @@ class TieredKVStore:
         self._nvme_used = 0          # pages on (or being written to) NVMe
         self._seq = 0
 
-        self.timers = StageTimers()
+        # cat="kv" labels every bracket's trace span (spill/restore and
+        # the NVMe windows share the kv row of an exported trace)
+        self.timers = StageTimers(cat="kv")
+        self._pagein_hist = None
         self._digests = DigestPool(algo=self.algo, workers=2,
                                    timers=self.timers,
                                    thread_name_prefix="dstpu-kvtier")
@@ -470,12 +479,14 @@ class TieredKVStore:
         afterwards.  Every page is verified like :meth:`restore`'s (a
         transient flip heals by re-read; persistent corruption
         quarantines and raises :class:`KVRestoreError`).  The blocking
-        time is the ``pagein_wait`` stage, its verification
+        time is the ``pagein_wait`` stage (and the
+        ``dstpu_kv_pagein_stall_ms`` histogram), its verification
         ``pagein_verify``."""
         self._check_lost(uid)
         ent = self._entries.get(uid)
         assert ent is not None, f"uid {uid} not spilled"
         was = ent.state
+        t0 = time.perf_counter()
         with self.timers.stage("pagein_wait"):
             work = self._fetch(ent)
             if self.verify:
@@ -492,6 +503,16 @@ class TieredKVStore:
                 self._staging.release(ent.slot)
                 ent.slot = None
                 ent.state = "nvme"
+        stall_ms = (time.perf_counter() - t0) * 1e3
+        if _metrics.enabled:
+            if self._pagein_hist is None or self._pagein_hist is not \
+                    _metrics.get("dstpu_kv_pagein_stall_ms"):
+                self._pagein_hist = _metrics.histogram(
+                    "dstpu_kv_pagein_stall_ms",
+                    "Partial-residency page-in stall (ms): wall time a "
+                    "chunked-scan tick blocked on a parked group",
+                    buckets=_mmod.MS_BUCKETS)
+            self._pagein_hist.observe(stall_ms)
         self.counters["pageins"] += 1
         self.counters["pagein_pages"] += ent.n_pages
         self.counters["pagein_bytes"] += ent.n_pages * self.page_stride
@@ -717,6 +738,18 @@ class TieredKVStore:
             f"kv tiering: NVMe tier OFFLINE after {self._nvme_streak} "
             f"consecutive failures ({why}); folded {len(folded)} parked "
             "payload(s) to re-prefill, demotions fall back to the host")
+        if _metrics.enabled:
+            _metrics.counter(
+                "dstpu_tier_degraded_total",
+                "KV spill tiers tripped offline (degraded mode)",
+                labels=("tier",)).labels(tier="nvme").inc()
+        if trace.enabled:
+            trace.event("tier_degraded", cat="resilience", tier="nvme",
+                        streak=int(self._nvme_streak), folded=len(folded))
+        flight.dump_on_fault(
+            "tier_degraded", RuntimeError(why),
+            extra={"tier": "nvme", "streak": int(self._nvme_streak),
+                   "folded_uids": [str(u) for u in folded], "why": why})
 
     def probe_nvme(self) -> bool:
         """Degraded-mode recovery probe: write, read back and verify one
@@ -732,7 +765,9 @@ class TieredKVStore:
         buf[:] = (np.arange(self.page_stride) % 251).astype(np.uint8)
         back = aligned_empty(self.page_stride)
         try:
-            faults.hook("kv.write", uid="probe", path=path)
+            d = faults.hook("kv.write", uid="probe", path=path)
+            if d is not None and d[0] in ("hang", "slow"):
+                time.sleep(float(d[1]))
             self._handle().sync_pwrite(buf, path)
             self._handle().sync_pread(back, path)
             if not np.array_equal(buf, back):
@@ -752,6 +787,8 @@ class TieredKVStore:
             self.counters["tier_rearmed"] += 1
             logger.info("kv tiering: NVMe tier re-armed after a clean "
                         "revival probe")
+            if trace.enabled:
+                trace.event("tier_rearmed", cat="resilience", tier="nvme")
         return True
 
     # -- cross-replica handoff -------------------------------------------

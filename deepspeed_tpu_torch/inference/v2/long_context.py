@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.inference.paged import RaggedMeta, StagedKV
+from deepspeed_tpu_torch.telemetry import trace
 
 __all__ = ["LongContextDriver"]
 
@@ -178,6 +179,10 @@ class LongContextDriver:
             eng.page_table[r.slot, col0:end] = -1
             r.lc_parked += 1
             self.parks += 1
+            if trace.enabled:
+                trace.event("lc_park", cat="kv", uid=r.uid, group=g,
+                            pages=self.chunk,
+                            parked_pages=r.lc_parked * self.chunk)
 
     def residency(self, r) -> Dict[str, int]:
         """Resident against parked pages of ``r``."""
@@ -294,6 +299,10 @@ class LongContextDriver:
                         *[None] * 5, staged=StagedKV(blocks, qpos_dev)))
                 x = layer(x, pos, rope, eng.cache[l], meta)
         n_chunk = len(groups) * self.L
+        if trace.enabled:
+            trace.event("lc_tick", cat="kv", uid=r.uid, q_tokens=take,
+                        kv_len=int(hi), parked_groups=len(groups),
+                        staged_dispatches=n_chunk)
         self.ticks += 1
         self.staged_dispatches += n_chunk
         st.dispatches += 1 + n_chunk

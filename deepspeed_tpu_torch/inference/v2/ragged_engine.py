@@ -110,9 +110,26 @@ JAX's threefry streams (:mod:`~deepspeed_tpu_torch.inference.sampling`).
   sequence ticks eagerly, outside the fused batch and the decode block;
   while one is live the other sequences take the fused tick.
 
+- **Disaggregated serving** (A9.7).  A request put with
+  ``handoff=True`` (the scale-out router marks long prompts so on a
+  prefill-role replica) runs its prefill and first token here, then
+  leaves its slot before any decode block: ``_handoff_sweep`` spills its
+  KV to the tiers (or, without room, folds it to a re-prefill
+  continuation) and parks it for :meth:`export_handoff`.  The blobs are
+  :meth:`export_parked`'s, and :meth:`import_handoff` on a decode-role
+  replica admits them through the spilled-request path, each restored
+  page verified against the donor's spill-time digest, so greedy tokens
+  equal a fused engine's.  The ``handoff.import`` fault site can flip
+  wire bits: the restore then quarantines the payload and re-prefills.
+- **Telemetry.**  Lifecycle events (submit, admit, prefill chunks,
+  decode blocks, spill, restore, prefix, handoff, reap) go to the
+  process tracer when it is on; ``slo`` objectives are fed every reaped
+  request, and ``trace_sample`` arms tail-based sampling
+  (:mod:`~deepspeed_tpu_torch.telemetry`).
+
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: handoff export/import (A9.7), tensor parallelism (A7a),
-and the control plane, SLOs and trace sampling (A10).
+ROADMAP item: tensor parallelism (A7a) and the closed-loop control plane
+(``control``, and the engine's ``knob_registry``: A10b).
 """
 from __future__ import annotations
 
@@ -155,7 +172,11 @@ from deepspeed_tpu_torch.inference.sampling import (ROLE_DRAFT,
                                                     speculative_verify)
 from deepspeed_tpu_torch.inference.v2.graphs import DecodeBlockGraphs
 from deepspeed_tpu_torch.ops.ragged_paged_attention import PAGE_SIZES
+from deepspeed_tpu_torch.resilience import faults
+from deepspeed_tpu_torch.telemetry import trace
+from deepspeed_tpu_torch.telemetry.metrics import metrics as _metrics
 from deepspeed_tpu_torch.telemetry.requests import RequestLatencyTracker
+from deepspeed_tpu_torch.telemetry.slo import SLOSet, TailSampler
 from deepspeed_tpu_torch.utils.async_stage import (BoundedAsyncStage,
                                                    StageTimers)
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
@@ -214,6 +235,10 @@ class Request:
     temperature: float = 1.0
     top_k: int = 0
     top_p: float = 1.0
+    # prefill->decode handoff: the engine runs the prefill and the first
+    # token, then parks the session for export_handoff instead of
+    # decoding it here
+    handoff: bool = False
     # runtime state
     slot: int = -1
     prefill_done: int = 0                 # context tokens already cached
@@ -331,8 +356,16 @@ class RaggedInferenceEngineV2:
         request whose KV outgrows the pool by partial residency (module
         docstring; ``sink_pages``, ``window_pages``, ``chunk_pages``);
         it refuses ``quantize_weights`` and models outside
-        ``LlamaForCausalLM``.  Every other feature kwarg raises
-        ``NotImplementedError`` when it asks for a feature."""
+        ``LlamaForCausalLM``.  ``slo``: ``None`` (the config's
+        ``v2.slo`` decides; off by default), objective strings like
+        ``"ttft_ms_p99 <= 150"`` or an :class:`SLOSet`: every reaped
+        request feeds it, ``serving_stages()["slo"]`` reports the burn.
+        ``trace_sample``: tail-based trace sampling 1-in-N (kwarg >
+        config ``v2.trace_sample`` > env ``DSTPU_TRACE_SAMPLE``); N > 0
+        arms the process tracer's sampling mode.  ``replica`` labels this
+        engine's metric children (scale-out serving).  ``control`` and
+        ``topology`` raise ``NotImplementedError`` when they ask for a
+        feature."""
         mcfg = getattr(model, "config", None)
         if not _llama_family(mcfg):
             raise TypeError(
@@ -347,9 +380,12 @@ class RaggedInferenceEngineV2:
             v2cfg.prefix_cache if prefix_cache is None else prefix_cache)
         speculation = _spec_config(
             v2cfg.speculation if speculation is None else speculation)
-        self._check_unported(topology, quantize_weights,
-                             v2cfg if config is not None else None,
-                             kv_tiering, control, slo, trace_sample)
+        if config is not None:
+            slo = v2cfg.slo if slo is None else slo
+            trace_sample = (v2cfg.trace_sample if trace_sample is None
+                            else trace_sample)
+            control = v2cfg.control if control is None else control
+        self._check_unported(topology, quantize_weights, control)
         if quantize_weights == "w8a8" and not getattr(
                 type(model), "w8a8_native", False):
             raise ValueError(
@@ -413,8 +449,24 @@ class RaggedInferenceEngineV2:
         # the pipelined window's substrate counters (submitted/completed
         # blocks, submit_wait back-pressure): serving_stages()'s
         # ``pipeline_window``
-        self._pipe_timers = StageTimers()
-        self.request_latency = RequestLatencyTracker()
+        self._pipe_timers = StageTimers(cat="serving")
+        self.request_latency = RequestLatencyTracker(replica=self.replica)
+        # SLO objectives and tail-based trace sampling, evaluated at reap
+        # time on the host, never in the dispatch path
+        if slo is None or slo is False or (isinstance(slo, (list, tuple))
+                                           and not slo):
+            self.slo = None
+        elif isinstance(slo, SLOSet):
+            self.slo = slo
+        else:
+            self.slo = SLOSet(list(slo))
+        n = int(trace_sample) if trace_sample is not None else trace.sample_n
+        self._tail_sampler = (TailSampler(n=n)
+                              if (trace.sampling or n > 0) else None)
+        if n > 0 and not trace.sampling:
+            # an explicit engine or config N arms the tracer's sampling
+            # mode as DSTPU_TRACE_SAMPLE does
+            trace.configure(enabled=True, sampling=True, sample_n=n)
 
         self.module = normalize_params(model, params, dtype=self.dtype,
                                        device=self.device,
@@ -468,6 +520,11 @@ class RaggedInferenceEngineV2:
         # uid (stream_deltas); cancels counts cancellations at any stage
         self._stream_cursor: Dict[int, int] = {}
         self.cancels = 0
+        # prefill->decode handoff: sessions parked by _handoff_sweep, out
+        # of the slots and out of the waiting queue, until export_handoff
+        self._handoff_ready: List[Request] = []
+        self.handoffs = 0              # sessions exported to a decoder
+        self.handoff_folds = 0         # handoffs folded to a re-prefill
 
         # every pool leaf as [num_pages, bytes a page] uint8 views: the
         # spill gather, the restore scatter and the COW copy move page
@@ -549,31 +606,19 @@ class RaggedInferenceEngineV2:
     # -- construction helpers -------------------------------------------
 
     @staticmethod
-    def _check_unported(topology, quantize_weights, v2, kv_tiering,
-                        control, slo, trace_sample) -> None:
-        """Raise for every feature asked for that this port lacks; kwargs
-        win over the config's ``v2`` subtree (``v2``: None without a
-        config), as in the reference.  ``kv_tiering`` comes resolved."""
+    def _check_unported(topology, quantize_weights, control) -> None:
+        """Raise for every feature asked for that this port lacks
+        (``control`` comes resolved: the kwarg, else the config's)."""
         if topology is not None:
             raise _unported("tensor-parallel serving (topology)", "A7a")
         if quantize_weights is not None:
             check_format(quantize_weights)
-        if v2 is not None:
-            control = v2.control if control is None else control
-            slo = v2.slo if slo is None else slo
-            trace_sample = (v2.trace_sample if trace_sample is None
-                            else trace_sample)
         if isinstance(control, bool):
             control = ControlConfig(enabled=control)
         elif isinstance(control, dict):
             control = ControlConfig(**{"enabled": True, **control})
         if control is not None and control.enabled:
-            raise _unported("the control plane (control)", "A10")
-        if slo:
-            raise _unported("SLO objectives (slo)", "A10")
-        if trace_sample:
-            raise _unported("tail-based trace sampling (trace_sample)",
-                            "A10")
+            raise _unported("the control plane (control)", "A10b")
 
     def _make_pools(self, c, fmt: str) -> List[PagedKVPool]:
         """One pool a layer of model config ``c``, in page format
@@ -648,6 +693,13 @@ class RaggedInferenceEngineV2:
 
     # -- request API ----------------------------------------------------
 
+    def set_replica(self, replica: str) -> None:
+        """Assign the scale-out metric label after construction
+        (``ReplicaSet`` names engines built without one)."""
+        self.replica = str(replica)
+        self.host_stats.set_replica(self.replica)
+        self.request_latency.set_replica(self.replica)
+
     def validate_request(self, prompt, max_new_tokens: int = 64) -> None:
         """The submit-time schedulability checks, without enqueuing —
         raises ``ValueError`` for a request that could never run on
@@ -719,6 +771,9 @@ class RaggedInferenceEngineV2:
             req.lc = True
         self.waiting.append(req)
         self.request_latency.on_submit(req.uid)
+        if trace.enabled:
+            trace.event("request_submit", cat="request", uid=req.uid,
+                        prompt_len=int(prompt.size), max_new=max_new)
         return req.uid
 
     def get_outputs(self) -> List[Tuple[int, np.ndarray]]:
@@ -741,7 +796,7 @@ class RaggedInferenceEngineV2:
         out: List[Tuple[int, List[int], int, bool]] = []
         cur = self._stream_cursor
         live = [r for r in self.slots if r is not None]
-        for r in itertools.chain(live, self.waiting):
+        for r in itertools.chain(live, self.waiting, self._handoff_ready):
             n = len(r.generated)
             seen = cur.get(r.uid, 0)
             if n > seen:
@@ -760,9 +815,9 @@ class RaggedInferenceEngineV2:
         pages, or its spilled payload and the spill-holds on its shared
         prefix pages, and a long-context request's parked groups.
         Returns the stage it was cancelled at (``"queued"`` /
-        ``"spilled"`` / ``"prefill"`` / ``"decode"`` / ``"lc"`` /
-        ``"finished"``) or ``None`` for an unknown uid (never submitted,
-        or already collected)."""
+        ``"spilled"`` / ``"handoff"`` / ``"prefill"`` / ``"decode"`` /
+        ``"lc"`` / ``"finished"``) or ``None`` for an unknown uid (never
+        submitted, or already collected)."""
         stage: Optional[str] = None
         # fold an active pipelined carry first: the target may be
         # mid-decode inside it, and the teardown re-anchors host state so
@@ -779,6 +834,16 @@ class RaggedInferenceEngineV2:
                     self._drop_spilled(r)
                     stage = "spilled"
                 break
+        if stage is None:
+            # parked for a handoff the router never collected: release it
+            # like a waiting spilled session
+            for r in list(self._handoff_ready):
+                if r.uid == uid:
+                    self._handoff_ready.remove(r)
+                    if r.spilled is not None:
+                        self._drop_spilled(r)
+                    stage = "handoff"
+                    break
         if stage is None:
             for i, r in enumerate(self.slots):
                 if r is None or r.uid != uid:
@@ -803,6 +868,9 @@ class RaggedInferenceEngineV2:
         self.cancels += 1
         self._stream_cursor.pop(uid, None)
         self.request_latency.on_cancel(uid)
+        if trace.enabled:
+            trace.event("request_cancel", cat="request", uid=int(uid),
+                        stage=stage)
         return stage
 
     def has_work(self) -> bool:
@@ -816,6 +884,26 @@ class RaggedInferenceEngineV2:
         if self._dev is None:
             return 0
         return self._pipeline_harvest()
+
+    def drain(self) -> Dict[int, np.ndarray]:
+        """Run until every queued and resident request finishes; returns
+        ``{uid: tokens}`` for everything reaped on the way (the replica
+        shutdown half of the engine handle; ``close()`` releases the
+        resources after)."""
+        outs: Dict[int, np.ndarray] = {}
+        # nobody is coming to collect a pending handoff during a drain:
+        # finish those sessions here, through the normal spilled or
+        # continuation re-admission path
+        for r in self._handoff_ready:
+            r.handoff = False
+            self.waiting.append(r)
+        self._handoff_ready = []
+        while self.has_work():
+            self.step()
+            outs.update(self.get_outputs())
+        self.sync()
+        outs.update(self.get_outputs())
+        return outs
 
     def _release_slot(self, i: int) -> None:
         """Free slot ``i``: its pages, its page-table row and its draft
@@ -857,9 +945,18 @@ class RaggedInferenceEngineV2:
         receiver's restore verifies them end to end.  Shared prefix pages
         are rows of THIS engine's pool and cannot travel: a session
         holding any folds to a re-prefill continuation, which gives the
-        same greedy output and pays its prefill again."""
-        sessions = [self._session_blob(r) for r in self.waiting]
+        same greedy output and pays its prefill again.  Pending handoffs
+        the router never pulled leave with them: they are parked sessions
+        like any other."""
+        sessions = []
+        for r in itertools.chain(self.waiting, self._handoff_ready):
+            blob = self._session_blob(r)
+            if trace.enabled:
+                trace.event("request_export", cat="request", uid=r.uid,
+                            spilled=blob["spill"] is not None)
+            sessions.append(blob)
         self.waiting.clear()
+        self._handoff_ready = []
         return sessions
 
     def _session_blob(self, r: Request) -> Dict[str, Any]:
@@ -938,14 +1035,62 @@ class RaggedInferenceEngineV2:
                     self._reprefill(req)
             self.waiting.append(req)
             self.request_latency.on_submit(req.uid)
+            if trace.enabled:
+                trace.event("request_import", cat="request", uid=req.uid,
+                            donor_uid=int(s.get("uid", -1)),
+                            spilled=req.spilled is not None)
             new_uids.append(req.uid)
         return new_uids
 
-    def export_handoff(self):
-        raise _unported("export_handoff", "A9.7")
+    # -- disaggregated serving: prefill -> decode handoff ---------------
 
-    def import_handoff(self, sessions, *args, **kwargs):
-        raise _unported("import_handoff", "A9.7")
+    def export_handoff(self) -> List[Dict[str, Any]]:
+        """Pop every session parked by :meth:`_handoff_sweep` (prefill and
+        first token done, KV spilled to the tiers or folded to a re-prefill
+        continuation) as blobs for :meth:`import_handoff` on a decode-role
+        replica.  The wire format is :meth:`export_parked`'s: the receiver
+        admits the session through the spilled-request path, so greedy
+        outputs equal a fused engine's."""
+        sessions: List[Dict[str, Any]] = []
+        for r in self._handoff_ready:
+            blob = self._session_blob(r)
+            self.handoffs += 1
+            self._stream_cursor.pop(r.uid, None)
+            self.request_latency.on_handoff_out(r.uid)
+            if trace.enabled:
+                trace.event("request_handoff", cat="request", uid=r.uid,
+                            spilled=blob["spill"] is not None,
+                            generated=len(blob["generated"]))
+            sessions.append(blob)
+        self._handoff_ready = []
+        return sessions
+
+    def import_handoff(self, sessions: List[Dict[str, Any]],
+                       export_t: Optional[float] = None) -> List[int]:
+        """Decode-role half of the handoff: install the sessions through
+        :meth:`import_parked` (fresh uids, payloads parked in the local
+        tiers with the DONOR's digests, so the restore verifies end to
+        end) and stamp the export -> import stall (``export_t`` on
+        ``time.perf_counter``'s clock) on each request's latency record.
+        The ``handoff.import`` fault site fires once a session before it
+        is installed; a ``bitflip`` directive corrupts the wire payload,
+        which the digest-verified restore catches (re-read, then
+        quarantine and re-prefill)."""
+        for s in sessions:
+            sp = s.get("spill")
+            payload = None if sp is None else sp.get("payload")
+            d = faults.hook("handoff.import", uid=int(s.get("uid", -1)))
+            if (d is not None and d[0] == "bitflip"
+                    and payload is not None):
+                buf = np.frombuffer(bytearray(payload["payload"]), np.uint8)
+                faults.apply_bitflip(buf, d[1])
+                payload["payload"] = buf.tobytes()
+        new_uids = self.import_parked(sessions)
+        if export_t is not None:
+            stall = max(time.perf_counter() - float(export_t), 0.0)
+            for uid in new_uids:
+                self.request_latency.on_handoff_stall(uid, stall)
+        return new_uids
 
     # -- stats ------------------------------------------------------------
 
@@ -955,7 +1100,9 @@ class RaggedInferenceEngineV2:
         the quantized pool's ``kv_quant`` block, pool pressure and the
         per-request latency percentiles; with tiering the tier store's
         stats (``kv_tiering``), with the prefix cache the index's and the
-        admissions' counters (``prefix_cache``)."""
+        admissions' counters (``prefix_cache``), after any handoff its
+        counts (``handoff``), with objectives the SLO burn (``slo``), and
+        with the metrics registry on its flat view (``metrics``)."""
         out = self.host_stats.serving_stages()
         if self.tiering is not None:
             out["kv_tiering"] = self.tiering.stats()
@@ -978,11 +1125,21 @@ class RaggedInferenceEngineV2:
             "pages_in_use": int(in_use),
             "waiting_requests": len(self.waiting),
             "pressure": round(in_use / usable + len(self.waiting), 4)}
+        if self.handoffs or self.handoff_folds or self._handoff_ready:
+            out["handoff"] = {"exported": int(self.handoffs),
+                              "folds": int(self.handoff_folds),
+                              "pending": len(self._handoff_ready)}
         if self._pipe_timers.seconds or self._pipe_timers.counters:
             out["pipeline_window"] = self._pipe_timers.snapshot()
         if self.enable_cuda_graph:
             out.update(self.host_stats.graph_stages())
         out["requests"] = self.request_latency.summary()
+        if self.slo is not None:
+            out["slo"] = self.slo.flat_summary()
+        if _metrics.enabled:
+            out["metrics"] = _metrics.scalar_summary()
+            if self._tail_sampler is not None:
+                out["trace_sampling"] = dict(self._tail_sampler.counters())
         return out
 
     def audit_kv_sharing(self) -> Dict[str, int]:
@@ -998,7 +1155,7 @@ class RaggedInferenceEngineV2:
             for e in self._pfx._entries.values():
                 if e.state == "resident":
                     external[e.page] = external.get(e.page, 0) + 1
-        for r in self.waiting:
+        for r in itertools.chain(self.waiting, self._handoff_ready):
             if r.spilled is not None:
                 for p in r.spilled.get("shared_pages", ()):
                     external[p] = external.get(p, 0) + 1
@@ -1016,7 +1173,7 @@ class RaggedInferenceEngineV2:
         """Release the tier store (AIO handle, staging buffers, digest
         pool, spill files) and the prefix cache's holds.  Idempotent; a
         no-op with both off."""
-        for r in self.waiting:
+        for r in itertools.chain(self.waiting, self._handoff_ready):
             if r.spilled is not None:
                 for p in r.spilled.get("shared_pages", ()):
                     self.allocator.decref(int(p))
@@ -1179,6 +1336,10 @@ class RaggedInferenceEngineV2:
         self._graphs.ensure(sampled, spec)       # before the loads
         for name, a in inputs.items():
             self._graphs.load(name, a)
+        if trace.enabled:
+            trace.event("decode_block", cat="request",
+                        uids=[r.uid for r in reqs],
+                        ticks=self.decode_block_size, spec=bool(spec))
         with st.stage("verify" if spec else "dispatch"):
             st.dispatches += 1
             st.spec_dispatches += int(spec)
@@ -1625,6 +1786,11 @@ class RaggedInferenceEngineV2:
         # the reference splits its rng here (:2232); sampling in the port
         # is position-keyed (sampling.position_keys), with no generator
         # state for a block to advance
+        if trace.enabled:
+            trace.event("decode_block", cat="request",
+                        uids=[r.uid for r in dv["reqs"]],
+                        ticks=self.decode_block_size, pipelined=True,
+                        spec=bool(spec))
         with st.stage("verify" if spec else "dispatch"):
             st.dispatches += 1
             st.spec_dispatches += int(spec)
@@ -1742,15 +1908,22 @@ class RaggedInferenceEngineV2:
             return self._pipeline_step()
         st = self.host_stats
         with st.stage("plan"):
+            # park finished handoff prefills BEFORE admission: a handoff
+            # request leaves its slot the step after its first token, so
+            # it never reaches a decode block, speculation or the pipeline
+            self._handoff_sweep()
             self._admit()
             lc_live = [r for r in self.slots
                        if r is not None and not r.done and r.lc]
             live = [r for r in self.slots
                     if r is not None and not r.done and not r.lc]
             # no decode block (nor pipeline, which could orphan them)
-            # while a long-context sequence is live
+            # while a long-context sequence is live, nor while a handoff
+            # sequence holds a slot (it is swept after its first token,
+            # and must not decode here first)
             decoding_ready = (not lc_live and bool(live) and all(
-                r.prefill_done >= r.ctx_len for r in live))
+                r.prefill_done >= r.ctx_len and not r.handoff
+                for r in live))
             # speculation first: its block writes a k+1-wide span a tick,
             # so it needs more pages than a plain block; when the pool
             # cannot back it, fall back to the plain decode block (greedy
@@ -1825,6 +1998,9 @@ class RaggedInferenceEngineV2:
         st.ticks += 1
         produced = self._sample(sel_logits, samplers)
         self._reap()
+        # a handoff prefill that just sampled its first token parks now,
+        # in the same step, so the router's next export pulls it
+        self._handoff_sweep()
         return produced + lc_produced
 
     def _admit(self) -> None:
@@ -1881,6 +2057,12 @@ class RaggedInferenceEngineV2:
                 self.waiting.appendleft(req)
                 break
             self.request_latency.on_admit(req.uid)
+            if trace.enabled:
+                trace.event("request_admit", cat="request", uid=req.uid,
+                            slot=i, pages=self.allocator.owned(i),
+                            cached_pages=(req.pc_pages
+                                          if req.spilled is None else 0),
+                            spilled=req.spilled is not None)
             if req.spilled is not None:
                 self._restore(req)
 
@@ -2025,6 +2207,31 @@ class RaggedInferenceEngineV2:
         if short > 0:
             self._pfx.reclaim(short)
 
+    def _handoff_sweep(self) -> None:
+        """Park every handoff-marked sequence whose prefill AND first token
+        are done: spill its KV to the tiers (the decode replica's restore
+        is then bit-identical to never having left) or, when the pages
+        cannot travel (tiering off, tiers full), fold it to a re-prefill
+        continuation, the degraded leg.  Either way it leaves its slot and
+        waits in ``_handoff_ready`` for :meth:`export_handoff`."""
+        for r in list(self.slots):
+            if (r is None or not r.handoff or r.done or r.lc
+                    or r.prefill_done < r.ctx_len or not r.generated):
+                continue
+            if self._spill(r):
+                self.waiting.remove(r)     # _spill queued it there
+            else:
+                # a planned handoff, not pool exhaustion: fold here rather
+                # than through _evict (no eviction count, no log)
+                self._release_slot(r.slot)
+                self._reprefill(r)
+                r.slot = -1
+                self.handoff_folds += 1
+            self._handoff_ready.append(r)
+            if trace.enabled:
+                trace.event("request_handoff_ready", cat="request",
+                            uid=r.uid, spilled=r.spilled is not None)
+
     def _evict(self, r: Request) -> None:
         """Requeue ``r`` as a CONTINUATION: its pages return to the pool,
         and on re-admission it re-prefills prompt + its own generated
@@ -2034,6 +2241,9 @@ class RaggedInferenceEngineV2:
         r.slot = -1
         self.waiting.append(r)             # back of the queue: the freed
         self.evictions += 1                # pages go to older work first
+        if trace.enabled:
+            trace.event("request_evict", cat="request", uid=r.uid,
+                        ctx_tokens=int(r.ctx.size))
         logger.info(f"ragged engine: evicted uid={r.uid} "
                     f"({r.ctx.size} ctx tokens) — KV pool exhausted; "
                     "requeued as continuation")
@@ -2134,6 +2344,9 @@ class RaggedInferenceEngineV2:
         self.waiting.append(r)             # back of the queue, as evict
         self.spills += 1
         self.request_latency.on_spill(r.uid)
+        if trace.enabled:
+            trace.event("request_spill", cat="request", uid=r.uid,
+                        pages=int(n_live), live_tokens=int(live))
         logger.info(f"ragged engine: spilled uid={r.uid} ({n_live} pages, "
                     f"{live} live tokens) to the KV tiers — restore is a "
                     "page upload, not a re-prefill")
@@ -2164,6 +2377,9 @@ class RaggedInferenceEngineV2:
             self.restores += 1
             self.request_latency.on_restore_stall(
                 req.uid, time.perf_counter() - t0)
+            if trace.enabled:
+                trace.event("request_restore", cat="request", uid=req.uid,
+                            pages=int(n), shared_pages=int(jn))
         except KVRestoreError as e:
             self._release_slot(req.slot)
             for p in shared:
@@ -2175,6 +2391,9 @@ class RaggedInferenceEngineV2:
             self.request_latency.on_restore_stall(
                 req.uid, time.perf_counter() - t0)
             self.request_latency.on_error(req.uid)
+            if trace.enabled:
+                trace.event("request_restore_failed", cat="request",
+                            uid=req.uid, page=int(e.page))
             logger.error(
                 f"ragged engine: restore of uid={req.uid} failed "
                 f"verification (page {e.page}; payload quarantined) — "
@@ -2193,6 +2412,9 @@ class RaggedInferenceEngineV2:
                 self.tiering.spill(PrefixCacheIndex.tier_key(e.key), buf, 1)
             except RuntimeError:
                 return False
+        if trace.enabled:
+            trace.event("prefix_demote", cat="request",
+                        key=PrefixCacheIndex.tier_key(e.key))
         return True
 
     def _pfx_revive(self, e) -> bool:
@@ -2214,6 +2436,10 @@ class RaggedInferenceEngineV2:
             self._pfx._drop(e)             # payload quarantined: forget
             return False
         self._pfx.revive(e, page)
+        if trace.enabled:
+            trace.event("prefix_revive", cat="request",
+                        key=PrefixCacheIndex.tier_key(e.key),
+                        page=int(page))
         return True
 
     def _cow_copy(self, src: int, dst: int) -> None:
@@ -2223,6 +2449,9 @@ class RaggedInferenceEngineV2:
             for v in self._page_views:
                 v[dst].copy_(v[src])
         self.host_stats.prefix_cow_copies += 1
+        if trace.enabled:
+            trace.event("prefix_cow", cat="request", src=int(src),
+                        dst=int(dst))
 
     def _pick_victim(self, stalled: List[Request]) -> Request:
         """The coldest page-stalled sequence: least recently scheduled
@@ -2339,6 +2568,11 @@ class RaggedInferenceEngineV2:
                             r.pc_parent, r.ctx[k * page:(k + 1) * page],
                             int(self.page_table[r.slot, k]))
                         r.pc_pages += 1
+                if trace.enabled:
+                    trace.event("prefill_chunk", cat="request", uid=r.uid,
+                                take=int(take),
+                                prefill_done=int(r.prefill_done),
+                                ctx_len=int(r.ctx_len))
                 page_indices[j] = self.page_table[r.slot]
                 kv_lens[j] = r.prefill_done
                 cu_q_lens[j + 1] = cu_q_lens[j] + take
@@ -2425,7 +2659,28 @@ class RaggedInferenceEngineV2:
                         r.pc_pages += 1
                 self.finished.append(r)
                 self._release_slot(i)
-                self.request_latency.on_finish(r.uid)
+                rec = self.request_latency.on_finish(r.uid)
+                if trace.enabled:
+                    trace.event("request_reap", cat="request", uid=r.uid,
+                                tokens=len(r.generated))
+                if rec is not None:
+                    self._observe_finished(r.uid, rec)
+
+    def _observe_finished(self, uid: int, rec: Dict[str, Any]) -> None:
+        """Feed a finished request's latency record to the SLO set and,
+        with tail sampling armed, promote its timeline when it breached,
+        errored or won the 1-in-N draw."""
+        breaches = (self.slo.record_request(rec)
+                    if self.slo is not None else [])
+        if (trace.sampling and trace.enabled
+                and self._tail_sampler is not None):
+            keep, why = self._tail_sampler.should_promote(
+                breached=bool(breaches), errored=rec["errors"] > 0)
+            if keep:
+                if breaches:
+                    why = f"{why}:{','.join(breaches)}"
+                trace.promote(uid, rec["submit_t"], rec["finish_t"],
+                              reason=why)
 
     # -- convenience ------------------------------------------------------
 

@@ -13,7 +13,8 @@ Both are one hand-written CUDA source, ``csrc/ragged_paged_attn.cu``
 the plain versions, :func:`~deepspeed_tpu_torch.inference.paged.
 ref_paged_attention` and :func:`~deepspeed_tpu_torch.inference.paged.
 ref_paged_attention_quant`; a CUDA tensor launches the kernel or raises.
-Each function counts its calls that launch on the card in ``.launches``.
+Each function counts its calls that launch on the card in ``.launches``,
+under a lock: scale-out replicas launch from several threads at once.
 With bf16 queries one call runs one device kernel, ``rpa_mma``, or two
 when :func:`split_plan` cuts the keys into more than one split: then
 ``rpa_combine`` folds the splits' raw stats, which live in scratch the
@@ -31,6 +32,7 @@ folds the carry as a split before split 0, so its scratch is sized
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -193,6 +195,10 @@ def _launch(q, pages, scales, kv_lens, page_indices, cu_q_lens, num_seqs,
     return o
 
 
+# the counters' increments: one read-modify-write each, from any thread
+_COUNT_LOCK = threading.Lock()
+
+
 def ragged_paged_attention(q: torch.Tensor, pages: torch.Tensor,
                            kv_lens: torch.Tensor, page_indices: torch.Tensor,
                            cu_q_lens: torch.Tensor, num_seqs: torch.Tensor,
@@ -219,7 +225,8 @@ def ragged_paged_attention(q: torch.Tensor, pages: torch.Tensor,
                                    carry=carry)
     out = _launch(q, pages, None, kv_lens, page_indices, cu_q_lens,
                   num_seqs, sm_scale, sliding_window, carry)
-    ragged_paged_attention.launches += 1
+    with _COUNT_LOCK:
+        ragged_paged_attention.launches += 1
     return out
 
 
@@ -249,7 +256,8 @@ def ragged_paged_attention_quant(q: torch.Tensor, pages: torch.Tensor,
             sm_scale=sm_scale, sliding_window=sliding_window, carry=carry)
     out = _launch(q, pages, scales, kv_lens, page_indices, cu_q_lens,
                   num_seqs, sm_scale, sliding_window, carry)
-    ragged_paged_attention_quant.launches += 1
+    with _COUNT_LOCK:
+        ragged_paged_attention_quant.launches += 1
     return out
 
 

@@ -31,11 +31,29 @@ Instrumented sites:
 ``kv.write``              per tiered-KV NVMe write submit (spill
                           write-back and the degraded-mode probe):
                           ``io_error`` models a failing device
+``handoff.import``        once per session at the decode-role replica's
+                          handoff import (inference/v2/ragged_engine.py
+                          ``import_handoff``), before the payload is
+                          installed: ``bitflip`` corrupts the wire
+                          payload (the donor's digests then fail the
+                          restore: re-read, quarantine, re-prefill),
+                          ``io_error``/``crash`` kill the import op
+``router.dispatch``       once per router->replica dispatch
+                          (serving/router.py ``_send``): ``io_error``
+                          kills the dispatch, ``slow`` delays it
+``replica.step``          once per engine step op on the replica thread
+                          (serving/replica_set.py): ``crash``/``io_error``
+                          is a replica dying mid-decode
+``replica.hang``          beside ``replica.step``: ``hang``/``slow`` sleep
+                          ``param`` seconds on the replica thread (a
+                          wedged decode, the serving watchdog's quarry)
+``http.flush``            before each SSE token-event flush
+                          (serving/server.py): ``io_error`` breaks the
+                          client socket mid-stream, ``slow`` delays it
 ========================  ==================================================
 
-The swap sites (``swap.*``) come with ROADMAP A11, the handoff and
-serving sites with A9.7 and A10, and with them ``sigterm``, ``hang`` and
-``slow``.
+The swap sites (``swap.*``) come with ROADMAP A11, and with them
+``sigterm``.
 
 Fault kinds:
 
@@ -52,7 +70,13 @@ Fault kinds:
 ``bitflip``   kv read sites: flip ``param`` random bit(s) of the buffer
               just read (:func:`apply_bitflip`; silent corruption)
 ``io_error``  raise ``OSError(EIO)``: a hard device error, which the KV
-              tiers count toward their degraded mode
+              tiers count toward their degraded mode and the serving
+              death paths key on
+``hang``      serving sites: sleep ``param`` seconds at the site (a
+              wedged op, finite so tests end, longer than any watchdog
+              deadline under test)
+``slow``      serving sites: sleep ``param`` seconds (a straggling
+              replica or socket, below the watchdog deadline)
 
 A fault is scheduled with ``inject(site, kind, ...)`` (or the named
 helpers); ``after`` skips that many firings first and ``count`` bounds
@@ -95,7 +119,7 @@ class FaultInjector:
     ``fired`` records every triggered fault as ``(site, kind, call#)``."""
 
     KINDS = ("oserror", "torn", "crash", "corrupt", "straggle", "drop",
-             "bitflip", "io_error")
+             "bitflip", "io_error", "hang", "slow")
 
     def __init__(self, seed: int = 0):
         self.rng = random.Random(seed)
@@ -154,6 +178,21 @@ class FaultInjector:
         KV tiers' degraded mode."""
         return self.inject(site, "io_error", count=count, after=after)
 
+    def hang(self, site: str, seconds: float = 2.0, after: int = 0,
+             count: int = 1) -> "FaultInjector":
+        """Wedge ``site`` for ``seconds`` (a sleep on the site's thread):
+        long enough to blow any watchdog deadline under test, finite so
+        the abandoned thread ends."""
+        return self.inject(site, "hang", count=count, after=after,
+                           param=seconds)
+
+    def slow(self, site: str, seconds: float = 0.1, after: int = 0,
+             count: int = 1) -> "FaultInjector":
+        """Delay ``site`` by ``seconds``: a straggler below the watchdog
+        deadline (the hedging threshold's quarry)."""
+        return self.inject(site, "slow", count=count, after=after,
+                           param=seconds)
+
     def bitflip(self, site: str, bits: int = 1, after: int = 0,
                 count: int = 1) -> "FaultInjector":
         """Flip ``bits`` random bit(s) of the buffer a read site just
@@ -169,9 +208,11 @@ class FaultInjector:
         """Parse the subprocess wire format: ``;``-separated faults, each
         a whitespace/comma-separated list of ``key=value`` tokens —
         ``site=`` and ``kind=`` required; ``after=``, ``count=``,
-        ``param=`` optional.  Example::
+        ``param=`` optional; for ``hang``/``slow`` it is the delay in
+        seconds, 2.0 when omitted.  Examples::
 
             site=comm.all_reduce kind=corrupt after=1 param=0.5
+            site=replica.hang kind=hang after=3 param=2.5
         """
         inj = cls(seed=seed)
         for part in spec.split(";"):
@@ -191,7 +232,9 @@ class FaultInjector:
             inj.inject(kv["site"], kv["kind"],
                        count=int(kv.get("count", 1)),
                        after=int(kv.get("after", 0)),
-                       param=float(kv["param"]) if "param" in kv else None)
+                       param=(float(kv["param"]) if "param" in kv
+                              else 2.0 if kv["kind"] in ("hang", "slow")
+                              else None))
         return inj
 
     # -- firing -----------------------------------------------------------

@@ -1,7 +1,7 @@
 """Runtime training guards.
 
-Copy of ``deepspeed_tpu/resilience/guards.py`` without the telemetry
-counters and the flight recorder (ROADMAP A10): detectors that turn
+Copy of ``deepspeed_tpu/resilience/guards.py`` without the swap path's
+``SwapCorruptionError`` (ROADMAP A11): detectors that turn
 "silently wrong forever" failure modes into loud, actionable aborts.
 """
 from __future__ import annotations
@@ -20,7 +20,8 @@ class SkippedStepGuard:
     The fp16 dynamic loss scaler recovers from isolated overflows by
     halving the scale; what it cannot recover from is a genuinely
     divergent model (NaN weights, poisoned data), where it halves the
-    scale forever while every step is skipped.  This guard raises
+    scale forever while every step is skipped.  The reference engine
+    trains on silently in that state — this guard raises
     :class:`GradientAnomalyError` after ``bound`` consecutive skips
     (``resilience.max_consecutive_skips``; 0 disables)."""
 
@@ -30,6 +31,12 @@ class SkippedStepGuard:
         self.consecutive = 0
 
     def update(self, overflowed: bool, step: int) -> None:
+        if overflowed:
+            from deepspeed_tpu_torch.telemetry.metrics import metrics as _metrics
+            if _metrics.enabled:
+                _metrics.counter(
+                    "dstpu_skipped_steps_total",
+                    "Optimizer steps skipped on gradient overflow").inc()
         if not overflowed:
             if self.consecutive:
                 logger.info(f"step {step}: finite gradients after "
@@ -38,9 +45,20 @@ class SkippedStepGuard:
             return
         self.consecutive += 1
         if self.consecutive >= self.bound:
-            raise GradientAnomalyError(
+            err = GradientAnomalyError(
                 f"{self.consecutive} consecutive steps produced non-finite "
                 f"gradients (through step {step}); the loss scaler cannot "
                 "recover from a divergent model. Inspect the data/loss and "
                 "resume from the last verified checkpoint "
                 "(resilience.max_consecutive_skips bounds this abort).")
+            from deepspeed_tpu_torch.telemetry import flight
+            from deepspeed_tpu_torch.telemetry.metrics import metrics as _metrics
+
+            if _metrics.enabled:
+                _metrics.counter(
+                    "dstpu_gradient_anomalies_total",
+                    "Aborts on consecutive non-finite gradients").inc()
+            flight.dump_on_fault("gradient_anomaly", err,
+                                 extra={"step": int(step),
+                                        "consecutive": self.consecutive})
+            raise err

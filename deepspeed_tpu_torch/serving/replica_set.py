@@ -1,0 +1,422 @@
+"""Replica execution layer: one ragged engine per single-worker thread,
+fed through a bounded async window.
+
+The handle is deliberately thin — the :class:`~.router.Router` owns all
+routing state (assignment, outstanding-token accounting, pressure
+snapshots) and talks to a handle only through the small protocol below,
+so router unit tests drive fake replicas with scripted behaviour and no
+threads:
+
+- ``alive`` / ``name`` / ``max_seqs`` / ``page_size``
+- ``validate(prompt, max_new)`` — the engine's submit-time
+  schedulability check (raises ``ValueError``)
+- ``put_async(prompt, kw, accept_t, on_done)`` — enqueue a request on
+  the replica thread; ``on_done(uid)`` runs at join time on the
+  ROUTER thread
+- ``step_async(on_done)`` — one engine iteration + output collection;
+  ``on_done((outputs, pool, deltas))`` at join time (the router also
+  accepts the legacy ``(outputs, pool)`` shape from older fakes)
+- ``cancel_async(uid, on_done)`` — OPTIONAL: cancel a request at any
+  lifecycle stage on the replica thread (the front door's
+  client-disconnect path); routers probe with ``getattr``
+- ``join_all()`` — drain the feed window (folds every pending
+  ``on_done``; re-raises the first replica fault after the sweep)
+- ``drain_async(on_done)`` / ``close()`` — shutdown halves
+
+Every op rides the handle's :class:`BoundedAsyncStage` feed window
+(waiter = ``Future.result`` — the third instance of the substrate,
+after the engine's pipelined decode carry and the NVMe moment stream):
+the window bounds router run-ahead per replica and serializes
+``on_done`` folds onto whichever thread joins (the router's), so
+router state never needs a lock.
+
+**Liveness watchdog** (``watchdog_s > 0``): the production replica
+failure is not an exception but a WEDGE — a stuck decode, a deadlocked
+AIO wait — which today's exception-driven death path never sees (a
+hung op's future simply never resolves, so ``join_all`` blocks
+forever).  Armed, every window join waits at most ``watchdog_s`` for
+the op to make progress (the ``comm/watchdog.py`` heartbeat pattern
+applied per replica): on expiry the wedged worker thread is abandoned
+(``shutdown(wait=False)`` — a blocked engine step cannot be
+interrupted from Python), the window's unresolved ops are written off,
+and the join raises :class:`ReplicaHangError`, which the router's
+existing death path turns into a breaker trip + re-dispatch.
+``last_progress`` is stamped at every successful join — the router's
+suspect detection (soft deadline, hedging) reads it without touching
+the replica thread.  Disarmed (the default) the waiter is a plain
+``Future.result`` — zero overhead on the fault-free path.
+"""
+from __future__ import annotations
+
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import TimeoutError as _FutureTimeout
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from deepspeed_tpu_torch.resilience import faults
+from deepspeed_tpu_torch.telemetry import trace
+from deepspeed_tpu_torch.telemetry.metrics import metrics as _metrics
+from deepspeed_tpu_torch.utils.async_stage import BoundedAsyncStage, StageTimers
+
+__all__ = ["EngineReplicaHandle", "ReplicaHangError", "ReplicaSet"]
+
+
+class ReplicaHangError(RuntimeError):
+    """A replica op blew the liveness watchdog deadline: the worker
+    thread is wedged (stuck decode / AIO / feed deadlock) and has been
+    abandoned.  The router treats this exactly like a replica death —
+    flight dump, breaker trip, outstanding work re-dispatched."""
+
+
+def _future_result(fut: Future) -> Any:
+    return fut.result()
+
+
+class EngineReplicaHandle:
+    """One ragged engine bound to its own single-worker executor.
+
+    The single worker is the whole concurrency story: ops submitted to
+    a handle execute in submission order on the replica's thread (the
+    engine is never touched from two threads), while DIFFERENT replicas
+    overlap freely.  The feed window bounds how many ops the router may
+    have outstanding per replica (``feed_depth``); past the bound a
+    submit first joins the oldest op, which is also where completed
+    results fold back into the router.
+    """
+
+    def __init__(self, idx: int, engine: Any, feed_depth: int = 2,
+                 name: Optional[str] = None, watchdog_s: float = 0.0,
+                 clock: Callable[[], float] = time.perf_counter) -> None:
+        self.idx = int(idx)
+        self.name = name if name is not None else f"r{idx}"
+        self.engine = engine
+        # stamp the replica identity into the engine's metric emitters
+        # (dstpu_request_* / dstpu_serving_stage_seconds children get a
+        # replica label so export_text() distinguishes replicas)
+        engine.set_replica(self.name)
+        self.alive = True
+        self.watchdog_s = float(watchdog_s)
+        self.hung = False
+        self._clock = clock
+        self.last_progress = clock()
+        self._timers = StageTimers(cat="serving")
+        self._window = BoundedAsyncStage(
+            waiter=self._wd_result, depth=feed_depth,
+            timers=self._timers, name=f"replica_feed_{self.name}")
+        self._pool: Optional[ThreadPoolExecutor] = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix=f"dstpu-replica-{self.name}")
+        self._seq = 0
+
+    def _wd_result(self, fut: Future) -> Any:
+        """Window waiter: joins one replica op, stamping
+        ``last_progress`` (the router's suspect detector reads it).
+        With the watchdog armed the join waits at most ``watchdog_s``;
+        expiry abandons the wedged worker and raises
+        :class:`ReplicaHangError` on the caller's thread — the
+        router's — so the breaker trips synchronously."""
+        if self.watchdog_s <= 0:
+            res = fut.result()
+        else:
+            try:
+                res = fut.result(timeout=self.watchdog_s)
+            except _FutureTimeout:
+                self._abandon_wedged()
+                raise ReplicaHangError(
+                    f"replica {self.name} made no feed/step progress "
+                    f"within the {self.watchdog_s:.1f}s watchdog deadline "
+                    f"(wedged decode/AIO/feed thread) — worker abandoned, "
+                    f"replica tripped dead") from None
+        self.last_progress = self._clock()
+        return res
+
+    def _abandon_wedged(self) -> None:
+        """The worker thread is wedged inside an op and cannot be
+        interrupted from Python: abandon the pool, write off every
+        unresolved window op (their futures may never complete), and
+        mark the handle dead so no further submits land."""
+        self.hung = True
+        self.alive = False
+        pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.shutdown(wait=False)
+        dropped = self._window.abandon()
+        if trace.enabled:
+            trace.event("replica_hang", cat="resilience",
+                        replica=self.name, deadline_s=self.watchdog_s,
+                        abandoned_ops=int(dropped))
+        if _metrics.enabled:
+            _metrics.counter(
+                "dstpu_watchdog_timeouts_total",
+                "Watchdog deadline fires (collective + replica feed)",
+                labels=("what",)).labels(
+                    what=f"replica_{self.name}").inc()
+
+    # -- protocol surface (what fakes implement) -------------------------
+
+    @property
+    def max_seqs(self) -> int:
+        return int(self.engine.max_seqs)
+
+    @property
+    def page_size(self) -> int:
+        return int(self.engine.page_size)
+
+    @property
+    def in_flight(self) -> int:
+        return self._window.in_flight
+
+    def validate(self, prompt: Any, max_new: int) -> None:
+        self.engine.validate_request(prompt, max_new)
+
+    def put_async(self, prompt: Any, kw: Dict[str, Any], accept_t: float,
+                  on_done: Callable[[int], Any]) -> None:
+        eng = self.engine
+
+        def op() -> int:
+            uid = eng.put_request(prompt, **kw)
+            # router accept -> replica admit lands as its own series
+            # (router_queue_wait_ms), never folded into TTFT
+            eng.request_latency.note_router_accept(uid, accept_t)
+            return uid
+
+        self._submit(op, on_done)
+
+    def step_async(self, on_done: Callable[[Any], Any]) -> None:
+        """One engine iteration; the payload handed to ``on_done`` is
+        ``(outputs, pool, deltas)`` where ``outputs`` is the engine's
+        ``get_outputs()`` list, ``pool`` a lightweight pressure
+        snapshot taken ON the replica thread (the router never reads
+        engine state across threads), and ``deltas`` the engine's
+        ``stream_deltas()`` — fresh tokens at harvest granularity for
+        streaming front ends.  The router also accepts the legacy
+        2-tuple payload (test fakes)."""
+        eng = self.engine
+        name = self.name
+
+        def op() -> Tuple[List[Tuple[int, Any]], Dict[str, Any],
+                          List[Tuple[int, List[int], int, bool]]]:
+            # chaos sites, ON the replica thread: replica.step raises
+            # (crash/io_error -> the exception death path), replica.hang
+            # honors hang/slow directives by wedging right here — the
+            # future never resolves until the sleep ends, which is
+            # exactly the failure the watchdog exists to bound
+            faults.hook("replica.step", replica=name)
+            d = faults.hook("replica.hang", replica=name)
+            if d is not None and d[0] in ("hang", "slow"):
+                time.sleep(float(d[1]))
+            if eng.has_work():
+                eng.step()
+            deltas = eng.stream_deltas()   # before get_outputs: a
+            outs = eng.get_outputs()       # collected uid drops its cursor
+            return outs, self._pool_snapshot(eng), deltas
+
+        self._submit(op, on_done)
+
+    def cancel_async(self, uid: int,
+                     on_done: Optional[Callable[[Any], Any]] = None
+                     ) -> None:
+        """Cancel ``uid`` on the replica thread at whatever lifecycle
+        stage it is in (queued / spilled / mid-decode / LC-parked);
+        ``on_done(stage_or_None)`` at join time."""
+        eng = self.engine
+        self._submit(lambda: eng.cancel(uid), on_done)
+
+    def drain_async(self, on_done: Callable[[Any], Any]) -> None:
+        """Run the replica to completion (shutdown half)."""
+        eng = self.engine
+
+        def op() -> Tuple[List[Tuple[int, Any]], Dict[str, Any]]:
+            outs = list(eng.drain().items())
+            return outs, self._pool_snapshot(eng)
+
+        self._submit(op, on_done)
+
+    def export_parked_async(self, on_done: Callable[[Any], Any]) -> None:
+        """Pull the engine's parked sessions (spill-format blobs) off
+        the replica thread — the shrink half of elastic re-slicing;
+        ``on_done(sessions)`` at join time."""
+        eng = self.engine
+
+        def op() -> List[Dict[str, Any]]:
+            return eng.export_parked()
+
+        self._submit(op, on_done)
+
+    def import_parked_async(self, sessions: List[Dict[str, Any]],
+                            on_done: Callable[[Any], Any]) -> None:
+        """Install handed-off sessions on this replica's thread;
+        ``on_done(new_uids)`` at join time (the router re-keys its
+        uid ledger with them)."""
+        eng = self.engine
+
+        def op() -> List[int]:
+            return eng.import_parked(sessions)
+
+        self._submit(op, on_done)
+
+    def export_handoff_async(self, on_done: Callable[[Any], Any]) -> None:
+        """Pull the engine's handoff-ready sessions (prefill + first
+        token done, KV in spill format) off the replica thread — the
+        prefill-role half of disaggregated serving; ``on_done(sessions)``
+        at join time."""
+        eng = self.engine
+
+        def op() -> List[Dict[str, Any]]:
+            return eng.export_handoff()
+
+        self._submit(op, on_done)
+
+    def import_handoff_async(self, sessions: List[Dict[str, Any]],
+                             export_t: float,
+                             on_done: Callable[[Any], Any]) -> None:
+        """Install handed-off prefill sessions on this (decode-role)
+        replica's thread; the engine stamps ``export_t -> now`` as each
+        request's handoff stall.  ``on_done(new_uids)`` at join time —
+        the router re-keys its uid ledger with them."""
+        eng = self.engine
+
+        def op() -> List[int]:
+            return eng.import_handoff(sessions, export_t)
+
+        self._submit(op, on_done)
+
+    def join_all(self) -> None:
+        """Fold every pending op (its ``on_done`` runs here, on the
+        caller's thread); first replica fault re-raises after the
+        sweep — the substrate's drain contract."""
+        self._window.drain()
+
+    def close(self) -> None:
+        """Idempotent teardown: abandon the window (faults already
+        handled or about to be surfaced elsewhere), stop the worker,
+        release engine resources.  A HUNG handle's window is written
+        off instead of drained — its futures may never resolve and
+        joining them would wedge the caller too."""
+        self.alive = False
+        if self.hung:
+            self._window.abandon()
+        else:
+            try:
+                self._window.drain()
+            except Exception:
+                pass              # a dead replica's pending ops may raise
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+        try:
+            self.engine.close()
+        except Exception:
+            pass
+
+    # -- internals -------------------------------------------------------
+
+    @staticmethod
+    def _pool_snapshot(eng: Any) -> Dict[str, Any]:
+        usable = max(eng.num_pages - 1, 1)
+        in_use = usable - eng.allocator.free_pages
+        return {"pages_in_use": int(in_use),
+                "waiting_requests": len(eng.waiting),
+                "pressure": round(in_use / usable + len(eng.waiting), 4)}
+
+    def _submit(self, fn: Callable[[], Any],
+                on_done: Optional[Callable[[Any], Any]]) -> None:
+        if not self.alive or self._pool is None:
+            raise RuntimeError(f"replica {self.name} is not alive")
+        key = self._seq
+        self._seq += 1
+        self._window.submit(key, self._pool.submit(fn), on_done=on_done)
+
+    def feed_stats(self) -> Dict[str, Any]:
+        """Window counters/timers (``submitted``/``completed`` +
+        ``submit_wait_s``) for the router stats printout."""
+        return self._timers.snapshot()
+
+
+class ReplicaSet:
+    """N data-parallel replicas built from ``factory(i) -> engine``.
+
+    Every engine lives in this process, on its own single-worker thread:
+    on ``cuda`` the factory may build each engine over one shared module
+    (weights on the card once), each with its own KV pool and tier store;
+    on the CPU the threads interleave on the host.  The router sees
+    neither.
+    """
+
+    def __init__(self, factory: Callable[[int], Any], n: int,
+                 feed_depth: int = 2, watchdog_s: float = 0.0) -> None:
+        if n < 1:
+            raise ValueError("ReplicaSet needs n >= 1 replicas")
+        # retained: grow() builds new replicas from the same factory
+        self._factory = factory
+        self._feed_depth = int(feed_depth)
+        self._watchdog_s = float(watchdog_s)
+        self._next_idx = 0
+        self.handles: List[EngineReplicaHandle] = []
+        try:
+            for _ in range(int(n)):
+                self._spawn()
+        except Exception:
+            self.close()          # don't leak half-built replica threads
+            raise
+
+    def _spawn(self) -> EngineReplicaHandle:
+        i = self._next_idx
+        self._next_idx += 1       # indices (and names) are never reused
+        h = EngineReplicaHandle(i, self._factory(i),
+                                feed_depth=self._feed_depth,
+                                watchdog_s=self._watchdog_s)
+        self.handles.append(h)
+        return h
+
+    def grow(self, n: int = 1) -> List[EngineReplicaHandle]:
+        """Build ``n`` new replicas from the retained factory (fresh,
+        never-reused indices/names) and return their handles.  The
+        handles are NOT yet routed — the caller admits each via
+        ``Router.add_replica`` (optionally prefix-warmed) once it is
+        ready for traffic."""
+        made: List[EngineReplicaHandle] = []
+        try:
+            for _ in range(int(n)):
+                made.append(self._spawn())
+        except Exception:
+            for h in made:
+                self.handles.remove(h)
+                h.close()
+            raise
+        return made
+
+    def shrink(self, names) -> List[EngineReplicaHandle]:
+        """Remove (and close) replicas by name.  The router retires a
+        replica FIRST — drain + parked-session handoff — so the close
+        here is an idempotent resource release, never a request drop.
+        Refuses to empty the set."""
+        names = {names} if isinstance(names, str) else set(names)
+        have = {h.name for h in self.handles}
+        unknown = names - have
+        if unknown:
+            raise ValueError(f"unknown replicas {sorted(unknown)} "
+                             f"(have {sorted(have)})")
+        if len(self.handles) - len(names) < 1:
+            raise ValueError("shrink would leave an empty replica set")
+        dropped = [h for h in self.handles if h.name in names]
+        self.handles = [h for h in self.handles if h.name not in names]
+        for h in dropped:
+            h.close()
+        return dropped
+
+    def __len__(self) -> int:
+        return len(self.handles)
+
+    def __iter__(self):
+        return iter(self.handles)
+
+    def __getitem__(self, i: int) -> EngineReplicaHandle:
+        return self.handles[i]
+
+    @property
+    def alive(self) -> List[EngineReplicaHandle]:
+        return [h for h in self.handles if h.alive]
+
+    def close(self) -> None:
+        for h in self.handles:
+            h.close()

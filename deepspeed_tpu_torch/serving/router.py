@@ -1,0 +1,1452 @@
+"""SLO-aware router over a ReplicaSet: policies, sticky prefix
+affinity, and continuous admission control.
+
+Counterpart of ``deepspeed_tpu/serving/router.py``, copied; it reaches the
+engines only through the replica handles.
+
+The router is single-threaded by construction: all of its state
+mutates on the caller's thread, either directly in ``submit``/``pump``
+or inside ``on_done`` folds that the replica feed windows run at join
+time (see :mod:`~.replica_set`).  Replica engines run on their own
+threads; the router only ever talks to them through handle ops.
+
+Admission is CONTINUOUS, not a one-shot gate: every ``submit`` sees the
+current per-replica queue depths and the SLO burn rate, so a burst that
+fills the queues starts shedding mid-burst and stops shedding as soon
+as the replicas drain — the open-loop analogue of the engine's
+submit-time ``put_request`` rejection.
+
+Rejections are loud and typed:
+
+- :class:`NeverSchedulableRejection` — the request could never run on
+  ANY replica (the engine's tier-aware schedulability check, surfaced
+  at the front door instead of deep inside a replica queue).
+- :class:`QueueFullRejection` — every live replica is at its
+  queue-depth cap (default ``2 * max_seqs``, seeded from the engine's
+  admission geometry).
+- :class:`ShedRejection` — SLO error-budget burn rate crossed
+  ``burn_shed`` and the request's priority is below the protected
+  tier.  Between ``burn_defer`` and ``burn_shed`` low-priority
+  requests are accepted but HELD in the router queue (deferred) while
+  high-priority traffic keeps dispatching.
+- :class:`DeadlineRejection` — the request carried ``deadline_ms`` and
+  the deadline had already burned at submit.  An ACCEPTED request
+  whose deadline burns while still queued expires lazily in the
+  priority heap (never occupies a slot) and surfaces as a
+  ``deadline_expired`` event.
+- :class:`DrainingRejection` — the router is in graceful drain
+  (``begin_drain``): in-flight work finishes, new work is refused
+  (the front door maps this to 503 + Retry-After).
+
+Streaming front ends set ``collect_events = True`` and drain
+``poll_events()`` after each ``pump``/``join`` round: ``("tokens",
+rid, fresh)`` at harvest granularity (de-duplicated across
+replica-death re-routes via cumulative totals), ``("finish", rid,
+tokens)``, ``("deadline_expired", rid, None)``, ``("cancelled", rid,
+None)`` and ``("replica_death", rid, None)`` — the last for a SAMPLED
+request that lost its replica mid-stream: replaying it elsewhere would
+contradict tokens the client already holds, so it fails loudly with a
+typed error instead.
+
+**Health breaker** (:class:`BreakerConfig`): a typed per-replica state
+machine ``healthy -> suspect -> dead -> probation`` layered over the
+exception/hang death path.  ``suspect`` is the soft deadline — no
+feed/step progress for ``suspect_after_s`` while holding work: the
+replica takes no new assignments and its not-yet-admitted requests are
+HEDGED onto a healthy peer (first admit wins, the loser is cancelled —
+safe exactly because an unadmitted request has emitted nothing).
+``dead`` is the breaker trip (exception or watchdog hang): flight
+dump, outstanding work re-dispatched.  With ``revive=True`` the router
+then probes for revival through the ReplicaSet's retained factory
+(``grow``): the replacement enters ``probation`` — throttled to
+``probation_inflight`` requests until ``probation_successes`` finish
+clean, only then re-admitted to the full policy set.  A flapping
+lineage (replacements dying in probation ``max_trips`` times in a row)
+FREEZES revival: serving continues on the survivors, a human looks at
+the flight records.
+"""
+from __future__ import annotations
+
+import heapq
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from deepspeed_tpu_torch.inference.prefix_cache import ROOT_HASH, _chunk_hash
+from deepspeed_tpu_torch.resilience import faults
+from deepspeed_tpu_torch.telemetry import flight, trace
+from deepspeed_tpu_torch.telemetry.metrics import metrics as _metrics
+
+__all__ = ["Router", "POLICIES", "BreakerConfig", "RouterRejection",
+           "QueueFullRejection", "ShedRejection",
+           "NeverSchedulableRejection", "DeadlineRejection",
+           "DrainingRejection", "REPLICA_STATES"]
+
+REPLICA_STATES = ("healthy", "suspect", "dead", "probation")
+
+
+class BreakerConfig:
+    """Knobs for the replica health breaker (all optional).
+
+    ``suspect_after_s``
+        soft liveness deadline: a replica holding work whose
+        ``last_progress`` is older than this turns ``suspect`` (no new
+        assignments; unadmitted requests hedge to a peer).  0 disables
+        suspect detection — the breaker then only reacts to hard
+        trips.
+    ``hedge``
+        hedge a suspect's not-yet-admitted requests onto a healthy
+        peer (exactly-once by construction: first admit wins, the
+        loser is cancelled before it can emit).
+    ``revive``
+        after a trip, probe for revival by growing a replacement from
+        the ReplicaSet's retained factory.  Off by default: spinning
+        up an engine is expensive and only correct when the underlying
+        fault is transient.
+    ``probation_successes`` / ``probation_inflight``
+        a revived replica must finish this many requests clean before
+        re-admission, carrying at most ``probation_inflight`` at once.
+    ``max_trips``
+        consecutive probation deaths before revival FREEZES.
+    """
+
+    def __init__(self, suspect_after_s: float = 0.0, hedge: bool = True,
+                 revive: bool = False, probation_successes: int = 2,
+                 probation_inflight: int = 1, max_trips: int = 3) -> None:
+        self.suspect_after_s = float(suspect_after_s)
+        self.hedge = bool(hedge)
+        self.revive = bool(revive)
+        self.probation_successes = max(1, int(probation_successes))
+        self.probation_inflight = max(1, int(probation_inflight))
+        self.max_trips = max(1, int(max_trips))
+
+
+class RouterRejection(RuntimeError):
+    """Base of every typed router rejection."""
+
+
+class QueueFullRejection(RouterRejection):
+    """Every live replica is at its queue-depth cap."""
+
+
+class ShedRejection(RouterRejection):
+    """SLO burn rate above ``burn_shed``; low-priority load is shed."""
+
+
+class NeverSchedulableRejection(RouterRejection):
+    """The request could never be scheduled on any replica (prompt +
+    budget beyond ``max_seq_len``, or KV pages beyond the combined
+    tier capacity) — the engine's ``ValueError`` with a router type."""
+
+
+class DeadlineRejection(RouterRejection):
+    """The request's ``deadline_ms`` had already burned at submit —
+    admitting it could only waste a slot on an answer nobody waits
+    for."""
+
+
+class DrainingRejection(RouterRejection):
+    """The router is in graceful drain (``begin_drain``): in-flight
+    requests finish, new ones are refused."""
+
+
+class _RouterReq:
+    __slots__ = ("rid", "prompt", "kw", "priority", "accept_t",
+                 "affinity", "cost", "replica", "uid", "attempts",
+                 "deadline_t", "cancelled", "streamed", "phase")
+
+    def __init__(self, rid: int, prompt: np.ndarray, kw: Dict[str, Any],
+                 priority: int, accept_t: float, affinity: int,
+                 cost: int) -> None:
+        self.rid = rid
+        self.prompt = prompt
+        self.kw = kw
+        self.priority = priority
+        self.accept_t = accept_t
+        self.affinity = affinity
+        self.cost = cost          # prompt + max_new token budget
+        self.replica: Optional[str] = None
+        self.uid: Optional[int] = None
+        self.attempts = 0
+        self.deadline_t: Optional[float] = None   # clock() expiry
+        self.cancelled = False    # lazy heap removal marker
+        self.streamed = 0         # generated tokens already emitted
+        # disaggregated serving: "prefill"/"decode" classification when
+        # a role split is active; None in fused mode (no role filter)
+        self.phase: Optional[str] = None
+
+
+# -- load-balancing policies ---------------------------------------------
+# A policy picks one handle from the eligible candidates (alive, under
+# the queue cap).  Sticky prefix affinity runs BEFORE the policy; the
+# policy only sees requests with no (usable) affinity pin.
+
+def _policy_rr(router: "Router", cands: List[Any], req: _RouterReq) -> Any:
+    """Round-robin over the candidate list (per-dispatch counter)."""
+    h = cands[router._rr % len(cands)]
+    router._rr += 1
+    return h
+
+
+def _policy_least_tokens(router: "Router", cands: List[Any],
+                         req: _RouterReq) -> Any:
+    """Least outstanding token budget (prompt + max_new over every
+    dispatched-but-unfinished request), router-side accounting only —
+    deterministic and replica-thread-free."""
+    return min(cands, key=lambda h: (router._tokens[h.name], h.idx))
+
+
+def _policy_pressure(router: "Router", cands: List[Any],
+                     req: _RouterReq) -> Any:
+    """Least pool pressure (page occupancy + waiting queue), from each
+    replica's last ``serving_stages()``-shape snapshot (taken on the
+    replica thread, folded at join)."""
+    return min(cands, key=lambda h: (router._pressure.get(h.name, 0.0),
+                                     router._tokens[h.name], h.idx))
+
+
+POLICIES: Dict[str, Callable[["Router", List[Any], _RouterReq], Any]] = {
+    "rr": _policy_rr,
+    "least_tokens": _policy_least_tokens,
+    "pressure": _policy_pressure,
+}
+
+
+class Router:
+    """Front-end over a :class:`~.replica_set.ReplicaSet` (or any list
+    of handle-protocol objects — tests drive fakes).
+
+    Parameters
+    ----------
+    replicas:
+        ReplicaSet or list of handles.
+    policy:
+        ``"rr"`` | ``"least_tokens"`` | ``"pressure"`` (or a callable
+        ``(router, candidates, request) -> handle``).
+    slo:
+        optional :class:`~deepspeed_tpu_torch.telemetry.slo.SLOSet` watching
+        router-level metrics (the router feeds ``router_e2e_ms`` per
+        finished request); its worst-objective burn rate drives
+        defer/shed.
+    queue_cap:
+        per-replica dispatched-but-unfinished cap; default
+        ``2 * max_seqs`` of the first replica.
+    burn_defer / burn_shed:
+        burn-rate thresholds: ``>= burn_defer`` holds low-priority
+        requests in the router queue; ``>= burn_shed`` rejects them at
+        submit.  Priorities ``>= protected_priority`` bypass both.
+    sticky:
+        route requests sharing a page-aligned prompt prefix to the
+        replica that saw the prefix first (prefix-cache affinity via
+        the same chain hash the cache indexes with).
+    """
+
+    def __init__(self, replicas: Any, policy: str = "least_tokens",
+                 slo: Any = None, queue_cap: Optional[int] = None,
+                 burn_defer: float = 1.0, burn_shed: float = 2.0,
+                 protected_priority: int = 1, sticky: bool = True,
+                 clock: Callable[[], float] = time.perf_counter,
+                 breaker: Optional[BreakerConfig] = None) -> None:
+        self.handles: List[Any] = list(replicas)
+        # retained when replicas is a ReplicaSet: the revival probe
+        # grows replacements from its factory
+        self._replica_set = replicas if hasattr(replicas, "grow") else None
+        if not self.handles:
+            raise ValueError("Router needs at least one replica")
+        if callable(policy):
+            self._policy, self.policy = policy, getattr(
+                policy, "__name__", "custom")
+        else:
+            if policy not in POLICIES:
+                raise ValueError(f"unknown router policy {policy!r} "
+                                 f"(have {sorted(POLICIES)})")
+            self._policy, self.policy = POLICIES[policy], policy
+        self.slo = slo
+        self.queue_cap = (int(queue_cap) if queue_cap is not None
+                          else 2 * int(self.handles[0].max_seqs))
+        if self.queue_cap < 1:
+            raise ValueError("queue_cap must be >= 1")
+        self.burn_defer = float(burn_defer)
+        self.burn_shed = float(burn_shed)
+        self.protected_priority = int(protected_priority)
+        self.sticky = bool(sticky)
+        self.clock = clock
+        self._chunk = max(int(getattr(self.handles[0], "page_size", 64)), 1)
+
+        self._rr = 0
+        self._rid = 0
+        self._heap: List[Tuple[int, int, _RouterReq]] = []   # (-pri, seq)
+        self._hseq = 0
+        self._live: Dict[int, _RouterReq] = {}               # accepted
+        self._assigned: Dict[str, set] = {h.name: set()
+                                          for h in self.handles}
+        self._tokens: Dict[str, int] = {h.name: 0 for h in self.handles}
+        self._pressure: Dict[str, float] = {}
+        self._uid_rid: Dict[Tuple[str, int], int] = {}
+        self._affinity: Dict[int, str] = {}                  # hash -> name
+        self._outputs: Dict[int, np.ndarray] = {}
+        self._draining = False
+        self._retiring: set = set()
+        self.accepting = True     # begin_drain() flips; submit refuses
+        # event stream for streaming front ends: opt-in (a pump-only
+        # caller would otherwise grow the list unboundedly)
+        self.collect_events = False
+        self._events: List[Tuple[str, int, Any]] = []
+        self.stats_counters: Dict[str, int] = {
+            "accepted": 0, "rejected_queue_full": 0, "rejected_shed": 0,
+            "rejected_never_schedulable": 0, "rejected_deadline": 0,
+            "rejected_draining": 0, "expired_deadline": 0,
+            "cancelled": 0, "affinity_hits": 0,
+            "rerouted": 0, "finished": 0, "replica_deaths": 0,
+            "replicas_added": 0, "replicas_retired": 0,
+            "sessions_handed_off": 0, "hedges": 0, "hedge_won": 0,
+            "hedge_lost": 0, "failed_replica_death": 0, "revived": 0,
+            "handoffs": 0, "handoff_kv": 0, "handoff_reprefill": 0}
+        self._routed: Dict[str, int] = {h.name: 0 for h in self.handles}
+        # -- health breaker state -----------------------------------------
+        self.breaker = breaker
+        self._health: Dict[str, str] = {}
+        for h in self.handles:
+            self._set_state(h.name, "healthy", announce=False)
+        # rid -> {"orig", "target", "pending": {names with a put in
+        # flight}} while a hedge is unresolved (first admit wins)
+        self._hedges: Dict[int, Dict[str, Any]] = {}
+        self._probation_left: Dict[str, int] = {}
+        self._revive_pending = 0      # tripped replicas awaiting a probe
+        self._revive_failures = 0     # consecutive probation deaths
+        self.frozen = False           # revival frozen after max_trips
+        # -- disaggregated serving (prefill/decode role split) ------------
+        # name -> "prefill" | "decode"; empty = fused mode (every
+        # replica does both, no handoffs).  set_roles() installs it.
+        self._roles: Dict[str, str] = {}
+        # prompt length (tokens) at which a request classifies as a
+        # long prefill and is marked for prefill->decode handoff;
+        # seeded to one page-aligned prefix chunk
+        self.handoff_min_prompt = self._chunk
+        self.handoff_depth = 2        # in-flight export rounds / prefill
+        self.prefill_fraction = 0.5   # knob: share of prefill replicas
+        self._handoff_inflight: Dict[str, int] = {}
+        # rid -> {"src", "dst"} while the session blob is between the
+        # export fold and the import fold (death-path bookkeeping)
+        self._handoff_transit: Dict[int, Dict[str, str]] = {}
+
+    # -- admission -------------------------------------------------------
+
+    def _alive(self) -> List[Any]:
+        return [h for h in self.handles if h.alive]
+
+    def _dispatchable(self) -> List[Any]:
+        """Alive, not mid-retire, not suspect: a retiring replica
+        finishes its in-flight work but takes no new assignments; a
+        suspect one proves liveness before getting more."""
+        return [h for h in self.handles
+                if h.alive and h.name not in self._retiring
+                and self._health.get(h.name) != "suspect"]
+
+    # -- disaggregated serving: prefill/decode role split -----------------
+
+    def set_roles(self, roles: Dict[str, str]) -> None:
+        """Install a replica role map for disaggregated serving:
+        ``{name: "prefill" | "decode"}``.  Prefill-role replicas take
+        long-prompt requests, run prefill + the first token, then hand
+        the session (KV in spill format, donor digests riding along)
+        to a decode-role replica; decode-role replicas take short-chat
+        traffic directly plus the handed-off sessions.  An unnamed
+        replica keeps serving both phases.  An empty map reverts to
+        fused mode.  A non-empty map must name at least one replica of
+        EACH role — a one-sided split would strand one traffic class.
+        Install roles before traffic for clean phase-label attribution
+        (the per-replica latency trackers re-label here)."""
+        roles = {str(k): str(v) for k, v in roles.items()}
+        have = {h.name for h in self.handles}
+        unknown = set(roles) - have
+        if unknown:
+            raise ValueError(f"unknown replicas {sorted(unknown)} "
+                             f"(have {sorted(have)})")
+        bad = set(roles.values()) - {"prefill", "decode"}
+        if bad:
+            raise ValueError(f"unknown roles {sorted(bad)} "
+                             "(want 'prefill' or 'decode')")
+        if roles:
+            vals = set(roles.values())
+            if vals != {"prefill", "decode"}:
+                raise ValueError(
+                    "a role split needs at least one prefill AND one "
+                    f"decode replica (got only {sorted(vals)})")
+        self._roles = roles
+        if roles:
+            self.prefill_fraction = (
+                sum(1 for v in roles.values() if v == "prefill")
+                / len(roles))
+        for h in self.handles:
+            rl = getattr(getattr(h, "engine", None),
+                         "request_latency", None)
+            if rl is not None and hasattr(rl, "set_phase"):
+                rl.set_phase(roles.get(h.name, ""))
+        trace.event("router_roles", cat="serving",
+                    prefill=",".join(sorted(
+                        n for n, v in roles.items() if v == "prefill")),
+                    decode=",".join(sorted(
+                        n for n, v in roles.items() if v == "decode")))
+
+    def set_prefill_fraction(self, frac: float) -> None:
+        """Knob apply: re-derive the role map so about ``frac`` of the
+        role-split replicas carry the prefill role (each role always
+        keeps >= 1 replica).  Existing prefill replicas are kept
+        prefill-side first — their prefix caches are warm.  A no-op in
+        fused mode: the knob re-balances an existing split, it never
+        creates one."""
+        self.prefill_fraction = min(max(float(frac), 0.0), 1.0)
+        if not self._roles:
+            return
+        names = [h.name for h in self.handles if h.name in self._roles]
+        if len(names) < 2:
+            return
+        n_pre = min(max(int(round(self.prefill_fraction * len(names))),
+                        1), len(names) - 1)
+        pre_first = sorted(
+            names, key=lambda n: (self._roles.get(n) != "prefill", n))
+        new = {n: ("prefill" if i < n_pre else "decode")
+               for i, n in enumerate(pre_first)}
+        if new != self._roles:
+            self.set_roles(new)
+
+    def _role_ok(self, name: str, phase: Optional[str]) -> bool:
+        """May replica ``name`` take a ``phase``-classified request?
+        Trivially yes in fused mode, for unclassified requests, and
+        for replicas outside the role map."""
+        if not self._roles or phase is None:
+            return True
+        return self._roles.get(name, phase) == phase
+
+    # -- health breaker ---------------------------------------------------
+
+    def _by_name(self, name: str) -> Optional[Any]:
+        return next((h for h in self.handles if h.name == name), None)
+
+    def _set_state(self, name: str, state: str, why: str = "",
+                   announce: bool = True) -> None:
+        """One typed transition of the replica state machine: updates
+        the ``dstpu_replica_state`` gauge (one-hot over states) and
+        lands a ``cat="resilience"`` trace instant per decision."""
+        prev = self._health.get(name)
+        self._health[name] = state
+        if _metrics.enabled:
+            g = _metrics.gauge("dstpu_replica_state",
+                               "Replica breaker state (one-hot)",
+                               labels=("replica", "state"))
+            for s in REPLICA_STATES:
+                g.labels(replica=name, state=s).set(
+                    1.0 if s == state else 0.0)
+        if announce and trace.enabled and state != prev:
+            event = {"healthy": "breaker_readmit",
+                     "suspect": "breaker_suspect",
+                     "dead": "breaker_trip",
+                     "probation": "breaker_probation"}[state]
+            trace.event(event, cat="resilience", replica=name,
+                        prev=prev or "", why=why)
+
+    def _check_health(self) -> None:
+        """Soft-deadline sweep (runs each ``pump``): a replica holding
+        work with stale ``last_progress`` turns suspect — excluded
+        from dispatch, its unadmitted requests hedged; progress seen
+        again re-admits it (the hedges resolve by admit race)."""
+        cfg = self.breaker
+        if cfg is None or cfg.suspect_after_s <= 0:
+            return
+        now = self.clock()
+        for h in list(self.handles):
+            if not h.alive:
+                continue
+            last = getattr(h, "last_progress", None)
+            if last is None:
+                continue          # handle without progress stamps
+            state = self._health.get(h.name)
+            stale = (self._assigned.get(h.name)
+                     and now - last >= cfg.suspect_after_s)
+            if stale and state == "healthy":
+                self._set_state(h.name, "suspect",
+                                why=f"no progress for "
+                                    f"{now - last:.3f}s")
+                if cfg.hedge:
+                    self._hedge_from(h)
+            elif not stale and state == "suspect":
+                self._set_state(h.name, "healthy", why="progress resumed")
+
+    def _hedge_from(self, h: Any) -> None:
+        """Re-dispatch the suspect's not-yet-admitted requests on a
+        healthy peer.  Exactly-once by construction: an unadmitted
+        request has emitted nothing, and of the two in-flight puts the
+        FIRST admit fold wins — the loser is cancelled at its own fold
+        before the engine ever streams from it."""
+        for rid in sorted(self._assigned.get(h.name, ())):
+            req = self._live.get(rid)
+            if (req is None or req.uid is not None or req.cancelled
+                    or rid in self._hedges):
+                continue
+            cands = [x for x in self._dispatchable()
+                     if x.name != h.name
+                     and self._health.get(x.name) == "healthy"
+                     and len(self._assigned[x.name]) < self.queue_cap]
+            if not cands:
+                return
+            # policy directly — the affinity pin points at the suspect
+            target = self._policy(self, cands, req)
+            self._hedges[rid] = {"orig": h.name, "target": target.name,
+                                 "pending": {h.name, target.name}}
+            self.stats_counters["hedges"] += 1
+            if _metrics.enabled:
+                _metrics.counter("dstpu_hedge_total",
+                                 "Hedged dispatches by outcome",
+                                 labels=("outcome",)).labels(
+                                     outcome="fired").inc()
+            trace.event("hedge_fired", cat="resilience", replica=h.name,
+                        target=target.name, rid=rid)
+            self._send(req, target)
+
+    def _maybe_revive(self) -> None:
+        """Revival probe: grow one replacement per tripped replica from
+        the ReplicaSet's retained factory and admit it ON PROBATION.
+        Frozen (flapping lineage) or factory failure stops probing —
+        survivors keep serving."""
+        cfg = self.breaker
+        if (cfg is None or not cfg.revive or self.frozen
+                or self._revive_pending <= 0 or self._replica_set is None):
+            return
+        while self._revive_pending > 0 and not self.frozen:
+            self._revive_pending -= 1
+            trace.event("breaker_probe", cat="resilience",
+                        replica="(new)", why="revival probe")
+            try:
+                (nh,) = self._replica_set.grow(1)
+            except Exception as e:
+                self._revive_failures += 1
+                trace.event("breaker_probe_failed", cat="resilience",
+                            replica="(new)", why=str(e)[:200])
+                if self._revive_failures >= cfg.max_trips:
+                    self._freeze("factory failed "
+                                 f"{self._revive_failures}x")
+                return
+            self.add_replica(nh)
+            self._set_state(nh.name, "probation", why="revival probe")
+            self._probation_left[nh.name] = cfg.probation_successes
+            self.stats_counters["revived"] += 1
+
+    def _freeze(self, why: str) -> None:
+        if self.frozen:
+            return
+        self.frozen = True
+        trace.event("breaker_freeze", cat="resilience", replica="(all)",
+                    why=why)
+        flight.dump_on_fault(
+            "breaker_freeze",
+            RuntimeError(f"replica revival frozen: {why}"),
+            extra={"revive_failures": self._revive_failures})
+
+    def _max_burn(self) -> float:
+        if self.slo is None:
+            return 0.0
+        state = self.slo.evaluate()
+        return max((o["burn_rate"] for o in state.values()), default=0.0)
+
+    def _prefix_hash(self, prompt: np.ndarray) -> int:
+        """Chain hash over the page-aligned prompt prefix — the SAME
+        chunking the prefix cache indexes with, so two prompts that
+        would share cached pages land on the same replica."""
+        n = (prompt.size // self._chunk) * self._chunk
+        h = ROOT_HASH
+        for i in range(0, n, self._chunk):
+            h = _chunk_hash(h, tuple(int(t) for t in
+                                     prompt[i:i + self._chunk]))
+        return h
+
+    def submit(self, prompt: Any, priority: int = 0,
+               deadline_ms: Optional[float] = None, **kw) -> int:
+        """Accept (or loudly reject) one request; returns the router
+        request id.  ``kw`` passes through to the replica's
+        ``put_request`` (max_new_tokens, eos_token_id, sampling...).
+        ``deadline_ms`` is an ADMISSION input: already burned at
+        submit raises :class:`DeadlineRejection`; burning while queued
+        expires the request in the heap before it ever costs a slot."""
+        if not self.accepting:
+            self.stats_counters["rejected_draining"] += 1
+            raise DrainingRejection(
+                "router is draining (graceful shutdown): in-flight "
+                "requests finish, new ones are refused")
+        alive = self._alive()
+        if not alive:
+            raise RouterRejection("no live replicas")
+        if deadline_ms is not None and float(deadline_ms) <= 0.0:
+            self.stats_counters["rejected_deadline"] += 1
+            raise DeadlineRejection(
+                f"deadline_ms={float(deadline_ms):g} already burned "
+                f"at submit")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        max_new = int(kw.get("max_new_tokens", 64))
+        try:
+            # replicas are homogeneous: one validation covers all
+            alive[0].validate(prompt, max_new)
+        except ValueError as e:
+            self.stats_counters["rejected_never_schedulable"] += 1
+            raise NeverSchedulableRejection(str(e)) from e
+        if priority < self.protected_priority:
+            burn = self._max_burn()
+            if burn >= self.burn_shed:
+                self.stats_counters["rejected_shed"] += 1
+                raise ShedRejection(
+                    f"SLO burn rate {burn:.2f} >= shed threshold "
+                    f"{self.burn_shed:.2f}; priority {priority} below "
+                    f"protected tier {self.protected_priority}")
+        # accepted-but-unfinished (dispatched + still queued) against
+        # the aggregate cap: a burst past every replica's queue depth
+        # is rejected HERE, not silently parked in the router heap
+        if len(self._live) >= self.queue_cap * len(alive):
+            self.stats_counters["rejected_queue_full"] += 1
+            raise QueueFullRejection(
+                f"{len(self._live)} requests outstanding >= queue cap "
+                f"{self.queue_cap} x {len(alive)} live replicas")
+        rid = self._rid
+        self._rid += 1
+        req = _RouterReq(rid, prompt, dict(kw), int(priority),
+                         self.clock(),
+                         self._prefix_hash(prompt) if self.sticky
+                         else ROOT_HASH,
+                         int(prompt.size) + max_new)
+        if deadline_ms is not None:
+            req.deadline_t = req.accept_t + float(deadline_ms) / 1e3
+        if self._roles:
+            # classify: long prefills go to prefill-role replicas and
+            # hand their finished KV to a decoder; short-chat requests
+            # (and single-token ones, which finish at their prefill)
+            # go straight to decode-role replicas
+            req.phase = ("prefill"
+                         if prompt.size >= self.handoff_min_prompt
+                         else "decode")
+            if req.phase == "prefill" and max_new > 1:
+                req.kw["handoff"] = True
+        self._live[rid] = req
+        heapq.heappush(self._heap, (-req.priority, self._hseq, req))
+        self._hseq += 1
+        self.stats_counters["accepted"] += 1
+        trace.event("router_accept", cat="serving", rid=rid,
+                    priority=int(priority), prompt_len=int(prompt.size))
+        return rid
+
+    # -- dispatch --------------------------------------------------------
+
+    def _pick(self, req: _RouterReq, cands: List[Any]) -> Any:
+        if self.sticky and req.affinity != ROOT_HASH:
+            pinned = self._affinity.get(req.affinity)
+            if pinned is not None:
+                for h in cands:
+                    if h.name == pinned:
+                        self.stats_counters["affinity_hits"] += 1
+                        return h
+        h = self._policy(self, cands, req)
+        if self.sticky and req.affinity != ROOT_HASH:
+            pinned = self._affinity.get(req.affinity)
+            if (pinned is not None
+                    and not self._role_ok(pinned, req.phase)):
+                # the pin points across the role split (e.g. at a
+                # replica re-roled to decode): re-home the chain to the
+                # replica this request lands on, so later repeats of
+                # the prefix hit a prefill replica that will own it
+                self._affinity[req.affinity] = h.name
+            else:
+                self._affinity.setdefault(req.affinity, h.name)
+        return h
+
+    def _send(self, req: _RouterReq, h: Any) -> None:
+        name = h.name
+        self._assigned[name].add(req.rid)
+        self._tokens[name] += req.cost
+        self._routed[name] += 1
+        req.replica = name
+        req.attempts += 1
+        with trace.span("router_dispatch", cat="serving", rid=req.rid,
+                        replica=name):
+            try:
+                d = faults.hook("router.dispatch", replica=name,
+                                rid=req.rid)
+                if d is not None and d[0] in ("hang", "slow"):
+                    time.sleep(float(d[1]))
+                h.put_async(req.prompt, req.kw, req.accept_t,
+                            on_done=lambda uid, r=req, hh=h:
+                            self._on_admit(hh, r, uid))
+            except Exception as e:       # join of an older op faulted
+                self._on_replica_death(h, e)
+
+    def _on_admit(self, h: Any, req: _RouterReq, uid: int) -> None:
+        uid = int(uid)
+        hedge = self._hedges.get(req.rid)
+        if hedge is not None:
+            # one of (up to) two racing puts for this rid just admitted;
+            # the FIRST live fold wins, every other fold cancels its
+            # copy and strips its claim — the engine that lost never
+            # streams a token, so exactly-once holds by construction
+            hedge["pending"].discard(h.name)
+            if not hedge["pending"]:
+                self._hedges.pop(req.rid, None)
+            claimed = req.rid in self._assigned.get(h.name, set())
+            won = (h.alive and claimed and req.uid is None
+                   and req.rid in self._live and not req.cancelled)
+            if not won:
+                if h.alive:
+                    self._cancel_on_replica(h, uid)
+                if claimed:
+                    self._assigned[h.name].discard(req.rid)
+                    self._tokens[h.name] -= req.cost
+                return
+            req.uid = uid
+            req.replica = h.name
+            self._uid_rid[(h.name, uid)] = req.rid
+            outcome = ("won" if h.name == hedge["target"] else "lost")
+            self.stats_counters[f"hedge_{outcome}"] += 1
+            if _metrics.enabled:
+                _metrics.counter("dstpu_hedge_total",
+                                 "Hedged dispatches by outcome",
+                                 labels=("outcome",)).labels(
+                                     outcome=outcome).inc()
+            trace.event(f"hedge_{outcome}", cat="resilience",
+                        replica=h.name, rid=req.rid)
+            return
+        if not h.alive:
+            # a dead replica's feed window folding during close: the
+            # request was already requeued — registering the stale uid
+            # would resurrect a mapping the death path just severed
+            return
+        req.uid = uid
+        if req.cancelled:
+            # cancelled between dispatch and the admit fold: the uid
+            # only just became known — propagate the teardown now
+            self._cancel_on_replica(h, uid)
+            return
+        self._uid_rid[(h.name, uid)] = req.rid
+
+    def _emit(self, kind: str, rid: int, payload: Any) -> None:
+        if self.collect_events:
+            self._events.append((kind, rid, payload))
+
+    def poll_events(self) -> List[Tuple[str, int, Any]]:
+        """Drain the event stream (``collect_events`` must be on):
+        ``("tokens", rid, np.ndarray)`` / ``("finish", rid, tokens)``
+        / ``("deadline_expired", rid, None)`` / ``("cancelled", rid,
+        None)`` / ``("replica_death", rid, None)`` (a sampled request
+        that lost its replica mid-stream — not replayable), in arrival
+        order on the pump thread."""
+        out, self._events = self._events, []
+        return out
+
+    def _dispatch_queued(self) -> int:
+        """Send queued requests to replicas until the queue is empty,
+        every replica is at cap, or SLO defer holds the remainder;
+        returns the number dispatched.  Cancelled entries are skipped
+        (lazy heap removal) and burned deadlines expire here — a
+        request whose deadline passed while queued never costs a
+        dispatch."""
+        sent = 0
+        burn = self._max_burn() if (self.slo is not None
+                                    and not self._draining) else 0.0
+        deferred: List[Tuple[int, int, _RouterReq]] = []
+        while self._heap:
+            req = self._heap[0][2]
+            if req.cancelled:
+                heapq.heappop(self._heap)
+                continue
+            if (req.deadline_t is not None
+                    and self.clock() >= req.deadline_t):
+                heapq.heappop(self._heap)
+                self._live.pop(req.rid, None)
+                self.stats_counters["expired_deadline"] += 1
+                self._emit("deadline_expired", req.rid, None)
+                trace.event("router_deadline_expired", cat="serving",
+                            rid=req.rid, queued_ms=round(
+                                (self.clock() - req.accept_t) * 1e3, 3))
+                continue
+            if (burn >= self.burn_defer and not self._draining
+                    and req.priority < self.protected_priority):
+                # deferred: held in the router queue (heap order puts
+                # protected traffic first, so nothing above this is
+                # waiting behind it)
+                break
+            cands = [h for h in self._dispatchable()
+                     if len(self._assigned[h.name]) < self._cap(h.name)
+                     and self._role_ok(h.name, req.phase)]
+            if not cands:
+                if self._roles and req.phase is not None:
+                    # this request's role has no room, but the OTHER
+                    # role may — park it aside so a full prefill side
+                    # never head-of-line-blocks decode traffic (or
+                    # vice versa)
+                    deferred.append(heapq.heappop(self._heap))
+                    continue
+                break
+            heapq.heappop(self._heap)
+            self._send(req, self._pick(req, cands))
+            sent += 1
+        for entry in deferred:
+            heapq.heappush(self._heap, entry)
+        return sent
+
+    def _cap(self, name: str) -> int:
+        """Per-replica assignment cap: the queue cap, throttled to
+        ``probation_inflight`` while the replica proves itself."""
+        if (self.breaker is not None
+                and self._health.get(name) == "probation"):
+            return min(self.queue_cap, self.breaker.probation_inflight)
+        return self.queue_cap
+
+    # -- the serving loop ------------------------------------------------
+
+    def pump(self) -> None:
+        """One router round: health sweep + revival probe, dispatch
+        what admission allows, then submit one step op per busy
+        replica.  Results fold back on THIS thread at window joins
+        (back-pressure, ``join_all`` or ``drain``)."""
+        with trace.span("router_pump", cat="serving"):
+            self._check_health()
+            self._maybe_revive()
+            self._dispatch_queued()
+            self._pump_handoffs()
+            for h in list(self.handles):
+                if not h.alive:
+                    continue
+                if not self._assigned[h.name] and h.in_flight == 0:
+                    continue
+                try:
+                    h.step_async(on_done=lambda payload, hh=h:
+                                 self._on_step_done(hh, payload))
+                except Exception as e:
+                    self._on_replica_death(h, e)
+
+    # -- prefill -> decode handoff ----------------------------------------
+
+    def _pump_handoffs(self) -> None:
+        """One export round per prefill-role replica that may hold a
+        finished handoff prefill, bounded to ``handoff_depth`` export
+        ops in flight per replica.  The export's fold picks a decode
+        replica and chains the import (`_on_handoff_export`)."""
+        if not self._roles:
+            return
+        for h in list(self.handles):
+            if (not h.alive or h.name in self._retiring
+                    or self._roles.get(h.name) != "prefill"
+                    or getattr(h, "export_handoff_async", None) is None):
+                continue
+            if (self._handoff_inflight.get(h.name, 0)
+                    >= max(int(self.handoff_depth), 1)):
+                continue
+            # only poke the replica while a handoff-marked request is
+            # assigned there — the export op is not free, it occupies
+            # a slot of the replica's feed window
+            if not any(rq is not None and rq.kw.get("handoff")
+                       for rq in (self._live.get(rid) for rid in
+                                  self._assigned.get(h.name, ()))):
+                continue
+            self._handoff_inflight[h.name] = \
+                self._handoff_inflight.get(h.name, 0) + 1
+            t0 = self.clock()
+            try:
+                h.export_handoff_async(
+                    on_done=lambda sessions, hh=h, t=t0:
+                    self._on_handoff_export(hh, sessions, t))
+            except Exception as e:   # join of an older op faulted
+                self._handoff_inflight[h.name] = max(
+                    self._handoff_inflight.get(h.name, 1) - 1, 0)
+                self._on_replica_death(h, e)
+
+    def _on_handoff_export(self, h: Any, sessions: List[Dict[str, Any]],
+                           t0: float) -> None:
+        """Export fold (router thread): route the finished-prefill
+        session blobs to a decode-role replica and submit the import.
+        Sessions are marked in-transit until the import folds — the
+        death path knows which side of the wire still owns them."""
+        self._handoff_inflight[h.name] = max(
+            self._handoff_inflight.get(h.name, 1) - 1, 0)
+        if not sessions:
+            return
+        t_exp = self.clock()
+        cands = [x for x in self._dispatchable()
+                 if x.name != h.name
+                 and self._roles.get(x.name) == "decode"
+                 and getattr(x, "import_handoff_async", None) is not None]
+        # degenerate fallback (decode side died mid-flight): re-import
+        # on the donor itself — the session decodes where it prefilled
+        tgt = (min(cands, key=lambda x: (self._tokens[x.name], x.idx))
+               if cands else h)
+        for s in sessions:
+            rid = self._uid_rid.get((h.name, int(s["uid"])))
+            if rid is not None:
+                self._handoff_transit[rid] = {"src": h.name,
+                                              "dst": tgt.name}
+        try:
+            tgt.import_handoff_async(
+                sessions, t_exp,
+                on_done=lambda uids, hh=h, tt=tgt, ss=sessions,
+                a=t0, b=t_exp:
+                self._on_handoff_import(hh, tt, ss, uids, a, b))
+        except Exception as e:       # join of an older op faulted
+            for s in sessions:
+                rid = self._uid_rid.get((h.name, int(s["uid"])))
+                if rid is not None:
+                    self._handoff_transit.pop(rid, None)
+            self._on_replica_death(tgt, e)
+
+    def _on_handoff_import(self, src: Any, tgt: Any,
+                           sessions: List[Dict[str, Any]],
+                           new_uids: List[int], t0: float,
+                           t_exp: float) -> None:
+        """Import fold (router thread): re-key each session's ledger
+        entry from ``(src, old_uid)`` to ``(tgt, new_uid)`` — the same
+        re-keying retire_replica does — and account the handoff path
+        (KV payload vs degraded re-prefill).  Emits the
+        ``cat="handoff"`` span quartet per session."""
+        t_imp = self.clock()
+        moved: List[Tuple[int, Optional[Dict[str, Any]]]] = []
+        for s, new_uid in zip(sessions, new_uids):
+            sp = s.get("spill")
+            payload = None if sp is None else sp.get("payload")
+            self.stats_counters["handoffs"] += 1
+            self.stats_counters["handoff_kv" if payload is not None
+                                else "handoff_reprefill"] += 1
+            rid = self._uid_rid.pop((src.name, int(s["uid"])), None)
+            if rid is None:
+                # cancelled (or failed loudly) while in transit: tear
+                # the freshly installed copy down on the receiver
+                self._cancel_on_replica(tgt, int(new_uid))
+                moved.append((-1, payload))
+                continue
+            self._handoff_transit.pop(rid, None)
+            req = self._live.get(rid)
+            self._uid_rid[(tgt.name, int(new_uid))] = rid
+            self._assigned.get(src.name, set()).discard(rid)
+            self._assigned[tgt.name].add(rid)
+            if req is not None:
+                if src.name in self._tokens:
+                    self._tokens[src.name] -= req.cost
+                self._tokens[tgt.name] += req.cost
+                req.replica = tgt.name
+                req.uid = int(new_uid)
+                req.phase = "decode"
+            moved.append((rid, payload))
+        t_done = self.clock()
+        if _metrics.enabled:
+            fam = _metrics.counter("dstpu_handoff_total",
+                                   "Prefill->decode handoffs by path",
+                                   labels=("path",))
+            n_kv = sum(1 for _, p in moved if p is not None)
+            if n_kv:
+                fam.labels(path="kv").inc(n_kv)
+            if len(moved) - n_kv:
+                fam.labels(path="reprefill").inc(len(moved) - n_kv)
+            kv_bytes = sum(len(p["payload"]) for _, p in moved
+                           if p is not None)
+            if kv_bytes:
+                _metrics.counter(
+                    "dstpu_handoff_bytes_total",
+                    "Handoff KV payload bytes moved").inc(kv_bytes)
+        if trace.enabled:
+            for rid, payload in moved:
+                attrs = {"rid": int(rid), "src": src.name,
+                         "dst": tgt.name}
+                trace.add_complete("handoff_export", t0,
+                                   max(t_exp - t0, 0.0),
+                                   cat="handoff", **attrs)
+                trace.add_complete(
+                    "handoff_transfer", t_exp, max(t_imp - t_exp, 0.0),
+                    cat="handoff",
+                    bytes=(len(payload["payload"])
+                           if payload is not None else 0), **attrs)
+                trace.add_complete("handoff_import", t_imp,
+                                   max(t_done - t_imp, 0.0),
+                                   cat="handoff", **attrs)
+                trace.add_complete(
+                    "handoff_verify", t_imp, max(t_done - t_imp, 0.0),
+                    cat="handoff",
+                    pages=(int(payload["n_pages"])
+                           if payload is not None else 0),
+                    digests=bool(payload is not None
+                                 and payload.get("digests")), **attrs)
+
+    def _on_step_done(self, h: Any, payload: Any) -> None:
+        # payload is (outs, pool, deltas); legacy fakes post (outs, pool)
+        outs, pool = payload[0], payload[1]
+        deltas = payload[2] if len(payload) > 2 else ()
+        self._pressure[h.name] = float(pool.get("pressure", 0.0))
+        for uid, new_toks, total, _done in deltas:
+            rid = self._uid_rid.get((h.name, int(uid)))
+            if rid is None:
+                continue          # a re-routed request's stale copy
+            req = self._live.get(rid)
+            if req is None or int(total) <= req.streamed:
+                continue          # re-route replay: already emitted
+            fresh = new_toks[len(new_toks) - (int(total) - req.streamed):]
+            req.streamed = int(total)
+            self._emit("tokens", rid, np.asarray(fresh, np.int32))
+        for uid, toks in outs:
+            rid = self._uid_rid.pop((h.name, int(uid)), None)
+            if rid is None:
+                continue          # a re-routed request's stale copy
+            req = self._live.pop(rid, None)
+            if req is None:
+                continue
+            self._assigned[h.name].discard(rid)
+            self._tokens[h.name] -= req.cost
+            self._outputs[rid] = np.asarray(toks)
+            self._emit("finish", rid, self._outputs[rid])
+            self.stats_counters["finished"] += 1
+            e2e_ms = (self.clock() - req.accept_t) * 1e3
+            if self.slo is not None:
+                self.slo.record("router_e2e_ms", e2e_ms)
+            trace.event("router_finish", cat="serving", rid=rid,
+                        replica=h.name, e2e_ms=round(e2e_ms, 3),
+                        attempts=req.attempts)
+            if self._health.get(h.name) == "probation":
+                left = self._probation_left.get(h.name, 1) - 1
+                self._probation_left[h.name] = left
+                if left <= 0:
+                    self._probation_left.pop(h.name, None)
+                    self._revive_failures = 0
+                    self._set_state(h.name, "healthy",
+                                    why="probation complete")
+
+    # -- cancellation + graceful drain -----------------------------------
+
+    def _cancel_on_replica(self, h: Any, uid: int) -> None:
+        """Propagate an engine-level cancel (slot teardown, page +
+        tier release) to ``h``; best-effort on handles without the
+        optional ``cancel_async`` op (older fakes)."""
+        canceller = getattr(h, "cancel_async", None)
+        if canceller is None or not h.alive:
+            return
+        try:
+            canceller(uid, on_done=None)
+        except Exception as e:    # join of an older op faulted
+            self._on_replica_death(h, e)
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel one accepted request (the front door's
+        client-disconnect path): a queued request is lazily removed
+        from the heap; a dispatched one is torn down on its replica
+        (slot + pages + tiered spill state released mid-decode).
+        Returns False when ``rid`` is unknown or already finished."""
+        req = self._live.pop(rid, None)
+        if req is None:
+            return False
+        req.cancelled = True
+        self.stats_counters["cancelled"] += 1
+        # mid-handoff: the popped _live entry (and the uid mapping
+        # popped below) make the import fold cancel the fresh copy on
+        # the receiver — the transit marker just needs clearing
+        self._handoff_transit.pop(rid, None)
+        if rid in self._hedges and req.uid is None:
+            # two puts still race for this rid and neither has
+            # admitted: each admit fold sees req.cancelled (or the
+            # popped _live entry), cancels its copy and strips its own
+            # claim — stripping here too would double-count
+            pass
+        elif req.replica is not None:
+            self._assigned.get(req.replica, set()).discard(rid)
+            if req.replica in self._tokens:
+                self._tokens[req.replica] -= req.cost
+            h = next((x for x in self.handles
+                      if x.name == req.replica), None)
+            if req.uid is not None:
+                self._uid_rid.pop((req.replica, req.uid), None)
+                if h is not None:
+                    self._cancel_on_replica(h, req.uid)
+            # uid still None: the admit fold hasn't run — _on_admit
+            # sees req.cancelled and propagates then
+        self._emit("cancelled", rid, None)
+        trace.event("router_cancel", cat="serving", rid=rid,
+                    dispatched=req.replica is not None)
+        return True
+
+    def begin_drain(self) -> None:
+        """Graceful drain for rolling restarts: stop admitting (submit
+        raises :class:`DrainingRejection`); in-flight and queued work
+        keeps dispatching and finishing through ``pump``/``join``.
+        The front door maps the rejection to 503 + Retry-After and
+        hands prefix-cache-warm state over via ``retire_replica`` once
+        in-flight streams finish."""
+        if not self.accepting:
+            return
+        self.accepting = False
+        trace.event("router_drain_begin", cat="serving",
+                    outstanding=len(self._live), queued=len(self._heap))
+
+    def _on_replica_death(self, h: Any, exc: BaseException) -> None:
+        """Failure isolation — the breaker trip: mark the replica
+        dead, dump the flight ring (the postmortem rides the span
+        schema), and re-route its whole queue.  Full-prompt
+        resubmission preserves greedy bit-parity on the survivors (the
+        per-request ``streamed`` watermark suppresses the replayed
+        prefix); a SAMPLED request that already streamed cannot be
+        replayed without contradicting tokens the client holds, so it
+        fails loudly as a ``replica_death`` event instead.  With
+        revival enabled the trip also schedules a probe; a probation
+        replica dying counts toward the flap freeze."""
+        # dedup on the ROUTER's state machine, not the handle flag: a
+        # hung handle marks itself dead (`_abandon_wedged`) before the
+        # ReplicaHangError ever reaches us, and its orphans still need
+        # requeueing exactly once
+        if self._health.get(h.name) == "dead":
+            return
+        h.alive = False
+        was_probation = self._health.get(h.name) == "probation"
+        self._set_state(h.name, "dead", why=type(exc).__name__)
+        self._probation_left.pop(h.name, None)
+        self.stats_counters["replica_deaths"] += 1
+        orphans = sorted(self._assigned[h.name])
+        flight.dump_on_fault(
+            f"replica_death_{h.name}", exc,
+            extra={"replica": h.name,
+                   "requeued_rids": orphans,
+                   "policy": self.policy})
+        # sessions in prefill->decode transit whose RECEIVER just died:
+        # the blob is lost with it — fail or requeue from the full
+        # prompt (these rids sit in the SOURCE's assigned set, so the
+        # orphan loop below never sees them)
+        for rid, tr in list(self._handoff_transit.items()):
+            if tr["dst"] != h.name or tr["src"] == h.name:
+                continue
+            self._handoff_transit.pop(rid, None)
+            req = self._live.get(rid)
+            if req is None:
+                continue
+            src = tr["src"]
+            if req.uid is not None:
+                self._uid_rid.pop((src, req.uid), None)
+            self._assigned.get(src, set()).discard(rid)
+            if src in self._tokens:
+                self._tokens[src] -= req.cost
+            req.uid = None
+            req.replica = None
+            if req.streamed > 0 and req.kw.get("do_sample"):
+                self._live.pop(rid, None)
+                self.stats_counters["failed_replica_death"] += 1
+                self._emit("replica_death", rid, None)
+                trace.event("router_replica_death_fail", cat="serving",
+                            rid=rid, streamed=int(req.streamed))
+                continue
+            self.stats_counters["rerouted"] += 1
+            heapq.heappush(self._heap, (-req.priority, self._hseq, req))
+            self._hseq += 1
+        for rid in orphans:
+            tr = self._handoff_transit.get(rid)
+            if (tr is not None and tr["src"] == h.name
+                    and tr["dst"] != h.name):
+                # the session blob already left this replica: the
+                # in-flight import on tr["dst"] will claim the rid at
+                # its fold — requeueing here would run it twice
+                continue
+            req = self._live.get(rid)
+            if req is None:
+                continue
+            self._handoff_transit.pop(rid, None)
+            if req.uid is not None:
+                self._uid_rid.pop((h.name, req.uid), None)
+            self._tokens[h.name] -= req.cost
+            if req.replica is not None and req.replica != h.name:
+                continue          # the hedge's other copy owns it
+            hedge = self._hedges.get(rid)
+            if hedge is not None:
+                other = (hedge["target"] if h.name == hedge["orig"]
+                         else hedge["orig"])
+                oh = self._by_name(other)
+                if (oh is not None and oh.alive
+                        and other in hedge["pending"]):
+                    # the surviving copy's admit fold will claim it
+                    hedge["pending"].discard(h.name)
+                    req.uid = None
+                    req.replica = None
+                    continue
+                self._hedges.pop(rid, None)
+            req.uid = None
+            req.replica = None
+            if req.streamed > 0 and req.kw.get("do_sample"):
+                # replaying a sampled request elsewhere would emit a
+                # DIFFERENT continuation after tokens the client
+                # already consumed — fail it loudly and exactly once
+                self._live.pop(rid, None)
+                self.stats_counters["failed_replica_death"] += 1
+                self._emit("replica_death", rid, None)
+                trace.event("router_replica_death_fail", cat="serving",
+                            rid=rid, streamed=int(req.streamed))
+                continue
+            self.stats_counters["rerouted"] += 1
+            heapq.heappush(self._heap, (-req.priority, self._hseq, req))
+            self._hseq += 1
+        self._assigned[h.name] = set()
+        # affinity pins to a dead replica would strand their chains
+        for k in [k for k, v in self._affinity.items() if v == h.name]:
+            del self._affinity[k]
+        self._handoff_inflight.pop(h.name, None)
+        if self._roles.pop(h.name, None) is not None:
+            vals = set(self._roles.values())
+            if vals != {"prefill", "decode"}:
+                # the split lost one whole side: fall back to fused
+                # routing so the surviving role's traffic cannot be
+                # stranded behind an empty candidate set
+                self._roles = {}
+                for rq in self._live.values():
+                    rq.phase = None
+        try:
+            h.close()
+        except Exception:
+            pass
+        cfg = self.breaker
+        if cfg is not None and cfg.revive:
+            if was_probation:
+                self._revive_failures += 1
+                if self._revive_failures >= cfg.max_trips:
+                    self._freeze(f"replacement died in probation "
+                                 f"{self._revive_failures}x in a row")
+            if not self.frozen:
+                self._revive_pending += 1
+        if (not self._alive() and (self._heap or self._live)
+                and self._revive_pending <= 0):
+            raise RouterRejection(
+                "all replicas dead with requests outstanding") from exc
+
+    # -- elasticity: live grow / shrink ----------------------------------
+    # The serving half of elastic re-slicing: replicas join and leave a
+    # RUNNING router.  Growth admits a fresh handle (optionally prefix-
+    # warmed from a donor so sticky chains hit on arrival); retirement
+    # drains a replica without dropping work — parked sessions travel to
+    # a survivor in spill format, in-flight requests finish in place,
+    # and affinity pins re-home.
+
+    def add_replica(self, handle: Any, warm_from: Any = None,
+                    warm_limit: int = 8) -> None:
+        """Admit ``handle`` to the routed set.  ``warm_from`` names a
+        donor handle whose prefix-cache chains are replayed on the new
+        replica first (up to ``warm_limit`` longest chains), so sticky
+        traffic re-pinned here starts warm instead of cold."""
+        if any(h.name == handle.name for h in self.handles):
+            raise ValueError(f"replica {handle.name!r} already routed")
+        warmed = 0
+        if warm_from is not None:
+            warmed = self._warm_from(handle, warm_from, warm_limit)
+        self.handles.append(handle)
+        self._assigned[handle.name] = set()
+        self._tokens[handle.name] = 0
+        self._routed[handle.name] = 0
+        self._set_state(handle.name, "healthy", announce=False)
+        self.stats_counters["replicas_added"] += 1
+        trace.event("router_grow", cat="control", replica=handle.name,
+                    warmed_chains=warmed, replicas=len(self.handles))
+
+    def _warm_from(self, handle: Any, donor: Any, limit: int) -> int:
+        """Replay the donor's longest cached prefix chains as 1-token
+        generations on the new replica (outputs discarded) — the new
+        prefix cache ends up holding the same chains the donor's sticky
+        pins reference.  Best-effort: a donor without a prefix cache
+        (or with none populated) warms nothing."""
+        pfx = getattr(getattr(donor, "engine", None), "_pfx", None)
+        entries = getattr(pfx, "_entries", None)
+        if not entries:
+            return 0
+        parents = {e.parent for e in entries.values()}
+        chains: List[List[int]] = []
+        for key, ent in entries.items():
+            if key in parents:
+                continue          # interior node — a longer chain covers it
+            toks: List[int] = []
+            cur, ok = ent, True
+            while True:
+                toks[:0] = cur.tokens
+                if cur.parent == ROOT_HASH:
+                    break
+                cur = entries.get(cur.parent)
+                if cur is None:   # chain broken mid-walk (evicted link)
+                    ok = False
+                    break
+            if ok and toks:
+                chains.append(toks)
+        chains.sort(key=len, reverse=True)
+        warmed = 0
+        for toks in chains[:max(int(limit), 0)]:
+            p = np.asarray(toks, np.int32)
+            try:
+                handle.validate(p, 1)
+            except ValueError:
+                continue          # chain outgrew the new replica's limits
+            handle.put_async(p, {"max_new_tokens": 1}, self.clock(),
+                             on_done=None)
+            warmed += 1
+        if warmed:
+            handle.drain_async(on_done=None)
+            handle.join_all()     # discard warm-up outputs
+        return warmed
+
+    def retire_replica(self, name: str,
+                       target: Optional[str] = None) -> Dict[str, Any]:
+        """Drain ``name`` out of the routed set without losing work:
+        stop routing to it, hand its parked sessions (waiting queue,
+        spilled KV travelling in spill format with donor digests) to a
+        survivor, finish its in-flight requests in place, migrate its
+        affinity pins, then close and remove it.  Returns a summary
+        dict; raises :class:`RouterRejection` when no survivor exists."""
+        h = next((x for x in self.handles if x.name == name), None)
+        if h is None:
+            raise ValueError(f"unknown replica {name!r}")
+        survivors = [x for x in self.handles
+                     if x.alive and x.name != name
+                     and x.name not in self._retiring]
+        if not survivors:
+            raise RouterRejection(
+                f"cannot retire {name!r}: no surviving replica "
+                f"to absorb its sessions")
+        if target is not None:
+            tgt = next((x for x in survivors if x.name == target), None)
+            if tgt is None:
+                raise ValueError(f"target {target!r} is not a live, "
+                                 f"non-retiring survivor")
+        else:
+            tgt = min(survivors,
+                      key=lambda x: (self._tokens[x.name], x.idx))
+        self._retiring.add(name)
+        handed_off = 0
+        try:
+            # 1. parked-session handoff: settle queued admits so every
+            # waiting request has a uid, then export the waiting queue
+            sessions: List[Dict[str, Any]] = []
+            exporter = getattr(h, "export_parked_async", None)
+            if h.alive and exporter is not None:
+                try:
+                    h.join_all()
+                    box: List[Any] = []
+                    exporter(on_done=box.append)
+                    h.join_all()
+                    sessions = box[0] if box else []
+                except Exception as e:
+                    self._on_replica_death(h, e)
+                    sessions = []
+            if sessions and tgt.alive:
+                nbox: List[Any] = []
+                tgt.import_parked_async(sessions, on_done=nbox.append)
+                tgt.join_all()
+                new_uids = nbox[0] if nbox else []
+                for s, new_uid in zip(sessions, new_uids):
+                    rid = self._uid_rid.pop((name, int(s["uid"])), None)
+                    if rid is None:
+                        continue
+                    req = self._live.get(rid)
+                    self._uid_rid[(tgt.name, int(new_uid))] = rid
+                    self._assigned[name].discard(rid)
+                    self._assigned[tgt.name].add(rid)
+                    if req is not None:
+                        self._tokens[name] -= req.cost
+                        self._tokens[tgt.name] += req.cost
+                        req.replica = tgt.name
+                        req.uid = int(new_uid)
+                    handed_off += 1
+            # 2. finish the retiring replica's in-flight work in place
+            # (it takes no new assignments — _dispatchable excludes it)
+            while h.alive and self._assigned.get(name):
+                self.pump()
+                self.join()
+        finally:
+            self._retiring.discard(name)
+        # 3. re-home sticky pins so chains follow the sessions
+        moved_pins = 0
+        for k in [k for k, v in self._affinity.items() if v == name]:
+            self._affinity[k] = tgt.name
+            moved_pins += 1
+        try:
+            h.close()
+        except Exception:
+            pass
+        self.handles = [x for x in self.handles if x.name != name]
+        self._assigned.pop(name, None)
+        self._tokens.pop(name, None)
+        self._pressure.pop(name, None)
+        self._health.pop(name, None)
+        self._probation_left.pop(name, None)
+        self._handoff_inflight.pop(name, None)
+        if self._roles.pop(name, None) is not None:
+            vals = set(self._roles.values())
+            if vals != {"prefill", "decode"}:
+                self._roles = {}    # split lost a side: fused fallback
+                for rq in self._live.values():
+                    rq.phase = None
+        self.stats_counters["replicas_retired"] += 1
+        self.stats_counters["sessions_handed_off"] += handed_off
+        trace.event("router_shrink", cat="control", replica=name,
+                    target=tgt.name, handed_off=handed_off,
+                    moved_pins=moved_pins, replicas=len(self.handles))
+        return {"replica": name, "target": tgt.name,
+                "handed_off": handed_off, "moved_pins": moved_pins}
+
+    def join(self) -> None:
+        """Fold every outstanding replica op (blocking)."""
+        for h in list(self.handles):
+            if not h.alive:
+                continue
+            try:
+                h.join_all()
+            except Exception as e:
+                self._on_replica_death(h, e)
+
+    def drain(self) -> Dict[int, np.ndarray]:
+        """Run until every accepted request finishes (deferred ones
+        included — drain dispatches regardless of burn rate); returns
+        ``{rid: tokens}`` for everything not yet collected."""
+        self._draining = True
+        try:
+            while self._heap or self._live:
+                self.pump()
+                self.join()
+        finally:
+            self._draining = False
+        return self.get_outputs()
+
+    def get_outputs(self) -> Dict[int, np.ndarray]:
+        out, self._outputs = self._outputs, {}
+        return out
+
+    def close(self) -> None:
+        for h in self.handles:
+            try:
+                h.close()
+            except Exception:
+                pass
+
+    # -- observability ---------------------------------------------------
+
+    @property
+    def queued(self) -> int:
+        return len(self._heap)
+
+    @property
+    def outstanding(self) -> int:
+        """Accepted requests not yet finished (queued + dispatched)."""
+        return len(self._live)
+
+    def stats(self) -> Dict[str, Any]:
+        """Flat router summary for the example printout / smoke gate."""
+        out: Dict[str, Any] = {"policy": self.policy,
+                               "queue_cap": self.queue_cap,
+                               "replicas": len(self.handles),
+                               "replicas_alive": len(self._alive()),
+                               "queued": len(self._heap),
+                               "in_flight": len(self._live)}
+        out.update(self.stats_counters)
+        if self.breaker is not None:
+            out["frozen"] = self.frozen
+        if self._roles:
+            out["prefill_fraction"] = round(self.prefill_fraction, 4)
+            out["handoffs_in_transit"] = len(self._handoff_transit)
+        for h in self.handles:
+            out[f"routed_{h.name}"] = self._routed[h.name]
+            out[f"outstanding_tokens_{h.name}"] = self._tokens[h.name]
+            out[f"state_{h.name}"] = self._health.get(h.name, "healthy")
+            if h.name in self._roles:
+                out[f"role_{h.name}"] = self._roles[h.name]
+            if h.name in self._pressure:
+                out[f"pressure_{h.name}"] = self._pressure[h.name]
+        if self.slo is not None:
+            out["burn_rate_max"] = round(self._max_burn(), 4)
+        return out

@@ -1,0 +1,62 @@
+"""Unified tracing, flight recorder, and production metrics.
+
+One span schema + one metrics registry under every telemetry dialect
+in the tree:
+
+- ``trace`` — the process-wide :class:`~.tracer.Tracer` singleton.
+  ``with trace.span("swap_in_wait", bucket=3): ...`` when enabled;
+  a no-op singleton context manager (zero allocation) when disabled.
+- ``trace.export(path)`` — Chrome trace-event JSON for
+  https://ui.perfetto.dev.  With tail sampling armed
+  (``DSTPU_TRACE_SAMPLE=N``), only *promoted* request timelines (SLO
+  breach / error / deterministic 1-in-N) are exported.
+- ``flight.dump_on_fault(reason, exc)`` — dump the bounded span ring
+  (plus a cumulative metrics snapshot) to a self-describing JSONL on
+  hard-failure paths.
+- :class:`RequestLatencyTracker` — per-request TTFT/TPOT/queue-wait/
+  spill-stall percentiles for the serving engines; feeds the metrics
+  histograms automatically.
+- ``metrics.metrics`` — the :class:`~.metrics.MetricsRegistry`
+  singleton: counters/gauges/exponential histograms with per-thread
+  shards, ``export_text()`` (Prometheus exposition) and
+  ``export_json()``.
+- :class:`~.slo.SLOSet` / :class:`~.slo.TailSampler` — objectives like
+  ``"ttft_ms_p99 <= 150"`` with rolling-window error-budget burn rate,
+  and the tail-sampling promotion policy.
+- :mod:`~.profiler` — device seconds by kernel name from
+  ``torch.profiler`` traces (the host-vs-device split for bench rows).
+
+Enable knobs: ``DSTPU_TRACE=1`` (env) or
+``telemetry.configure(enabled=True)``; ``DSTPU_TRACE_BUFFER`` sizes
+the per-thread rings; ``DSTPU_TRACE_SAMPLE=N`` arms tail sampling;
+``DSTPU_TRACE_ANNOTATE=1`` bridges spans into ``torch.profiler`` device
+profiles; ``DSTPU_FLIGHT_DIR`` picks the flight-dump directory;
+``DSTPU_METRICS=0`` disables the metrics registry.
+
+Stdlib-only on import (torch is lazy) — safe to import from every layer.
+Counterpart of ``deepspeed_tpu/telemetry/``, copied and adapted; it
+imports nothing of the JAX package.
+"""
+from deepspeed_tpu_torch.telemetry.tracer import (Tracer, configure, get_tracer,
+                                            trace)
+from deepspeed_tpu_torch.telemetry import metrics
+from deepspeed_tpu_torch.telemetry.metrics import (MetricsRegistry,
+                                             exponential_buckets,
+                                             get_registry,
+                                             validate_metrics_doc)
+from deepspeed_tpu_torch.telemetry.slo import (Objective, SLOSet, TailSampler,
+                                         parse_objective)
+from deepspeed_tpu_torch.telemetry import flight
+from deepspeed_tpu_torch.telemetry.flight import (dump_on_fault, last_dump_path,
+                                            read_flight_record)
+from deepspeed_tpu_torch.telemetry.requests import (RequestLatencyTracker,
+                                              percentile)
+from deepspeed_tpu_torch.telemetry import profiler
+
+__all__ = ["Tracer", "trace", "get_tracer", "configure", "flight",
+           "dump_on_fault", "last_dump_path", "read_flight_record",
+           "RequestLatencyTracker", "percentile",
+           "metrics", "MetricsRegistry", "exponential_buckets",
+           "get_registry", "validate_metrics_doc",
+           "Objective", "SLOSet", "TailSampler", "parse_objective",
+           "profiler"]

@@ -1,23 +1,36 @@
 """Per-request serving latency: TTFT / TPOT / queue-wait / spill-stall.
 
-Copy of ``deepspeed_tpu/telemetry/requests.py`` without its
-metrics-registry feed and the replica and phase labels that only feed it
-(they come with the telemetry port, ROADMAP A10).
-The engine feeds the tracker from its lifecycle hooks (submit -> admit ->
-token folds -> reap); ``summary()`` derives nearest-rank p50/p90/p99 over
-completed requests and returns a FLAT dict.
+The ragged engine reports throughput (tok/s) but scale-out serving is
+gated on per-request percentiles — a batch that sustains 20k tok/s can
+still starve one request behind a spill storm.  The engine feeds this
+tracker from its lifecycle hooks (submit → admit → token folds →
+reap); ``summary()`` derives nearest-rank p50/p90/p99 over completed
+requests and returns a FLAT dict (``MonitorMaster.write_serving_health``
+flattens exactly one level of sub-dicts, so the shape must already be
+scalar-valued).
 
-Token timestamps are taken when the host folds device tokens back into
-request state: the host cannot observe a token earlier than that.
+Semantics under the pipelined host path: token timestamps are taken at
+HARVEST (when the host folds device tokens back into request state) —
+the honest host-visible latency, since the deferred-harvest pipeline
+means the host cannot observe a token earlier than that.
 
-- ``ttft``: first harvested token - submit (clamped at submit)
-- ``tpot``: (last - first token) / (tokens - 1), requests with >= 2 tokens
-- ``queue_wait``: first admit - submit
-- ``router_queue_wait``: first admit - router accept (requests that came
-  through a scale-out router; its own series)
+- ``ttft``: first harvested token − submit (clamped at submit — a
+  prefix-cache hit whose prefill is fully skipped can emit in the same
+  scheduler tick it was admitted; the sample must be ≥ 0, never
+  missing or negative)
+- ``tpot``: (last − first token) / (tokens − 1), requests with ≥2 tokens
+- ``queue_wait``: first admit − submit
+- ``router_queue_wait``: first admit − router accept (only for
+  requests that arrived through the scale-out router; its own series,
+  so router queuing is never folded into TTFT)
 - ``spill_stall``: accumulated restore-bracket seconds per request
-- ``prefill``: admit -> prefill-complete span, plus per-request counts of
-  prefill tokens computed vs skipped via a prefix cache
+- ``prefill``: admit → prefill-complete span, plus per-request counts
+  of prefill tokens actually computed vs skipped via the prefix cache
+  (a full prefix hit records a ~zero-length span, not a hole)
+
+The tracker is always on (a few dict ops per request per harvest —
+noise next to a device dispatch), independent of the tracer's enabled
+flag, so the bench ragged row always carries ``request_latency``.
 """
 from __future__ import annotations
 
@@ -25,7 +38,24 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional
 
+from deepspeed_tpu_torch.telemetry import metrics as _metrics_mod
+
 __all__ = ["RequestLatencyTracker", "percentile"]
+
+# Request-latency histograms (ms buckets).  Families are registered
+# lazily on first observation so an import alone never mutates the
+# registry; children are cached per tracker.
+_HIST_SPECS = {
+    "ttft_ms": "Time to first harvested token (ms)",
+    "tpot_ms": "Per-token decode latency after the first token (ms)",
+    "queue_wait_ms": "Submit to first admission (ms)",
+    "router_queue_wait_ms":
+        "Router accept to replica slot admission (ms)",
+    "spill_stall_ms": "Restore-bracket stall attributed to the request (ms)",
+    "prefill_ms": "Admission to prefill-complete (ms)",
+    "handoff_stall_ms":
+        "Prefill-replica export to decode-replica install (ms)",
+}
 
 
 def percentile(values: List[float], q: float) -> Optional[float]:
@@ -71,14 +101,63 @@ class RequestLatencyTracker:
     PCTS = (50, 90, 99)
 
     def __init__(self, clock: Callable[[], float] = time.perf_counter,
-                 max_completed: int = 4096):
+                 max_completed: int = 4096,
+                 registry: Any = "auto", replica: str = ""):
         self.clock = clock
+        # scale-out serving: one tracker per replica engine; the label
+        # keeps their registry children apart (solo engines keep the
+        # empty label value)
+        self.replica = str(replica)
+        # disaggregated serving: the replica's ROLE ("prefill"/"decode",
+        # "" when fused) — folded into the histogram label so TTFT/TPOT
+        # attribute to the right side of the split
+        self.phase = ""
         self._live: Dict[Any, _Rec] = {}
         self._done: deque = deque(maxlen=max_completed)
         self.submitted = 0
         self.finished = 0
         self.cancelled = 0
         self.handed_off = 0
+        # "auto": the process registry singleton (respects its enabled
+        # flag); None/False: no metrics feed; else an injected registry.
+        self._registry = registry
+        self._hists: Dict[str, Any] = {}
+        self._hist_fams: Dict[str, Any] = {}
+
+    def set_replica(self, replica: str) -> None:
+        """Re-label after construction (ReplicaSet assigns indices);
+        drops cached children so future observations carry the label."""
+        self.replica = str(replica)
+        self._hists.clear()
+        self._hist_fams.clear()
+
+    def set_phase(self, phase: str) -> None:
+        """Tag this tracker with the replica's serving role (``""`` /
+        ``"prefill"`` / ``"decode"``); future observations land under a
+        ``replica/phase`` label value so the two roles' TTFT/TPOT stay
+        separate series."""
+        self.phase = str(phase)
+        self._hists.clear()
+        self._hist_fams.clear()
+
+    def _observe(self, name: str, value_ms: float) -> None:
+        reg = self._registry
+        if reg == "auto":
+            reg = _metrics_mod.metrics
+        if not reg or not reg.enabled:
+            return
+        h = self._hists.get(name)
+        if h is None or self._hist_fams.get(name) is not reg.get(
+                f"dstpu_request_{name}"):
+            fam = reg.histogram(f"dstpu_request_{name}", _HIST_SPECS[name],
+                                labels=("replica",),
+                                buckets=_metrics_mod.MS_BUCKETS)
+            self._hist_fams[name] = fam
+            label = (f"{self.replica}/{self.phase}" if self.phase
+                     else self.replica)
+            h = fam.labels(replica=label)
+            self._hists[name] = h
+        h.observe(value_ms)
 
     # -- lifecycle hooks (called by the engine) --------------------------
 
@@ -87,16 +166,20 @@ class RequestLatencyTracker:
         self.submitted += 1
 
     def note_router_accept(self, uid: Any, accept_t: float) -> None:
-        """Router-level accept timestamp (same clock as the tracker)."""
+        """Router-level accept timestamp (same clock as the tracker).
+        The router calls this right after ``put_request`` returns the
+        replica uid; ``router_queue_wait_ms`` (accept -> replica slot
+        admission) then lands as its OWN series, so router queuing is
+        never silently folded into TTFT."""
         r = self._live.get(uid)
         if r is not None and r.router_accept_t is None:
             r.router_accept_t = float(accept_t)
 
     def on_admit(self, uid: Any) -> None:
         r = self._live.get(uid)
-        if r is not None and r.admit_t is None:   # first admit only:
+        if r is not None and r.admit_t is None:   # first admit only —
             r.admit_t = self.clock()              # re-admits after evict
-                                                  # are not queue wait
+            pass                                  # are not queue wait
 
     def on_tokens(self, uid: Any, total_tokens: int) -> None:
         """``total_tokens`` is the request's cumulative generated count
@@ -104,6 +187,9 @@ class RequestLatencyTracker:
         r = self._live.get(uid)
         if r is None or total_tokens <= r.tokens:
             return
+        # clamp at submit so a fully-skipped prefill (prefix-cache hit
+        # emitting in its admission tick) records TTFT >= 0 even under
+        # a coarse injected clock
         now = max(self.clock(), r.submit_t)
         if r.first_token_t is None:
             r.first_token_t = now
@@ -112,9 +198,10 @@ class RequestLatencyTracker:
 
     def on_prefill_done(self, uid: Any, computed_tokens: int,
                         cached_tokens: int = 0) -> None:
-        """Prefill finished for ``uid``: ``computed_tokens`` went through
-        the model, ``cached_tokens`` were skipped.  First call wins
-        (evict/re-prefill churn keeps the original span)."""
+        """Prefill finished for ``uid``: ``computed_tokens`` went
+        through the model, ``cached_tokens`` were skipped via the
+        prefix cache.  First call wins (evict/re-prefill churn keeps
+        the original span)."""
         r = self._live.get(uid)
         if r is None or r.prefill_end_t is not None:
             return
@@ -133,50 +220,73 @@ class RequestLatencyTracker:
             r.spill_stall_s += float(seconds)
 
     def on_handoff_stall(self, uid: Any, seconds: float) -> None:
+        """Receiver-side handoff stall: prefill-replica export to
+        decode-replica install, stamped on the DECODE replica's record
+        (the stall delays that replica's re-admission of the request)."""
         r = self._live.get(uid)
         if r is not None:
             r.handoff_stall_s += float(seconds)
             r.handoffs += 1
 
     def on_handoff_out(self, uid: Any) -> Optional[Dict[str, Any]]:
-        """Donor-side handoff: closes the record here."""
+        """Donor-side handoff: the request leaves this (prefill-role)
+        replica after its first token.  Closes the record here —
+        TTFT/queue-wait/prefill attribute to the prefill role; the
+        decode replica's fresh record owns TPOT from its own import."""
         r = self._live.pop(uid, None)
         if r is None:
             return None
         r.finish_t = self.clock()
         self._done.append(r)
         self.handed_off += 1
-        return self._rec_summary(r)
+        rec = self._rec_summary(r)
+        for name in ("ttft_ms", "queue_wait_ms", "router_queue_wait_ms",
+                     "prefill_ms"):
+            v = rec.get(name)
+            if v is not None:
+                self._observe(name, v)
+        return rec
 
     def on_error(self, uid: Any) -> None:
+        """A recoverable per-request fault (e.g. KV restore failure
+        forcing re-prefill) — feeds the tail sampler's error arm."""
         r = self._live.get(uid)
         if r is not None:
             r.errors += 1
 
     def on_cancel(self, uid: Any) -> None:
-        """Cancelled mid-flight: drop the live record WITHOUT feeding the
-        percentile series — a cancelled request's truncated TTFT/TPOT
-        would skew the tails.  Only the count survives."""
+        """Cancelled mid-flight (client disconnect, deadline): drop the
+        live record WITHOUT feeding the percentile series — a cancelled
+        request's truncated TTFT/TPOT would skew the tails.  Only the
+        count survives."""
         if self._live.pop(uid, None) is not None:
             self.cancelled += 1
 
     def on_finish(self, uid: Any) -> Optional[Dict[str, Any]]:
-        """Completes ``uid`` and returns its summary record — None if the
-        uid was never submitted."""
+        """Completes ``uid`` and returns its summary record (the SLO /
+        tail-sampling input) — None if the uid was never submitted."""
         r = self._live.pop(uid, None)
         if r is None:
             return None
         r.finish_t = self.clock()
         self._done.append(r)
         self.finished += 1
-        return self._rec_summary(r)
+        rec = self._rec_summary(r)
+        for name in ("ttft_ms", "tpot_ms", "queue_wait_ms",
+                     "router_queue_wait_ms", "spill_stall_ms",
+                     "prefill_ms", "handoff_stall_ms"):
+            v = rec.get(name)
+            if v is not None:
+                self._observe(name, v)
+        return rec
 
     # -- derived metrics -------------------------------------------------
 
     @staticmethod
     def _rec_summary(r: _Rec) -> Dict[str, Any]:
         """Per-request scalars; fields absent from the lifecycle stay
-        None."""
+        None (``spill_stall_ms`` only exists for requests that actually
+        spilled, matching the ``summary()`` series filters)."""
         ttft = ((r.first_token_t - r.submit_t) * 1e3
                 if r.first_token_t is not None else None)
         tpot = ((r.last_token_t - r.first_token_t) * 1e3 / (r.tokens - 1)

@@ -1,0 +1,380 @@
+"""Span-based structured tracer — the single substrate under all
+existing telemetry dialects.
+
+Counterpart of ``deepspeed_tpu/telemetry/tracer.py``, copied; its optional
+profiler bridge annotates ``torch.profiler`` traces where the reference
+annotates ``jax.profiler`` ones.
+
+Design constraints (the reason this is NOT just another timer class):
+
+- **Near-zero cost when disabled.**  ``trace.span(...)`` on a disabled
+  tracer returns a process-wide singleton no-op context manager: no
+  allocation, no string formatting, no clock read.  Adapters in the
+  legacy telemetry (``HostStageStats``, ``StageTimers``,
+  ``utils/timer.py``) guard their re-emit with ``if trace.enabled``,
+  so tracing off means the hot paths behave byte-for-byte as before.
+- **Thread-aware.**  Every span/event lands in a bounded per-thread
+  ring (``collections.deque(maxlen=...)``); threads never contend on a
+  lock in the record path (the lock only guards ring *registration*).
+  The serving host path, AIO callback threads, and the SDC digest pool
+  each get their own timeline row in the exported trace.
+- **Injectable clock.**  ``configure(clock=...)`` swaps the monotonic
+  source so tests drive deterministic timestamps.  The default is
+  ``time.perf_counter`` — the same clock every legacy dialect already
+  uses, which lets adapters hand us externally bracketed intervals
+  (``add_complete``) without a unit conversion.
+- **Standard viewer format.**  ``export(path)`` writes Chrome
+  trace-event JSON (the ``{"traceEvents": [...]}`` object form) that
+  opens directly in https://ui.perfetto.dev or ``chrome://tracing``.
+- **Flight-recorder substrate.**  The bounded rings double as the
+  postmortem buffer: ``snapshot()`` hands the recent timeline to
+  ``telemetry.flight.dump_on_fault`` on hard-failure paths.
+
+The module is stdlib-only (``torch`` imported lazily for the optional
+``record_function`` bridge) so every layer of the codebase — comm
+watchdog, resilience guards, swap path, serving engines — can import
+it without cycles.
+"""
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional
+
+__all__ = ["Tracer", "get_tracer", "configure", "trace"]
+
+DEFAULT_BUFFER = 8192          # spans+events retained per thread
+_SCHEMA_VERSION = 1
+
+
+class _NullSpan:
+    """Singleton no-op context manager — the disabled-tracer fast path.
+
+    ``__slots__ = ()`` + module-level singleton means a disabled
+    ``trace.span(...)`` call allocates nothing and formats nothing.
+    """
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    """A live span: records one complete ("X") event on exit."""
+
+    __slots__ = ("_tracer", "name", "cat", "attrs", "t0", "_ann")
+
+    def __init__(self, tracer: "Tracer", name: str, cat: str,
+                 attrs: Optional[Dict[str, Any]]):
+        self._tracer = tracer
+        self.name = name
+        self.cat = cat
+        self.attrs = attrs
+        self.t0 = 0.0
+        self._ann = None
+
+    def __enter__(self):
+        tr = self._tracer
+        self.t0 = tr.clock()
+        if tr.annotate:
+            ann = tr._annotation_cls()
+            if ann is not None:
+                self._ann = ann(self.name)
+                self._ann.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        tr = self._tracer
+        t1 = tr.clock()
+        if self._ann is not None:
+            self._ann.__exit__(exc_type, exc, tb)
+        attrs = self.attrs
+        if exc_type is not None:
+            attrs = dict(attrs) if attrs else {}
+            attrs["error"] = exc_type.__name__
+        tr._append({
+            "ph": "X", "name": self.name, "cat": self.cat,
+            "ts": tr._us(self.t0), "dur": max(0.0, (t1 - self.t0) * 1e6),
+            "args": attrs or {},
+        })
+        return False
+
+
+class Tracer:
+    """Thread-aware span recorder with bounded per-thread rings.
+
+    One process-wide instance lives at ``telemetry.trace``; tests build
+    private instances with injected clocks.  All mutation of an
+    existing instance goes through :meth:`configure` so modules that
+    did ``from deepspeed_tpu_torch.telemetry import trace`` at import time
+    observe runtime enable/disable.
+    """
+
+    def __init__(self, enabled: bool = False,
+                 buffer_size: int = DEFAULT_BUFFER,
+                 clock: Callable[[], float] = time.perf_counter,
+                 annotate: bool = False,
+                 sampling: bool = False,
+                 sample_n: int = 0,
+                 retained_size: int = 4 * DEFAULT_BUFFER):
+        self.enabled = bool(enabled)
+        self.buffer_size = int(buffer_size)
+        self.clock = clock
+        self.annotate = bool(annotate)
+        # Tail sampling: record always-on into the per-thread staging
+        # rings, but treat them as scratch — only spans *promoted* (the
+        # request breached an SLO, errored, or fell in the 1-in-N
+        # sample) survive into the bounded retained ring that export()
+        # writes.  ``sample_n`` is the engine-consumed default N.
+        self.sampling = bool(sampling)
+        self.sample_n = int(sample_n)
+        self.retained_size = int(retained_size)
+        self._retained: deque = deque(maxlen=self.retained_size)
+        self._epoch = clock()
+        self._lock = threading.Lock()
+        self._rings: Dict[int, deque] = {}
+        self._thread_names: Dict[int, str] = {}
+        self._local = threading.local()
+        self._annotation = None      # resolved lazily, cached
+
+    # -- configuration ---------------------------------------------------
+
+    def configure(self, enabled: Optional[bool] = None,
+                  buffer_size: Optional[int] = None,
+                  clock: Optional[Callable[[], float]] = None,
+                  annotate: Optional[bool] = None,
+                  sampling: Optional[bool] = None,
+                  sample_n: Optional[int] = None,
+                  retained_size: Optional[int] = None) -> "Tracer":
+        """Mutate in place (never replace — importers hold references)."""
+        with self._lock:
+            if clock is not None:
+                self.clock = clock
+                self._epoch = clock()
+            if buffer_size is not None and buffer_size != self.buffer_size:
+                self.buffer_size = int(buffer_size)
+                for tid, ring in list(self._rings.items()):
+                    self._rings[tid] = deque(ring, maxlen=self.buffer_size)
+                self._local = threading.local()
+            if annotate is not None:
+                self.annotate = bool(annotate)
+            if sampling is not None:
+                self.sampling = bool(sampling)
+            if sample_n is not None:
+                self.sample_n = int(sample_n)
+            if retained_size is not None \
+                    and int(retained_size) != self.retained_size:
+                self.retained_size = int(retained_size)
+                self._retained = deque(self._retained,
+                                       maxlen=self.retained_size)
+            if enabled is not None:
+                self.enabled = bool(enabled)
+        return self
+
+    # -- record path -----------------------------------------------------
+
+    def span(self, name: str, cat: str = "host", **attrs):
+        """``with trace.span("swap_in_wait", bucket=3): ...``
+
+        Disabled: returns the shared no-op singleton (no allocation)."""
+        if not self.enabled:
+            return _NULL_SPAN
+        return _Span(self, name, cat, attrs or None)
+
+    def event(self, name: str, cat: str = "host", **attrs) -> None:
+        """Instant event (Chrome ``ph: "i"``) — request lifecycle marks."""
+        if not self.enabled:
+            return
+        self._append({"ph": "i", "name": name, "cat": cat, "s": "t",
+                      "ts": self._us(self.clock()), "args": attrs or {}})
+
+    def add_complete(self, name: str, start: float, dur_s: float,
+                     cat: str = "host", **attrs) -> None:
+        """Record an externally bracketed interval (the adapter entry
+        point for legacy timers that already hold t0/dt from the SAME
+        clock as the tracer — ``time.perf_counter`` by default)."""
+        if not self.enabled:
+            return
+        self._append({"ph": "X", "name": name, "cat": cat,
+                      "ts": self._us(start),
+                      "dur": max(0.0, dur_s * 1e6), "args": attrs or {}})
+
+    def _append(self, ev: Dict[str, Any]) -> None:
+        ring = getattr(self._local, "ring", None)
+        if ring is None or ring.maxlen != self.buffer_size:
+            t = threading.current_thread()
+            with self._lock:
+                ring = self._rings.get(t.ident)
+                if ring is None or ring.maxlen != self.buffer_size:
+                    ring = deque(maxlen=self.buffer_size)
+                    self._rings[t.ident] = ring
+                self._thread_names[t.ident] = t.name
+            self._local.ring = ring
+        ev["tid"] = threading.get_ident()
+        ring.append(ev)
+
+    def _us(self, t: float) -> float:
+        return (t - self._epoch) * 1e6
+
+    def _annotation_cls(self):
+        """``torch.profiler.record_function`` when available, else None —
+        bridges host spans into the device profile timeline."""
+        if self._annotation is None:
+            try:
+                from torch.profiler import record_function
+                self._annotation = record_function
+            except Exception:
+                self._annotation = False
+        return self._annotation or None
+
+    # -- read path -------------------------------------------------------
+
+    def snapshot(self) -> List[Dict[str, Any]]:
+        """Recent spans+events across all threads, ts-sorted (the
+        flight-recorder view — cheap enough for a failure path)."""
+        with self._lock:
+            rings = [(tid, list(ring)) for tid, ring in self._rings.items()]
+        out: List[Dict[str, Any]] = []
+        for _tid, evs in rings:
+            out.extend(evs)
+        out.sort(key=lambda e: e.get("ts", 0.0))
+        return out
+
+    # -- tail sampling ---------------------------------------------------
+
+    def promote(self, uid: Any, t0: float, t1: float, reason: str = "",
+                slack_s: float = 0.05) -> int:
+        """Copy one request's timeline from the staging rings into the
+        retained ring (tail-based sampling: called at reap time when the
+        request breached an SLO, errored, or won the 1-in-N draw).
+
+        ``t0``/``t1`` are raw clock seconds (the tracker's ``submit_t``
+        / ``finish_t`` — same ``perf_counter`` clock as the tracer);
+        ``slack_s`` widens the window so the reap event recorded just
+        after ``on_finish`` still lands.  Selection keeps every span
+        overlapping the window EXCEPT request-lifecycle events that
+        belong to *other* uids — so a promoted slow request carries the
+        shared serving spans (prefill chunks, decode blocks it rode in)
+        but not its neighbours' lifecycles, and un-promoted fast
+        requests leave no lifecycle marks in the retained ring.
+        Returns the number of events promoted."""
+        t0_us = self._us(t0) - slack_s * 1e6
+        t1_us = self._us(t1) + slack_s * 1e6
+        kept: List[Dict[str, Any]] = []
+        for ev in self.snapshot():
+            ts = ev.get("ts", 0.0)
+            end = ts + ev.get("dur", 0.0)
+            if end < t0_us or ts > t1_us:
+                continue
+            if ev.get("cat") == "request":
+                args = ev.get("args") or {}
+                if args.get("uid") != uid and \
+                        uid not in (args.get("uids") or ()):
+                    continue
+            kept.append(ev)
+        marker = {"ph": "i", "name": "promoted", "cat": "sampling",
+                  "s": "t", "ts": self._us(self.clock()),
+                  "tid": threading.get_ident(),
+                  "args": {"uid": uid, "reason": reason,
+                           "events": len(kept)}}
+        with self._lock:
+            self._retained.extend(kept)
+            self._retained.append(marker)
+        return len(kept)
+
+    def retained_snapshot(self) -> List[Dict[str, Any]]:
+        """Promoted events (ts-sorted) — what export() writes when
+        sampling is armed."""
+        with self._lock:
+            out = list(self._retained)
+        out.sort(key=lambda e: e.get("ts", 0.0))
+        return out
+
+    def clear(self) -> None:
+        with self._lock:
+            self._rings.clear()
+            self._thread_names.clear()
+            self._local = threading.local()
+            self._retained.clear()
+
+    def export(self, path: str) -> str:
+        """Write Chrome trace-event JSON (object form) to ``path``.
+
+        Opens in https://ui.perfetto.dev / ``chrome://tracing``.  Adds
+        process/thread-name metadata events so timeline rows are
+        labelled.  With tail sampling armed, only the *promoted*
+        timeline (the retained ring) is written — the staging rings are
+        scratch."""
+        pid = os.getpid()
+        events: List[Dict[str, Any]] = [{
+            "ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+            "ts": 0, "args": {"name": f"deepspeed_tpu_torch pid={pid}"},
+        }]
+        with self._lock:
+            names = dict(self._thread_names)
+        for tid, tname in sorted(names.items()):
+            events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                           "tid": tid, "ts": 0, "args": {"name": tname}})
+        body = self.retained_snapshot() if self.sampling else self.snapshot()
+        for ev in body:
+            ev = dict(ev)
+            ev["pid"] = pid
+            events.append(ev)
+        doc = {"traceEvents": events, "displayTimeUnit": "ms",
+               "otherData": {"schema": "deepspeed_tpu_torch.telemetry",
+                             "version": _SCHEMA_VERSION}}
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(doc, f)
+        return path
+
+
+# ---------------------------------------------------------------------------
+# Process-wide singleton
+# ---------------------------------------------------------------------------
+
+def _env_truthy(name: str) -> bool:
+    return os.environ.get(name, "").strip().lower() in ("1", "true", "yes",
+                                                        "on")
+
+
+def _env_sample_n() -> Optional[int]:
+    """``DSTPU_TRACE_SAMPLE=N`` arms tail sampling with a 1-in-N random
+    arm (N=0: promote only on SLO breach / error).  Unset: disarmed."""
+    raw = os.environ.get("DSTPU_TRACE_SAMPLE", "").strip()
+    if not raw:
+        return None
+    try:
+        return max(0, int(raw))
+    except ValueError:
+        return None
+
+
+_SAMPLE_N = _env_sample_n()
+
+trace = Tracer(
+    enabled=_env_truthy("DSTPU_TRACE") or _SAMPLE_N is not None,
+    buffer_size=int(os.environ.get("DSTPU_TRACE_BUFFER", DEFAULT_BUFFER)),
+    annotate=_env_truthy("DSTPU_TRACE_ANNOTATE"),
+    sampling=_SAMPLE_N is not None,
+    sample_n=_SAMPLE_N or 0,
+)
+
+
+def get_tracer() -> Tracer:
+    return trace
+
+
+def configure(**kw) -> Tracer:
+    """``telemetry.configure(enabled=True, buffer_size=..., clock=...,
+    annotate=...)`` — mutates the process singleton in place."""
+    return trace.configure(**kw)

@@ -28,9 +28,11 @@ one op whose waiter synchronizes the block's ``torch.cuda.Event``.
 The KV tiers (:mod:`~deepspeed_tpu_torch.inference.kv_tiering`) are the
 substrate's second user: their NVMe write-back and read-ahead windows
 and the digest side pool (:mod:`~deepspeed_tpu_torch.resilience.sdc`).
-The reference's trace-span and metrics-histogram hooks arrive with the
-telemetry port, and its ``ready`` and ``abandon`` probes with their user,
-the replica feeds (A10).  The substrate has no worker thread of its own:
+The replica feeds of :mod:`~deepspeed_tpu_torch.serving.replica_set` are
+its third, with :meth:`BoundedAsyncStage.abandon` for a wedged replica.
+With the tracer on, every bracket lands as a span, and with the metrics
+registry on, in the ``dstpu_stage_seconds`` histogram.  The substrate
+has no worker thread of its own:
 asynchrony comes from what the caller submits (CUDA work already
 enqueued, AIO ops, futures); the substrate only bounds, times and drains
 it.
@@ -42,15 +44,35 @@ from collections import OrderedDict
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from deepspeed_tpu_torch.telemetry import trace
+from deepspeed_tpu_torch.telemetry.metrics import metrics as _metrics
+
 __all__ = ["BoundedAsyncStage", "HostBufferPool", "StageTimers"]
 
 
 class StageTimers:
-    """Accumulating wall timers and counters, one bucket per stage name."""
+    """Accumulating wall timers and counters, one bucket per stage name.
+    With the tracer enabled every bracket also lands as a span (``cat``
+    labels the subsystem's row in the exported trace)."""
 
-    def __init__(self) -> None:
+    def __init__(self, cat: str = "host") -> None:
         self.seconds: Dict[str, float] = {}
         self.counters: Dict[str, int] = {}
+        self.cat = cat
+        self._hists: Dict[str, Any] = {}
+        self._hist_fam = None
+
+    def _hist(self, name: str):
+        h = self._hists.get(name)
+        if h is None or self._hist_fam is not _metrics.get(
+                "dstpu_stage_seconds"):
+            self._hist_fam = _metrics.histogram(
+                "dstpu_stage_seconds",
+                "Async-pipeline stage bracket durations (s)",
+                labels=("cat", "stage"))
+            h = self._hist_fam.labels(cat=self.cat, stage=name)
+            self._hists[name] = h
+        return h
 
     @contextmanager
     def stage(self, name: str):
@@ -58,8 +80,18 @@ class StageTimers:
         try:
             yield
         finally:
-            self.seconds[name] = (self.seconds.get(name, 0.0) +
-                                  time.perf_counter() - t0)
+            self.add(name, time.perf_counter() - t0, t0)
+
+    def add(self, name: str, seconds: float,
+            t0: Optional[float] = None) -> None:
+        """Account an externally bracketed interval (``t0``: its start on
+        ``time.perf_counter``'s clock, now - ``seconds`` if not given)."""
+        self.seconds[name] = self.seconds.get(name, 0.0) + seconds
+        if trace.enabled:
+            trace.add_complete(name, time.perf_counter() - seconds
+                               if t0 is None else t0, seconds, cat=self.cat)
+        if _metrics.enabled:
+            self._hist(name).observe(seconds)
 
     def count(self, name: str, n: int = 1) -> None:
         self.counters[name] = self.counters.get(name, 0) + n
@@ -69,6 +101,10 @@ class StageTimers:
                                for k, v in sorted(self.seconds.items())}
         out.update(sorted(self.counters.items()))
         return out
+
+    def reset(self) -> None:
+        self.seconds.clear()
+        self.counters.clear()
 
 
 class BoundedAsyncStage:
@@ -97,6 +133,9 @@ class BoundedAsyncStage:
 
     def keys(self) -> List[Any]:
         return list(self._inflight)
+
+    def __contains__(self, key: Any) -> bool:
+        return key in self._inflight
 
     def submit(self, key: Any, op: Any,
                on_done: Optional[Callable[[Any], Any]] = None) -> None:
@@ -140,6 +179,15 @@ class BoundedAsyncStage:
         ``on_done``): for an op whose backing device just failed, which
         joining could wedge.  Returns whether the key was in flight."""
         return self._inflight.pop(key, None) is not None
+
+    def abandon(self) -> int:
+        """Discard every in-flight op WITHOUT joining (no waiter, no
+        ``on_done``): the hung-replica escape hatch, since a wedged
+        worker's futures may never resolve.  Returns the ops dropped.
+        Only correct when their side effects are written off."""
+        n = len(self._inflight)
+        self._inflight.clear()
+        return n
 
     def _finish(self, ent: Tuple[Any, Any]) -> Any:
         op, on_done = ent

@@ -7,8 +7,9 @@ event on the current stream at ``start`` and ``stop`` and reads the
 elapsed device time only when asked (``elapsed``, ``mean``), so timing a
 step adds no host sync to it; on the CPU it uses the host clock.  The
 engine's timer names are the JAX engine's (``batch_prep``, ``step``).  The
-tracer spans and the metrics histogram of the JAX version wait for the
-telemetry port (ROADMAP A10).
+tracer spans and the metrics histogram of the JAX version are not wired:
+its times are device times read when asked, which a host span cannot
+carry as the reference's host times do (ROADMAP A10b).
 """
 from __future__ import annotations
 

@@ -7,6 +7,7 @@
                                              [--cuda-graph]
                                              [--spec ngram|draft]
                                              [--long-context]
+                                             [--disagg]
                                              [--root DIR] [--out FILE]
 
 Builds ``llama3-8b`` at full width and depth with random seeded weights
@@ -51,6 +52,22 @@ of every parked group), ``h2d`` (each (layer, group) slice's copies
 into the device ring), ``staged_stats`` (the chunk dispatches, less the
 ``h2d`` nested in them), ``finish`` (the 32 blocks over the pool with
 the carry), ``head`` (norm, LM head and sampling) and ``park``.
+
+``--disagg`` (v2, graphs and the pipeline on, `chip_smoke.py` phase
+23's settings): 16 requests, 8 x 32 and 8 x 1024 tokens + 64 each,
+through a fused engine and through a prefill and a decode replica
+behind the router (``set_roles``), the replicas on their own threads
+over the same module, each with 192 pinned host pages.  Each side runs
+the traffic once to capture its graphs, then once timed without the
+profiler and once traced.  The timed run clocks every router round
+(``pump`` then ``join``) and every replica op (``step``,
+``export_handoff``, ``import_handoff``) on the host: per replica its
+busy ms by op, and the ms it sat idle inside rounds it worked in,
+held by the round's join while the other replica's op ran; and the
+rounds' ms beside the sum over rounds of the busier replica's ms.  The
+traced run gives the device busy share and the top kernels of both
+replicas together (the profiler's host ranges follow only the thread
+that started it; the device activity is the whole process's).
 
 With quantized weights the v2 windows' device time is also split by
 kernel class, in all and per tick, with launches a tick: the W8A8 GEMM
@@ -254,6 +271,128 @@ def profile_v2(top: int, weights: str, graph: bool, spec=None):
 
 LC_RANGES = ("pagein", "h2d", "staged_stats", "finish", "head", "park")
 
+DISAGG_OPS = ("step", "export_handoff", "import_handoff")
+DISAGG_ROLES = {"r0": "prefill", "r1": "decode"}
+
+
+def round_split(rounds, ops):
+    """Host ms of the timed router run: per replica its busy ms by op and
+    the ms it sat idle inside the rounds it worked in (the round held
+    open by the other replica); the rounds' total beside the sum of the
+    busier replica's ms a round."""
+    out = {"rounds": len(rounds),
+           "round_ms": sum(b - a for a, b in rounds) * 1e3}
+    busier = 0.0
+    per = {name: {"busy_ms": {op: 0.0 for op in DISAGG_OPS},
+                  "ops": {op: 0 for op in DISAGG_OPS},
+                  "held_idle_ms": 0.0, "rounds_worked": 0}
+           for name in ops}
+    for a, b in rounds:
+        most = 0.0
+        for name, spans in ops.items():
+            busy = 0.0
+            for op, t0, t1 in spans:
+                inside = min(t1, b) - max(t0, a)
+                if inside > 0:
+                    busy += inside
+                    per[name]["busy_ms"][op] += inside * 1e3
+                    if t0 >= a:
+                        per[name]["ops"][op] += 1
+            if busy > 0:
+                per[name]["rounds_worked"] += 1
+                per[name]["held_idle_ms"] += (b - a - busy) * 1e3
+            most = max(most, busy)
+        busier += most
+    out["busier_replica_ms"] = busier * 1e3
+    out["replicas"] = {DISAGG_ROLES[n]: v for n, v in per.items()}
+    return out
+
+
+def profile_disagg(top: int):
+    """Trace the 1P1D router and the fused engine over phase 23's
+    traffic, warm."""
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
+    from deepspeed_tpu_torch.serving import ReplicaSet, Router
+
+    cfg = get_config("llama3-8b")
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    kw = dict(max_seqs=16, max_seq_len=2048, prefill_chunk=512,
+              page_size=64, decode_block_size=8, pipeline=True,
+              config={"enable_cuda_graph": True})
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, cfg.vocab_size, size=1024 if i % 2 else 32),
+             64) for i in range(16)]
+    control = RaggedInferenceEngineV2(
+        model, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda", **kw)
+
+    def run_control():
+        for p, n in reqs:
+            control.put_request(p, max_new_tokens=n)
+        while control.has_work():
+            control.step()
+            control.stream_deltas()
+            control.get_outputs()
+
+    out = {"device": torch.cuda.get_device_name(0), "mode": "disagg",
+           "requests": "8 x 32 + 8 x 1024, + 64 each"}
+    run_control()                                  # its capture
+    caps = control.host_stats.graph_captures
+    out["control"] = profile(run_control, top)
+    assert control.host_stats.graph_captures == caps
+    module = control.module
+    del control
+    rs = ReplicaSet(lambda i: RaggedInferenceEngineV2(
+        module, device="cuda", kv_tiering={"host_pages": 192}, **kw), 2)
+    ops = {h.name: [] for h in rs.handles}
+    for h in rs.handles:
+        for op in DISAGG_OPS:
+            fn = getattr(h.engine, op)
+
+            def clocked(*a, fn=fn, spans=ops[h.name], op=op, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    spans.append((op, t0, time.perf_counter()))
+
+            setattr(h.engine, op, clocked)
+    try:
+        router = Router(rs, policy="least_tokens")
+        router.set_roles(DISAGG_ROLES)
+        rounds = []
+
+        def run_router():
+            for p, n in reqs:
+                router.submit(p, max_new_tokens=n)
+            while router.outstanding or router.queued:
+                t0 = time.perf_counter()
+                router.pump()
+                router.join()
+                rounds.append((t0, time.perf_counter()))
+            router.get_outputs()
+
+        run_router()                               # the captures
+        engines = [h.engine for h in rs.handles]
+        caps = [e.host_stats.graph_captures for e in engines]
+        for spans in ops.values():
+            spans.clear()
+        rounds.clear()
+        t0 = time.perf_counter()
+        run_router()
+        out["router_timed"] = dict(round_split(rounds, ops),
+                                   wall_ms=(time.perf_counter() - t0) * 1e3)
+        out["router"] = profile(run_router, top)
+        assert [e.host_stats.graph_captures for e in engines] == caps
+        st = router.stats()
+        assert st["replica_deaths"] == 0 and st["handoff_kv"] == 3 * 8, st
+        out["handoffs"] = st["handoff_kv"]
+    finally:
+        rs.close()
+    return out
+
 
 def profile_lc(top: int):
     """Trace one long-context decode tick of ``llama3-8b`` (4064 + 32 on a
@@ -336,6 +475,8 @@ def main() -> int:
                     help="trace a replayed speculative block (v2)")
     ap.add_argument("--long-context", action="store_true",
                     help="trace one long-context decode tick (v2)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="trace the 1P1D router beside a fused engine")
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--out", default=None, help="write the JSON here")
     args = ap.parse_args()
@@ -346,6 +487,10 @@ def main() -> int:
         sys.path.insert(0, os.path.abspath(args.root))
     if args.long_context:
         return report(profile_lc(args.top), ("decode_tick",), args.out)
+    if args.disagg:
+        out = profile_disagg(args.top)
+        print(f"router, timed: {json.dumps(out['router_timed'])}")
+        return report(out, ("control", "router"), args.out)
     if args.mode == "v2" or args.spec is not None:
         return report(profile_v2(args.top, args.weights, args.cuda_graph,
                                  args.spec),

@@ -419,3 +419,46 @@ def test_v2_graphs_with_quantized_weights(cuda, fmt):
     eager_ticks = graphed.host_stats.ticks - K * st["graph_replays"]
     assert counter.launches - before == per * (
         eager_ticks + 2 * K * st["graph_captures"])
+
+
+@pytest.mark.gpu
+def test_two_engines_capture_and_replay_from_two_threads(cuda):
+    """Two engines over one module on one card, each stepped from its own
+    thread as the scale-out replicas are: each captures its graphs while
+    the other runs (allocations, pinned staging, syncs), replays them,
+    and gives the tokens it gives when run alone.  Captures run in
+    ``thread_local`` mode under a process-wide lock (``capture_graph``),
+    so neither thread's work breaks the other's capture."""
+    import threading
+
+    alone = _v2(cuda, pipeline=False)
+    module = alone.module
+    want = {s: _serve(_v2(cuda, module, pipeline=False), s)
+            for s in (False, True)}
+    engines = {s: _v2(cuda, module, pipeline=True,
+                      kv_tiering={"host_pages": 64},
+                      config={"enable_cuda_graph": True})
+               for s in (False, True)}
+    got, errors = {}, []
+    start = threading.Barrier(2)
+
+    def run(sampled):
+        try:
+            start.wait()
+            got[sampled] = _serve(engines[sampled], sampled)
+        except BaseException as e:          # re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(s,)) for s in (False, True)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    for s in (False, True):
+        for a, b in zip(got[s], want[s], strict=True):
+            np.testing.assert_array_equal(a, b)
+        st = engines[s].serving_stages()
+        assert st["graph_captures"] >= 1 and st["graph_replays"] > 0
+        engines[s].close()

@@ -41,7 +41,8 @@ tile up to 128 rows, over 256-token tiles above) at 1, 16, 17, 80 and
 512 rows at ``gate_proj``,
 ``down_proj`` and ``k_proj``, ``lm_head`` at 16 rows, bf16, fp16 and
 fp32, with a zero, an inf and a NaN row, N off the 128-channel tile, K
-off the 128-byte panel, and the named refusal of K off 16.
+off the 128-byte panel, and the named refusal of K off 16.  Last, the
+``torch.profiler`` reader (``telemetry/profiler.py``) over a CUDA run.
 
 Tolerances: bf16 flash outputs 2e-2 (p and o round to bf16 at 2^-8
 relative, in different places in the kernel and the plain version); bf16
@@ -893,3 +894,28 @@ def test_weight_format_wrappers_count_no_launch_on_empty_inputs(cuda):
                      torch.ones(0, device=cuda))
     assert y.shape == (4, 0)
     assert [c.launches for c in counters] == before
+
+
+@pytest.mark.gpu
+def test_profiler_reads_device_seconds_of_a_cuda_run(cuda, tmp_path):
+    """``telemetry/profiler.py`` over a real CUDA run: the profile object
+    and its exported Chrome trace both name the kernels the matmuls
+    launched, with device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch.telemetry import profiler
+
+    a = torch.randn(1024, 1024, device=cuda)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            a = a @ a
+        torch.cuda.synchronize()
+    path = str(tmp_path / "cuda.json")
+    prof.export_chrome_trace(path)
+    from_trace = profiler.device_seconds_by_kernel(path)
+    from_prof = profiler.device_seconds_by_kernel(prof)
+    assert from_trace and from_prof
+    assert set(from_prof) <= set(from_trace)
+    assert sum(from_prof.values()) > 0
+    assert sum(from_trace.values()) >= 0.99 * sum(from_prof.values())

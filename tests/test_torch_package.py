@@ -59,6 +59,10 @@ def test_import_loads_no_jax():
             "deepspeed_tpu_torch.inference.sampling, "
             "deepspeed_tpu_torch.ops.ragged_paged_attention, "
             "deepspeed_tpu_torch.telemetry.requests, "
+            "deepspeed_tpu_torch.telemetry, deepspeed_tpu_torch.serving, "
+            "deepspeed_tpu_torch.serving.server, "
+            "deepspeed_tpu_torch.serving.client, "
+            "deepspeed_tpu_torch.control, "
             "deepspeed_tpu_torch.runtime.engine, "
             "deepspeed_tpu_torch.checkpoint.engine, "
             "deepspeed_tpu_torch.ops.fused_adam, "

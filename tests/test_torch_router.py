@@ -1,0 +1,874 @@
+"""The scale-out router port against its reference: a copy of the JAX
+package's ``tests/unit/serving/test_router.py`` fake-driven suites
+(policies, prefix affinity, admission, replica death, deadlines,
+cancellation, the event stream, draining, the watchdog and breaker)
+pointed at ``deepspeed_tpu_torch.serving``; then one seeded fake trace
+through both packages' routers (equal placement, rejections and handoff
+routing), and routed serving over the port's real v2 engines.
+"""
+import itertools
+import time
+
+import numpy as np
+import pytest
+
+from deepspeed_tpu_torch.serving import (BreakerConfig, DeadlineRejection,
+                                   DrainingRejection, EngineReplicaHandle,
+                                   NeverSchedulableRejection,
+                                   QueueFullRejection, ReplicaHangError,
+                                   Router, RouterRejection, ShedRejection)
+from deepspeed_tpu_torch.telemetry import SLOSet, flight, read_flight_record
+
+
+class FakeClock:
+    def __init__(self, t=0.0):
+        self.t = float(t)
+
+    def __call__(self):
+        return self.t
+
+    def advance(self, dt):
+        self.t += float(dt)
+
+
+class FakeReplica:
+    """Handle-protocol fake: synchronous ops, scripted finish latency
+    (steps until a request completes), scripted pressure reports, and
+    an optional scripted death step."""
+
+    def __init__(self, idx, max_seqs=3, page_size=4, latency=1,
+                 pressure_script=(), die_at_step=None):
+        self.idx = idx
+        self.name = f"f{idx}"
+        self.alive = True
+        self.max_seqs = max_seqs
+        self.page_size = page_size
+        self.in_flight = 0
+        self.latency = latency
+        self.die_at_step = die_at_step
+        self.pressure_script = list(pressure_script)
+        self._uid = itertools.count(1000 * idx)
+        self.admitted = []            # [uid, steps_left, prompt]
+        self.puts = []                # (uid, prompt list) in admit order
+        self.steps = 0
+        self.closed = False
+
+    def validate(self, prompt, max_new):
+        if np.asarray(prompt).size == 0:
+            raise ValueError("empty prompt")
+        if np.asarray(prompt).size + int(max_new) > 64:
+            raise ValueError("prompt + max_new_tokens 65 > max_seq_len 64")
+
+    def put_async(self, prompt, kw, accept_t, on_done):
+        uid = next(self._uid)
+        p = np.asarray(prompt, np.int32)
+        self.puts.append((uid, p.tolist()))
+        self.admitted.append([uid, self.latency, p])
+        on_done(uid)
+
+    def step_async(self, on_done):
+        self.steps += 1
+        if self.die_at_step is not None and self.steps >= self.die_at_step:
+            raise RuntimeError(f"scripted death of {self.name}")
+        outs = []
+        keep = []
+        for ent in self.admitted:
+            ent[1] -= 1
+            if ent[1] <= 0:
+                outs.append((ent[0], np.concatenate(
+                    [ent[2], np.array([7, 8, 9], np.int32)])))
+            else:
+                keep.append(ent)
+        self.admitted = keep
+        pressure = (self.pressure_script.pop(0) if self.pressure_script
+                    else float(len(self.admitted)))
+        on_done((outs, {"pressure": pressure}))
+
+    def join_all(self):
+        pass
+
+    def close(self):
+        self.alive = False
+        self.closed = True
+
+
+class StreamingFakeReplica(FakeReplica):
+    """Delta-emitting fake: one generated token per step per admitted
+    request, posted through the 3-tuple ``(outs, pool, deltas)``
+    payload, plus the optional ``cancel_async`` op."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.generated = {}           # uid -> [tokens]
+        self.cancelled = []
+
+    def put_async(self, prompt, kw, accept_t, on_done):
+        super().put_async(prompt, kw, accept_t, on_done)
+        self.generated[self.admitted[-1][0]] = []
+
+    def cancel_async(self, uid, on_done=None):
+        before = len(self.admitted)
+        self.admitted = [e for e in self.admitted if e[0] != uid]
+        stage = "decode" if len(self.admitted) < before else None
+        if stage:
+            self.cancelled.append(uid)
+        if on_done is not None:
+            on_done(stage)
+
+    def step_async(self, on_done):
+        self.steps += 1
+        if self.die_at_step is not None and self.steps >= self.die_at_step:
+            raise RuntimeError(f"scripted death of {self.name}")
+        outs, deltas, keep = [], [], []
+        for ent in self.admitted:
+            ent[1] -= 1
+            gen = self.generated[ent[0]]
+            gen.append(100 + len(gen))
+            deltas.append((ent[0], [gen[-1]], len(gen), ent[1] <= 0))
+            if ent[1] <= 0:
+                outs.append((ent[0], np.concatenate(
+                    [ent[2], np.asarray(gen, np.int32)])))
+            else:
+                keep.append(ent)
+        self.admitted = keep
+        on_done((outs, {"pressure": float(len(self.admitted))}, deltas))
+
+
+def _prompt(n, base=1):
+    return np.arange(base, base + n, dtype=np.int32)
+
+
+def _drain(router):
+    outs = router.drain()
+    return outs
+
+
+class TestPolicies:
+    def test_round_robin_alternates(self):
+        fakes = [FakeReplica(0), FakeReplica(1)]
+        router = Router(fakes, policy="rr", sticky=False)
+        for i in range(6):
+            router.submit(_prompt(3, base=10 * i), max_new_tokens=4)
+        _drain(router)
+        s = router.stats()
+        assert s["routed_f0"] == 3 and s["routed_f1"] == 3, s
+
+    def test_least_tokens_prefers_lighter_replica(self):
+        fakes = [FakeReplica(0, latency=100), FakeReplica(1, latency=100)]
+        router = Router(fakes, policy="least_tokens", sticky=False)
+        # heavy request lands on f0 (tie broken by idx), then every
+        # light one piles onto f1 until it out-weighs the heavy
+        router.submit(_prompt(4), max_new_tokens=40)     # cost 44 -> f0
+        router.submit(_prompt(4), max_new_tokens=10)     # cost 14 -> f1
+        router.submit(_prompt(4), max_new_tokens=10)     # 14 -> f1 (28)
+        router.submit(_prompt(4), max_new_tokens=10)     # 14 -> f1 (42)
+        router.submit(_prompt(4), max_new_tokens=10)     # f1=42 < f0=44
+        router.pump()
+        s = router.stats()
+        assert s["routed_f0"] == 1 and s["routed_f1"] == 4, s
+        assert s["outstanding_tokens_f0"] == 44, s
+        assert s["outstanding_tokens_f1"] == 56, s
+
+    def test_pressure_policy_reads_replica_snapshots(self):
+        # f0 reports scripted high pressure, f1 low — after the first
+        # fold every new dispatch goes to f1
+        fakes = [FakeReplica(0, latency=50, pressure_script=[9.0] * 10),
+                 FakeReplica(1, latency=50, pressure_script=[0.1] * 10)]
+        router = Router(fakes, policy="pressure", sticky=False)
+        router.submit(_prompt(3), max_new_tokens=4)
+        router.submit(_prompt(3), max_new_tokens=4)
+        router.pump()          # one to each (pressure unknown -> tokens)
+        assert router.stats()["pressure_f0"] == 9.0
+        for _ in range(4):
+            router.submit(_prompt(3), max_new_tokens=4)
+        router.pump()
+        s = router.stats()
+        assert s["routed_f1"] == 5 and s["routed_f0"] == 1, s
+
+
+class TestPrefixAffinity:
+    def test_shared_prefix_routes_sticky(self):
+        # page_size=4 chunks; two prompts share the first 8 tokens ->
+        # same chain hash -> same replica, even though least_tokens
+        # would have balanced them apart
+        fakes = [FakeReplica(0, latency=50), FakeReplica(1, latency=50)]
+        router = Router(fakes, policy="least_tokens", sticky=True)
+        shared = np.array([3, 1, 4, 1, 5, 9, 2, 6], np.int32)
+        router.submit(np.concatenate([shared, [11]]), max_new_tokens=4)
+        router.submit(np.concatenate([shared, [22]]), max_new_tokens=4)
+        router.pump()
+        s = router.stats()
+        assert s["affinity_hits"] == 1, s
+        assert sorted([s["routed_f0"], s["routed_f1"]]) == [0, 2], s
+
+    def test_short_prompts_have_no_affinity(self):
+        # below one page the chain hash is ROOT -> policy decides
+        fakes = [FakeReplica(0, latency=50), FakeReplica(1, latency=50)]
+        router = Router(fakes, policy="least_tokens", sticky=True)
+        router.submit(_prompt(3), max_new_tokens=4)
+        router.submit(_prompt(3), max_new_tokens=4)
+        router.pump()
+        s = router.stats()
+        assert s["affinity_hits"] == 0, s
+        assert s["routed_f0"] == 1 and s["routed_f1"] == 1, s
+
+
+class TestAdmission:
+    def test_priority_dispatch_order(self):
+        fake = FakeReplica(0, latency=1, max_seqs=8)
+        router = Router([fake], policy="rr", sticky=False)
+        router.submit(_prompt(3, base=1), priority=0, max_new_tokens=4)
+        router.submit(_prompt(3, base=10), priority=2, max_new_tokens=4)
+        router.submit(_prompt(3, base=20), priority=1, max_new_tokens=4)
+        router.pump()
+        # dispatched highest-priority-first regardless of submit order
+        assert [p[1][0] for p in fake.puts] == [10, 20, 1]
+
+    def test_queue_full_rejection_at_cap(self):
+        fakes = [FakeReplica(0, latency=100, max_seqs=1),
+                 FakeReplica(1, latency=100, max_seqs=1)]
+        router = Router(fakes, policy="rr", sticky=False, queue_cap=2)
+        for _ in range(4):                       # 2 replicas x cap 2
+            router.submit(_prompt(3), max_new_tokens=4)
+        with pytest.raises(QueueFullRejection, match="queue cap"):
+            router.submit(_prompt(3), max_new_tokens=4)
+        assert router.stats()["rejected_queue_full"] == 1
+
+    def test_never_schedulable_rejected_at_front_door(self):
+        router = Router([FakeReplica(0)], sticky=False)
+        with pytest.raises(NeverSchedulableRejection, match="max_seq_len"):
+            router.submit(_prompt(60), max_new_tokens=30)
+        with pytest.raises(NeverSchedulableRejection, match="empty"):
+            router.submit(np.zeros(0, np.int32))
+        assert router.stats()["rejected_never_schedulable"] == 2
+        assert router.stats()["accepted"] == 0
+
+    def test_shed_at_burn_rate(self):
+        clock = FakeClock()
+        slo = SLOSet(["router_e2e_ms_p50 <= 10"], clock=clock)
+        router = Router([FakeReplica(0, max_seqs=8)], slo=slo,
+                        sticky=False, clock=clock)
+        for _ in range(4):                       # every sample breaches:
+            slo.record("router_e2e_ms", 100.0)   # burn = 1.0/0.5 = 2.0
+        with pytest.raises(ShedRejection, match="burn rate"):
+            router.submit(_prompt(3), max_new_tokens=4)
+        # protected priority is never shed
+        rid = router.submit(_prompt(3), priority=1, max_new_tokens=4)
+        assert rid in _drain(router)
+        assert router.stats()["rejected_shed"] == 1
+
+    def test_defer_holds_low_priority_only(self):
+        clock = FakeClock()
+        slo = SLOSet(["router_e2e_ms_p50 <= 10"], clock=clock)
+        router = Router([FakeReplica(0, latency=1, max_seqs=8)], slo=slo,
+                        sticky=False, clock=clock)
+        slo.record("router_e2e_ms", 100.0)       # 1 of 2 breaches:
+        slo.record("router_e2e_ms", 1.0)         # burn = 0.5/0.5 = 1.0
+        low = router.submit(_prompt(3, base=1), priority=0,
+                            max_new_tokens=4)
+        high = router.submit(_prompt(3, base=10), priority=1,
+                             max_new_tokens=4)
+        router.pump()
+        # high dispatched, low deferred (accepted, still queued)
+        assert router.queued == 1
+        assert router.handles[0].puts[0][1][0] == 10
+        # budget recovers -> the deferred request dispatches
+        clock.advance(1000.0)                    # window empties
+        router.pump()
+        assert router.queued == 0
+        outs = _drain(router)
+        assert set(outs) == {low, high}
+
+    def test_drain_overrides_defer(self):
+        clock = FakeClock()
+        slo = SLOSet(["router_e2e_ms_p50 <= 10"], clock=clock)
+        router = Router([FakeReplica(0, max_seqs=8)], slo=slo,
+                        sticky=False, clock=clock)
+        slo.record("router_e2e_ms", 100.0)       # burn = 1.0: defer
+        slo.record("router_e2e_ms", 1.0)         # range, not shed
+        rid = router.submit(_prompt(3), priority=0, max_new_tokens=4)
+        router.pump()
+        assert router.queued == 1                # held by defer
+        # shutdown drain dispatches regardless of burn rate
+        assert rid in _drain(router)
+
+
+class TestReplicaDeath:
+    def test_reroute_with_flight_dump(self, tmp_path, monkeypatch):
+        monkeypatch.setenv("DSTPU_FLIGHT_DIR", str(tmp_path))
+        fakes = [FakeReplica(0, latency=5, die_at_step=2),
+                 FakeReplica(1, latency=1)]
+        router = Router(fakes, policy="rr", sticky=False)
+        rids = [router.submit(_prompt(3, base=10 * i), max_new_tokens=4)
+                for i in range(4)]
+        outs = _drain(router)
+        # every accepted request still finished, on the survivor
+        assert set(outs) == set(rids)
+        s = router.stats()
+        assert s["replica_deaths"] == 1 and s["replicas_alive"] == 1
+        assert s["rerouted"] >= 1, s
+        assert fakes[0].closed
+        # the fault dumped a valid flight record naming the replica
+        path = flight.last_dump_path()
+        assert path is not None and str(tmp_path) in path
+        header, _events = read_flight_record(path)
+        assert header["reason"] == "replica_death_f0"
+        assert header["extra"]["replica"] == "f0"
+        assert header["extra"]["requeued_rids"], header["extra"]
+
+    def test_all_replicas_dead_raises(self, tmp_path, monkeypatch):
+        monkeypatch.setenv("DSTPU_FLIGHT_DIR", str(tmp_path))
+        router = Router([FakeReplica(0, latency=5, die_at_step=1)],
+                        policy="rr", sticky=False)
+        router.submit(_prompt(3), max_new_tokens=4)
+        with pytest.raises(RouterRejection, match="all replicas dead"):
+            router.drain()
+
+
+class TestDeadlines:
+    def test_burned_deadline_rejected_at_submit(self):
+        router = Router([FakeReplica(0)], sticky=False)
+        with pytest.raises(DeadlineRejection, match="already burned"):
+            router.submit(_prompt(3), deadline_ms=0.0, max_new_tokens=4)
+        with pytest.raises(DeadlineRejection):
+            router.submit(_prompt(3), deadline_ms=-5, max_new_tokens=4)
+        assert router.stats()["rejected_deadline"] == 2
+        assert router.stats()["accepted"] == 0
+
+    def test_queued_request_expires_in_heap(self):
+        # SLO defer holds a low-priority request in the router queue;
+        # its deadline burns there and it must expire at the next
+        # dispatch sweep without ever costing a put
+        clock = FakeClock()
+        slo = SLOSet(["router_e2e_ms_p50 <= 10"], clock=clock)
+        fake = FakeReplica(0, max_seqs=8)
+        router = Router([fake], slo=slo, sticky=False, clock=clock)
+        router.collect_events = True
+        slo.record("router_e2e_ms", 100.0)       # burn 1.0: defer
+        slo.record("router_e2e_ms", 1.0)         # range, not shed
+        rid = router.submit(_prompt(3), deadline_ms=100.0, priority=0,
+                            max_new_tokens=4)
+        router.pump()
+        assert router.queued == 1                # held by defer
+        clock.advance(0.2)                       # 200 ms > 100 ms
+        router.pump()
+        assert router.queued == 0
+        assert router.stats()["expired_deadline"] == 1
+        assert ("deadline_expired", rid, None) in router.poll_events()
+        assert len(fake.puts) == 0               # never dispatched
+        # the expired request never finishes and never blocks drain
+        outs = _drain(router)
+        assert rid not in outs
+
+    def test_live_deadline_dispatches_normally(self):
+        clock = FakeClock()
+        router = Router([FakeReplica(0, max_seqs=8)], sticky=False,
+                        clock=clock)
+        rid = router.submit(_prompt(3), deadline_ms=10_000.0,
+                            max_new_tokens=4)
+        assert rid in _drain(router)
+        assert router.stats()["expired_deadline"] == 0
+
+
+class TestCancellation:
+    def test_cancel_queued_never_dispatches(self):
+        # SLO defer parks the low-priority request in the heap; a
+        # cancel there is lazy removal — it must never reach a replica
+        clock = FakeClock()
+        slo = SLOSet(["router_e2e_ms_p50 <= 10"], clock=clock)
+        fake = FakeReplica(0, latency=5, max_seqs=8)
+        router = Router([fake], slo=slo, sticky=False, clock=clock)
+        slo.record("router_e2e_ms", 100.0)       # burn 1.0: defer
+        slo.record("router_e2e_ms", 1.0)         # range, not shed
+        rid0 = router.submit(_prompt(3, base=1), priority=1,
+                             max_new_tokens=4)   # protected: dispatches
+        rid1 = router.submit(_prompt(3, base=10), priority=0,
+                             max_new_tokens=4)   # deferred: queued
+        router.pump()
+        assert router.queued == 1
+        assert router.cancel(rid1) is True
+        outs = _drain(router)
+        assert rid0 in outs and rid1 not in outs
+        assert len(fake.puts) == 1               # rid1 never reached it
+        assert router.stats()["cancelled"] == 1
+
+    def test_cancel_dispatched_propagates_to_replica(self):
+        fake = StreamingFakeReplica(0, latency=50, max_seqs=4)
+        router = Router([fake], sticky=False)
+        rid = router.submit(_prompt(3), max_new_tokens=4)
+        keep = router.submit(_prompt(3, base=10), max_new_tokens=2)
+        router.pump()
+        assert router.cancel(rid) is True
+        assert fake.cancelled == [fake.puts[0][0]]
+        # router-side accounting unwound: tokens budget back to the
+        # survivor's cost only
+        assert router.stats()["outstanding_tokens_f0"] == 5
+        outs = _drain(router)
+        assert keep in outs and rid not in outs
+
+    def test_cancel_unknown_or_finished_is_false(self):
+        router = Router([FakeReplica(0, max_seqs=8)], sticky=False)
+        rid = router.submit(_prompt(3), max_new_tokens=4)
+        _drain(router)
+        assert router.cancel(rid) is False       # already finished
+        assert router.cancel(999) is False
+        assert router.stats()["cancelled"] == 0
+
+
+class TestEventStream:
+    def test_tokens_stream_at_harvest_granularity(self):
+        fake = StreamingFakeReplica(0, latency=3, max_seqs=4)
+        router = Router([fake], sticky=False)
+        router.collect_events = True
+        rid = router.submit(_prompt(3), max_new_tokens=3)
+        streamed, finals = [], {}
+        while router.outstanding:
+            router.pump()
+            router.join()
+            for kind, r, payload in router.poll_events():
+                if kind == "tokens":
+                    streamed.extend(int(t) for t in payload)
+                elif kind == "finish":
+                    finals[r] = payload
+        assert streamed == [100, 101, 102]
+        assert rid in finals
+        # streamed tokens are exactly the generated suffix of the final
+        np.testing.assert_array_equal(finals[rid][-3:], streamed)
+
+    def test_rerouted_replay_is_deduplicated(self):
+        # a request re-routed after replica death replays its tokens
+        # from zero on the survivor; the cumulative-total cursor must
+        # suppress the replayed prefix (no token reaches the stream
+        # twice)
+        fake = StreamingFakeReplica(0, latency=5, max_seqs=4)
+        router = Router([fake], sticky=False)
+        router.collect_events = True
+        rid = router.submit(_prompt(3), max_new_tokens=5)
+        router.pump()
+        router.join()
+        uid = fake.puts[0][0]
+        # two harvests land: totals 1 then 2
+        router._on_step_done(fake, ([], {}, [(uid, [100], 1, False)]))
+        router._on_step_done(fake, ([], {}, [(uid, [101], 2, False)]))
+        # replica restarts the request: replays totals 1 and 2, then 3
+        router._on_step_done(fake, ([], {}, [(uid, [100], 1, False)]))
+        router._on_step_done(
+            fake, ([], {}, [(uid, [100, 101], 2, False)]))
+        router._on_step_done(fake, ([], {}, [(uid, [102], 3, False)]))
+        toks = [int(t) for k, r, p in router.poll_events()
+                if k == "tokens" for t in p]
+        assert toks == [100, 101, 102], toks
+        assert router._live[rid].streamed == 3
+
+    def test_events_not_collected_unless_opted_in(self):
+        fake = StreamingFakeReplica(0, latency=2, max_seqs=4)
+        router = Router([fake], sticky=False)
+        router.submit(_prompt(3), max_new_tokens=2)
+        _drain(router)
+        assert router.poll_events() == []
+
+
+class TestDraining:
+    def test_drain_refuses_new_finishes_inflight(self):
+        fake = FakeReplica(0, latency=3, max_seqs=8)
+        router = Router([fake], sticky=False)
+        rid = router.submit(_prompt(3), max_new_tokens=4)
+        router.begin_drain()
+        with pytest.raises(DrainingRejection, match="draining"):
+            router.submit(_prompt(3), max_new_tokens=4)
+        assert router.stats()["rejected_draining"] == 1
+        # in-flight work still dispatches and finishes
+        assert rid in _drain(router)
+        assert router.stats()["finished"] == 1
+
+
+class LaggyFakeReplica(StreamingFakeReplica):
+    """Admit folds deferred to ``join_all`` — the real handle's
+    window-join timing — plus the ``last_progress`` stamp the breaker's
+    suspect detector reads.  Progress advances only at joins, so a
+    replica that is never joined goes stale on the fake clock while its
+    puts sit unadmitted (exactly the state hedging targets)."""
+
+    def __init__(self, *a, clock=None, **kw):
+        super().__init__(*a, **kw)
+        self._clock = clock if clock is not None else (lambda: 0.0)
+        self.last_progress = self._clock()
+        self._pending = []
+
+    def put_async(self, prompt, kw, accept_t, on_done):
+        uid = next(self._uid)
+        self._pending.append((uid, np.asarray(prompt, np.int32), on_done))
+
+    def join_all(self):
+        pending, self._pending = self._pending, []
+        for uid, p, on_done in pending:
+            self.puts.append((uid, p.tolist()))
+            self.admitted.append([uid, self.latency, p])
+            self.generated[uid] = []
+            if on_done is not None:
+                on_done(uid)
+        self.last_progress = self._clock()
+
+
+class FakeSet(list):
+    """ReplicaSet-protocol wrapper over fakes: the router retains any
+    ``replicas`` object carrying a ``grow`` op and probes it for
+    revival replacements after a breaker trip."""
+
+    def __init__(self, fakes, factory=None):
+        super().__init__(fakes)
+        self._factory = factory
+        self._next = len(fakes)
+
+    def grow(self, n=1):
+        made = []
+        for _ in range(int(n)):
+            if self._factory is None:
+                raise RuntimeError("replica factory unavailable")
+            h = self._factory(self._next)
+            self._next += 1
+            self.append(h)
+            made.append(h)
+        return made
+
+
+class _WedgeEngine:
+    """Minimal engine-protocol stub whose step WEDGES (finite sleep —
+    executor threads are non-daemon) far past the watchdog deadline:
+    the future never resolves in time, which is the hang failure mode
+    the exception death path cannot see."""
+
+    max_seqs = 2
+    page_size = 4
+    num_pages = 8
+
+    def __init__(self, wedge_s=0.8):
+        self.wedge_s = float(wedge_s)
+        self.waiting = []
+        self.allocator = type("A", (), {"free_pages": 7})()
+        self.request_latency = type(
+            "L", (), {"note_router_accept":
+                      staticmethod(lambda uid, t: None)})()
+        self._uid = 0
+
+    def set_replica(self, name):
+        pass
+
+    def validate_request(self, prompt, max_new):
+        pass
+
+    def put_request(self, prompt, **kw):
+        self._uid += 1
+        return self._uid
+
+    def has_work(self):
+        return True
+
+    def step(self):
+        time.sleep(self.wedge_s)
+
+    def stream_deltas(self):
+        return []
+
+    def get_outputs(self):
+        return []
+
+    def close(self):
+        pass
+
+
+class TestWatchdogBreaker:
+    def test_watchdog_abandons_wedged_replica(self):
+        h = EngineReplicaHandle(0, _WedgeEngine(0.8), watchdog_s=0.2)
+        h.step_async(on_done=lambda payload: None)
+        with pytest.raises(ReplicaHangError, match="watchdog"):
+            h.join_all()
+        # the worker is written off, not joined: the handle is dead,
+        # hung, and holds no live window ops the caller could re-wedge on
+        assert h.hung and not h.alive and h.in_flight == 0
+        h.close()                    # idempotent on a hung handle
+
+    def test_hang_trips_breaker_and_redispatches(self, tmp_path,
+                                                 monkeypatch):
+        monkeypatch.setenv("DSTPU_FLIGHT_DIR", str(tmp_path))
+        wedged = EngineReplicaHandle(0, _WedgeEngine(0.8), watchdog_s=0.2)
+        healthy = FakeReplica(1, latency=1)
+        router = Router([wedged, healthy], policy="rr", sticky=False,
+                        breaker=BreakerConfig())
+        rid = router.submit(_prompt(3), max_new_tokens=4)
+        outs = _drain(router)
+        # the hang became a breaker trip and the request finished on
+        # the survivor — request conservation across a wedge
+        assert rid in outs
+        s = router.stats()
+        assert s["replica_deaths"] == 1 and s["rerouted"] == 1, s
+        assert s["state_r0"] == "dead" and s["state_f1"] == "healthy", s
+        assert wedged.hung
+        header, _events = read_flight_record(flight.last_dump_path())
+        assert header["reason"] == "replica_death_r0"
+
+    def test_suspect_hedges_and_target_wins(self):
+        clock = FakeClock()
+        f0 = LaggyFakeReplica(0, latency=2, clock=clock)
+        f1 = LaggyFakeReplica(1, latency=2, clock=clock)
+        router = Router([f0, f1], policy="rr", sticky=False, clock=clock,
+                        breaker=BreakerConfig(suspect_after_s=5.0))
+        router.collect_events = True
+        rid = router.submit(_prompt(3), max_new_tokens=4)
+        router.pump()                # dispatched to f0, admit pending
+        assert router.stats()["state_f0"] == "healthy"
+        clock.advance(6.0)
+        router.pump()                # stale progress: suspect + hedge
+        s = router.stats()
+        assert s["state_f0"] == "suspect" and s["hedges"] == 1, s
+        # resolve the race target-first: f1's admit fold claims the
+        # request, f0's later fold must cancel its own copy
+        f1.join_all()
+        f0.join_all()
+        assert router.stats()["hedge_won"] == 1
+        assert f0.cancelled == [f0.puts[0][0]]
+        router.pump()                # queue empty again: suspect clears
+        assert router.stats()["state_f0"] == "healthy"
+        streamed, finals = [], {}
+        while router.outstanding:
+            router.pump()
+            router.join()
+            for kind, r, payload in router.poll_events():
+                if kind == "tokens":
+                    streamed.extend(int(t) for t in payload)
+                elif kind == "finish":
+                    finals[r] = payload
+        # exactly-once: only the winner's tokens reached the stream
+        assert streamed == [100, 101]
+        assert rid in finals and len(f1.generated) == 1
+
+    def test_suspect_hedge_original_wins(self):
+        # the slow-but-alive replica's admit folds FIRST: the original
+        # keeps the request (hedge_lost) and the hedge copy is
+        # cancelled before it can emit
+        clock = FakeClock()
+        f0 = LaggyFakeReplica(0, latency=2, clock=clock)
+        f1 = LaggyFakeReplica(1, latency=2, clock=clock)
+        router = Router([f0, f1], policy="rr", sticky=False, clock=clock,
+                        breaker=BreakerConfig(suspect_after_s=5.0))
+        router.collect_events = True
+        rid = router.submit(_prompt(3), max_new_tokens=4)
+        router.pump()
+        clock.advance(6.0)
+        router.pump()
+        assert router.stats()["hedges"] == 1
+        f0.join_all()                # original admits first: it wins
+        f1.join_all()
+        s = router.stats()
+        assert s["hedge_lost"] == 1 and s["hedge_won"] == 0, s
+        assert f1.cancelled == [f1.puts[0][0]]
+        streamed = []
+        while router.outstanding:
+            router.pump()
+            router.join()
+            streamed.extend(int(t) for k, r, p in router.poll_events()
+                            if k == "tokens" for t in p)
+        assert streamed == [100, 101]
+        assert rid in router.get_outputs()
+
+    def test_probation_readmits_after_clean_finishes(self):
+        made = []
+
+        def factory(i):
+            h = FakeReplica(i, latency=1, max_seqs=3)
+            made.append(h)
+            return h
+
+        rs = FakeSet([FakeReplica(0, latency=3, die_at_step=1)], factory)
+        router = Router(rs, policy="rr", sticky=False,
+                        breaker=BreakerConfig(revive=True,
+                                              probation_successes=2))
+        rids = [router.submit(_prompt(3, base=10 * i), max_new_tokens=4)
+                for i in range(3)]
+        router.pump()                # f0 dies on its first step
+        assert router.stats()["replica_deaths"] == 1
+        router.pump()                # revival probe grows f1 on probation
+        s = router.stats()
+        assert s["revived"] == 1 and s["state_f1"] == "probation", s
+        # probation throttle: one request at a time until proven
+        assert len(made[0].puts) == 1
+        router.pump()                # second clean finish: re-admitted
+        assert router.stats()["state_f1"] == "healthy"
+        outs = _drain(router)
+        assert set(outs) == set(rids)
+        assert router.stats()["rerouted"] == 3
+
+    def test_flapping_revival_freezes(self, tmp_path, monkeypatch):
+        monkeypatch.setenv("DSTPU_FLIGHT_DIR", str(tmp_path))
+
+        def flappy(i):               # every replacement dies on step 1
+            return FakeReplica(i, latency=5, die_at_step=1)
+
+        rs = FakeSet([FakeReplica(0, latency=5, die_at_step=1),
+                      FakeReplica(1, latency=30)], flappy)
+        router = Router(rs, policy="rr", sticky=False, queue_cap=2,
+                        breaker=BreakerConfig(revive=True, max_trips=2,
+                                              probation_successes=1))
+        rids = [router.submit(_prompt(3, base=10 * i), max_new_tokens=4)
+                for i in range(4)]
+        outs = _drain(router)
+        # the flapping lineage froze revival; the survivor finished
+        # every request anyway — freeze degrades, never drops
+        assert set(outs) == set(rids)
+        s = router.stats()
+        assert s["frozen"] is True, s
+        assert s["revived"] == 2 and s["replica_deaths"] == 3, s
+        assert s["state_f1"] == "healthy", s
+        assert s["state_f2"] == "dead" and s["state_f3"] == "dead", s
+        header, _events = read_flight_record(flight.last_dump_path())
+        assert header["reason"] == "breaker_freeze"
+        assert header["extra"]["revive_failures"] == 2
+
+    def test_factory_failure_freezes_revival(self, tmp_path, monkeypatch):
+        monkeypatch.setenv("DSTPU_FLIGHT_DIR", str(tmp_path))
+        rs = FakeSet([FakeReplica(0, latency=5, die_at_step=1),
+                      FakeReplica(1, latency=1)], factory=None)
+        router = Router(rs, policy="rr", sticky=False,
+                        breaker=BreakerConfig(revive=True, max_trips=1))
+        rids = [router.submit(_prompt(3, base=10 * i), max_new_tokens=4)
+                for i in range(2)]
+        outs = _drain(router)
+        assert set(outs) == set(rids)
+        s = router.stats()
+        assert s["frozen"] is True and s["revived"] == 0, s
+
+
+# -- integration against REAL engines ------------------------------------
+
+
+# -- one seeded trace through both packages' routers ----------------------
+
+from deepspeed_tpu.serving import router as jax_router_mod  # noqa: E402
+from deepspeed_tpu_torch.serving import router as router_mod  # noqa: E402
+
+
+class RoleFakeReplica(StreamingFakeReplica):
+    """A streaming fake that records every put's kwargs (the handoff mark
+    among them) and scripts a pool pressure from its backlog."""
+
+    def put_async(self, prompt, kw, accept_t, on_done):
+        super().put_async(prompt, kw, accept_t, on_done)
+        self.puts[-1] = self.puts[-1] + (sorted(kw.items()),)
+
+
+def _trace(pkg, seed, roles):
+    """Drive ``pkg``'s Router over three fakes with a seeded mix of
+    submits (some never schedulable, some with burned deadlines, some
+    past the queue cap), pumps, cancels and clock advances.  Returns what
+    the router decided: each action's outcome, every replica's puts and
+    the counters."""
+    rng = np.random.default_rng(seed)
+    clock = FakeClock()
+    reps = [RoleFakeReplica(i, max_seqs=2, latency=int(rng.integers(1, 4)))
+            for i in range(3)]
+    router = pkg.Router(reps, policy=str(rng.choice(
+        ["rr", "least_tokens", "pressure"])), clock=clock, queue_cap=3)
+    if roles:
+        router.set_roles({"f0": "prefill", "f1": "decode", "f2": "decode"})
+    log, rids = [], []
+    for _ in range(80):
+        a = rng.random()
+        if a < 0.55:
+            n = int(rng.integers(1, 70))
+            kw = dict(max_new_tokens=int(rng.integers(1, 8)),
+                      priority=int(rng.integers(0, 2)))
+            if rng.random() < 0.15:
+                kw["deadline_ms"] = float(rng.choice([0.0, 5.0, 500.0]))
+            try:
+                rid = router.submit(_prompt(n, base=int(rng.integers(
+                    1, 30))), **kw)
+                rids.append(rid)
+                log.append(("accept", rid))
+            except pkg.RouterRejection as e:
+                log.append(("reject", type(e).__name__))
+        elif a < 0.85:
+            router.pump()
+            log.append(("pump", sorted(router.get_outputs())))
+        elif a < 0.92 and rids:
+            rid = rids[int(rng.integers(0, len(rids)))]
+            log.append(("cancel", rid, router.cancel(rid)))
+        else:
+            clock.advance(float(rng.choice([0.001, 0.01, 0.1])))
+    outs = router.drain()
+    stats = {k: v for k, v in router.stats().items()
+             if not k.startswith("pressure_")}
+    return log, sorted(outs), [r.puts for r in reps], stats
+
+
+@pytest.mark.parametrize("roles", [False, True], ids=["fused", "1p2d"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fake_trace_matches_jax_router(seed, roles):
+    """Placement, rejections, cancellations, handoff marks and counters of
+    one seeded trace are the JAX router's, decision for decision."""
+    port = _trace(router_mod, seed, roles)
+    ref = _trace(jax_router_mod, seed, roles)
+    for got, want in zip(port, ref):
+        assert got == want
+    if roles:
+        # anti-vacuity: long prompts went to the prefill replica marked
+        # for handoff, short ones straight to decode replicas
+        marked = [kw for kw in (p[2] for p in port[2][0])
+                  if ("handoff", True) in kw]
+        assert marked and not any(("handoff", True) in p[2]
+                                  for rep in port[2][1:] for p in rep)
+
+
+def test_chain_hash_is_the_prefix_cache_hash():
+    """Sticky routing keys a prompt by the prefix cache's own chain hash
+    (the router keeps a copy, to need nothing of an engine)."""
+    from deepspeed_tpu_torch.inference import prefix_cache
+    toks = tuple(range(16))
+    assert router_mod.ROOT_HASH == prefix_cache.ROOT_HASH == \
+        jax_router_mod.ROOT_HASH
+    assert (router_mod._chunk_hash(7, toks)
+            == prefix_cache._chunk_hash(7, toks)
+            == jax_router_mod._chunk_hash(7, toks))
+
+
+# -- routed serving over the port's real engines ---------------------------
+
+import torch_tier_helpers as tiers  # noqa: E402
+from deepspeed_tpu_torch.serving import ReplicaSet  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    return tiers.weights()
+
+
+def test_routed_greedy_outputs_match_single_engine(tiny):
+    """The reference's routed bit-parity case over the port's engines:
+    two replicas behind ``least_tokens`` give a single engine's greedy
+    tokens, both replicas serve, and router queue wait is its own
+    series."""
+    kw = dict(max_seqs=3, prefill_chunk=8, harvest_interval=3,
+              num_pages=None)
+    ps = tiers.prompts((5, 9, 13, 7, 11, 6, 8, 10))
+    single = tiers.port_engine(tiny, **kw)
+    order = {single.put_request(p, max_new_tokens=12): i
+             for i, p in enumerate(ps)}
+    ref = {order[u]: t for u, t in tiers.serve(single, [], audit=False)
+           .items()}
+    rs = ReplicaSet(lambda i: tiers.port_engine(tiny, **kw), 2)
+    try:
+        router = Router(rs, policy="least_tokens")
+        rids = {router.submit(p, max_new_tokens=12): i
+                for i, p in enumerate(ps)}
+        outs = router.drain()
+        assert sorted(rids[r] for r in outs) == sorted(ref)
+        for rid, toks in outs.items():
+            np.testing.assert_array_equal(toks, ref[rids[rid]])
+        s = router.stats()
+        assert s["routed_r0"] > 0 and s["routed_r1"] > 0, s
+        for h in rs:
+            summ = h.engine.request_latency.summary()
+            assert summ["router_queue_wait_ms_p50"] is not None
+            h.engine.audit_kv_sharing()
+            assert h.engine.replica == h.name
+    finally:
+        rs.close()
