@@ -283,8 +283,31 @@ Phases (any failed check raises; nothing is caught):
    seconds.  Then 2 layers at full width in fp32, the 1P1D router
    against the fused control by phase 7's margin rule.  Phase 23 runs
    right after phase 21 and before phase 22.
+24. Sparse MoE (``moe/``, ``models/qwen2_moe.py``, ``models/mixtral.py``),
+   last: #9 and #8 at the group-1 shape of ``qwen1.5-moe-a2.7b`` (H 16
+   over Hkv 16, D 128) at decode and mixed against their plain versions
+   over bf16, int8 and e4m3 pages, timed beside their bound.  Then
+   ``qwen1.5-moe-a2.7b`` at full size (24 layers, 60 experts of 1408,
+   4 a token, a shared expert of 5632, vocabulary 151936), bf16, random
+   seeded weights made on the card, the router kept fp32 by v2: phase
+   6's 24 requests eager and unpipelined (routed copies dropped for
+   capacity a tick, read from the gating), then graphed and pipelined,
+   graphed and unpipelined, and phase 6's int8 pool over 8 requests,
+   every run's tokens equal to the eager run's and #9 / #8 counted once
+   a layer a tick as in phase 14; v1 on the same module at 4 x 512 + 32,
+   eager and with the decode step replayed (the same tokens), #1 once a
+   layer a prefill.  Decode tokens/s, TTFT p50/p99, prefill
+   tokens/s, ``host_bound_fraction``, resident and peak GiB.  Then 2 of
+   its layers at full width in fp32 (``drop_tokens`` off, so that v1's
+   batch and v2's padded tick route each token alike): v2 against v1 by
+   phase 7's margin rule, where a token may also differ after a position
+   that the two engines routed to different experts (both runs' router
+   logits recorded and compared row by row); and ``mixtral-8x7b`` at full width and 2 of
+   its 32 layers (top 2 of 8, renormalised gates), bf16, graphed and
+   pipelined against eager, #9 twice a tick.
 
-Phases 3, 6, 12, 14, 20, 22 and 23 (serving) keep their full depth;
+Phases 3, 6, 12, 14, 20, 22, 23 and 24's first model (serving) keep
+their full depth;
 phases 19 and 21 (the KV tiers) run 8 of the 32 layers, and the
 checkpoint legs of phases 13 and 17 2 layers, so that the whole run
 stays well inside its time limit; phase 12's CPU parity runs one layer
@@ -296,7 +319,8 @@ at phase 12, so that the whole run stays inside its time limit.
 alone, ``--tiering-only`` the build and phase 19, ``--spec-only`` the
 build and phase 20, ``--lc-only`` the build, phase 5's carry cases and
 phase 21, ``--wq-only`` the build and phase 22, ``--disagg-only`` the
-build and phase 23; none prints result lines.  The line before the last is the ``kernels`` JSON; the last line
+build and phase 23, ``--moe-only`` the build and phase 24; none prints
+result lines.  The line before the last is the ``kernels`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits
 nonzero and prints no result.
 """
@@ -2215,6 +2239,67 @@ def phase_zero(stage0):
 # Phase 14: CUDA graphs and the pipelined host path
 # ---------------------------------------------------------------------------
 
+def v2_graph_run(label, module, want, counters, eager, traffic, **kw):
+    """Serve ``traffic`` on a fresh engine over ``module`` (phase 6's
+    settings and ``kw``): every request's tokens equal ``want`` (the
+    eager unpipelined run's), and each ``(counter, per tick)`` of
+    ``counters`` equals ``per x (eager ticks + 2 K x captures)``: the
+    counters tick at warm-ups and captures only.  Logs the run beside
+    ``eager``'s numbers; returns the run's, with TTFT p50/p99 and the
+    launches each counter saw."""
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+
+    engine = RaggedInferenceEngineV2(module, device="cuda",
+                                     **{**V2, **kw})
+    before = [c.launches for c, _ in counters]
+    out, r = serve(engine, traffic)
+    for i, (a, b) in enumerate(zip(out, want)):
+        assert np.array_equal(a, b), (
+            f"{label}: request {i}'s tokens differ from the eager "
+            "unpipelined run's")
+    st = engine.serving_stages()
+    cap = st.get("graph_captures", 0)
+    rep = st.get("graph_replays", 0)
+    K = engine.decode_block_size
+    eager_ticks = engine.host_stats.ticks - K * rep
+    device, launched = {}, {}
+    for (c, per), b in zip(counters, before):
+        got, want_n = c.launches - b, per * (eager_ticks + 2 * K * cap)
+        assert got == want_n, (
+            f"{label}: {c.__name__} counted {got} launches, want "
+            f"{per} x ({eager_ticks} eager ticks + 2 x {K} x {cap} "
+            "captures)")
+        # derived, not traced: the counters never see a replay
+        device[c.__name__] = per * (eager_ticks + K * (cap + rep))
+        launched[c.__name__] = got
+    log(f"graphs {label}: {len(traffic)} requests in "
+        f"{r['wall_s']:.2f} s, tokens equal to the eager unpipelined "
+        f"run's; decode "
+        f"{r['decode_tps']:.1f} tokens/s in decode blocks "
+        f"({r['block_tokens']} tokens, {r['block_s']:.2f} s, the "
+        f"capture's {r['capture_s']:.3f} s apart; eager "
+        f"{eager['decode_tps']:.1f}); {r['blocks']} blocks, blocking "
+        f"gets per block {r['block_gets'] / max(r['blocks'], 1):.3f} "
+        f"(eager {eager['block_gets'] / max(eager['blocks'], 1):.3f}); "
+        f"host_bound_fraction in blocks {r['block_hbf']:.4f} (eager "
+        f"{eager['block_hbf']:.4f}), overall "
+        f"{st['host_bound_fraction']}; TTFT p50 "
+        f"{st['requests']['ttft_ms_p50']} ms p99 "
+        f"{st['requests']['ttft_ms_p99']} ms; prefill "
+        f"{r['prompt_tokens'] / r['fused_s']:.0f} prompt tokens/s; "
+        f"captures {cap} ({st.get('graph_capture_s', 0.0):.3f} s), "
+        f"replays {rep}, harvests {engine.host_stats.harvests}, "
+        f"dispatches {engine.host_stats.dispatches}; device launches "
+        f"derived from the replays, per tick x (eager ticks + K x "
+        f"(captures + replays)): {device}; pipeline_window "
+        f"{st.get('pipeline_window')}")
+    del engine
+    torch.cuda.empty_cache()
+    return dict(r, ttft_p50=st["requests"]["ttft_ms_p50"],
+                ttft_p99=st["requests"]["ttft_ms_p99"],
+                hbf=st["host_bound_fraction"], launched=launched)
+
+
 def phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager, v1_greedy,
                  v1_eager):
     """Phases 6 and 12's v2 traffic and phase 3's v1 prompts again, with
@@ -2239,51 +2324,6 @@ def phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager, v1_greedy,
     n_weights = 7 * L + 2
     reqs = v2_traffic()
 
-    def v2_run(label, module, want, counters, eager, traffic=reqs, **kw):
-        engine = RaggedInferenceEngineV2(module, device="cuda",
-                                         **{**V2, **kw})
-        before = [c.launches for c, _ in counters]
-        out, r = serve(engine, traffic)
-        for i, (a, b) in enumerate(zip(out, want)):
-            assert np.array_equal(a, b), (
-                f"{label}: request {i}'s tokens differ from the eager "
-                "unpipelined run's")
-        st = engine.serving_stages()
-        cap = st.get("graph_captures", 0)
-        rep = st.get("graph_replays", 0)
-        eager_ticks = engine.host_stats.ticks - K * rep
-        device = {}
-        for (c, per), b in zip(counters, before):
-            got, want_n = c.launches - b, per * (eager_ticks + 2 * K * cap)
-            assert got == want_n, (
-                f"{label}: {c.__name__} counted {got} launches, want "
-                f"{per} x ({eager_ticks} eager ticks + 2 x {K} x {cap} "
-                "captures)")
-            # derived, not traced: the counters never see a replay
-            device[c.__name__] = per * (eager_ticks + K * (cap + rep))
-        log(f"graphs {label}: {len(traffic)} requests in "
-            f"{r['wall_s']:.2f} s, tokens equal to the eager unpipelined "
-            f"run's; decode "
-            f"{r['decode_tps']:.1f} tokens/s in decode blocks "
-            f"({r['block_tokens']} tokens, {r['block_s']:.2f} s, the "
-            f"capture's {r['capture_s']:.3f} s apart; eager "
-            f"{eager['decode_tps']:.1f}); {r['blocks']} blocks, blocking "
-            f"gets per block {r['block_gets'] / max(r['blocks'], 1):.3f} "
-            f"(eager {eager['block_gets'] / max(eager['blocks'], 1):.3f}); "
-            f"host_bound_fraction in blocks {r['block_hbf']:.4f} (eager "
-            f"{eager['block_hbf']:.4f}), overall "
-            f"{st['host_bound_fraction']}; prefill "
-            f"{r['prompt_tokens'] / r['fused_s']:.0f} prompt tokens/s; "
-            f"captures {cap} ({st.get('graph_capture_s', 0.0):.3f} s), "
-            f"replays {rep}, harvests {engine.host_stats.harvests}, "
-            f"dispatches {engine.host_stats.dispatches}; device launches "
-            f"derived from the replays, per tick x (eager ticks + K x "
-            f"(captures + replays)): {device}; pipeline_window "
-            f"{st.get('pipeline_window')}")
-        del engine
-        torch.cuda.empty_cache()
-        return r
-
     # bf16: the module of phase 6, made again from its seed
     with torch.device("meta"):
         model = LlamaForCausalLM(cfg)
@@ -2295,24 +2335,24 @@ def phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager, v1_greedy,
     del engine
     graph = {"config": {"enable_cuda_graph": True}}
     paged = [(rpa.ragged_paged_attention, L)]
-    piped = v2_run("bf16 v2, pipeline on", module, bf16_outs, paged,
-                   v2_eager, pipeline=True, **graph)
+    piped = v2_graph_run("bf16 v2, pipeline on", module, bf16_outs, paged,
+                         v2_eager, reqs, pipeline=True, **graph)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"graphs bf16 v2: peak memory {peak:.2f} GiB with graphs and the "
         f"pipeline, {v2_eager['peak']:.2f} GiB eager (phase 6)")
-    v2_run("bf16 v2, pipeline off", module, bf16_outs, paged, v2_eager,
-           **graph)
-    v2_run("bf16 v2, pipeline alone (no graphs)", module, bf16_outs, paged,
-           v2_eager, pipeline=True)
+    v2_graph_run("bf16 v2, pipeline off", module, bf16_outs, paged,
+                 v2_eager, reqs, **graph)
+    v2_graph_run("bf16 v2, pipeline alone (no graphs)", module, bf16_outs,
+                 paged, v2_eager, reqs, pipeline=True)
     # kernel #8: phase 6's int8 KV pool over its 8 requests, eager and
     # unpipelined first, then through graphs and the pipeline
     engine = RaggedInferenceEngineV2(module, device="cuda",
                                      kv_cache_dtype="int8", **V2)
     want8, eager8 = serve(engine, reqs[:8])
     del engine
-    v2_run("bf16 v2, int8 KV pool, pipeline on", module, want8,
-           [(rpa.ragged_paged_attention_quant, L)], eager8, reqs[:8],
-           kv_cache_dtype="int8", pipeline=True, **graph)
+    v2_graph_run("bf16 v2, int8 KV pool, pipeline on", module, want8,
+                 [(rpa.ragged_paged_attention_quant, L)], eager8, reqs[:8],
+                 kv_cache_dtype="int8", pipeline=True, **graph)
     del module, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2327,9 +2367,9 @@ def phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager, v1_greedy,
     module = engine.module
     del engine
     torch.cuda.reset_peak_memory_stats()    # building held the bf16 weights
-    v2_run("int8 v2, pipeline on", module, int8_outs,
-           paged + [(qz.dequantize, n_weights)], int8_eager, pipeline=True,
-           **graph)
+    v2_graph_run("int8 v2, pipeline on", module, int8_outs,
+                 paged + [(qz.dequantize, n_weights)], int8_eager, reqs,
+                 pipeline=True, **graph)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"graphs int8 v2: peak memory while serving {peak:.2f} GiB with "
         f"graphs and the pipeline, {int8_eager['peak']:.2f} GiB eager "
@@ -4992,6 +5032,401 @@ def disagg_fp32(smi):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: sparse-MoE serving (Qwen2-MoE, Mixtral) through v1 and v2
+# ---------------------------------------------------------------------------
+
+# group 1 at D 128 (qwen1.5-moe-a2.7b's 16 heads over 16): the decode
+# block's 16 rows and a tick's 512-token chunk beside 8 decode rows
+MOE_PAGED = {"decode": ([1] * 16, [128 * (j + 1) for j in range(16)]),
+             "mixed": ([1] * 8 + [512], [128 + 256 * j for j in range(8)] +
+                       [1500])}
+
+
+def moe_paged_kernels(smi):
+    """#9 and #8 at the MoE preset's group-1 shape against their plain
+    versions (phase 5's limits), bf16, int8 and e4m3 pages; each timed at
+    decode beside its bound and its plain version, and at mixed.  Returns
+    the kernel-line entries of #9 (bf16 pages) and #8 (int8 pages)."""
+    from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+
+    entries, worst = {}, {}
+    for i, (name, (q_lens, kv_lens)) in enumerate(MOE_PAGED.items()):
+        for pd in (torch.bfloat16, torch.int8, torch.float8_e4m3fn):
+            q, pages, scales, meta = paged_case(SEED + 240 + i, q_lens,
+                                                kv_lens, H=16, Hkv=16,
+                                                pdtype=pd)
+            sm = q.shape[-1] ** -0.5
+            quant = scales is not None
+            fn = rpa.ragged_paged_attention_quant if quant \
+                else rpa.ragged_paged_attention
+            ref = (rpa.ref_paged_attention_quant if quant
+                   else rpa.ref_paged_attention)
+            args = (q, pages, scales, *meta) if quant else (q, pages, *meta)
+            out = fn(*args, sm_scale=sm)
+            want = ref(*args, sm_scale=sm)
+            torch.cuda.synchronize()
+            of, wf = out.float(), want.float()
+            err = (of - wf).abs()
+            limit = PAGED_ATOL + PAGED_RTOL * wf.abs()
+            assert torch.isfinite(of).all() and (err <= limit).all(), (
+                f"moe paged {name} {pd}: differs from plain by up to "
+                f"{err.max().item():.3e}")
+            S, pp = meta[1].shape
+            splits = rpa.split_plan(q.shape[0], S, 16, 16, pp, 64)[0]
+            ms = graph_ms(lambda: fn(*args, sm_scale=sm))
+            bound, by = paged_bound(q_lens, kv_lens, meta[1].cpu(), 16, 16,
+                                    128, 64, q.dtype, pd)
+            line = (f"[{smi}] moe paged {name} H16/Hkv16 D128 pages "
+                    f"{str(pd)[6:]}: max|o-plain| {err.max().item():.3e} "
+                    f"({(err / limit).max().item():.1%} of the limit), "
+                    f"splits {splits}, kernel {ms:.4f} ms, bound "
+                    f"{bound:.4f} ms ({by}), {bound / ms:.1%} of bound")
+            kname = ("ragged_paged_attn_quant" if quant
+                     else "ragged_paged_attn") + "_moe_g1"
+            worst[kname] = max(worst.get(kname, 0.0), err.max().item())
+            if name == "decode" and pd in (torch.bfloat16, torch.int8):
+                plain_ms = time_ms(lambda: ref(*args, sm_scale=sm), reps=3,
+                                   warmup=1)
+                line += f", plain {plain_ms:.3f} ms"
+                entries[kname] = dict(
+                    name=kname, route="cuda",
+                    source="deepspeed_tpu_torch/ops/csrc/"
+                           "ragged_paged_attn.cu",
+                    replaces=("deepspeed_tpu/ops/ragged_paged_quant.py:51"
+                              if quant else
+                              "deepspeed_tpu/inference/paged.py:602"),
+                    launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=by, library_ms=None)
+            log(line)
+            del q, pages, scales, meta, out, want
+    for kname, e in entries.items():
+        e["max_abs_err"] = worst[kname]
+    torch.cuda.empty_cache()
+    return entries
+
+
+def watch_drops(module):
+    """Log (rows routed, copies dropped for capacity) of every MoE layer
+    call, read from its gating result; the drop counts stay on the card
+    until read.  Returns the log and the function that stops it."""
+    from deepspeed_tpu_torch.moe.layer import MoE
+
+    calls, layers = [], [m for m in module.modules() if isinstance(m, MoE)]
+    for mod in layers:
+        def gating(x, *a, _inner=mod.gating, **kw):
+            gr = _inner(x, *a, **kw)
+            calls.append((x.shape[0], (gr.weights == 0).sum()))
+            return gr
+        mod.gating = gating
+
+    def stop():
+        for mod in layers:
+            del mod.gating
+    return calls, stop
+
+
+def drops_per_call(calls, rows):
+    """Routed copies dropped for capacity per layer call, over the calls
+    of ``rows`` rows, and the number of such calls."""
+    got = [int(d) for g, d in calls if g == rows]
+    return sum(got) / max(len(got), 1), len(got)
+
+
+def phase_moe():
+    """Phase 24: sparse MoE through both engines.  ``qwen1.5-moe-a2.7b``
+    at full size, bf16, random seeded weights made on the card: v2 over
+    phase 6's traffic eager and unpipelined (the copies dropped for
+    capacity read from the gating), then graphed and pipelined, graphed
+    and unpipelined, and over an int8 pool, every run's tokens equal the
+    eager run's and #9 / #8 counted once a layer a tick; v1 at 4 x 512 +
+    32, eager and graphed with the same tokens, #1 once a layer a
+    prefill.  Then 2 of its layers in fp32, v2
+    against v1 by phase 7's margin rule extended to the router, and
+    ``mixtral-8x7b`` at 2 of its 32 layers, bf16, graphed against eager.
+    Returns the kernel-line entries of #9 and #8 at the group-1 shape
+    with their launches in the phase's serving runs, and #1's."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+    from deepspeed_tpu_torch.models import mixtral, qwen2_moe
+    from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+    from deepspeed_tpu_torch.ops.flash_attention import flash_fwd
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    t_phase = time.perf_counter()
+    entries = moe_paged_kernels(smi)
+    cfg = qwen2_moe.get_config("qwen1.5-moe-a2.7b")
+    L, K, T = (cfg.num_hidden_layers, V2["decode_block_size"],
+               V2["max_seqs"] + V2["prefill_chunk"])
+    graph = {"config": {"enable_cuda_graph": True}}
+    p9, p8 = rpa.ragged_paged_attention, rpa.ragged_paged_attention_quant
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        model = qwen2_moe.Qwen2MoeForCausalLM(cfg)
+    engine = RaggedInferenceEngineV2(
+        model, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda", **V2)
+    module = engine.module
+    torch.cuda.synchronize()
+    resident = resident_bytes(module) / 2**30
+    log(f"[{smi}] moe: qwen1.5-moe-a2.7b up in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{qwen2_moe.count_params(module) / 1e9:.2f} B parameters, "
+        f"resident weights {resident:.2f} GiB, router "
+        f"{module.model.layers[0].mlp.gate.dtype}")
+    reqs = v2_traffic()
+    p9.launches = p8.launches = 0        # the main path starts here
+    flash_before = flash_fwd.launches
+    calls, stop = watch_drops(module)
+    want, eager = serve(engine, reqs)
+    stop()
+    assert p9.launches == L * engine.host_stats.ticks, (
+        f"moe v2: {p9.launches} #9 launches, want {L} x "
+        f"{engine.host_stats.ticks} ticks")
+    assert flash_fwd.launches == flash_before, "v2 launched the flash kernel"
+    k = cfg.num_experts_per_tok
+    tick_drops, fused = drops_per_call(calls, T)
+    block_drops, dcalls = drops_per_call(calls, V2["max_seqs"])
+    st = engine.serving_stages()
+    log(f"[{smi}] moe v2 eager: 24 requests in {eager['wall_s']:.2f} s, "
+        f"decode {eager['decode_tps']:.1f} tokens/s in blocks, prefill "
+        f"{eager['prompt_tokens'] / eager['fused_s']:.0f} prompt tokens/s, "
+        f"TTFT p50 {st['requests']['ttft_ms_p50']} ms p99 "
+        f"{st['requests']['ttft_ms_p99']} ms; routed copies dropped for "
+        f"capacity a layer: {tick_drops:.1f} of {T * k} in fused ticks "
+        f"({tick_drops / (T * k):.1%}, {fused // L} ticks), "
+        f"{block_drops:.2f} of {V2['max_seqs'] * k} in decode ticks "
+        f"({block_drops / (V2['max_seqs'] * k):.1%}, {dcalls // L} "
+        "ticks)")
+    del engine, calls
+    torch.cuda.empty_cache()
+    piped = v2_graph_run("moe v2, pipeline on", module, want, [(p9, L)],
+                         eager, reqs, pipeline=True, **graph)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    v2_graph_run("moe v2, pipeline off", module, want, [(p9, L)], eager,
+                 reqs, **graph)
+    engine = RaggedInferenceEngineV2(module, device="cuda",
+                                     kv_cache_dtype="int8", **V2)
+    want8, eager8 = serve(engine, reqs[:8])
+    del engine
+    v2_graph_run("moe v2, int8 KV pool, pipeline on", module, want8,
+                 [(p8, L)], eager8, reqs[:8], kv_cache_dtype="int8",
+                 pipeline=True, **graph)
+    # v1 over the same module: 4 x 512 + 32, the flash kernel once a layer
+    # a prefill; then the decode step captured and replayed, the same
+    # tokens
+    prompts = torch.randint(0, cfg.vocab_size, (4, 512),
+                            generator=torch.Generator().manual_seed(SEED))
+    v1_launches, v1_out = 0, []
+    for graphed in (False, True):
+        v1 = deepspeed_tpu_torch.init_inference(
+            module, config={"dtype": "bfloat16", "max_out_tokens": 1024,
+                            "enable_cuda_graph": graphed})
+        before = flash_fwd.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        v1_out.append(v1.generate(prompts, max_new_tokens=32))
+        v1_s = time.perf_counter() - t
+        assert flash_fwd.launches - before == L, "moe v1: not one #1 a layer"
+        v1_launches += L
+        del v1
+    assert v1_out[0].shape == (4, 544)
+    assert torch.equal(v1_out[0][:, :512], prompts)
+    assert torch.equal(v1_out[0], v1_out[1]), "moe v1: graphed != eager"
+    entries["ragged_paged_attn_moe_g1"]["launches"] = p9.launches
+    entries["ragged_paged_attn_quant_moe_g1"]["launches"] = p8.launches
+    log(f"[{smi}] moe v2 graphed + pipelined: decode "
+        f"{piped['decode_tps']:.1f} tokens/s in blocks (eager "
+        f"{eager['decode_tps']:.1f}), TTFT p50 {piped['ttft_p50']} ms p99 "
+        f"{piped['ttft_p99']} ms, prefill "
+        f"{piped['prompt_tokens'] / piped['fused_s']:.0f} prompt tokens/s, "
+        f"host_bound_fraction {piped['hbf']} (in blocks "
+        f"{piped['block_hbf']:.4f}); resident weights {resident:.2f} GiB, "
+        f"peak {peak:.2f} GiB; v1 4 x 512 + 32 graphed in {v1_s:.2f} s, "
+        f"the eager run's tokens; launches #9 {p9.launches}, #8 "
+        f"{p8.launches}, #1 {v1_launches}")
+    del module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_fp32(smi)
+    moe_mixtral(smi)
+    log(f"[{smi}] phase 24: {time.perf_counter() - t_phase:.1f} s")
+    return (entries["ragged_paged_attn_moe_g1"],
+            entries["ragged_paged_attn_quant_moe_g1"], v1_launches)
+
+
+def moe_fp32(smi):
+    """2 of qwen1.5-moe-a2.7b's layers at full width in fp32 (TF32 off),
+    weights made on the card, ``drop_tokens`` off so that v1's batch and
+    v2's padded tick route each token alike: 4 greedy requests through v2
+    against v1 one at a time.  Both runs record every row's router logits
+    (keyed by position and input token), so the top-k sets of v1 and v2
+    are compared at each position.  A token may differ only where v1's
+    top-2 logit margin at it is under ``MARGIN``, or where, at a position
+    up to it, the two runs routed a token to different experts."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+    from deepspeed_tpu_torch.models import qwen2_moe
+    from deepspeed_tpu_torch.moe.layer import MoE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = qwen2_moe.get_config("qwen1.5-moe-a2.7b", num_hidden_layers=2,
+                               dtype=torch.float32, drop_tokens=False)
+    k = cfg.num_experts_per_tok
+    with torch.device("meta"):
+        model = qwen2_moe.Qwen2MoeForCausalLM(cfg)
+    v1 = deepspeed_tpu_torch.init_inference(
+        model, config={"dtype": "float32", "max_out_tokens": 1024},
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 24))
+    module = v1.module
+
+    # each forward's (input ids, positions, router logits a layer), cloned
+    # where they are made: the engines reuse their buffers
+    calls = []
+    record = {"on": False}
+
+    def on_forward(_m, args):
+        if record["on"]:
+            calls.append((args[0].reshape(-1).clone(),
+                          args[1].reshape(-1).clone(), []))
+
+    layers = [m for m in module.modules() if isinstance(m, MoE)]
+    for mod in layers:
+        def gating(x, *a, _m=mod, _inner=mod.gating, **kw):
+            if record["on"]:
+                calls[-1][2].append(x.float() @ _m.gate.float())
+            return _inner(x, *a, **kw)
+        mod.gating = gating
+    hook = module.model.register_forward_pre_hook(on_forward)
+
+    def recorded(run):
+        """``run()`` and its rows: ids [N], positions [N], logits
+        [N, layers, E], as numpy."""
+        calls.clear()
+        record["on"] = True
+        out = run()
+        torch.cuda.synchronize()
+        record["on"] = False
+        ids, pos, lg = zip(*calls)
+        return out, (torch.cat(ids).cpu().numpy(),
+                     torch.cat(pos).cpu().numpy(),
+                     torch.cat([torch.stack(l, 1) for l in lg]).cpu().numpy())
+
+    def top_sets(lg):
+        return np.sort(np.argsort(-lg, axis=-1, kind="stable")[..., :k], -1)
+
+    rng = np.random.default_rng(SEED + 24)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in (37, 100, 300, 513)]
+    want, rows1 = [], []
+    for p in prompts:
+        out, rows = recorded(
+            lambda: v1.generate(p[None], max_new_tokens=16)[0].numpy())
+        want.append(out)
+        ids, pos, _ = rows
+        assert np.array_equal(pos, np.arange(len(pos))), "moe fp32: v1 rows"
+        assert np.array_equal(ids, out[:len(ids)]), "moe fp32: v1 rows"
+        rows1.append(rows)
+    eng = RaggedInferenceEngineV2(module, device="cuda", max_seqs=4,
+                                  max_seq_len=640, prefill_chunk=128,
+                                  page_size=64, decode_block_size=4)
+    outs, (ids2, pos2, lg2) = recorded(
+        lambda: eng.generate_all(prompts, max_new_tokens=16))
+    got = [outs[u] for u in sorted(outs)]
+    eng.audit_kv_sharing()
+    del eng
+    hook.remove()
+    for mod in layers:
+        del mod.gating
+    where = {}
+    for r, key in enumerate(zip(pos2.tolist(), ids2.tolist())):
+        where.setdefault(key, []).append(r)
+    smallest = router_smallest = math.inf
+    largest_diff, n_flips = 0.0, 0
+    for p, g, w, (_, _, lg1) in zip(prompts, got, want, rows1):
+        with torch.no_grad():
+            logits = module(torch.from_numpy(w[None, :-1]).cuda())[0][0]
+        top2 = logits[len(p) - 1:].topk(2, dim=-1).values
+        margins = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        smallest = min(smallest, float(margins.min()))
+        top = -np.sort(-lg1, axis=-1)
+        gaps = (top[..., k - 1] - top[..., k]).min(axis=-1)     # [N]
+        diff = np.nonzero(g != w)[0]
+        # the rows both runs fed the model: up to the first differing token
+        d = int(diff[0]) if diff.size else len(w) - 1
+        router_smallest = min(router_smallest, float(gaps[:d].min()))
+        flips = []
+        for j in range(d):
+            cand = where.get((j, int(w[j])))
+            assert cand, f"moe fp32: no v2 row at position {j}"
+            errs = np.abs(lg2[cand] - lg1[j]).reshape(len(cand), -1)
+            r = cand[int(errs.max(axis=1).argmin())]
+            largest_diff = max(largest_diff, float(errs.max(axis=1).min()))
+            if not np.array_equal(top_sets(lg2[r]), top_sets(lg1[j])):
+                flips.append(j)
+        n_flips += len(flips)
+        if diff.size:
+            i = d - len(p)
+            log(f"[{smi}] moe fp32: prompt {len(p)}: first differing token "
+                f"{i}, v1 top-2 margin {margins[i]:.3e}, router gap at it "
+                f"{gaps[d - 1]:.3e}; {len(flips)} positions up to it with "
+                f"another top-{k} set in v2 (first {flips[:1]})")
+            assert margins[i] < MARGIN or flips, (
+                f"moe fp32: v2 differs from v1 at {i} with margin "
+                f"{margins[i]:.3e} and the same experts chosen up to it")
+        del logits
+    same = sum(np.array_equal(a, b) for a, b in zip(got, want))
+    log(f"[{smi}] moe fp32, 2 layers: {same}/4 requests token-equal v2 "
+        f"against v1; smallest v1 top-2 margin {smallest:.3e}, smallest "
+        f"router k-th/(k+1)-th gap {router_smallest:.3e}, largest v1/v2 "
+        f"router logit difference {largest_diff:.3e}, {n_flips} positions "
+        f"with another top-{k} set in v2")
+    del v1, module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_mixtral(smi):
+    """``mixtral-8x7b`` at full width and 2 of its 32 layers, bf16,
+    random weights made on the card (top 2 of 8, the gates renormalised):
+    8 of phase 6's requests eager and unpipelined, then graphed and
+    pipelined with the same tokens; #9 twice a tick."""
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+    from deepspeed_tpu_torch.models import mixtral
+    from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+
+    cfg = mixtral.get_config("mixtral-8x7b", num_hidden_layers=2)
+    assert cfg.num_experts_per_tok == 2 and cfg.num_local_experts == 8
+    with torch.device("meta"):
+        model = mixtral.MixtralForCausalLM(cfg)
+    engine = RaggedInferenceEngineV2(
+        model, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda", **V2)
+    module = engine.module
+    assert module.model.layers[0].block_sparse_moe.normalize_weights
+    reqs = [(p % cfg.vocab_size, kw) for p, kw in v2_traffic(8)]
+    before = rpa.ragged_paged_attention.launches
+    want, eager = serve(engine, reqs)
+    assert rpa.ragged_paged_attention.launches - before == \
+        2 * engine.host_stats.ticks
+    del engine
+    r = v2_graph_run("mixtral-8x7b (2 of 32 layers) v2, pipeline on",
+                     module, want, [(rpa.ragged_paged_attention, 2)], eager,
+                     reqs, pipeline=True, config={"enable_cuda_graph": True})
+    log(f"[{smi}] moe mixtral-8x7b, 2 layers: 8 requests finished, graphed "
+        f"and pipelined tokens equal to eager; decode "
+        f"{r['decode_tps']:.1f} tokens/s in blocks (eager "
+        f"{eager['decode_tps']:.1f}), resident weights "
+        f"{resident_bytes(module) / 2**30:.2f} GiB")
+    del module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
 
 def main() -> int:
     # ``--cpu-side NAMES``: the worker of the parity checks' CPU halves,
@@ -5047,6 +5482,14 @@ def main() -> int:
         log(f"phase 5 (carry) done at {time.perf_counter() - t0:.1f} s")
         phase_lc()
         log(f"phase 21 done at {time.perf_counter() - t0:.1f} s")
+        return 0
+    # ``--moe-only``: the build and phase 24 alone, for work on sparse
+    # MoE serving; it prints no result lines
+    if sys.argv[1:] == ["--moe-only"]:
+        t0 = time.perf_counter()
+        phase_report()
+        phase_moe()
+        log(f"phase 24 done at {time.perf_counter() - t0:.1f} s")
         return 0
     # ``--disagg-only``: the build and phase 23 alone, for work on
     # disaggregated serving; it prints no result lines
@@ -5115,8 +5558,12 @@ def main() -> int:
     log(f"phase 23 done at {time.perf_counter() - t0:.1f} s")
     wq = phase_wq(cpu_side, card_halves, bf16_outs)
     log(f"phase 22 done at {time.perf_counter() - t0:.1f} s")
+    # phase 24's v1 prefills join #1's entry
+    moe9, moe8, moe_flash = phase_moe()
+    entry["launches"] += moe_flash
+    log(f"phase 24 done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [entry, paged, paged_quant, carry,
-                                carry_quant] +
+                                carry_quant, moe9, moe8] +
                     [train[k] for k in ("flash_bwd_dq", "flash_bwd_dkv",
                                         "fused_adam", "fused_lion")] +
                     [quant[f"{op}_int8_g{gs}"] for gs in (128, 2048)

@@ -12,7 +12,10 @@ path, ``RaggedInferenceEngineV2`` over a paged KV pool; and training at
 ZeRO stages 0-3 (with hpZ) over the data-parallel ranks of a
 ``torch.distributed`` process group (``deepspeed_tpu_torch.comm``), or in
 one process, ``initialize`` -> ``engine.train_batch`` ->
-``engine.save_checkpoint`` / ``engine.load_checkpoint``.
+``engine.save_checkpoint`` / ``engine.load_checkpoint``.  GPT-2 serves
+through v1 and trains the same way; the sparse-MoE families (Mixtral,
+Qwen2-MoE: ``moe/``, ``models/mixtral.py``, ``models/qwen2_moe.py``)
+serve through both engines.
 """
 from deepspeed_tpu_torch.inference.engine import init_inference
 from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2

@@ -246,8 +246,8 @@ def logits_of(out):
 def normalize_params(model: nn.Module,
                      params: Optional[Mapping[str, torch.Tensor]] = None, *,
                      dtype: torch.dtype, device: torch.device,
-                     generator: Optional[torch.Generator] = None
-                     ) -> nn.Module:
+                     generator: Optional[torch.Generator] = None,
+                     keep_fp32: bool = False) -> nn.Module:
     """Put ``model``'s weights on ``device`` in the serving ``dtype``.
 
     ``params`` is a ``state_dict`` (e.g. from the flax bridge) loaded into
@@ -257,9 +257,19 @@ def normalize_params(model: nn.Module,
     ``generator`` by ``model.init_weights``.  A model with real weights
     and no ``params`` keeps its weights, cast and moved.  Only parameters
     take ``dtype``: buffers (the int8 payload and fp32 scales of a model
-    already quantized, ``inference/quantization.py``) keep theirs."""
+    already quantized, ``inference/quantization.py``) keep theirs.  With
+    ``keep_fp32`` the parameters a module names in its ``fp32_params``
+    (an MoE router) stay fp32, as the JAX v2 engine, which casts no
+    parameter, keeps them; the v1 engine casts every one, as the JAX v1
+    engine does."""
+    kept = {id(getattr(mod, name)) for mod in model.modules()
+            for name in getattr(mod, "fp32_params", ())} \
+        if keep_fp32 else set()
     if any(p.is_meta for p in model.parameters()):
         model.to(dtype=dtype)               # on meta: no memory touched
+        for p in model.parameters():
+            if id(p) in kept:
+                p.data = p.data.float()
         model.to_empty(device=device)
         if params is None:
             if generator is None:
@@ -269,7 +279,7 @@ def normalize_params(model: nn.Module,
         model.to(device=device)
         for p in model.parameters():
             if p.is_floating_point():
-                p.data = p.data.to(dtype)
+                p.data = p.data.to(torch.float32 if id(p) in kept else dtype)
     if params is not None:
         model.load_state_dict(params, strict=True)
     return model

@@ -54,6 +54,7 @@ from deepspeed_tpu_torch.inference.kv_cache import init_cache
 from deepspeed_tpu_torch.inference.quantization import (check_format,
                                                         quantize_model_)
 from deepspeed_tpu_torch.inference.sampling import sample_logits
+from deepspeed_tpu_torch.moe.layer import is_moe
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
@@ -89,7 +90,10 @@ def init_inference(model: nn.Module, config: Any = None,
     ``deepspeed.init_inference``, ``deepspeed/__init__.py:291``).
 
     ``model``: a causal-LM module of this package (``models/llama.py``,
-    ``models/gpt2.py``) whose ``config`` dataclass has ``decode`` and
+    ``models/gpt2.py``, ``models/mixtral.py``, ``models/qwen2_moe.py``;
+    an MoE model's ``(logits, aux)`` gives its logits, and quantized
+    expert banks raise naming ROADMAP A12b) whose ``config`` dataclass
+    has ``decode`` and
     ``max_cache_len`` fields and a ``kv_cache_shape``.  Build it under
     ``torch.device("meta")`` to have its weights made directly in the
     serving dtype on the card.  ``params``: a ``state_dict`` to load;
@@ -159,6 +163,10 @@ class InferenceEngine:
                 "ROADMAP A7a")
         if config.quant.enabled:
             check_format(config.quant.qtype)
+            if is_moe(model):
+                raise NotImplementedError(
+                    f"quant.qtype={config.quant.qtype!r} on an MoE model is "
+                    "not ported yet: ROADMAP A12b (quantized expert banks)")
 
         mcfg = getattr(model, "config", None)
         if not (dataclasses.is_dataclass(mcfg) and

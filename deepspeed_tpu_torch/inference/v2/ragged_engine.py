@@ -127,9 +127,16 @@ JAX's threefry streams (:mod:`~deepspeed_tpu_torch.inference.sampling`).
   request, and ``trace_sample`` arms tail-based sampling
   (:mod:`~deepspeed_tpu_torch.telemetry`).
 
+- **Sparse MoE.**  Mixtral and Qwen2-MoE serve like Llama: every row of
+  a tick is routed, padding and inactive rows included, so capacity
+  drops the copies the JAX engine drops; the router stays fp32, as the
+  JAX engine (which casts no parameter) leaves it.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: tensor parallelism (A7a) and the closed-loop control plane
-(``control``, and the engine's ``knob_registry``: A10b).
+ROADMAP item: tensor parallelism (A7a), the closed-loop control plane
+(``control``, and the engine's ``knob_registry``: A10b), quantized
+expert banks (``quantize_weights`` on an MoE model: A12b) and an MoE
+draft model (A12c).
 """
 from __future__ import annotations
 
@@ -146,7 +153,7 @@ from torch import nn
 
 from deepspeed_tpu_torch.accelerator import DeviceLike, resolve_device
 from deepspeed_tpu_torch.inference.common import (HostStageStats,
-                                                  kv_quant_block,
+                                                  kv_quant_block, logits_of,
                                                   normalize_params)
 from deepspeed_tpu_torch.inference.config import (ControlConfig,
                                                   KVTieringConfig,
@@ -171,6 +178,7 @@ from deepspeed_tpu_torch.inference.sampling import (ROLE_DRAFT,
                                                     sample_logits_batched,
                                                     speculative_verify)
 from deepspeed_tpu_torch.inference.v2.graphs import DecodeBlockGraphs
+from deepspeed_tpu_torch.moe.layer import is_moe
 from deepspeed_tpu_torch.ops.ragged_paged_attention import PAGE_SIZES
 from deepspeed_tpu_torch.resilience import faults
 from deepspeed_tpu_torch.telemetry import trace
@@ -312,9 +320,10 @@ class RaggedInferenceEngineV2:
                  config: Any = None,
                  generator: Optional[torch.Generator] = None,
                  device: DeviceLike = None):
-        """``model``: a Llama-family module of this package (build it
-        under ``torch.device("meta")`` to have its weights made directly
-        in its ``config.dtype`` on the card).  ``params``: a
+        """``model``: a Llama-family module of this package, Mixtral and
+        Qwen2-MoE included (build it under ``torch.device("meta")`` to
+        have its weights made directly in its ``config.dtype`` on the
+        card).  ``params``: a
         ``state_dict`` (e.g. from the flax bridge); without one a meta
         model gets random weights from ``generator``.  ``seed`` keys the
         position-keyed sampling draws (the reference's ``rng``).
@@ -386,6 +395,9 @@ class RaggedInferenceEngineV2:
                             else trace_sample)
             control = v2cfg.control if control is None else control
         self._check_unported(topology, quantize_weights, control)
+        if is_moe(model) and quantize_weights is not None:
+            raise _unported(f"quantize_weights={quantize_weights!r} on an "
+                            "MoE model (quantized expert banks)", "A12b")
         if quantize_weights == "w8a8" and not getattr(
                 type(model), "w8a8_native", False):
             raise ValueError(
@@ -468,9 +480,11 @@ class RaggedInferenceEngineV2:
             # mode as DSTPU_TRACE_SAMPLE does
             trace.configure(enabled=True, sampling=True, sample_n=n)
 
+        # an MoE router stays fp32, as the JAX v2 engine leaves it
         self.module = normalize_params(model, params, dtype=self.dtype,
                                        device=self.device,
-                                       generator=generator).eval()
+                                       generator=generator,
+                                       keep_fp32=True).eval()
         self.quantize_weights = quantize_weights
         if quantize_weights is not None:
             b0, b1 = quantize_model_(self.module, quantize_weights,
@@ -657,6 +671,9 @@ class RaggedInferenceEngineV2:
                 "speculation.draft_model preset name is for CLIs to build "
                 "one)")
         dmcfg = getattr(draft_model, "config", None)
+        if is_moe(draft_model):
+            raise _unported("an MoE draft model (speculation.mode='draft')",
+                            "A12c")
         if not _llama_family(dmcfg):
             raise TypeError("the draft model must be a Llama-family module "
                             "of this package (the ragged paged decode "
@@ -1226,9 +1243,9 @@ class RaggedInferenceEngineV2:
         """One paged forward over a ``[1, T]`` batch: every layer writes
         its rows into its pool and attends; logits of ``logit_rows``
         (all ``T`` rows when None)."""
-        out = self.module(token_ids, positions=positions,
-                          kv_cache=self.cache, ragged_meta=meta,
-                          logit_rows=logit_rows)
+        out = logits_of(self.module(token_ids, positions=positions,
+                                    kv_cache=self.cache, ragged_meta=meta,
+                                    logit_rows=logit_rows))
         return out if logit_rows is not None else out[0]
 
     # -- the decode block -------------------------------------------------

@@ -360,7 +360,10 @@ class LlamaBlock(nn.Module):
 class LlamaModel(nn.Module):
     """``forward`` runs every layer; ``LongContextDriver`` runs them one
     at a time through ``embed_tokens``, :meth:`rope`, ``layers[i]`` (and
-    its :meth:`LlamaBlock.chunk_stats`) and ``norm``."""
+    its :meth:`LlamaBlock.chunk_stats`) and ``norm``.  ``block_cls`` is
+    the layer's class (the MoE families swap it)."""
+
+    block_cls = LlamaBlock
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -368,7 +371,7 @@ class LlamaModel(nn.Module):
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          dtype=cfg.param_dtype)
         self.layers = nn.ModuleList(
-            LlamaBlock(cfg) for _ in range(cfg.num_hidden_layers))
+            self.block_cls(cfg) for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                             cfg.param_dtype)
 

@@ -1,5 +1,6 @@
 """Weight bridge between the JAX package's flax params and this port's
-``state_dict``, both ways, for the Llama and GPT-2 families.
+``state_dict``, both ways, for the Llama, GPT-2, Mixtral and Qwen2-MoE
+families.
 
 Takes the param tree as nested dicts of numpy arrays (optionally under a
 ``{"params": ...}`` wrapper) in either layer layout:
@@ -12,11 +13,16 @@ Takes the param tree as nested dicts of numpy arrays (optionally under a
 
 Renames: Dense ``kernel [in, out]`` -> Linear ``weight [out, in]``,
 ``Embed.embedding`` -> ``weight``, RMSNorm and LayerNorm ``scale`` ->
-``weight``, ``bias`` -> ``bias``.  The trees of ``LlamaLMLoss`` carry one
+``weight``, ``bias`` -> ``bias``.  An MoE layer's raw params (``gate``,
+``w1``, ``w2``, ``w3``; ``b1``, ``b2``), under ``block_sparse_moe``
+(Mixtral) or ``mlp`` (Qwen2-MoE), keep their names and layout; flax's
+partitioning boxes around the expert banks are opened.  The trees of
+``LlamaLMLoss`` carry one
 more level, ``lm``, on both sides (``GPT2LMLoss``'s ``transformer`` level
-is the model's own).  The family is the one whose module names cover the
-tree's; a name of neither family raises, so a tree of another model is
-refused rather than half-loaded.  :func:`state_dict_to_flax` is the way
+is the model's own).  The family is the one whose module and leaf names
+cover the tree's (the raw params tell Qwen2-MoE's ``mlp`` from Llama's);
+a name of no family raises, so a tree of another model is refused rather
+than half-loaded.  :func:`state_dict_to_flax` is the way
 back, into either layer layout.
 
 A tree the JAX package quantized (``quantize_param_tree``, any of its
@@ -42,15 +48,19 @@ import torch
 
 from deepspeed_tpu_torch.inference.quantization import FORMAT_BUFFERS
 
+_LLAMA_ATTN = {"embed_tokens": "embedding", "norm": "scale",
+               "input_layernorm": "scale",
+               "post_attention_layernorm": "scale", "q_proj": "kernel",
+               "k_proj": "kernel", "v_proj": "kernel", "o_proj": "kernel",
+               "lm_head": "kernel"}
+_LLAMA_MLP = {"gate_proj": "kernel", "up_proj": "kernel",
+              "down_proj": "kernel"}
+# an MoE layer's raw params (router, expert banks, the gelu banks'
+# biases): same name and layout on both sides, never transposed
+_MOE_RAW = frozenset({"gate", "w1", "w2", "w3", "b1", "b2"})
 _FAMILIES = {
     "llama": dict(
-        layers="layers",
-        owners={"embed_tokens": "embedding", "norm": "scale",
-                "input_layernorm": "scale",
-                "post_attention_layernorm": "scale", "q_proj": "kernel",
-                "k_proj": "kernel", "v_proj": "kernel", "o_proj": "kernel",
-                "gate_proj": "kernel", "up_proj": "kernel",
-                "down_proj": "kernel", "lm_head": "kernel"},
+        layers="layers", owners={**_LLAMA_ATTN, **_LLAMA_MLP},
         containers={"lm", "model", "self_attn", "mlp"}),
     "gpt2": dict(
         layers="h",
@@ -58,13 +68,29 @@ _FAMILIES = {
                 "ln_2": "scale", "ln_f": "scale", "c_attn": "kernel",
                 "c_proj": "kernel", "c_fc": "kernel", "lm_head": "kernel"},
         containers={"transformer", "attn", "mlp"}),
+    "mixtral": dict(
+        layers="layers", owners=dict(_LLAMA_ATTN),
+        containers={"lm", "model", "self_attn"},
+        moe={"block_sparse_moe"}),
+    # the routed experts sit under `mlp`, where Llama's dense MLP does;
+    # the shared expert is a Llama MLP
+    "qwen2_moe": dict(
+        layers="layers",
+        owners={**_LLAMA_ATTN, **_LLAMA_MLP, "shared_expert_gate": "kernel"},
+        containers={"lm", "model", "self_attn", "shared_expert"},
+        moe={"mlp"}),
 }
-for _fam in _FAMILIES.values():
-    _fam["modules"] = frozenset(
-        {_fam["layers"], *_fam["owners"], *_fam["containers"]})
-    _fam["unrolled"] = re.compile(_fam["layers"] + r"_(\d+)")
 _LEAVES = {"kernel": "weight", "embedding": "weight", "scale": "weight",
            "bias": "bias"}
+for _fam in _FAMILIES.values():
+    _fam.setdefault("moe", set())
+    # names a tree of the family may hold, its leaves' included: the MoE
+    # raw params tell an MoE `mlp` from Llama's
+    _fam["modules"] = frozenset(
+        {_fam["layers"], *_fam["owners"], *_fam["containers"],
+         *_fam["moe"], *_LEAVES, "weight",
+         *(_MOE_RAW if _fam["moe"] else ())})
+    _fam["unrolled"] = re.compile(_fam["layers"] + r"_(\d+)")
 
 
 def _family(names: Set[str], where: str) -> Dict[str, Any]:
@@ -81,21 +107,30 @@ def _family(names: Set[str], where: str) -> Dict[str, Any]:
 
 
 def _module_names(node: Mapping[str, Any]) -> Set[str]:
-    """The keys of ``node``'s subtrees, all levels, but the scan level
-    ``block``."""
+    """The keys of ``node``, all levels, but the scan level ``block``."""
     out = set()
     for key, val in node.items():
+        if key != "block":
+            out.add(key)
         if isinstance(val, Mapping):
-            if key != "block":
-                out.add(key)
             out |= _module_names(val)
     return out
 
 
 def _first_leaf(node: Mapping[str, Any]) -> np.ndarray:
     for val in node.values():
-        return _first_leaf(val) if isinstance(val, Mapping) else val
+        return (_first_leaf(val) if isinstance(val, Mapping)
+                else _unbox(val))
     raise ValueError("empty scan-stacked subtree")
+
+
+def _unbox(val):
+    """The array inside a flax partitioning box (``nn.Partitioned``,
+    recognised by its ``value`` and ``names``: the MoE banks' expert axis),
+    else ``val``."""
+    if hasattr(val, "value") and hasattr(val, "names"):
+        return val.value
+    return val
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
@@ -169,11 +204,17 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     def walk(node: Mapping[str, Any], path: List[str],
              layer: Optional[int]) -> None:
         for key, val in node.items():
+            val = _unbox(val)
             m = fam["unrolled"].fullmatch(key)
             if m:
                 walk(val, path + [fam["layers"], m.group(1)], layer)
             elif key in _LEAVES and not isinstance(val, Mapping):
                 leaf(path + [key], val, layer)
+            elif (key in _MOE_RAW and path and path[-1] in fam["moe"]
+                  and not isinstance(val, Mapping)):
+                arr = np.asarray(val)
+                out[".".join(path + [key])] = _tensor(
+                    arr if layer is None else arr[layer])
             elif key not in fam["modules"] or not isinstance(val, Mapping):
                 raise KeyError(f"unmapped flax name {'/'.join(path + [key])}")
             elif set(val) == {"block"}:
@@ -194,7 +235,7 @@ def state_dict_to_flax(state: Mapping[str, torch.Tensor],
     under ``layers/block`` (``h/block``) with a leading L axis, or
     unrolled as ``layers_<i>`` (``h_<i>``).  Linear weights ``[out, in]``
     become kernels ``[in, out]``."""
-    fam = _family({p for name in state for p in name.split(".")[:-1]
+    fam = _family({p for name in state for p in name.split(".")
                    if not p.isdigit()}, "port")
     layers = fam["layers"]
     tree: Dict[str, Any] = {}
@@ -209,6 +250,8 @@ def state_dict_to_flax(state: Mapping[str, torch.Tensor],
                 arr = arr.T
         elif parts[-1] == "bias" and owner in fam["owners"]:
             leaf = "bias"
+        elif parts[-1] in _MOE_RAW and owner in fam["moe"]:
+            leaf = parts[-1]
         else:
             raise KeyError(f"unmapped port name {name}")
         path = parts[:-1] + [leaf]

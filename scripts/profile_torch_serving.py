@@ -2,6 +2,8 @@
 """Where the time goes in the PyTorch port's serving paths, on one GPU.
 
     python3 scripts/profile_torch_serving.py [--mode v1|v2] [--new 16]
+                                             [--model llama3-8b|
+                                                      qwen1.5-moe-a2.7b]
                                              [--weights bf16|int8|fp8|
                                                         fp6|w8a8]
                                              [--cuda-graph]
@@ -26,6 +28,16 @@ groups of 128 in v1 and 2048 in v2, each dequantized at use; w8a8 through
   traces (a) a fused tick that mixes decode tokens with a prefill chunk
   and (b) a decode block (unpipelined, so that one step is one whole
   block).
+
+``--model qwen1.5-moe-a2.7b`` (v2, bf16) serves the sparse-MoE preset at
+full size instead (24 layers, 60 experts of 1408, 4 a token, a shared
+expert), the same way.  Its windows also split the device time by
+module, from labelled ranges around each layer's attention, shared
+expert and MoE layer (the router's logits and top-k gating, the expert
+``bmm``s, and the rest of the layer: the routing plan's sorts, the
+dispatch and combine gathers); the ranges record only eager work, so
+the split comes from a run without ``--cuda-graph``, whose kernels are
+those a replayed block runs.
 
 ``--cuda-graph`` turns on ``enable_cuda_graph``: the v2 decode block and
 the v1 decode steps replay CUDA graphs (captured during the warm-up);
@@ -184,15 +196,64 @@ def by_class(prof_rows, ticks: int, classes=CLASSES):
             for k, (ms, n) in out.items()}
 
 
-def profile_v2(top: int, weights: str, graph: bool, spec=None):
+# labelled ranges of an MoE model's layers (``label_moe``)
+MOE_RANGES = ("attention", "shared_expert", "moe", "moe_gating",
+              "moe_experts")
+
+
+def label_moe(module) -> None:
+    """Wrap each layer's attention, shared expert and MoE layer, and the
+    MoE layer's gating and expert FFN, in ``record_function`` ranges."""
+    from deepspeed_tpu_torch.moe.layer import MoE
+
+    def wrap(obj, attr, tag):
+        fn = getattr(obj, attr)
+
+        def wrapped(*a, **k):
+            with torch.profiler.record_function(tag):
+                return fn(*a, **k)
+        setattr(obj, attr, wrapped)
+
+    for layer in module.model.layers:
+        wrap(layer.self_attn, "forward", "attention")
+        if getattr(layer, "shared_expert", None) is not None:
+            wrap(layer.shared_expert, "forward", "shared_expert")
+    for mod in module.modules():
+        if isinstance(mod, MoE):
+            wrap(mod, "forward", "moe")
+            wrap(mod, "gating", "moe_gating")
+            wrap(mod, "_expert_ffn", "moe_experts")
+
+
+def moe_split(res) -> dict:
+    """Device ms a tick by module from the ranges of ``label_moe``: the
+    MoE layer's routing (plan, dispatch, combine) is its range less the
+    gating's and the experts'; ``rest`` is the device busy time outside
+    every range (embedding, norms, LM head, sampling)."""
+    r = {k: v["device_ms"] for k, v in res["ranges"].items()}
+    t = res["ticks"]
+    split = {"attention": r["attention"],
+             "shared_expert": r["shared_expert"],
+             "moe_gating": r["moe_gating"], "moe_experts": r["moe_experts"],
+             "moe_routing": r["moe"] - r["moe_gating"] - r["moe_experts"]}
+    split["rest"] = res["device_busy_ms"] - sum(split.values())
+    return {k: {"ms": v, "ms_per_tick": v / t} for k, v in split.items()}
+
+
+def profile_v2(top: int, weights: str, graph: bool, spec=None,
+               model_name: str = "llama3-8b"):
     """Trace one mixed fused tick and one decode block of the v2 engine
     (a speculative block with ``spec``)."""
     from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
+    from deepspeed_tpu_torch.models.qwen2_moe import Qwen2MoeForCausalLM
+    from deepspeed_tpu_torch.models.qwen2_moe import \
+        get_config as moe_config
 
-    cfg = get_config("llama3-8b")
+    moe = model_name != "llama3-8b"
+    cfg = moe_config(model_name) if moe else get_config(model_name)
     with torch.device("meta"):
-        model = LlamaForCausalLM(cfg)
+        model = (Qwen2MoeForCausalLM if moe else LlamaForCausalLM)(cfg)
     kw = {}
     if spec is not None:
         graph = True
@@ -209,6 +270,8 @@ def profile_v2(top: int, weights: str, graph: bool, spec=None):
         config={"enable_cuda_graph": graph},
         quantize_weights=None if weights == "bf16" else weights, **kw)
     rng = np.random.default_rng(0)
+    if moe:
+        label_moe(engine.module)
 
     def submit(n, prompt, new):
         for _ in range(n):
@@ -221,6 +284,7 @@ def profile_v2(top: int, weights: str, graph: bool, spec=None):
     engine.get_outputs()
     submit(16, 600, 64)
     out = {"device": torch.cuda.get_device_name(0), "mode": "v2",
+           "model": model_name,
            "weights": weights, "cuda_graph": graph, "spec": spec,
            "requests": 16, "prompt": 600, "new_tokens": 64}
     st = engine.host_stats
@@ -239,9 +303,12 @@ def profile_v2(top: int, weights: str, graph: bool, spec=None):
             engine.step()
         ticks = st.ticks
         every = (spec is not None and want_block) or weights != "bf16"
-        res = profile(engine.step, 10**6 if every else top)
+        res = profile(engine.step, 10**6 if every else top,
+                      MOE_RANGES if moe else ())
         res["ticks"] = st.ticks - ticks
         res["tokens_in_batch"] = (len(decoding) if want_block else None)
+        if moe and not (graph and want_block):
+            res["by_module"] = moe_split(res)
         if weights != "bf16":
             res["by_class"] = by_class(res["top_kernels"], res["ticks"],
                                        WEIGHT_CLASSES)
@@ -467,6 +534,10 @@ def main() -> int:
                     help="new tokens in the traced v1 generate")
     ap.add_argument("--weights", default="bf16",
                     choices=("bf16", "int8", "fp8", "fp6", "w8a8"))
+    ap.add_argument("--model", default="llama3-8b",
+                    choices=("llama3-8b", "qwen1.5-moe-a2.7b"),
+                    help="the v2 model (qwen1.5-moe-a2.7b: bf16, no "
+                         "speculation)")
     ap.add_argument("--root", default=None,
                     help="import the port from this checkout")
     ap.add_argument("--cuda-graph", action="store_true",
@@ -491,9 +562,12 @@ def main() -> int:
         out = profile_disagg(args.top)
         print(f"router, timed: {json.dumps(out['router_timed'])}")
         return report(out, ("control", "router"), args.out)
+    if args.model != "llama3-8b" and (args.mode != "v2" or args.spec or
+                                      args.weights != "bf16"):
+        ap.error("--model qwen1.5-moe-a2.7b profiles v2 in bf16 only")
     if args.mode == "v2" or args.spec is not None:
         return report(profile_v2(args.top, args.weights, args.cuda_graph,
-                                 args.spec),
+                                 args.spec, args.model),
                       ("fused_tick", "decode_block"),
                       args.out)
     import deepspeed_tpu_torch
@@ -531,7 +605,8 @@ def report(out, windows, path) -> int:
         for row in r["top_kernels"]:
             print(f"  {row['device_ms']:9.3f} ms {row['share']:6.1%} "
                   f"x{row['calls']:<5d} {row['kernel']}")
-        for cls, v in r.get("by_class", {}).items():
+        for cls, v in {**r.get("by_class", {}),
+                       **r.get("by_module", {})}.items():
             print(f"  {cls}: {v['ms']:.3f} ms, {v['ms_per_tick']:.3f} ms a "
                   "tick" + (f", {v['launches_per_tick']:g} launches a tick"
                             if "launches" in v else ""))

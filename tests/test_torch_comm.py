@@ -36,6 +36,7 @@ from deepspeed_tpu_torch.resilience import faults
 from deepspeed_tpu_torch.resilience.distributed import (
     CollectiveTimeout, build_straggler_report)
 from torch_dist_workers import comm_worker, spawn
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 SEED = 11
 

@@ -28,6 +28,7 @@ from deepspeed_tpu_torch.resilience import faults
 from deepspeed_tpu_torch.serving import Router, RouterRejection
 from deepspeed_tpu_torch.serving.replica_set import ReplicaSet
 from deepspeed_tpu_torch.telemetry.requests import RequestLatencyTracker
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 
 

@@ -19,6 +19,7 @@ from deepspeed_tpu.ops.flash_attention import \
     flash_attention as jax_flash_attention
 from deepspeed_tpu.ops.flash_attention import mha_reference as jax_mha
 from deepspeed_tpu_torch.ops import flash_attention as fa
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 ATOL = 2e-5
 

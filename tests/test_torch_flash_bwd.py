@@ -24,6 +24,7 @@ from deepspeed_tpu.ops.flash_attention import (_flash_bwd_pallas,
 from deepspeed_tpu.ops.flash_attention import \
     flash_attention as jax_flash_attention
 from deepspeed_tpu_torch.ops import flash_attention as fa
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 ATOL = 1e-5
 

@@ -19,6 +19,7 @@ from deepspeed_tpu_torch.serving import protocol as proto
 from deepspeed_tpu_torch.serving.client import (LoadGenerator,
                                                 bimodal_payload_fn,
                                                 sse_generate)
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 ENGINE = dict(max_seqs=4, max_seq_len=128, prefill_chunk=8,
               decode_block_size=4, harvest_interval=3, num_pages=None)

@@ -15,6 +15,7 @@ import torch
 
 from deepspeed_tpu.ops.fused_adam import adam_update_leaf, lion_update_leaf
 from deepspeed_tpu_torch.ops import fused_adam as fo
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 SHAPES = [(700,), (129,), (3, 5, 7)]
 LR = 1e-3

@@ -48,6 +48,7 @@ from deepspeed_tpu_torch.module_inject.flax_bridge import (
     flax_to_state_dict, state_dict_to_flax)
 from torch_dist_workers import (GPT2_TINY, gpt2_zero_worker, spawn,
                                 tiny_gpt2)
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 ATOL = 1e-4
 V1 = {"dtype": "float32", "max_out_tokens": 32}

@@ -34,7 +34,10 @@ on, gives the eager unpipelined engine's tokens; no decode block starts
 while the long-context request is live, and replayed blocks resume
 after it finishes.  Quantized weights: a w8a8 block (the W8A8 GEMM once
 a Linear) and an fp6 block (K2 a weight) replayed from graphs give the
-eager unpipelined engine's tokens.
+eager unpipelined engine's tokens.  Sparse MoE: a tiny bf16 Qwen2-MoE
+(routed experts and the shared expert, head dim 64) through captured and
+replayed blocks, pipeline on and off, gives the eager unpipelined
+engine's tokens bit for bit, with the paged kernel once a layer a tick.
 """
 import numpy as np
 import pytest
@@ -42,7 +45,7 @@ import torch
 
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
-from deepspeed_tpu_torch.models import llama
+from deepspeed_tpu_torch.models import llama, qwen2_moe
 from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
 from deepspeed_tpu_torch.resilience import sdc
 
@@ -126,6 +129,33 @@ def test_v2_graphs_give_the_eager_tokens(cuda, sampled):
             eager_ticks + 2 * K * st["graph_captures"])
         if pipeline:
             assert eng.host_stats.blocking_gets < eng.host_stats.dispatches
+
+
+@pytest.mark.gpu
+def test_moe_graphs_give_the_eager_tokens(cuda):
+    """Routing (top-k, cumsum, stable argsort, row gathers) and the
+    expert bmms inside the captured block: the eager engine's tokens."""
+    cfg = qwen2_moe.get_config("tinyqwen2moe", vocab_size=256,
+                               hidden_size=256, num_attention_heads=4,
+                               num_key_value_heads=4,
+                               max_position_embeddings=256)
+    with torch.device("meta"):
+        model = qwen2_moe.Qwen2MoeForCausalLM(cfg)
+    eager = _v2(cuda, module=model, pipeline=False)
+    want = _serve(eager, sampled=False)
+    L, K = cfg.num_hidden_layers, V2["decode_block_size"]
+    for pipeline in (False, True):
+        eng = _v2(cuda, module=eager.module, pipeline=pipeline,
+                  config={"enable_cuda_graph": True})
+        before = rpa.ragged_paged_attention.launches
+        got = _serve(eng, sampled=False)
+        st = eng.serving_stages()
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert st["graph_captures"] == 1 and st["graph_replays"] > 0
+        eager_ticks = eng.host_stats.ticks - K * st["graph_replays"]
+        assert rpa.ragged_paged_attention.launches - before == L * (
+            eager_ticks + 2 * K * st["graph_captures"])
 
 
 @pytest.mark.gpu

@@ -19,7 +19,9 @@ page-table holes, D=64 with 16-row pages, 128-row pages with 8 q heads per
 KV head, MHA with padding tokens, and on the split-KV decode path kv_len at
 a split boundary and one key past it, one 2048-key sequence among 1-key
 ones, a window across splits, holes that empty a whole split, D=64 with
-16- and 128-row pages, and two calls bit-identical; with the
+16- and 128-row pages, group 1 at D 128 (16 heads over 16, the
+Qwen1.5-MoE shape) at decode and mixed, and two calls bit-identical;
+with the
 long-context scan's incoming carry (neutral, and random with some rows
 neutral) at its shapes, a 4096-key table with its middle parked as
 holes: a decode row (many splits, most of them holes only), a 64-token
@@ -213,6 +215,13 @@ PAGED_CASES = {
                           {"D": 64, "H": 16, "Hkv": 4, "page": 16}),
     "d64_page128": ([1] * 5 + [20], [150 * (j + 1) for j in range(6)],
                     {"D": 64, "H": 16, "Hkv": 4, "page": 128, "pad": 2}),
+    # group 1 at D 128 (qwen1.5-moe-a2.7b: H 16 over Hkv 16, 64-token q
+    # tiles): the decode block's rows and a tick's 512-token chunk
+    "group1_h16_decode": ([1] * 16, [128 + 90 * j for j in range(16)],
+                          {"H": 16, "Hkv": 16}),
+    "group1_h16_mixed": ([1] * 8 + [512],
+                         [200 + 150 * j for j in range(8)] + [1100],
+                         {"H": 16, "Hkv": 16, "pad": 3}),
 }
 
 

@@ -35,6 +35,7 @@ from deepspeed_tpu_torch.inference.kv_tiering import (KVRestoreError,
 from deepspeed_tpu_torch.resilience import faults, sdc
 from torch_tier_helpers import (assert_same, check_restores, jax_engine,
                                 port_engine, prompts, serve, weights)
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 SIZES = [12, 20, 9, 16]
 NVME_SIZES = [12, 20, 9, 16, 14, 18]

@@ -48,6 +48,7 @@ from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
 from deepspeed_tpu_torch.models import llama
 from deepspeed_tpu_torch.module_inject.flax_bridge import flax_to_state_dict
 from deepspeed_tpu_torch.resilience import faults
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 TINY = dict(vocab_size=64, hidden_size=32, intermediate_size=64,
             num_hidden_layers=2, num_attention_heads=4,

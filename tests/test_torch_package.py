@@ -39,6 +39,7 @@ from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import fused_adam as fo
 from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
 from deepspeed_tpu_torch.telemetry.slo import parse_objective
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "deepspeed_tpu_torch"

@@ -41,6 +41,7 @@ from deepspeed_tpu.models.llama import get_config as jax_get_config
 from deepspeed_tpu.ops import ragged_paged_attention_quant as jax_kernel8
 from deepspeed_tpu_torch.inference import paged
 from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 
 # -- the allocator ---------------------------------------------------------

@@ -32,6 +32,7 @@ from deepspeed_tpu_torch.inference.prefix_cache import (ROOT_HASH,
                                                         _chunk_hash)
 from torch_tier_helpers import (PAGE, assert_same, jax_engine, port_engine,
                                 serve, shared_prompts, weights)
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 
 @pytest.fixture(scope="module")

@@ -41,6 +41,7 @@ from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
 from deepspeed_tpu_torch.models import llama
 from deepspeed_tpu_torch.module_inject.flax_bridge import flax_to_state_dict
 from deepspeed_tpu_torch.ops import quantization as q
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 # (shape, group size): whole groups of 128 and 2048, a tail group, and
 # groups of 32 (the kernel's lane split of two lanes a group)

@@ -37,6 +37,7 @@ from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
 from deepspeed_tpu_torch.models import llama
 from deepspeed_tpu_torch.module_inject.flax_bridge import flax_to_state_dict
 from deepspeed_tpu_torch.telemetry import requests
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 TINY = dict(vocab_size=256, hidden_size=256, intermediate_size=256,
             num_hidden_layers=2, num_attention_heads=4,

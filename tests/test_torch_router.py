@@ -18,6 +18,7 @@ from deepspeed_tpu_torch.serving import (BreakerConfig, DeadlineRejection,
                                    QueueFullRejection, ReplicaHangError,
                                    Router, RouterRejection, ShedRejection)
 from deepspeed_tpu_torch.telemetry import SLOSet, flight, read_flight_record
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 
 class FakeClock:

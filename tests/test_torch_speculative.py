@@ -50,6 +50,7 @@ from deepspeed_tpu_torch.models import llama
 from deepspeed_tpu_torch.module_inject.flax_bridge import flax_to_state_dict
 from torch_tier_helpers import (TINY, assert_same, prompts, serve,
                                 shared_prompts, weights)
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 DTINY = dict(TINY, hidden_size=16, intermediate_size=32, num_hidden_layers=1,
              num_attention_heads=2, num_key_value_heads=1)

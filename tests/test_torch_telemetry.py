@@ -26,6 +26,7 @@ from deepspeed_tpu_torch.telemetry.metrics import (MetricsRegistry,
 from deepspeed_tpu_torch.telemetry.slo import (SLOSet, TailSampler,
                                                parse_objective)
 from deepspeed_tpu_torch.telemetry.tracer import Tracer
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 
 class ManualClock:

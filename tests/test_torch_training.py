@@ -56,6 +56,7 @@ from deepspeed_tpu_torch.runtime import precision as prec
 from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
                                                     RepeatingLoader)
 from deepspeed_tpu_torch.runtime.optimizers import build_optimizer
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 TINY = dict(vocab_size=256, hidden_size=256, intermediate_size=256,
             num_hidden_layers=2, num_attention_heads=4,

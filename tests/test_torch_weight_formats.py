@@ -31,6 +31,7 @@ from deepspeed_tpu.inference import quantization as jax_iq
 from deepspeed_tpu.ops import quantization as jax_q
 from deepspeed_tpu_torch.inference import quantization as iq
 from deepspeed_tpu_torch.ops import quantization as q
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 SHAPES = {"rows": (64, 256), "odd": (37, 53), "flat": (4103,)}
 

@@ -46,6 +46,7 @@ from deepspeed_tpu_torch.inference import quantization as iq
 from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
 from deepspeed_tpu_torch.models import llama
 from deepspeed_tpu_torch.module_inject.flax_bridge import flax_to_state_dict
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 FORMATS = ["fp8", "fp6", "w8a8"]
 # head dim 64: every leaf a multiple of 2048 elements

@@ -52,6 +52,7 @@ from deepspeed_tpu_torch.runtime.zero import ZeroPartitionPlan, gather_units
 from deepspeed_tpu_torch.utils import tensor_fragment as tf
 from torch_dist_workers import (TINY, make_engine, numpy_state, spawn,
                                 tiny_model, zero_config, zero_worker)
+import torch_cpu  # noqa: F401  (one torch thread a process)
 
 LR = 1e-3
 PARAM_TOL, FLIP_SHARE, FLIP_ATOL = 1e-2, 5e-5, 1e-6
