@@ -305,8 +305,28 @@ Phases (any failed check raises; nothing is caught):
    logits recorded and compared row by row); and ``mixtral-8x7b`` at full width and 2 of
    its 32 layers (top 2 of 8, renormalised gates), bf16, graphed and
    pipelined against eager, #9 twice a tick.
+25. Quantized expert banks (A12b), last: (a) #6 and #7 (int8, groups of
+   2048), K1 (fp8, one scale) and K2 (fp6, groups of 2048) over one
+   ``mixtral-8x7b`` bank [8, 4096, 14336] and one ``qwen1.5-moe-a2.7b``
+   bank [60, 2048, 1408] in bf16, bit-identical to their plain versions,
+   each timed (graph-replayed) beside its byte bound and plain version.
+   (b) ``mixtral-8x7b`` at full size (32 layers, published widths, 46.7 B
+   parameters: 87.0 GiB in bf16, more than the card holds), built on meta
+   and quantized to int8 by v2 one module at a time: #6 226 times, the
+   build's and the serving's peak memory under the bf16 size; 8 seeded
+   requests (128..1024 + 32..64) eager and unpipelined, then graphed and
+   pipelined, the same tokens, #7 226 and #9 32 times a tick (counted as
+   in phase 14, the device's launches derived); decode tokens/s, TTFT
+   p50/p99, ``host_bound_fraction``, and a replayed tick's wall time
+   against the int8 weight read.  (c) v1 on the same module (cast by its
+   own rule: the router to bf16), int8 at groups of 2048, 2 x 512 + 32
+   eager and graphed, the same tokens, #1 once a layer a prefill and #7
+   226 a forward.  (d) ``qwen1.5-moe-a2.7b`` at full width and 8 of its
+   24 layers with fp8 and with fp6 banks through v2 over the same 8
+   requests, graphed and pipelined against eager, K1 / K2 90 a tick.
+   (e) phase 24's fp32 leg with int8 weights and banks.
 
-Phases 3, 6, 12, 14, 20, 22, 23 and 24's first model (serving) keep
+Phases 3, 6, 12, 14, 20, 22, 23, 24's first model and 25's Mixtral keep
 their full depth;
 phases 19 and 21 (the KV tiers) run 8 of the 32 layers, and the
 checkpoint legs of phases 13 and 17 2 layers, so that the whole run
@@ -319,9 +339,9 @@ at phase 12, so that the whole run stays inside its time limit.
 alone, ``--tiering-only`` the build and phase 19, ``--spec-only`` the
 build and phase 20, ``--lc-only`` the build, phase 5's carry cases and
 phase 21, ``--wq-only`` the build and phase 22, ``--disagg-only`` the
-build and phase 23, ``--moe-only`` the build and phase 24; none prints
-result lines.  The line before the last is the ``kernels`` JSON; the last line
-is ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits
+build and phase 23, ``--moe-only`` the build and phases 24 and 25; none
+prints result lines.  The line before the last is the ``kernels`` JSON;
+the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits
 nonzero and prints no result.
 """
 from __future__ import annotations
@@ -1607,18 +1627,26 @@ def phase_opt_kernels():
         ms = time_ms(run, reps=10, warmup=2)
         plain_ms = time_ms(plain, reps=3, warmup=1)
         bound = nbytes / PEAK_BYTES * 1e3
-        lib_ms = None
+        lib_ms = lib_copy_ms = None
         if opt == "adamw":
             param = torch.nn.Parameter(p.clone())
             param.grad = g
             topt = torch.optim.AdamW([param], lr=3e-4, betas=(0.9, 0.95),
                                      weight_decay=0.1, fused=True)
             lib_ms = time_ms(topt.step, reps=10, warmup=2)
+            # the kernel's work: the step and the bf16 working copy
+
+            def step_and_copy():
+                topt.step()
+                w.copy_(param.detach())
+            lib_copy_ms = time_ms(step_and_copy, reps=10, warmup=2)
             del param, topt
         log(f"{opt} over {n} fp32 parameters (+ bf16 copy): max|kernel-"
             f"plain|={err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms,"
             f" bound {bound:.3f} ms (bytes), {bound / ms:.1%} of bound"
-            + (f"; torch AdamW(fused=True).step {lib_ms:.3f} ms"
+            + (f"; torch AdamW(fused=True).step {lib_ms:.3f} ms (no bf16 "
+               f"copy), the step and the bf16 copy_ (the kernel's work) "
+               f"{lib_copy_ms:.3f} ms, {bound / lib_copy_ms:.1%} of bound"
                if lib_ms is not None else ""))
         kname = "fused_lion" if opt == "lion" else "fused_adam"
         if opt != "adam":           # the slice runs AdamW and Lion
@@ -2297,7 +2325,8 @@ def v2_graph_run(label, module, want, counters, eager, traffic, **kw):
     torch.cuda.empty_cache()
     return dict(r, ttft_p50=st["requests"]["ttft_ms_p50"],
                 ttft_p99=st["requests"]["ttft_ms_p99"],
-                hbf=st["host_bound_fraction"], launched=launched)
+                hbf=st["host_bound_fraction"], launched=launched,
+                device=device)
 
 
 def phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager, v1_greedy,
@@ -5259,11 +5288,13 @@ def phase_moe():
             entries["ragged_paged_attn_quant_moe_g1"], v1_launches)
 
 
-def moe_fp32(smi):
+def moe_fp32(smi, quant=None):
     """2 of qwen1.5-moe-a2.7b's layers at full width in fp32 (TF32 off),
     weights made on the card, ``drop_tokens`` off so that v1's batch and
     v2's padded tick route each token alike: 4 greedy requests through v2
-    against v1 one at a time.  Both runs record every row's router logits
+    against v1 one at a time.  With ``quant`` (v1's ``quant`` config) v1
+    quantizes the weights, the banks too, and v2 serves the same
+    quantized module.  Both runs record every row's router logits
     (keyed by position and input token), so the top-k sets of v1 and v2
     are compared at each position.  A token may differ only where v1's
     top-2 logit margin at it is under ``MARGIN``, or where, at a position
@@ -5281,9 +5312,12 @@ def moe_fp32(smi):
     with torch.device("meta"):
         model = qwen2_moe.Qwen2MoeForCausalLM(cfg)
     v1 = deepspeed_tpu_torch.init_inference(
-        model, config={"dtype": "float32", "max_out_tokens": 1024},
+        model, config={"dtype": "float32", "max_out_tokens": 1024,
+                       **({"quant": quant} if quant else {})},
         generator=torch.Generator(device="cuda").manual_seed(SEED + 24))
     module = v1.module
+    label = "moe fp32" + (f" ({quant['qtype']} weights and banks)"
+                          if quant else "")
 
     # each forward's (input ids, positions, router logits a layer), cloned
     # where they are made: the engines reuse their buffers
@@ -5372,16 +5406,16 @@ def moe_fp32(smi):
         n_flips += len(flips)
         if diff.size:
             i = d - len(p)
-            log(f"[{smi}] moe fp32: prompt {len(p)}: first differing token "
+            log(f"[{smi}] {label}: prompt {len(p)}: first differing token "
                 f"{i}, v1 top-2 margin {margins[i]:.3e}, router gap at it "
                 f"{gaps[d - 1]:.3e}; {len(flips)} positions up to it with "
                 f"another top-{k} set in v2 (first {flips[:1]})")
             assert margins[i] < MARGIN or flips, (
-                f"moe fp32: v2 differs from v1 at {i} with margin "
+                f"{label}: v2 differs from v1 at {i} with margin "
                 f"{margins[i]:.3e} and the same experts chosen up to it")
         del logits
     same = sum(np.array_equal(a, b) for a, b in zip(got, want))
-    log(f"[{smi}] moe fp32, 2 layers: {same}/4 requests token-equal v2 "
+    log(f"[{smi}] {label}, 2 layers: {same}/4 requests token-equal v2 "
         f"against v1; smallest v1 top-2 margin {smallest:.3e}, smallest "
         f"router k-th/(k+1)-th gap {router_smallest:.3e}, largest v1/v2 "
         f"router logit difference {largest_diff:.3e}, {n_flips} positions "
@@ -5426,6 +5460,356 @@ def moe_mixtral(smi):
     del module, model
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: quantized expert banks (int8, fp8, fp6) through v1 and v2
+# ---------------------------------------------------------------------------
+
+# one expert bank of each preset, [E, M, I] (``w1``, ``w3``)
+MOE_BANKS = {"mixtral_bank": (8, 4096, 14336), "qwen_bank": (60, 2048, 1408)}
+MOE_QUANT_LINE = {
+    "dequantize_int8_g2048": "deepspeed_tpu/ops/quantization.py:59",
+    "dequant_scaled": "deepspeed_tpu/ops/quantization.py:175",
+    "dequant_fp6_g2048": "deepspeed_tpu/ops/quantization.py:274"}
+# phase 25(d)'s depth, 8 of qwen1.5-moe-a2.7b's 24 layers: with all 24
+# the whole smoke took 918 s on an H100 80GB HBM3 at 700 W with a slower
+# host (nvcc 34.0 s where it takes 19.9), over its 900 s budget; (d) runs
+# the banks' formats, which every layer runs alike, and phase 24 serves
+# the model at full depth
+QWEN_QUANT_LAYERS = 8
+
+
+def moe_quant_traffic(vocab, n=8):
+    """``n`` requests of 128..1024 prompt tokens and 32..64 new tokens
+    from numpy seed ``SEED + 25``; every third samples, as phase 6's."""
+    rng = np.random.default_rng(SEED + 25)
+    lens = rng.integers(128, 1025, size=n)
+    news = rng.integers(32, 65, size=n)
+    reqs = []
+    for i in range(n):
+        kw = dict(max_new_tokens=int(news[i]))
+        if i % 3 == 2:
+            kw.update(do_sample=True, temperature=0.8, top_k=50, top_p=0.9)
+        reqs.append((rng.integers(0, vocab, size=int(lens[i])), kw))
+    return reqs
+
+
+def moe_bank_kernels(smi):
+    """Phase 25(a): #7 (int8, groups of 2048, after #6 quantized the bank
+    bit-identically to plain), K1 (fp8, one scale) and K2 (fp6, groups of
+    2048) over one ``mixtral-8x7b`` and one ``qwen1.5-moe-a2.7b`` bank in
+    bf16, bit-identical to their plain versions on the card; each timed
+    (graph-replayed) beside its byte bound and its plain version.
+    Returns the kernel-line entries by name, and each format's quantizer
+    working set in bytes a value of bf16 input: the most its call adds to
+    the card's memory, outputs included, over the two banks."""
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    bf16 = torch.bfloat16
+    entries, work = {}, {}
+    for i, (bname, shape) in enumerate(MOE_BANKS.items()):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 2500 + i)
+        E, M = shape[:2]
+        # rows of mixed magnitude, as trained weights have
+        w = (torch.randn(shape, generator=gen, device="cuda") *
+             torch.rand(E, M, 1, generator=gen, device="cuda") * 0.05
+             ).to(bf16)
+        n = w.numel()
+        t = held_peak(lambda: qz.quantize(w, group_size=2048), work, "int8",
+                      n)
+        ref = qz.quantize_reference(w, group_size=2048)
+        assert all(bits_equal(a, b) for a, b in zip(t[:3], ref[:3])), (
+            f"#6 over {bname}: payload, scale, offset differ from plain")
+        del ref
+        ft = held_peak(lambda: qz.quantize_fp8(w), work, "fp8", n)
+        t6 = held_peak(lambda: qz.quantize_fp6(w, 2048), work, "fp6", n)
+        assert t6.group_size == 2048
+        del w
+        cases = (
+            ("dequantize_int8_g2048", lambda: qz.dequantize(t),
+             lambda: qz.dequantize_reference(t),
+             2 * n + t.values.numel() + 8 * t.scale.numel()),
+            ("dequant_scaled", lambda: qz.dequantize_fp8(ft),
+             lambda: qz.dequant_scaled_reference(ft.values, ft.scale, bf16),
+             3 * n + 4),
+            ("dequant_fp6_g2048", lambda: qz.dequantize_fp6(t6),
+             lambda: qz.dequantize_fp6_reference(t6),
+             t6.values.numel() + 4 * t6.scale.numel() + 2 * n))
+        parts = []
+        for kname, run, plain, nbytes in cases:
+            got, want = run(), plain()
+            assert bits_equal(got, want), f"{kname} over {bname} != plain"
+            err = (got.float() - want.float()).abs().max().item()
+            del got, want
+            ms = graph_ms(run)
+            plain_ms = time_ms(plain, reps=3, warmup=1)
+            e = wq_entry(f"{kname}_{bname}", ms, plain_ms, nbytes,
+                         MOE_QUANT_LINE[kname],
+                         source="quantization.cu" if kname.startswith(
+                             "dequantize_int8") else "weight_formats.cu")
+            e["max_abs_err"] = err
+            entries[e["name"]] = e
+            parts.append(f"{kname} {ms:.4f} ms (bound {e['bound_ms']:.4f} "
+                         f"ms, {e['bound_ms'] / ms:.1%}; plain "
+                         f"{plain_ms:.3f} ms)")
+        log(f"[{smi}] moe bank {bname} {list(shape)} bf16 ({n / 1e9:.3f} G "
+            f"values): #6, #7, K1 and K2 bit-identical to plain; "
+            + "; ".join(parts) + "; the quantizers' working sets "
+            + ", ".join(f"{f} {b:.2f} B a value" for f, b in work.items()))
+        del t, ft, t6, cases
+        torch.cuda.empty_cache()
+    return entries, work
+
+
+def held_peak(fn, work, fmt, n):
+    """``fn()``, recording in ``work[fmt]`` the most bytes a value of its
+    ``n`` that its call added to the allocated memory at its peak."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    added = (torch.cuda.max_memory_allocated() - base) / n
+    work[fmt] = max(work.get(fmt, 0.0), added)
+    return out
+
+
+def streamed_build(smi, make, name, fmt, work):
+    """The engines' build of a meta model with no weights given
+    (``normalize_params`` with ``quantize``, as v2 calls it), run alone:
+    an engine allocates its KV pool after the build, which would hide the
+    build's peak.  Its weights are drawn and quantized module by module,
+    so its peak above what was allocated before holds the quantized model
+    and the largest transient of one module: its own full-precision
+    parameters, a Linear's transposed copy, and the quantizer's working
+    set (``work``, bytes a value, from phase 25(a)) for its largest
+    weight; with 0.25 GiB for the allocator's rounding and the small
+    buffers.  A build that kept the weights it has quantized, or drew the
+    whole model first, goes over.  Returns the model's parameter count."""
+    from deepspeed_tpu_torch.inference.common import normalize_params
+
+    with torch.device("meta"):
+        model = make()
+    n_params = sum(p.numel() for p in model.parameters())
+    transient = 0
+    for mod in model.modules():     # bf16, the router fp32
+        fp32 = getattr(mod, "fp32_params", ())
+        own = list(mod.named_parameters(recurse=False))
+        big = max((p.numel() for _, p in own if p.dim() >= 2), default=0)
+        transient = max(transient, sum(
+            p.numel() * (4 if n in fp32 else 2) for n, p in own)
+            + (2 * big if isinstance(mod, torch.nn.Linear) else 0)
+            + work[fmt] * big)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    module = normalize_params(
+        model, dtype=torch.bfloat16, device=torch.device("cuda"),
+        generator=torch.Generator(device="cuda").manual_seed(SEED),
+        keep_fp32=True, quantize=dict(fmt=fmt, native_w8a8=True))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    resident = resident_bytes(module)
+    bound = resident + transient + 2**28
+    log(f"[{smi}] moe {fmt}: {name} ({n_params / 1e9:.2f} B parameters, "
+        f"{n_params * 2 / 2**30:.1f} GiB in bf16) built on meta and "
+        f"quantized module by module in {build_s:.1f} s: resident "
+        f"{resident / 2**30:.2f} GiB, build peak {peak / 2**30:.2f} GiB "
+        f"above the memory before it, bound {bound / 2**30:.2f} GiB (the "
+        f"largest module's transient {transient / 2**30:.2f} GiB + 0.25)")
+    assert peak <= bound, (
+        f"{name} {fmt} build: peak {peak / 2**30:.2f} GiB over the bound "
+        f"{bound / 2**30:.2f} GiB")
+    del module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n_params
+
+
+def n_quantized(module) -> int:
+    """The module's quantized weights: one dequant launch each a tick."""
+    from deepspeed_tpu_torch.inference.quantization import _Quantized
+
+    return sum(isinstance(m, _Quantized) for m in module.modules())
+
+
+def phase_moe_quant():
+    """Phase 25: quantized expert banks.  (a) #7, K1 and K2 at the bank
+    shapes (:func:`moe_bank_kernels`).  (b) ``mixtral-8x7b`` at full size
+    (32 layers, published widths), built on meta and quantized to int8 by
+    v2 one module at a time: peak memory under its 87.0 GiB of bf16; 8
+    requests eager and unpipelined, then graphed and pipelined with the
+    same tokens, #7 226 and #9 32 a tick.  (c) v1 over the same module
+    (cast by v1's rule: the router to bf16), int8 at groups of 2048, 2 x
+    512 + 32 eager against graphed, #1 once a layer a prefill.  (d)
+    ``qwen1.5-moe-a2.7b`` at 8 of its 24 layers with fp8 and with fp6
+    banks through v2, graphed against eager, K1 / K2 90 a tick.  (e) phase 24's fp32 leg with int8
+    banks.  Returns the kernel-line entries with their launches, and #1's
+    launches."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+    from deepspeed_tpu_torch.models import mixtral, qwen2_moe
+    from deepspeed_tpu_torch.ops import quantization as qz
+    from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+    from deepspeed_tpu_torch.ops.flash_attention import flash_fwd
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    entries, work = moe_bank_kernels(smi)
+    graph = {"config": {"enable_cuda_graph": True}}
+    p9 = rpa.ragged_paged_attention
+
+    # (b) mixtral-8x7b, int8, built module by module
+    cfg = mixtral.get_config("mixtral-8x7b")
+    L = cfg.num_hidden_layers
+    n_params = streamed_build(smi, lambda: mixtral.MixtralForCausalLM(cfg),
+                              "mixtral-8x7b", "int8", work)
+    bf16_gib = n_params * 2 / 2**30
+    with torch.device("meta"):
+        model = mixtral.MixtralForCausalLM(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    qz.quantize.launches = qz.dequantize.launches = 0   # the path starts
+    t0 = time.perf_counter()
+    engine = RaggedInferenceEngineV2(
+        model, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda", quantize_weights="int8", **V2)
+    module = engine.module
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_w = n_quantized(module)
+    assert n_w == 7 * L + 2 and qz.quantize.launches == n_w, (
+        n_w, qz.quantize.launches)
+    resident = resident_bytes(module)
+    build_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{smi}] moe int8: mixtral-8x7b v2 engine built in {build_s:.1f} "
+        f"s: {n_w} weights (#6 {qz.quantize.launches} launches), resident "
+        f"{resident / 2**30:.2f} GiB, peak with the KV pool "
+        f"{build_peak:.2f} GiB")
+    assert build_peak < bf16_gib
+    reqs = moe_quant_traffic(cfg.vocab_size)
+    p9.launches = qz.dequantize.launches = 0
+    want, eager = serve(engine, reqs)
+    ticks = engine.host_stats.ticks
+    assert (qz.dequantize.launches, p9.launches) == (n_w * ticks,
+                                                     L * ticks), (
+        f"moe int8 eager: (#7, #9) {(qz.dequantize.launches, p9.launches)}"
+        f", want {n_w} and {L} x {ticks} ticks")
+    st = engine.serving_stages()
+    log(f"[{smi}] moe int8 v2 eager: {len(reqs)} requests in "
+        f"{eager['wall_s']:.2f} s, decode {eager['decode_tps']:.1f} "
+        f"tokens/s in blocks, TTFT p50 {st['requests']['ttft_ms_p50']} ms "
+        f"p99 {st['requests']['ttft_ms_p99']} ms, {ticks} ticks")
+    del engine
+    torch.cuda.empty_cache()
+    r = v2_graph_run("moe int8 mixtral-8x7b v2, pipeline on", module, want,
+                     [(qz.dequantize, n_w), (p9, L)], eager, reqs,
+                     pipeline=True, **graph)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert peak < bf16_gib, f"peak {peak:.2f} GiB over bf16's {bf16_gib:.1f}"
+    tick_ms = r["block_s"] / max(r["blocks"] * V2["decode_block_size"],
+                                 1) * 1e3
+    bound_ms = resident / PEAK_BYTES * 1e3
+    mix = entries["dequantize_int8_g2048_mixtral_bank"]
+    mix["launches"] = qz.dequantize.launches
+    device7 = r["device"]["dequantize"]
+    log(f"[{smi}] moe int8 mixtral-8x7b v2 graphed + pipelined: decode "
+        f"{r['decode_tps']:.1f} tokens/s in blocks (eager "
+        f"{eager['decode_tps']:.1f}), TTFT p50 {r['ttft_p50']} ms p99 "
+        f"{r['ttft_p99']} ms, host_bound_fraction {r['hbf']} (in blocks "
+        f"{r['block_hbf']:.4f}); a replayed tick {tick_ms:.1f} ms wall "
+        f"against the int8 weight read's {bound_ms:.1f} ms "
+        f"({resident / 1e9:.1f} GB at 3.35 TB/s): {bound_ms / tick_ms:.1%};"
+        f" resident {resident / 2**30:.2f} GiB, peak {peak:.2f} GiB (bf16 "
+        f"would need {bf16_gib:.1f}); #7 counted {qz.dequantize.launches} "
+        f"({n_w} a tick), {device7} on the device in the graphed run, "
+        f"derived")
+
+    # (c) v1 over the same module and format
+    prompts = torch.randint(0, cfg.vocab_size, (2, 512),
+                            generator=torch.Generator().manual_seed(SEED))
+    v1_out, v1_flash = [], 0
+    quant = {"enabled": True, "qtype": "int8", "group_size": 2048}
+    for graphed in (False, True):
+        v1 = deepspeed_tpu_torch.init_inference(
+            module, config={"dtype": "bfloat16", "max_out_tokens": 1024,
+                            "enable_cuda_graph": graphed, "quant": quant})
+        before = (flash_fwd.launches, qz.dequantize.launches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        v1_out.append(v1.generate(prompts, max_new_tokens=32))
+        v1_s = time.perf_counter() - t
+        got = (flash_fwd.launches - before[0],
+               qz.dequantize.launches - before[1])
+        assert got[0] == L, "moe int8 v1: not one #1 a layer"
+        assert graphed or got[1] == n_w * 32, got
+        v1_flash += L
+        mix["launches"] += got[1]
+        router = module.model.layers[0].block_sparse_moe.gate.dtype
+        log(f"[{smi}] moe int8 mixtral-8x7b v1 "
+            f"{'graphed' if graphed else 'eager'}: 2 x 512 + 32 in "
+            f"{v1_s:.2f} s, #1 {got[0]}, #7 counted {got[1]}; router "
+            f"{router} (v1 casts it)")
+        del v1
+    assert torch.equal(v1_out[0][:, :512], prompts)
+    assert torch.equal(v1_out[0], v1_out[1]), "moe int8 v1: graphed != eager"
+    del module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) qwen1.5-moe-a2.7b with fp8 and fp6 banks
+    qcfg = qwen2_moe.get_config("qwen1.5-moe-a2.7b",
+                                num_hidden_layers=QWEN_QUANT_LAYERS)
+    QL = qcfg.num_hidden_layers
+    qreqs = moe_quant_traffic(qcfg.vocab_size)
+    for fmt, counter, kname in (("fp8", qz.dequant_scaled, "dequant_scaled"),
+                                ("fp6", qz.dequantize_fp6,
+                                 "dequant_fp6_g2048")):
+        streamed_build(smi, lambda: qwen2_moe.Qwen2MoeForCausalLM(qcfg),
+                       "qwen1.5-moe-a2.7b", fmt, work)
+        with torch.device("meta"):
+            model = qwen2_moe.Qwen2MoeForCausalLM(qcfg)
+        engine = RaggedInferenceEngineV2(
+            model, device="cuda", quantize_weights=fmt, **V2,
+            generator=torch.Generator(device="cuda").manual_seed(SEED))
+        module = engine.module
+        n_w = n_quantized(module)
+        assert n_w == 11 * QL + 2, n_w
+        counter.launches = p9.launches = 0      # the path starts
+        want, eager = serve(engine, qreqs)
+        ticks = engine.host_stats.ticks
+        assert (counter.launches, p9.launches) == (n_w * ticks, QL * ticks)
+        del engine
+        r = v2_graph_run(f"moe {fmt} qwen1.5-moe-a2.7b v2, pipeline on",
+                         module, want, [(counter, n_w), (p9, QL)], eager,
+                         qreqs, pipeline=True, **graph)
+        entries[f"{kname}_qwen_bank"]["launches"] = counter.launches
+        log(f"[{smi}] moe {fmt} qwen1.5-moe-a2.7b ({QL} layers) v2: "
+            f"resident {resident_bytes(module) / 2**30:.2f} GiB; decode "
+            f"{r['decode_tps']:.1f} tokens/s graphed + pipelined (eager "
+            f"{eager['decode_tps']:.1f}), TTFT p50 {r['ttft_p50']} ms p99 "
+            f"{r['ttft_p99']} ms; {counter.__name__} counted "
+            f"{counter.launches} ({n_w} a tick), "
+            f"{r['device'][counter.__name__]} on the device in the graphed "
+            "run, derived")
+        del module, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (e) phase 24's fp32 leg over int8 banks
+    moe_fp32(smi, quant=quant)
+    log(f"[{smi}] phase 25: {time.perf_counter() - t_phase:.1f} s")
+    return ([entries[k] for k in ("dequantize_int8_g2048_mixtral_bank",
+                                  "dequant_scaled_qwen_bank",
+                                  "dequant_fp6_g2048_qwen_bank")], v1_flash)
 
 
 def main() -> int:
@@ -5483,13 +5867,15 @@ def main() -> int:
         phase_lc()
         log(f"phase 21 done at {time.perf_counter() - t0:.1f} s")
         return 0
-    # ``--moe-only``: the build and phase 24 alone, for work on sparse
-    # MoE serving; it prints no result lines
+    # ``--moe-only``: the build and phases 24 and 25 alone, for work on
+    # sparse MoE serving; it prints no result lines
     if sys.argv[1:] == ["--moe-only"]:
         t0 = time.perf_counter()
         phase_report()
         phase_moe()
         log(f"phase 24 done at {time.perf_counter() - t0:.1f} s")
+        phase_moe_quant()
+        log(f"phase 25 done at {time.perf_counter() - t0:.1f} s")
         return 0
     # ``--disagg-only``: the build and phase 23 alone, for work on
     # disaggregated serving; it prints no result lines
@@ -5562,8 +5948,12 @@ def main() -> int:
     moe9, moe8, moe_flash = phase_moe()
     entry["launches"] += moe_flash
     log(f"phase 24 done at {time.perf_counter() - t0:.1f} s")
+    # phase 25's v1 prefills join #1's entry too
+    banks, moe_flash = phase_moe_quant()
+    entry["launches"] += moe_flash
+    log(f"phase 25 done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [entry, paged, paged_quant, carry,
-                                carry_quant, moe9, moe8] +
+                                carry_quant, moe9, moe8] + banks +
                     [train[k] for k in ("flash_bwd_dq", "flash_bwd_dkv",
                                         "fused_adam", "fused_lion")] +
                     [quant[f"{op}_int8_g{gs}"] for gs in (128, 2048)

@@ -15,8 +15,10 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 import torch
 from torch import nn
 
+from deepspeed_tpu_torch.inference.quantization import quantize_model_
 from deepspeed_tpu_torch.telemetry import trace
 from deepspeed_tpu_torch.telemetry.metrics import metrics as _metrics
+from deepspeed_tpu_torch.utils.logging import log_dist
 
 
 class HostStageStats:
@@ -247,34 +249,57 @@ def normalize_params(model: nn.Module,
                      params: Optional[Mapping[str, torch.Tensor]] = None, *,
                      dtype: torch.dtype, device: torch.device,
                      generator: Optional[torch.Generator] = None,
-                     keep_fp32: bool = False) -> nn.Module:
+                     keep_fp32: bool = False,
+                     quantize: Optional[Dict[str, Any]] = None) -> nn.Module:
     """Put ``model``'s weights on ``device`` in the serving ``dtype``.
 
     ``params`` is a ``state_dict`` (e.g. from the flax bridge) loaded into
     the model.  A model built on the meta device is materialised directly
     in ``dtype`` on ``device``, so a large model never stages fp32 weights
-    anywhere; with no ``params`` its weights are then drawn from
-    ``generator`` by ``model.init_weights``.  A model with real weights
-    and no ``params`` keeps its weights, cast and moved.  Only parameters
-    take ``dtype``: buffers (the int8 payload and fp32 scales of a model
-    already quantized, ``inference/quantization.py``) keep theirs.  With
-    ``keep_fp32`` the parameters a module names in its ``fp32_params``
-    (an MoE router) stay fp32, as the JAX v2 engine, which casts no
-    parameter, keeps them; the v1 engine casts every one, as the JAX v1
-    engine does."""
+    anywhere; with no ``params`` it is materialised and drawn from
+    ``generator`` one module at a time in ``modules()`` order, by the
+    class's ``init_module_weights`` (the stream ``init_weights`` draws).
+    A model with real weights and no ``params`` keeps its weights, cast
+    and moved.  Only parameters take ``dtype``: buffers (the int8 payload
+    and fp32 scales of a model already quantized,
+    ``inference/quantization.py``) keep theirs.  With ``keep_fp32`` the
+    parameters a module names in its ``fp32_params`` (an MoE router) stay
+    fp32, as the JAX v2 engine, which casts no parameter, keeps them; the
+    v1 engine casts every one, as the JAX v1 engine does.
+
+    ``quantize``: the keyword arguments of
+    :func:`~deepspeed_tpu_torch.inference.quantization.quantize_model_`
+    (``fmt`` and its options), applied once the weights are in place.  A
+    meta model with no ``params`` is drawn and quantized module by
+    module: the device holds the quantized model and one module's
+    full-precision weights at most (``mixtral-8x7b``: 43.7 GiB in int8
+    where its bf16 weights alone, 87.0 GiB, would not fit the card).  The
+    generator draws the same stream in the same order, so the buffers are
+    those of the whole model drawn and then quantized."""
     kept = {id(getattr(mod, name)) for mod in model.modules()
             for name in getattr(mod, "fp32_params", ())} \
         if keep_fp32 else set()
+    draw = None
     if any(p.is_meta for p in model.parameters()):
         model.to(dtype=dtype)               # on meta: no memory touched
         for p in model.parameters():
             if id(p) in kept:
                 p.data = p.data.float()
-        model.to_empty(device=device)
         if params is None:
+            if not hasattr(model, "init_module_weights"):
+                raise TypeError(
+                    f"{type(model).__name__} on the meta device with no "
+                    "params: the model draws its weights with "
+                    "init_module_weights(module, generator), which this "
+                    "class does not have")
             if generator is None:
                 generator = torch.Generator(device=device).manual_seed(0)
-            model.init_weights(generator)
+
+            def draw(mod: nn.Module) -> None:
+                mod.to_empty(device=device, recurse=False)
+                model.init_module_weights(mod, generator)
+        else:
+            model.to_empty(device=device)
     else:
         model.to(device=device)
         for p in model.parameters():
@@ -282,4 +307,17 @@ def normalize_params(model: nn.Module,
                 p.data = p.data.to(torch.float32 if id(p) in kept else dtype)
     if params is not None:
         model.load_state_dict(params, strict=True)
+    if quantize is not None:
+        b0, b1 = quantize_model_(model, draw=draw, **quantize)
+        log_dist(f"weights -> {quantize['fmt']}: {b0 / 2**20:.1f} MiB -> "
+                 f"{b1 / 2**20:.1f} MiB ({b0 / max(b1, 1):.2f}x)"
+                 f"{', built module by module' if draw else ''}",
+                 ranks=[0])
+    elif draw is not None:
+        for mod in model.modules():
+            draw(mod)
+    if draw is not None and any(t.is_meta for t in model.state_dict(
+            keep_vars=True).values()):
+        raise RuntimeError("a module was left on the meta device: "
+                           "init_module_weights must draw them all")
     return model

@@ -51,10 +51,8 @@ from deepspeed_tpu_torch.inference.common import (HostStageStats,
 from deepspeed_tpu_torch.inference.config import (DeepSpeedInferenceConfig,
                                                   load_inference_config)
 from deepspeed_tpu_torch.inference.kv_cache import init_cache
-from deepspeed_tpu_torch.inference.quantization import (check_format,
-                                                        quantize_model_)
+from deepspeed_tpu_torch.inference.quantization import check_format
 from deepspeed_tpu_torch.inference.sampling import sample_logits
-from deepspeed_tpu_torch.moe.layer import is_moe
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
@@ -91,9 +89,9 @@ def init_inference(model: nn.Module, config: Any = None,
 
     ``model``: a causal-LM module of this package (``models/llama.py``,
     ``models/gpt2.py``, ``models/mixtral.py``, ``models/qwen2_moe.py``;
-    an MoE model's ``(logits, aux)`` gives its logits, and quantized
-    expert banks raise naming ROADMAP A12b) whose ``config`` dataclass
-    has ``decode`` and
+    an MoE model's ``(logits, aux)`` gives its logits, and ``quant``
+    quantizes its expert banks too: group-wise int8 under w8a8) whose
+    ``config`` dataclass has ``decode`` and
     ``max_cache_len`` fields and a ``kv_cache_shape``.  Build it under
     ``torch.device("meta")`` to have its weights made directly in the
     serving dtype on the card.  ``params``: a ``state_dict`` to load;
@@ -163,10 +161,6 @@ class InferenceEngine:
                 "ROADMAP A7a")
         if config.quant.enabled:
             check_format(config.quant.qtype)
-            if is_moe(model):
-                raise NotImplementedError(
-                    f"quant.qtype={config.quant.qtype!r} on an MoE model is "
-                    "not ported yet: ROADMAP A12b (quantized expert banks)")
 
         mcfg = getattr(model, "config", None)
         if not (dataclasses.is_dataclass(mcfg) and
@@ -196,18 +190,16 @@ class InferenceEngine:
         elif params is None:
             log_dist("init_inference: params randomly initialized "
                      "(none provided)", ranks=[0])
-        self.module = normalize_params(model, params, dtype=self.dtype,
-                                       device=self.device,
-                                       generator=generator).eval()
-        if config.quant.enabled:
-            # weight-only serving quantization, after the cast to the
-            # serving dtype as in the reference: weights persist quantized
-            # and dequantize at use
-            b0, b1 = quantize_model_(self.module, config.quant.qtype,
-                                     group_size=config.quant.group_size)
-            log_dist(f"init_inference weights -> {config.quant.qtype}: "
-                     f"{b0 / 2**20:.1f} MiB -> {b1 / 2**20:.1f} MiB",
-                     ranks=[0])
+        # weight-only serving quantization, after the cast to the serving
+        # dtype as in the reference: weights persist quantized and
+        # dequantize at use (a quantized meta model is built module by
+        # module)
+        self.module = normalize_params(
+            model, params, dtype=self.dtype, device=self.device,
+            generator=generator,
+            quantize=dict(fmt=config.quant.qtype,
+                          group_size=config.quant.group_size)
+            if config.quant.enabled else None).eval()
         # the one decode state whose steps are captured, and the memory
         # pool every graph of the engine shares
         self._graphed: Optional[_DecodeState] = None

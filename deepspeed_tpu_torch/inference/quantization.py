@@ -34,16 +34,21 @@ leaves them to XLA outside any Pallas kernel.
 in place.  The leaf filter is the reference's: the flax matmul leaves
 ``kernel`` (an ``nn.Linear`` weight) and ``embedding`` (an
 ``nn.Embedding`` weight) with ``ndim >= 2`` and at least ``min_size``
-elements; norm scales and biases stay in the serving dtype.  (The
-reference's other matmul leaf names, ``w1``/``w2``/``w3``/``wi``/``wo``,
-belong to MoE expert stacks, which the port has not yet.)
+elements; norm scales and biases stay in the serving dtype.  An
+:class:`~deepspeed_tpu_torch.moe.MoE` layer's expert banks (``w1``,
+``w3`` ``[E, M, I]`` and ``w2`` ``[E, I, M]``, the reference's leaves of
+those names) become :class:`QuantizedBank` holders under the same rule,
+w8a8 sending them to group-wise int8 as it sends embeddings; the router
+``gate`` and the gelu banks' biases stay as they are.  (``wi``/``wo``,
+the reference's other matmul leaf names, name no port module.)
 
 Groups and the fp8 payload run over the FLAX layout, so the buffers equal
 the JAX package's for the same weights: a Linear quantizes ``weight.t()``
 (flax's ``[in, out]`` kernel) in row-major order, an Embedding its
-``[vocab, hidden]`` table as is; a w8a8 payload is the flax one
-transposed.  The port quantizes each layer's weight on its own, where the
-JAX engines quantize a scan-stacked tree's ``[L, in, out]`` leaf whole
+``[vocab, hidden]`` table and a bank its ``[E, ...]`` stack as they are;
+a w8a8 payload is the flax one transposed.  The port quantizes each
+layer's weight on its own, where the JAX engines quantize a scan-stacked
+tree's ``[L, in, out]`` (or ``[L, E, ...]``) leaf whole
 (ROADMAP §C): int8 and fp6 agree whenever a layer's weight is a multiple
 of the group size, as at every preset's widths; an fp8 weight takes its
 own layer's scale where the stacked leaf has one for all layers (the
@@ -58,12 +63,13 @@ from __future__ import annotations
 
 import dataclasses
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
+from deepspeed_tpu_torch.moe.layer import MoE
 from deepspeed_tpu_torch.ops.quantization import (FP6Tensor, FP8Tensor,
                                                   QuantizedTensor,
                                                   dequant_scaled, dequantize,
@@ -168,6 +174,14 @@ class QuantizedEmbedding(_Quantized):
         return F.linear(x, table) if attend else F.embedding(x, table)
 
 
+class QuantizedBank(_Quantized):
+    """An MoE layer's expert bank (``[E, M, I]`` or ``[E, I, M]``, the
+    layout the layer's ``torch.bmm`` reads) in int8, fp8 or fp6, in place
+    of the layer's parameter of that name.  The layer expands the whole
+    bank at every call with :meth:`dequantized`, one kernel launch, as the
+    JAX engines expand every leaf once a dispatch."""
+
+
 def _quantize_weight(w: torch.Tensor, fmt: str, group_size: int,
                      linear: bool
                      ) -> Tuple[Tuple[torch.Tensor, ...], Tuple[int, ...]]:
@@ -194,21 +208,47 @@ def _nbytes(t: torch.Tensor) -> int:
 @torch.no_grad()
 def quantize_model_(module: nn.Module, fmt: str = "int8",
                     group_size: int = 2048, min_size: int = 1024,
-                    native_w8a8: bool = False) -> Tuple[int, int]:
+                    native_w8a8: bool = False,
+                    draw: Optional[Callable[[nn.Module], None]] = None
+                    ) -> Tuple[int, int]:
     """Quantize every matmul weight of ``module`` to ``fmt`` in place (see
     the module docstring for which) and return ``(bytes_before,
     bytes_after)`` over all its parameters, as ``quantize_param_tree``
     counts its tree's leaves.  ``group_size`` is int8's and fp6's;
     ``native_w8a8`` makes w8a8 Linears :class:`W8A8Linear`.  Weights are
     quantized one at a time on their own device, each full-precision
-    weight freed as its quantized copy lands."""
+    weight freed as its quantized copy lands.  ``draw``, when given, is
+    called on every module in ``modules()`` order just before its own
+    weights are read: a module still on the meta device is then
+    materialised and drawn one module at a time, so the full-precision
+    model never exists whole (``inference/common.py::normalize_params``).
+    A weight already quantized stays as it is."""
     check_format(fmt)
     before = sum(_nbytes(p) for p in module.parameters())
-    names = [name for name, mod in module.named_modules()
-             if isinstance(mod, (nn.Linear, nn.Embedding))
-             and mod.weight.dim() >= 2 and mod.weight.numel() >= min_size]
-    for name in names:
+    # banks and tables: the reference's w8a8 covers 2-D kernels only,
+    # and sends the rest to group-wise int8
+    tfmt = "int8" if fmt == "w8a8" else fmt
+    # names, not modules: a list of the modules would keep every replaced
+    # module, and its full-precision weight, alive until the end
+    for name in [n for n, _ in module.named_modules()]:
         mod = module.get_submodule(name)
+        if draw is not None:
+            draw(mod)
+        if isinstance(mod, MoE):
+            for bank in mod.banks:
+                w = getattr(mod, bank)
+                if not _quantizable(w, min_size):
+                    continue
+                buffers, shape = _quantize_weight(w.detach(), tfmt,
+                                                  group_size, False)
+                delattr(mod, bank)   # a parameter until now
+                setattr(mod, bank,
+                        QuantizedBank(tfmt, buffers, shape, w.dtype))
+                del w
+            continue
+        if not (isinstance(mod, (nn.Linear, nn.Embedding))
+                and _quantizable(mod.weight, min_size)):
+            continue
         w = mod.weight.detach()
         if isinstance(mod, nn.Linear):
             bias = None if mod.bias is None else mod.bias.detach()
@@ -217,10 +257,8 @@ def quantize_model_(module: nn.Module, fmt: str = "int8",
                    else QuantizedLinear)
             new = cls(fmt, buffers, shape, w.dtype, bias)
         else:
-            # the reference's w8a8 covers kernels only: tables go int8
-            efmt = "int8" if fmt == "w8a8" else fmt
-            buffers, shape = _quantize_weight(w, efmt, group_size, False)
-            new = QuantizedEmbedding(efmt, buffers, shape, w.dtype)
+            buffers, shape = _quantize_weight(w, tfmt, group_size, False)
+            new = QuantizedEmbedding(tfmt, buffers, shape, w.dtype)
         parent_name, _, attr = name.rpartition(".")
         setattr(module.get_submodule(parent_name), attr, new)
         del mod, w      # the last references to the full-precision weight
@@ -233,3 +271,10 @@ def quantize_model_(module: nn.Module, fmt: str = "int8",
     after += sum(_nbytes(b) for m in module.modules()
                  if isinstance(m, _Quantized) for b in m.buffers(recurse=False))
     return before, after
+
+
+def _quantizable(w, min_size: int) -> bool:
+    """Whether ``w`` is a full-precision matmul weight of at least
+    ``min_size`` elements (the reference's leaf filter)."""
+    return (isinstance(w, torch.Tensor) and w.dim() >= 2
+            and w.numel() >= min_size)

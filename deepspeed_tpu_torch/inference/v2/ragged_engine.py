@@ -130,12 +130,14 @@ JAX's threefry streams (:mod:`~deepspeed_tpu_torch.inference.sampling`).
 - **Sparse MoE.**  Mixtral and Qwen2-MoE serve like Llama: every row of
   a tick is routed, padding and inactive rows included, so capacity
   drops the copies the JAX engine drops; the router stays fp32, as the
-  JAX engine (which casts no parameter) leaves it.
+  JAX engine (which casts no parameter) leaves it.  ``quantize_weights``
+  "int8", "fp8" and "fp6" quantize the expert banks too, each expanded
+  whole once a layer a tick; "w8a8" is refused, as the JAX engine
+  refuses it (an expert bank is no Linear a native W8A8 product reads).
 
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP item: tensor parallelism (A7a), the closed-loop control plane
-(``control``, and the engine's ``knob_registry``: A10b), quantized
-expert banks (``quantize_weights`` on an MoE model: A12b) and an MoE
+(``control``, and the engine's ``knob_registry``: A10b) and an MoE
 draft model (A12c).
 """
 from __future__ import annotations
@@ -168,8 +170,7 @@ from deepspeed_tpu_torch.inference.paged import (KV_CACHE_DTYPES,
                                                  pages_for)
 from deepspeed_tpu_torch.inference.prefix_cache import (ROOT_HASH,
                                                         PrefixCacheIndex)
-from deepspeed_tpu_torch.inference.quantization import (check_format,
-                                                        quantize_model_)
+from deepspeed_tpu_torch.inference.quantization import check_format
 from deepspeed_tpu_torch.inference.sampling import (ROLE_DRAFT,
                                                     filter_logits_batched,
                                                     gumbel_noise,
@@ -395,15 +396,14 @@ class RaggedInferenceEngineV2:
                             else trace_sample)
             control = v2cfg.control if control is None else control
         self._check_unported(topology, quantize_weights, control)
-        if is_moe(model) and quantize_weights is not None:
-            raise _unported(f"quantize_weights={quantize_weights!r} on an "
-                            "MoE model (quantized expert banks)", "A12b")
         if quantize_weights == "w8a8" and not getattr(
                 type(model), "w8a8_native", False):
+            why = " (its expert banks are no Linear)" if is_moe(model) else ""
             raise ValueError(
-                f"quantize_weights='w8a8' needs a model whose Linear layers "
-                f"consume w8a8 weights natively (the Llama family); "
-                f"{type(model).__name__} does not: use weight-only 'int8'")
+                f"quantize_weights='w8a8' needs a model whose layers all "
+                f"consume w8a8 weights natively (LlamaForCausalLM); "
+                f"{type(model).__name__} does not{why}: use weight-only "
+                f"'int8', as the JAX v2 engine asks")
         # kwarg > config > default, as for every v2 knob
         pipeline = v2cfg.pipeline if pipeline is None else pipeline
         async_depth = (v2cfg.async_depth if async_depth is None
@@ -480,18 +480,14 @@ class RaggedInferenceEngineV2:
             # mode as DSTPU_TRACE_SAMPLE does
             trace.configure(enabled=True, sampling=True, sample_n=n)
 
-        # an MoE router stays fp32, as the JAX v2 engine leaves it
-        self.module = normalize_params(model, params, dtype=self.dtype,
-                                       device=self.device,
-                                       generator=generator,
-                                       keep_fp32=True).eval()
+        # an MoE router stays fp32, as the JAX v2 engine leaves it; a
+        # quantized meta model is built module by module
         self.quantize_weights = quantize_weights
-        if quantize_weights is not None:
-            b0, b1 = quantize_model_(self.module, quantize_weights,
-                                     native_w8a8=True)
-            log_dist(f"ragged engine weights -> {quantize_weights}: "
-                     f"{b0 / 2**20:.1f} MiB -> {b1 / 2**20:.1f} MiB "
-                     f"({b0 / max(b1, 1):.2f}x)", ranks=[0])
+        self.module = normalize_params(
+            model, params, dtype=self.dtype, device=self.device,
+            generator=generator, keep_fp32=True,
+            quantize=None if quantize_weights is None else dict(
+                fmt=quantize_weights, native_w8a8=True)).eval()
         self.allocator = PageAllocator(self.num_pages, self.page_size)
         self.page_table = np.full((max_seqs, self.pages_per_seq), -1,
                                   np.int32)

@@ -117,9 +117,12 @@ class MixtralForCausalLM(nn.Module):
     def __init__(self, cfg: MixtralConfig):
         super().__init__()
         if cfg.weight_quant != "none":
-            raise NotImplementedError(
-                f"weight_quant={cfg.weight_quant!r} on an MoE model is not "
-                "ported yet: ROADMAP A12b (quantized expert banks)")
+            raise ValueError(
+                f"weight_quant={cfg.weight_quant!r}: an MoE model has no "
+                "native w8a8 layers (its expert banks are no Linear, and "
+                "no JAX engine serves a natively consumed w8a8 MoE); serve "
+                "it with v1's quant.qtype='w8a8', which dequantizes, or "
+                "weight-only int8, fp8 or fp6 in either engine")
         self.config = cfg
         self.model = self.model_cls(cfg)
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,

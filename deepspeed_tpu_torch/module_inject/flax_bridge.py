@@ -33,10 +33,13 @@ quantized module (``inference/quantization.py``): int8's ``values``,
 ``scale`` and ``offset``, fp8's, fp6's and w8a8's ``values`` and
 ``scale``.  Both quantize over the flax layout, so int8, fp8 and fp6
 payloads are not transposed; a w8a8 payload is, into the ``[out, in]``
-the port's int8 product reads.  A scan-stacked leaf quantized whole gives
-each layer its slice: int8 and fp6 by groups (refused when a group spans
-two layers), fp8 its payload slice and the one scale of the whole leaf;
-w8a8 leaves are 2-D only.
+the port's int8 product reads.  An expert bank (``w1``, ``w2``, ``w3``)
+becomes a quantized bank's buffers under the bank's own name
+(``...block_sparse_moe.w1.values``).  A scan-stacked leaf quantized whole
+(``[L, in, out]``, or ``[L, E, ...]`` for a bank) gives each layer its
+slice: int8 and fp6 by groups (refused when a group spans two layers),
+fp8 its payload slice and the one scale of the whole leaf; w8a8 leaves
+are 2-D only.
 """
 from __future__ import annotations
 
@@ -146,6 +149,12 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _is_quantized(val) -> bool:
+    """Whether ``val`` is a JAX ``QuantizedWeight`` (by its ``fmt`` and
+    ``arrays``)."""
+    return hasattr(val, "fmt") and hasattr(val, "arrays")
+
+
 def _quantized_leaf(path: List[str], q, layer: Optional[int]
                     ) -> Dict[str, torch.Tensor]:
     """The buffers of one ``QuantizedWeight`` leaf; of layer ``layer``
@@ -174,8 +183,9 @@ def _quantized_leaf(path: List[str], q, layer: Optional[int]
                 "quantize an unrolled tree")
         rows = per_layer // gs
         arrays = [a[layer * rows:(layer + 1) * rows] for a in arrays]
-    prefix = ".".join(path[:-1])
-    return {f"{prefix}.{name}": _tensor(a)
+    # a kernel or table names its module's weight; a bank is the module
+    owner = ".".join(path[:-1] if path[-1] in _LEAVES else path)
+    return {f"{owner}.{name}": _tensor(a)
             for name, a in zip(names, arrays)}
 
 
@@ -188,7 +198,7 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
 
     def leaf(path: List[str], arr, layer: Optional[int]) -> None:
-        if hasattr(arr, "fmt") and hasattr(arr, "arrays"):
+        if _is_quantized(arr):
             out.update(_quantized_leaf(path, arr, layer))
             return
         arr = np.asarray(arr)
@@ -210,6 +220,9 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 walk(val, path + [fam["layers"], m.group(1)], layer)
             elif key in _LEAVES and not isinstance(val, Mapping):
                 leaf(path + [key], val, layer)
+            elif (key in _MOE_RAW and path and path[-1] in fam["moe"]
+                  and _is_quantized(val)):
+                out.update(_quantized_leaf(path + [key], val, layer))
             elif (key in _MOE_RAW and path and path[-1] in fam["moe"]
                   and not isinstance(val, Mapping)):
                 arr = np.asarray(val)

@@ -37,7 +37,10 @@ class MoE(nn.Module):
     ``param_dtype`` and the FFN computes in their dtype.  An engine that
     casts the model to a serving dtype casts the router too unless it
     keeps the parameters :attr:`fp32_params` names, as the JAX v2 engine
-    (which casts nothing) does.
+    (which casts nothing) does.  A serving engine may swap the banks for
+    quantized ones (:attr:`banks`), each expanded whole at every call
+    (:meth:`bank`); ``b1``/``b2`` stay full precision, as in the JAX
+    package.
     """
 
     # parameters a serving engine may keep in fp32 when it casts the rest
@@ -105,14 +108,28 @@ class MoE(nn.Module):
                 p.normal_(0.0, 1.0 / math.sqrt(p.shape[-2]),
                           generator=generator)
 
+    @property
+    def banks(self) -> Tuple[str, ...]:
+        """The names of this layer's expert banks, the matmul weights a
+        serving engine may quantize (``w3`` for swiglu only)."""
+        return ("w1", "w3", "w2") if self.activation == "swiglu" \
+            else ("w1", "w2")
+
+    def bank(self, name: str) -> torch.Tensor:
+        """Expert bank ``name`` in full precision: the parameter, or a
+        quantized bank expanded whole (one kernel launch on the card)."""
+        w = getattr(self, name)
+        return w if isinstance(w, torch.Tensor) else w.dequantized()
+
     def _expert_ffn(self, disp: torch.Tensor) -> torch.Tensor:
         """[E, C, M] dispatched tokens -> [E, C, M] expert outputs."""
         if self.activation == "swiglu":
-            h = torch.bmm(disp, self.w1)
-            return torch.bmm(F.silu(h) * torch.bmm(disp, self.w3), self.w2)
-        h = F.gelu(torch.bmm(disp, self.w1) + self.b1[:, None],
+            h = torch.bmm(disp, self.bank("w1"))
+            return torch.bmm(F.silu(h) * torch.bmm(disp, self.bank("w3")),
+                             self.bank("w2"))
+        h = F.gelu(torch.bmm(disp, self.bank("w1")) + self.b1[:, None],
                    approximate="tanh")
-        return torch.bmm(h, self.w2) + self.b2[:, None]
+        return torch.bmm(h, self.bank("w2")) + self.b2[:, None]
 
     def gating(self, x: torch.Tensor):
         """The :class:`~deepspeed_tpu_torch.moe.sharded_moe.GatingResult`
@@ -132,6 +149,7 @@ class MoE(nn.Module):
         x = x.reshape(-1, self.hidden_size)                      # [G, M]
         gr = self.gating(x)
         plan = routing_plan(gr)
+        # a quantized bank's dtype is the one it expands to
         out = self._expert_ffn(sorted_dispatch(x.to(self.w1.dtype),
                                                plan.slot_token))
         y = sorted_combine(out, gr.weights, plan.slot_of_copy)

@@ -37,7 +37,8 @@ a Linear) and an fp6 block (K2 a weight) replayed from graphs give the
 eager unpipelined engine's tokens.  Sparse MoE: a tiny bf16 Qwen2-MoE
 (routed experts and the shared expert, head dim 64) through captured and
 replayed blocks, pipeline on and off, gives the eager unpipelined
-engine's tokens bit for bit, with the paged kernel once a layer a tick.
+engine's tokens bit for bit, with the paged kernel once a layer a tick;
+and with int8 and fp6 expert banks (each expanded whole a tick) the same.
 """
 import numpy as np
 import pytest
@@ -156,6 +157,42 @@ def test_moe_graphs_give_the_eager_tokens(cuda):
         eager_ticks = eng.host_stats.ticks - K * st["graph_replays"]
         assert rpa.ragged_paged_attention.launches - before == L * (
             eager_ticks + 2 * K * st["graph_captures"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "fp6"])
+def test_quantized_moe_graphs_give_the_eager_tokens(cuda, fmt):
+    """A tiny bf16 Qwen2-MoE with quantized expert banks (each expanded
+    whole once a layer a tick, #7 or K2) through captured and replayed
+    blocks, pipeline on, gives the eager unpipelined engine's tokens; the
+    dequant's Python counter ticks at warm-ups and captures only."""
+    from deepspeed_tpu_torch.inference import quantization as iq
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    cfg = qwen2_moe.get_config("tinyqwen2moe", vocab_size=256,
+                               hidden_size=256, num_attention_heads=4,
+                               num_key_value_heads=4,
+                               max_position_embeddings=256)
+    with torch.device("meta"):
+        model = qwen2_moe.Qwen2MoeForCausalLM(cfg)
+    eager = _v2(cuda, module=model, pipeline=False, quantize_weights=fmt)
+    per = sum(isinstance(m, iq._Quantized) for m in eager.module.modules())
+    assert sum(isinstance(m, iq.QuantizedBank)
+               for m in eager.module.modules()) == 3 * cfg.num_hidden_layers
+    want = _serve(eager, sampled=True)
+    counter = qz.dequantize if fmt == "int8" else qz.dequantize_fp6
+    K = V2["decode_block_size"]
+    graphed = _v2(cuda, module=eager.module, pipeline=True,
+                  config={"enable_cuda_graph": True})
+    before = counter.launches
+    got = _serve(graphed, sampled=True)
+    for a, b in zip(want, got, strict=True):
+        np.testing.assert_array_equal(a, b)
+    st = graphed.serving_stages()
+    assert st["graph_captures"] >= 1 and st["graph_replays"] >= 1
+    eager_ticks = graphed.host_stats.ticks - K * st["graph_replays"]
+    assert counter.launches - before == per * (
+        eager_ticks + 2 * K * st["graph_captures"])
 
 
 @pytest.mark.gpu

@@ -45,6 +45,8 @@ tile up to 128 rows, over 256-token tiles above) at 1, 16, 17, 80 and
 fp32, with a zero, an inf and a NaN row, N off the 128-channel tile, K
 off the 128-byte panel, and the named refusal of K off 16.  Last, the
 ``torch.profiler`` reader (``telemetry/profiler.py``) over a CUDA run.
+An MoE expert bank quantized to int8, fp8 and fp6 expands through #7,
+K1 and K2 bit-identically to their plain versions, one launch each.
 
 Tolerances: bf16 flash outputs 2e-2 (p and o round to bf16 at 2^-8
 relative, in different places in the kernel and the plain version); bf16
@@ -757,6 +759,42 @@ def _weight(seed, rows, cols, dtype, device):
 
 # rows, cols: gate_proj's shape, a tail off the 16-element vector, odd
 WF_SHAPES = [(4096, 14336), (1000, 1001), (37, 53)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "fp8", "fp6"])
+def test_quantized_bank_dequant_matches_plain(cuda, fmt):
+    """An MoE expert bank [E, M, I] in bf16 quantized as the engines
+    quantize it (``quantize_model_``): its one expansion a call (#7, K1 or
+    K2) bit-identical to the plain version, and one launch."""
+    from deepspeed_tpu_torch.inference import quantization as iq
+    from deepspeed_tpu_torch.moe.layer import MoE
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    moe = MoE(256, 6, 384, param_dtype=torch.bfloat16).to(cuda)
+    moe.init_weights(torch.Generator(device=cuda).manual_seed(5))
+    w2 = moe.w2.detach().clone()
+    iq.quantize_model_(moe, fmt)
+    bank = moe.w2
+    assert isinstance(bank, iq.QuantizedBank) and bank.shape == (6, 384, 256)
+    counter = {"int8": qz.dequantize, "fp8": qz.dequant_scaled,
+               "fp6": qz.dequantize_fp6}[fmt]
+    before = counter.launches
+    got = bank.dequantized()
+    assert counter.launches == before + 1
+    if fmt == "int8":
+        want = qz.dequantize_reference(qz.QuantizedTensor(
+            bank.values, bank.scale, bank.offset, bank.shape, bank.dtype))
+    elif fmt == "fp8":
+        want = qz.dequant_scaled_reference(bank.values, bank.scale,
+                                           bank.dtype)
+    else:
+        want = qz.dequantize_fp6_reference(qz.FP6Tensor(
+            bank.values, bank.scale, bank.shape, bank.dtype,
+            bank.group_size))
+    assert _bits_equal(got, want)
+    assert (got.float() - w2.float()).abs().max() < 0.1 * w2.float(
+        ).abs().max()
 
 
 @pytest.mark.gpu
