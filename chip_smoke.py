@@ -200,20 +200,23 @@ Phases (any failed check raises; nothing is caught):
    launched under spilled, restored and shared pages.
 
 20. Speculative decoding (A9.4) on ``llama3-8b`` at full width and
-   depth, bf16, phase 6's engine with CUDA graphs and the pipeline, phase
+   SPEC_LAYERS of its 32 layers (the runs check tokens, launches and
+   the pipeline, the same at any depth), bf16, phase 6's
+   engine with CUDA graphs and the pipeline, phase
    6's prompts and budgets: n-gram drafting (k 4), greedy, twice
    identical, equal with the pipeline off and eager, and how many of the
    24 equal speculation off's (run in the same call) with the first
    divergence; sampled (t 0.8, top-p 0.95) twice identical; over an int8
    pool (#8); draft mode with TinyLlama's shape and Llama 3's vocabulary
-   (22 layers, D 64), greedy twice identical, pipeline on and off equal.
+   (SPEC_LAYERS of its 22 layers, D 64), greedy twice identical,
+   pipeline on and off equal.
    Then 2 layers at full width in fp32, random weights made on the card:
    n-gram, a 2-layer draft and self-draft greedy against speculation off
    by phase 7's margin rule; self-draft accepts at least 95% of its
    proposals.  Per run: acceptance, mean accepted length, speculative
    dispatches, blocking fetches against dispatches (fewer when
-   pipelined), decode tokens/s in blocks beside speculation off's and
-   phase 14's, capture seconds and peak GiB; #9's and #8's Python
+   pipelined), decode tokens/s in blocks beside speculation off's,
+   capture seconds and peak GiB; #9's and #8's Python
    counters held to the ticks, captures and draft catch-ups, and the
    device launches derived from the replays.  Phase 5 holds #9 and #8
    at the verify tick's shape (16 x 5 tokens), the draft's decode, first
@@ -297,12 +300,20 @@ Phases (any failed check raises; nothing is caught):
    a layer a tick as in phase 14; v1 on the same module at 4 x 512 + 32,
    eager and with the decode step replayed (the same tokens), #1 once a
    layer a prefill.  Decode tokens/s, TTFT p50/p99, prefill
-   tokens/s, ``host_bound_fraction``, resident and peak GiB.  Then 2 of
+   tokens/s, ``host_bound_fraction``, resident and peak GiB.  The same
+   module as target of a 2-layer Qwen2-MoE draft at its widths (A12c),
+   ``speculation="draft"`` at k 4, graphed, 4 prompts + 32 greedy tokens:
+   pipelined
+   twice and unpipelined once with equal tokens, #9 held to the target's
+   and the draft's layers a tick, a draft step and a catch-up chunk;
+   acceptance and catch-up chunks printed.  Then 2 of
    its layers at full width in fp32 (``drop_tokens`` off, so that v1's
    batch and v2's padded tick route each token alike): v2 against v1 by
    phase 7's margin rule, where a token may also differ after a position
    that the two engines routed to different experts (both runs' router
-   logits recorded and compared row by row); and ``mixtral-8x7b`` at full width and 2 of
+   logits recorded and compared row by row), and the same 2 layers with
+   a 2-layer MoE draft against speculation off by phase 7's margin
+   rule; and ``mixtral-8x7b`` at full width and 2 of
    its 32 layers (top 2 of 8, renormalised gates), bf16, graphed and
    pipelined against eager, #9 twice a tick.
 25. Quantized expert banks (A12b), last: (a) #6 and #7 (int8, groups of
@@ -325,10 +336,33 @@ Phases (any failed check raises; nothing is caught):
    24 layers with fp8 and with fp6 banks through v2 over the same 8
    requests, graphed and pipelined against eager, K1 / K2 90 a tick.
    (e) phase 24's fp32 leg with int8 weights and banks.
+26. The tuning layer (A10b), last: (a) ``Autotuner`` on bench.py's
+   config 1 (``gpt2-125m`` at full size, bf16, fused AdamW, seq 1024)
+   over ZeRO stages 0-2 and micro batches 4..32 doubling, every point a
+   fresh engine on the card (``engine_runner``) launching #1, #2, #3 and
+   #4 12, 12, 12 and 1 a step, its samples/s and peak GiB beside the
+   memory model's estimate; the winner's config written under build/ and
+   read back, then run again in a fresh interpreter through
+   ``make_subprocess_runner``.  (b) ``llama3-8b`` at full width and
+   depth, graphed and pipelined, phase 6's traffic with the controller
+   armed (a tick every step) against control off: tokens and graph
+   captures equal, probes made, #9 once a layer a tick; decisions and
+   ``host_bound_fraction`` on and off printed.  (c) ``autotune_serving``
+   over decode block 4/8 x harvest 1/4 on 8 of the requests, its profile
+   under build/ keyed by the card's fingerprint; a new engine seeded from
+   it starts at the winner's knobs before any capture and serves the 24
+   requests with control off's tokens at that block size; the block size
+   set between two runs captures once more and serves control off's
+   tokens at the other size.  Then the controller over phase 19's tight
+   pool at 8 layers with the tiers, prefetch off at the start, bf16 and
+   int8 pools: the prefetch rule fires on the spill signal, every
+   restored page digest-verified and read back equal, tokens equal to
+   control off.
 
-Phases 3, 6, 12, 14, 20, 22, 23, 24's first model and 25's Mixtral keep
-their full depth;
-phases 19 and 21 (the KV tiers) run 8 of the 32 layers, and the
+Phases 3, 6, 12, 14, 22, 23, 24's first model, 25's Mixtral and 26's
+first model keep their full depth;
+phases 19 and 21 (the KV tiers), 20 and 26's tiering leg
+run 8 of the 32 layers, and the
 checkpoint legs of phases 13 and 17 2 layers, so that the whole run
 stays well inside its time limit; phase 12's CPU parity runs one layer
 (two until phase 19 came).  The CPU halves of phases
@@ -339,8 +373,8 @@ at phase 12, so that the whole run stays inside its time limit.
 alone, ``--tiering-only`` the build and phase 19, ``--spec-only`` the
 build and phase 20, ``--lc-only`` the build, phase 5's carry cases and
 phase 21, ``--wq-only`` the build and phase 22, ``--disagg-only`` the
-build and phase 23, ``--moe-only`` the build and phases 24 and 25; none
-prints result lines.  The line before the last is the ``kernels`` JSON;
+build and phase 23, ``--moe-only`` the build and phases 24 and 25,
+``--tuning-only`` the build and phase 26; none prints result lines.  The line before the last is the ``kernels`` JSON;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits
 nonzero and prints no result.
 """
@@ -2338,9 +2372,7 @@ def phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager, v1_greedy,
     x (eager ticks + 2 K x captures); the device's launches, (eager
     ticks + K x (captures + replays)) times a tick's count, are derived
     from the engine's counters, not traced.  v1 then serves prompts of
-    three lengths in turn, each a recapture.  Returns the numbers of the
-    bf16 run with graphs and the pipeline (phase 20 prints its decode
-    rate beside speculation's)."""
+    three lengths in turn, each a recapture."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
@@ -2364,8 +2396,8 @@ def phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager, v1_greedy,
     del engine
     graph = {"config": {"enable_cuda_graph": True}}
     paged = [(rpa.ragged_paged_attention, L)]
-    piped = v2_graph_run("bf16 v2, pipeline on", module, bf16_outs, paged,
-                         v2_eager, reqs, pipeline=True, **graph)
+    v2_graph_run("bf16 v2, pipeline on", module, bf16_outs, paged,
+                 v2_eager, reqs, pipeline=True, **graph)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"graphs bf16 v2: peak memory {peak:.2f} GiB with graphs and the "
         f"pipeline, {v2_eager['peak']:.2f} GiB eager (phase 6)")
@@ -2494,7 +2526,6 @@ def phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager, v1_greedy,
     del engine, eager, model
     gc.collect()
     torch.cuda.empty_cache()
-    return piped
 
 
 # ---------------------------------------------------------------------------
@@ -3414,6 +3445,11 @@ def phase_tiering():
 # ---------------------------------------------------------------------------
 
 SPEC_K = 4
+# phase 20 serves llama3-8b at full width and this many of its 32 layers,
+# with a draft of this many of TinyLlama's 22, for the smoke's time: its
+# runs hold tokens, launches and the pipeline, which are the same at any
+# depth
+SPEC_LAYERS = 8
 # the draft of draft mode: TinyLlama's shape with Llama 3's vocabulary
 DRAFT_PRESET = dict(vocab_size=128256, rope_theta=500000.0,
                     max_position_embeddings=8192)
@@ -3454,21 +3490,21 @@ def first_divergence(got, want):
     return None
 
 
-def phase_spec(spec_off_piped=None):
+def phase_spec():
     """Phase 20: speculative decoding (A9.4) on ``llama3-8b`` at full
-    width and depth, bf16, phase 6's engine (``V2``) with CUDA graphs and
-    the pipeline, n-gram (k 4) and draft mode (TinyLlama's shape with
-    Llama 3's vocabulary, 22 layers, D 64); then 2 layers at full width in
-    fp32 against speculation off.  Returns the launches of #9 (bf16
-    pools) and #8 (the int8 pool) in the phase's speculative runs.
-    ``spec_off_piped``: phase 14's graphed, pipelined bf16 run, printed
-    beside this phase's decode rates."""
+    width and SPEC_LAYERS layers, bf16, phase 6's engine (``V2``) with
+    CUDA graphs and the pipeline, n-gram (k 4) and draft mode (TinyLlama's
+    shape with Llama 3's vocabulary, SPEC_LAYERS layers, D 64); then 2
+    layers at full width in fp32 against speculation off.  Returns the
+    launches of #9 (bf16 pools) and #8 (the int8 pool) in the phase's
+    speculative runs."""
     from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
     from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
 
-    cfg = get_config("llama3-8b")
-    dcfg = get_config("llama-1b", **DRAFT_PRESET)
+    cfg = get_config("llama3-8b", num_hidden_layers=SPEC_LAYERS)
+    dcfg = get_config("llama-1b", num_hidden_layers=SPEC_LAYERS,
+                      **DRAFT_PRESET)
     L, Ld = cfg.num_hidden_layers, dcfg.num_hidden_layers
     with torch.device("meta"):
         model = LlamaForCausalLM(cfg)
@@ -3536,8 +3572,6 @@ def phase_spec(spec_off_piped=None):
                 f"spec {label}: a pipelined run fetched {hs.blocking_gets} "
                 f"times over {hs.dispatches} dispatches")
         g = engine._graphs
-        off = ("" if spec_off_piped is None else
-               f"; phase 14's spec-off {spec_off_piped['decode_tps']:.1f}")
         log(f"spec {label}: {len(traffic)} requests in {r['wall_s']:.2f} s; "
             f"acceptance {sp['acceptance_rate']} ({sp['accepted']}/"
             f"{sp['proposed']}), mean accepted length "
@@ -3546,7 +3580,7 @@ def phase_spec(spec_off_piped=None):
             f"{sp['spec_dispatches']} of {hs.dispatches}, blocking fetches "
             f"{hs.blocking_gets}; decode {r['decode_tps']:.1f} tokens/s in "
             f"blocks ({r['block_tokens']} tokens, {r['block_s']:.2f} s, "
-            f"{r['blocks']} blocks){off}; verify {sp['verify_ms']} ms and "
+            f"{r['blocks']} blocks); verify {sp['verify_ms']} ms and "
             f"draft catch-up {sp['draft_ms']} ms a speculative dispatch "
             f"(host clock); captured (spec, sampled) {sorted(g.graphs)} "
             f"({st.get('graph_capture_s', 0.0):.3f} s), replays "
@@ -3583,7 +3617,7 @@ def phase_spec(spec_off_piped=None):
     same = sum(np.array_equal(a, b) for a, b in zip(on1, off))
     log(f"spec ngram greedy: identical twice, pipeline on and off, graphs "
         f"and eager; {same}/24 outputs equal speculation off's in bf16 at "
-        f"full depth (first divergence (request, token): "
+        f"{L} layers (first divergence (request, token): "
         f"{first_divergence(on1, off)}; the verify GEMMs run at M = "
         f"{V2['max_seqs'] * (SPEC_K + 1)} where the plain block's run at "
         f"M = {V2['max_seqs']}: other kernels, other roundings); decode "
@@ -5173,6 +5207,8 @@ def phase_moe():
     prefill.  Then 2 of its layers in fp32, v2
     against v1 by phase 7's margin rule extended to the router, and
     ``mixtral-8x7b`` at 2 of its 32 layers, bf16, graphed against eager.
+    The same module as target of a 2-layer MoE draft (``moe_draft``),
+    and 2 fp32 layers with an MoE draft (``moe_draft_fp32``).
     Returns the kernel-line entries of #9 and #8 at the group-1 shape
     with their launches in the phase's serving runs, and #1's."""
     import deepspeed_tpu_torch
@@ -5245,6 +5281,8 @@ def phase_moe():
     v2_graph_run("moe v2, int8 KV pool, pipeline on", module, want8,
                  [(p8, L)], eager8, reqs[:8], kv_cache_dtype="int8",
                  pipeline=True, **graph)
+    # (A12c) the same module as target of a 2-layer MoE draft
+    moe_draft(smi, module, reqs)
     # v1 over the same module: 4 x 512 + 32, the flash kernel once a layer
     # a prefill; then the decode step captured and replayed, the same
     # tokens
@@ -5282,6 +5320,7 @@ def phase_moe():
     gc.collect()
     torch.cuda.empty_cache()
     moe_fp32(smi)
+    moe_draft_fp32(smi)
     moe_mixtral(smi)
     log(f"[{smi}] phase 24: {time.perf_counter() - t_phase:.1f} s")
     return (entries["ragged_paged_attn_moe_g1"],
@@ -5421,6 +5460,140 @@ def moe_fp32(smi, quant=None):
         f"router logit difference {largest_diff:.3e}, {n_flips} positions "
         f"with another top-{k} set in v2")
     del v1, module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_draft(smi, module, reqs):
+    """Phase 24's MoE-draft leg (A12c): ``module`` (``qwen1.5-moe-a2.7b``
+    at full size, bf16) as target of a 2-layer Qwen2-MoE draft at its
+    widths and vocabulary, drawn on the card, ``speculation="draft"`` at
+    k SPEC_K, graphed: 4 of phase 6's prompts, 32 new tokens each,
+    greedy, pipelined twice
+    and unpipelined once, every run's tokens equal; #9 held per run to
+    the target's layers a tick plus the draft's a draft step and a
+    catch-up chunk (``spec_launches``).  Drops are on, so the tokens are
+    not held to speculation off: the verify tick's capacity depends on
+    the proposals (the fp32 leg holds them with drops off)."""
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+    from deepspeed_tpu_torch.models import qwen2_moe
+    from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+
+    L = module.config.num_hidden_layers
+    dcfg = qwen2_moe.get_config("qwen1.5-moe-a2.7b", num_hidden_layers=2)
+    with torch.device("meta"):
+        draft = qwen2_moe.Qwen2MoeForCausalLM(dcfg)
+    greedy = [(p, {"max_new_tokens": 32}) for p, _ in reqs[:4]]
+    p9 = rpa.ragged_paged_attention
+    outs, lines = [], []
+    for label, pipeline in (("pipeline on", True),
+                            ("pipeline on, again", True),
+                            ("pipeline off", False)):
+        extra = dict(draft_model=draft)
+        if outs:
+            extra = dict(draft_model=draft_module)
+        else:
+            extra["generator"] = torch.Generator(
+                device="cuda").manual_seed(SEED + 26)
+        eng = RaggedInferenceEngineV2(
+            module, device="cuda", speculation={"mode": "draft",
+                                                "k": SPEC_K},
+            config={"enable_cuda_graph": True},
+            **{**V2, "pipeline": pipeline}, **extra)
+        draft_module = eng._draft_module
+        assert eng._draft_moe
+        before = p9.launches
+        out, r = serve(eng, greedy)
+        python, device = spec_launches(eng, L, dcfg.num_hidden_layers,
+                                       SPEC_K)
+        assert p9.launches - before == python, (
+            f"moe draft, {label}: #9 counted {p9.launches - before}, want "
+            f"{python}")
+        if outs:
+            for i, (a, b) in enumerate(zip(out, outs[0])):
+                assert np.array_equal(a, b), (
+                    f"moe draft, {label}: request {i}'s tokens differ from "
+                    "the first run's")
+        outs.append(out)
+        sp = eng.serving_stages()["speculation"]
+        assert sp["spec_dispatches"] > 0 and eng.draft_catchup_chunks > 0
+        lines.append(
+            f"{label}: {r['wall_s']:.2f} s, decode {r['decode_tps']:.1f} "
+            f"tokens/s in blocks, acceptance {sp['acceptance_rate']} "
+            f"({sp['accepted']}/{sp['proposed']}), draft catch-up chunks "
+            f"{eng.draft_catchup_chunks} of {V2['prefill_chunk']} rows, "
+            f"#9 {python} counted, {device} on the device")
+        del eng
+        torch.cuda.empty_cache()
+    log(f"[{smi}] moe draft (qwen1.5-moe-a2.7b, a 2-layer Qwen2-MoE draft, "
+        f"k {SPEC_K}, graphs, 4 prompts + 32 greedy tokens), tokens equal in "
+        "all three "
+        "runs: " + "; ".join(lines))
+    del draft_module, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_draft_fp32(smi):
+    """2 of qwen1.5-moe-a2.7b's layers at full width in fp32 (TF32 off),
+    ``drop_tokens`` off, weights made on the card, with a 2-layer
+    Qwen2-MoE draft of another seed: greedy speculation against
+    speculation off on the card, by phase 7's margin rule (as phase 20's
+    fp32 leg)."""
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+    from deepspeed_tpu_torch.models import qwen2_moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = qwen2_moe.get_config("qwen1.5-moe-a2.7b", num_hidden_layers=2,
+                               dtype=torch.float32, drop_tokens=False)
+    rng = np.random.default_rng(SEED + 26)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in (37, 100, 300, 513)]
+    kw = dict(max_seqs=4, max_seq_len=704, prefill_chunk=128, page_size=64,
+              decode_block_size=4)
+    with torch.device("meta"):
+        model = qwen2_moe.Qwen2MoeForCausalLM(cfg)
+        draft = qwen2_moe.Qwen2MoeForCausalLM(cfg)
+    off_eng = RaggedInferenceEngineV2(
+        model, generator=torch.Generator(device="cuda").manual_seed(SEED + 26),
+        device="cuda", **kw)
+    outs = off_eng.generate_all(prompts, max_new_tokens=NEW_FP32)
+    want = [outs[u] for u in sorted(outs)]
+    module = off_eng.module
+    del off_eng
+    margins = []
+    with torch.no_grad():
+        for p, w in zip(prompts, want):
+            logits = module(torch.from_numpy(w[None, :-1]).cuda())[0][0]
+            top2 = logits[len(p) - 1:].topk(2, dim=-1).values
+            margins.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+    eng = RaggedInferenceEngineV2(
+        module, device="cuda", speculation={"mode": "draft", "k": SPEC_K},
+        draft_model=draft,
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 27),
+        **kw)
+    outs = eng.generate_all(prompts, max_new_tokens=NEW_FP32)
+    got = [outs[u] for u in sorted(outs)]
+    eng.audit_kv_sharing()
+    sp = eng.serving_stages()["speculation"]
+    for p, g, w, m in zip(prompts, got, want, margins):
+        diff = np.nonzero(g != w)[0]
+        if diff.size:
+            i = int(diff[0]) - len(p)
+            log(f"[{smi}] moe draft fp32: prompt {len(p)}: first differing "
+                f"token {i}, spec-off top-2 margin {m[i]:.3e}")
+            assert m[i] < MARGIN, (
+                f"moe draft fp32: tokens differ from speculation off at {i} "
+                f"with margin {m[i]:.3e}")
+    same = sum(np.array_equal(a, b) for a, b in zip(got, want))
+    log(f"[{smi}] moe draft fp32, 2 layers, drops off: {same}/4 requests "
+        f"token-equal to speculation off; acceptance "
+        f"{sp['acceptance_rate']} ({sp['accepted']}/{sp['proposed']}), "
+        f"draft catch-up chunks {eng.draft_catchup_chunks}; smallest "
+        f"spec-off top-2 margin {min(float(m.min()) for m in margins):.3e}")
+    assert sp["spec_dispatches"] > 0
+    del eng, module, model, draft
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5812,6 +5985,369 @@ def phase_moe_quant():
                                   "dequant_fp6_g2048_qwen_bank")], v1_flash)
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the tuning layer (A10b): the training autotuner, the online
+# controller, the offline sweep and the host profile
+# ---------------------------------------------------------------------------
+
+# the autotuner's optimal config, the sweep's profile and the tiering
+# leg's spill files go under the git-ignored build/, removed afterwards
+TUNE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_tuning")
+# the reference test's armed controller (tests/unit/test_serving_pipeline.py,
+# TestControlPlane._ctl): a tick every step, judged after one settle tick
+CONTROL = {"interval": 1, "settle": 1, "cooldown": 0}
+AUTOTUNE_STEPS = 3
+
+
+def gpt2_autotune_job():
+    """bench.py's config 1 as an autotuning job: ``gpt2-125m`` at full
+    size on the meta device (each engine draws its weights on the card)
+    and its batches of 1024 tokens (numpy seed SEED).  Phase 26's
+    subprocess point imports it as ``chip_smoke:gpt2_autotune_job``."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMLoss, get_config
+
+    cfg = get_config("gpt2-125m", n_positions=1024, remat=False,
+                     remat_policy="none", use_flash_attention=True)
+    with torch.device("meta"):
+        model = GPT2LMLoss(cfg)
+
+    def batch_fn(n):
+        return np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                    size=(n, 1024))
+    return model, batch_fn
+
+
+def tuning_autotuner(smi):
+    """(a) ``Autotuner`` on bench.py's config 1 (bf16, fused AdamW, seq
+    1024) over ZeRO stages 0-2 and micro batches 4..32 doubling, every
+    point a fresh engine timed by ``engine_runner`` (each point's #1, #2,
+    #3 and #4 held to phase 17's 12, 12, 12 and 1 a step), the winner's
+    config written and read back, and the winner again in a fresh
+    interpreter through ``make_subprocess_runner``.  Returns the launches
+    by kernel."""
+    from deepspeed_tpu_torch.autotuning import (Autotuner,
+                                                ExperimentScheduler,
+                                                ModelInfo,
+                                                make_subprocess_runner)
+    from deepspeed_tpu_torch.autotuning.autotuner import engine_runner
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_adam as fo
+
+    counters = {"flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
+                "flash_bwd_dkv": fa.flash_bwd_dkv,
+                "fused_adam": fo.fused_adam}
+    model, batch_fn = gpt2_autotune_job()
+    L = model.config.n_layer
+    base = gpt2_train_config("AdamW", 4, 0)
+    for key in ("train_batch_size", "train_micro_batch_size_per_gpu",
+                "zero_optimization"):
+        base.pop(key)
+    base["autotuning"] = {"fast": False, "zero_stages": [0, 1, 2],
+                          "min_train_micro_batch_size_per_gpu": 4,
+                          "max_train_micro_batch_size_per_gpu": 32}
+    run = engine_runner(model, batch_fn, steps=AUTOTUNE_STEPS,
+                        device="cuda")
+    per_point = []
+
+    def runner(cfg):
+        before = [c.launches for c in counters.values()]
+        try:
+            return run(cfg)
+        finally:
+            per_point.append([c.launches - b for c, b in
+                              zip(counters.values(), before)])
+
+    for c in counters.values():          # the main path's run starts here
+        c.launches = 0
+    info = ModelInfo.from_model(model)
+    tuner = Autotuner(info, base, runner=runner, device="cuda")
+    t = time.perf_counter()
+    best_cfg, best = tuner.tune()
+    tune_s = time.perf_counter() - t
+    launches = {k: c.launches for k, c in counters.items()}
+    assert best_cfg is not None, "autotuner: no point ran"
+    assert {r["zero_stage"] for r in tuner.records} == {0, 1, 2}
+    want = [(AUTOTUNE_STEPS + 1) * n for n in (L, L, L, 1)]
+    rows = []
+    for rec, got in zip(tuner.records, per_point):
+        tput = rec["throughput"]
+        assert tput is not None, f"autotuner: point {rec} failed"
+        assert got == want, (f"autotuner point stage {rec['zero_stage']} "
+                             f"mbs {rec['micro_batch_size']}: launches "
+                             f"{got}, want {want}")
+        rows.append(f"stage {rec['zero_stage']} mbs "
+                    f"{rec['micro_batch_size']}: {tput:.1f} samples/s, peak "
+                    f"{rec['peak_bytes'] / 2**30:.2f} GiB (memory model "
+                    f"{rec['estimate_bytes'] / 2**30:.2f} GiB), "
+                    f"{rec['tuning_seconds']:.1f} s")
+    os.makedirs(TUNE_DIR, exist_ok=True)
+    path = os.path.join(TUNE_DIR, "ds_config.json")
+    tuner.write_optimal_config(path)
+    with open(path) as f:
+        assert json.load(f) == best_cfg
+    # the winner again, in a fresh interpreter on the card
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sub = make_subprocess_runner(
+        "chip_smoke:gpt2_autotune_job", steps=AUTOTUNE_STEPS, timeout=600,
+        env={"PYTHONPATH": repo}, device="cuda")
+    t = time.perf_counter()
+    (exp,) = ExperimentScheduler(sub, exps_dir=TUNE_DIR).run_experiments(
+        [best_cfg])
+    assert exp.ok, f"autotuner: the subprocess point failed: {exp.error}"
+    log(f"[{smi}] autotuner, gpt2-125m (config 1: bf16, fused AdamW, seq "
+        f"1024; {info.num_params / 1e6:.2f} M parameters), ZeRO 0-2 x micro "
+        f"batch 4..32, {len(tuner.records)} points in {tune_s:.1f} s, "
+        f"{AUTOTUNE_STEPS} timed steps after one warm-up, each point's #1, "
+        f"#2, #3, #4 launches {want}: " + "; ".join(rows) +
+        f"; winner stage {best_cfg['zero_optimization']['stage']} mbs "
+        f"{best_cfg['train_micro_batch_size_per_gpu']} at {best:.1f} "
+        f"samples/s, written to and read back from build/; the winner in a "
+        f"fresh interpreter: {exp.metric_val:.1f} samples/s "
+        f"({time.perf_counter() - t:.1f} s with its start)")
+    return launches
+
+
+def tuned_run(engine, traffic, counters, want=None, label=""):
+    """Serve ``traffic`` on ``engine``; each ``(counter, per tick)`` of
+    ``counters`` held to per x (eager ticks + 2 K x new captures) over the
+    run, as phase 14 holds it; tokens held to ``want`` when given.
+    Returns the outputs, the run's numbers and the stages."""
+    st0 = engine.host_stats
+    before = dict(ticks=st0.ticks, rep=st0.graph_replays,
+                  cap=st0.graph_captures,
+                  n=[c.launches for c, _ in counters])
+    out, r = serve(engine, traffic)
+    st = engine.serving_stages()
+    K = engine.decode_block_size
+    rep = st.get("graph_replays", 0) - before["rep"]
+    cap = st.get("graph_captures", 0) - before["cap"]
+    eager_ticks = engine.host_stats.ticks - before["ticks"] - K * rep
+    for (c, per), b in zip(counters, before["n"]):
+        assert c.launches - b == per * (eager_ticks + 2 * K * cap), (
+            f"{label}: {c.__name__} counted {c.launches - b}, want {per} x "
+            f"({eager_ticks} eager ticks + 2 x {K} x {cap} captures)")
+    if want is not None:
+        for i, (a, b) in enumerate(zip(out, want)):
+            assert np.array_equal(a, b), (
+                f"{label}: request {i}'s tokens differ")
+    return out, r, st
+
+
+def tuning_control(smi):
+    """(b) the online controller and (c) the offline sweep and profile on
+    ``llama3-8b`` at full width and depth, bf16, graphed and pipelined
+    (phase 14's settings), over phase 6's traffic; then the controller
+    over phase 19's tight pool with the tiers at TIERED_LAYERS layers,
+    bf16 and int8 pools.  Returns the launches of #9 and #8."""
+    import shutil
+
+    from deepspeed_tpu_torch.control import (autotune_serving,
+                                             host_fingerprint, load_profile)
+    from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineV2
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
+    from deepspeed_tpu_torch.ops import ragged_paged_attention as rpa
+
+    cfg = get_config("llama3-8b")
+    L = cfg.num_hidden_layers
+    p9, p8 = rpa.ragged_paged_attention, rpa.ragged_paged_attention_quant
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    engine = RaggedInferenceEngineV2(
+        model, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda", **V2)
+    module = engine.module
+    del engine
+    reqs = v2_traffic()
+    graph = {"config": {"enable_cuda_graph": True}}
+    p9.launches = p8.launches = 0         # the main path starts here
+
+    def fresh(**kw):
+        return RaggedInferenceEngineV2(module, device="cuda",
+                                       **{**V2, "pipeline": True, **graph,
+                                          **kw})
+
+    # (b) control off, then armed: the same tokens, the same captures
+    eng = fresh()
+    want, off, st_off = tuned_run(eng, reqs, [(p9, L)], label="control off")
+    del eng
+    eng = fresh(control=CONTROL)
+    assert eng._controller is not None
+    _, on, st_on = tuned_run(eng, reqs, [(p9, L)], want,
+                             label="control armed")
+    ctl = st_on["control"]
+    log_counts = {}
+    for d in eng._controller.decision_log:
+        log_counts[d["action"]] = log_counts.get(d["action"], 0) + 1
+    del eng
+    torch.cuda.empty_cache()
+    assert ctl["ticks"] > 0 and ctl["probes"] > 0, ctl
+    assert st_on["graph_captures"] == st_off["graph_captures"], (
+        f"control armed captured {st_on['graph_captures']} graphs, control "
+        f"off {st_off['graph_captures']}")
+    log(f"[{smi}] control (llama3-8b bf16, graphs + pipeline, 24 requests, "
+        f"{CONTROL}): tokens equal to control off; controller ticks "
+        f"{ctl['ticks']}, decisions {ctl['decisions']} by action "
+        f"{log_counts}, probes {ctl['probes']}, accepts {ctl['accepts']}, "
+        f"reverts {ctl['reverts']}, settles {ctl['settles']}, frozen "
+        f"{ctl['frozen']}, knobs after {ctl['knobs']}; graph captures "
+        f"{st_on['graph_captures']} (control off "
+        f"{st_off['graph_captures']}); host_bound_fraction "
+        f"{st_on['host_bound_fraction']} (off "
+        f"{st_off['host_bound_fraction']}), in blocks "
+        f"{on['block_hbf']:.4f} (off {off['block_hbf']:.4f}); decode "
+        f"{on['decode_tps']:.1f} tokens/s in blocks (off "
+        f"{off['decode_tps']:.1f}); wall {on['wall_s']:.2f} s (off "
+        f"{off['wall_s']:.2f})")
+
+    # (c) the offline sweep on a short greedy traffic, control off, its
+    # profile, a new engine seeded from it, and the block size changed
+    # between two runs of that engine.  Greedy, since a sampled request's
+    # draws are keyed by its uid, which a second run on one engine moves
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    short = [(p, {"max_new_tokens": kw["max_new_tokens"]})
+             for p, kw in reqs[:8]]
+    points, by_k = [], {}
+
+    def measure(point):
+        k = point["engine.decode_block_size"]
+        eng = fresh(decode_block_size=k,
+                    harvest_interval=point["engine.harvest_interval"])
+        # the harvest interval moves no token: one block size, one output
+        out, r, _ = tuned_run(eng, short, [(p9, L)], by_k.get(k),
+                              label=f"sweep {point}")
+        by_k.setdefault(k, out)
+        points.append(f"{point}: {r['decode_tps']:.1f}")
+        return r["decode_tps"]
+
+    space = {"engine.decode_block_size": [4, 8],
+             "engine.harvest_interval": [1, 4]}
+    prof = autotune_serving(measure, space, metric_name="decode_tok_per_s",
+                            save_to=TUNE_DIR, device="cuda")
+    assert prof is not None and len(points) == 4, points
+    win_k = prof.knobs["engine.decode_block_size"]
+    win_h = prof.knobs["engine.harvest_interval"]
+    assert load_profile(TUNE_DIR, fingerprint=host_fingerprint(
+        "cuda")).knobs == prof.knobs
+    eng = fresh(control={"profile": TUNE_DIR, "interval": 1000000})
+    assert (eng.decode_block_size, eng.harvest_interval) == (win_k, win_h)
+    assert eng.host_stats.graph_captures == 0
+    _, seeded, st = tuned_run(eng, short, [(p9, L)], by_k[win_k],
+                              label="profile-seeded")
+    caps = st["graph_captures"]
+    assert caps >= 1
+    # the offline knob between two runs: one more capture, the tokens of
+    # the other block size
+    other = 4 if win_k == 8 else 8
+    eng.knob_registry().set("engine.decode_block_size", other,
+                            allow_recompile=True)
+    _, changed, st = tuned_run(eng, short, [(p9, L)], by_k[other],
+                               label=f"decode_block_size {win_k} -> {other}")
+    assert st["graph_captures"] == caps + 1, (caps, st["graph_captures"])
+    del eng
+    torch.cuda.empty_cache()
+    same = sum(np.array_equal(a, b) for a, b in zip(by_k[4], by_k[8]))
+    log(f"[{smi}] offline sweep (8 of the 24 requests, greedy, control "
+        f"off; decode tokens/s in blocks by point: {'; '.join(points)}; "
+        f"the same tokens at both harvest intervals): winner {prof.knobs} "
+        f"at {prof.metric:.1f}, profile {prof.key} saved under build/ and "
+        f"read back; a new engine seeded from it starts at K {win_k}, "
+        f"harvest {win_h} before any capture and serves the sweep's tokens "
+        f"at K {win_k} (decode {seeded['decode_tps']:.1f} tokens/s); "
+        f"decode_block_size set to {other} between runs: graph captures "
+        f"{caps} -> {caps + 1}, the sweep's tokens at K {other} "
+        f"({changed['decode_tps']:.1f} tokens/s); K 4 and K 8 give "
+        f"{same}/8 equal outputs")
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    del module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the controller over the tight pool with the tiers, prefetch off at
+    # the start: the spill signal's rule turns it on
+    tcfg = get_config("llama3-8b", num_hidden_layers=TIERED_LAYERS)
+    with torch.device("meta"):
+        model = LlamaForCausalLM(tcfg)
+    engine = RaggedInferenceEngineV2(
+        model, generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda", **V2)
+    module = engine.module
+    del engine
+    tight = 1 + V2["max_seqs"] * (V2["max_seq_len"] // V2["page_size"] // 4)
+    rng = np.random.default_rng(SEED + 2)
+    heavy = [(rng.integers(0, tcfg.vocab_size, size=100),
+              dict(max_new_tokens=500)) for _ in range(V2["max_seqs"])]
+    tiering = dict(TIER, prefetch=False,
+                   nvme_dir=os.path.join(TUNE_DIR, "kvtier"))
+    lines = []
+    for fmt, kernel in (("none", p9), ("int8", p8)):
+        runs = {}
+        for armed in (False, True):
+            eng = fresh(num_pages=tight, kv_cache_dtype=fmt,
+                        kv_tiering=tiering,
+                        **({"control": CONTROL} if armed else {}))
+            held = hold_restores(eng)
+            out, r, st = tuned_run(
+                eng, heavy, [(kernel, TIERED_LAYERS)],
+                runs[False][0] if armed else None,
+                label=f"tiering {fmt} pool, control {armed}")
+            kt = st["kv_tiering"]
+            assert eng.spills > 0 and kt["quarantined"] == 0, kt
+            assert kt["pages_verified"] == kt["pages_restored"] == \
+                held["pages"] > 0, (kt, held)
+            rules = ([d for d in eng._controller.decision_log
+                      if d["action"] == "rule"] if armed else [])
+            runs[armed] = (out, r, st, kt, rules, eng.spills, eng.restores)
+            eng.close()
+            del eng
+            torch.cuda.empty_cache()
+        out, r, st, kt, rules, spills, restores = runs[True]
+        assert rules and all(d["knob"] == "kv.prefetch" and
+                             d["signal"] == "tiering_spill_rate"
+                             and d["new"] is True for d in rules), rules
+        lines.append(
+            f"{fmt} pool: tokens equal to control off; spills {spills}, "
+            f"restores {restores} (off {runs[False][5]}, "
+            f"{runs[False][6]}), {kt['pages_restored']} pages restored, "
+            f"each digest-verified and read back equal to its spilled "
+            f"bytes; prefetch rule fired {len(rules)} x at tick "
+            f"{[d['tick'] for d in rules]} on tiering_spill_rate; prefetch "
+            f"hits {kt['prefetch_hits']} misses {kt['prefetch_misses']} "
+            f"(off {runs[False][3]['prefetch_hits']}, "
+            f"{runs[False][3]['prefetch_misses']}); controller "
+            f"{st['control']['decisions']} decisions, "
+            f"{st['control']['probes']} probes; wall {r['wall_s']:.2f} s "
+            f"(off {runs[False][1]['wall_s']:.2f})")
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    log(f"[{smi}] control over the tiers (llama3-8b at {TIERED_LAYERS} "
+        f"layers, {tight} pages, host {TIER['host_pages']} + NVMe "
+        f"{TIER['nvme_pages']} pages, prefetch off at the start, 16 x "
+        f"(100 + 500), graphs + pipeline): " + " | ".join(lines))
+    del module, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return p9.launches, p8.launches
+
+
+def phase_tuning():
+    """Phase 26: the tuning layer (A10b).  Returns the launches of #1,
+    #2, #3, #4 (the autotuner's points) and of #9 and #8 (the
+    controller's runs)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    t_phase = time.perf_counter()
+    train = tuning_autotuner(smi)
+    log(f"[{smi}] phase 26 (a) done at {time.perf_counter() - t_phase:.1f} s")
+    paged = tuning_control(smi)
+    log(f"[{smi}] phase 26: {time.perf_counter() - t_phase:.1f} s; "
+        f"launches counted: {train} in the autotuner's points, "
+        f"ragged_paged_attn {paged[0]} and ragged_paged_attn_quant "
+        f"{paged[1]} in the controller's runs")
+    return train, paged
+
+
 def main() -> int:
     # ``--cpu-side NAMES``: the worker of the parity checks' CPU halves,
     # which the whole run and ``--wq-only`` start themselves; it sees no
@@ -5877,6 +6413,14 @@ def main() -> int:
         phase_moe_quant()
         log(f"phase 25 done at {time.perf_counter() - t0:.1f} s")
         return 0
+    # ``--tuning-only``: the build and phase 26 alone, for work on the
+    # autotuner and the control plane; it prints no result lines
+    if sys.argv[1:] == ["--tuning-only"]:
+        t0 = time.perf_counter()
+        phase_report()
+        phase_tuning()
+        log(f"phase 26 done at {time.perf_counter() - t0:.1f} s")
+        return 0
     # ``--disagg-only``: the build and phase 23 alone, for work on
     # disaggregated serving; it prints no result lines
     if sys.argv[1:] == ["--disagg-only"]:
@@ -5925,14 +6469,14 @@ def main() -> int:
     log(f"phase 12 done at {time.perf_counter() - t0:.1f} s")
     phase_zero(stage0)
     log(f"phase 13 done at {time.perf_counter() - t0:.1f} s")
-    spec_off = phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager,
-                            bf16_greedy, v1_eager)
+    phase_graphs(bf16_outs, v2_eager, int8_outs, int8_eager, bf16_greedy,
+                 v1_eager)
     log(f"phase 14 done at {time.perf_counter() - t0:.1f} s")
     gpt2 = gpt2_phases(t0)
     phase_tiering()
     log(f"phase 19 done at {time.perf_counter() - t0:.1f} s")
     # phase 20's speculative launches join #9's and #8's entries
-    spec = phase_spec(spec_off)
+    spec = phase_spec()
     paged["launches"] += spec[0]
     paged_quant["launches"] += spec[1]
     log(f"phase 20 done at {time.perf_counter() - t0:.1f} s")
@@ -5952,6 +6496,16 @@ def main() -> int:
     banks, moe_flash = phase_moe_quant()
     entry["launches"] += moe_flash
     log(f"phase 25 done at {time.perf_counter() - t0:.1f} s")
+    # phase 26's autotuner points join GPT-2's config-1 training entries,
+    # its controller runs #9's and #8's
+    tuned, (tuned9, tuned8) = phase_tuning()
+    paged["launches"] += tuned9
+    paged_quant["launches"] += tuned8
+    by_name = {e["name"]: e for e in gpt2}
+    for kname, n in tuned.items():
+        by_name[f"{kname}_gpt2_125m" + ("" if kname == "fused_adam"
+                                        else "_train")]["launches"] += n
+    log(f"phase 26 done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [entry, paged, paged_quant, carry,
                                 carry_quant, moe9, moe8] + banks +
                     [train[k] for k in ("flash_bwd_dq", "flash_bwd_dkv",

@@ -1,0 +1,399 @@
+"""Autotuning orchestration: experiment scheduler + search tuners.
+
+Counterpart of ``deepspeed_tpu/autotuning/scheduler.py`` (the reference
+orchestration tier: ``autotuning/scheduler.py ResourceManager``, subprocess
+experiment launches with result scraping, ``tuner/base_tuner.py
+BaseTuner``, ``tuner/index_based_tuner.py GridSearchTuner/RandomTuner``,
+``tuner/model_based_tuner.py ModelBasedTuner`` + XGBoost cost model),
+copied with the same seeded numpy draws, so that every tuner visits the
+points of a space in the JAX tuners' order.
+
+- :class:`ExperimentScheduler` runs each candidate ds_config through a
+  runner; :func:`make_subprocess_runner` runs it in a FRESH python
+  subprocess (``exp_runner`` below): a config that runs out of device
+  memory or faults the CUDA context kills its own interpreter, not the
+  tuner (the reference's reason for subprocess isolation).  Failures
+  are quarantined as records with the error string.
+- Tuners search a ``tuning_space`` dict-of-lists (e.g. zero stage,
+  micro-batch, remat).  ``ModelBasedTuner`` fits a ridge regression on
+  the numeric config features (the XGBoost rank model collapses to
+  closed-form least squares: the spaces are hundreds of points, not
+  millions) and evaluates the predicted-best configs each round with
+  epsilon random exploration.
+"""
+from __future__ import annotations
+
+import copy
+import itertools
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from dataclasses import dataclass, field
+from numbers import Number
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from deepspeed_tpu_torch.utils.logging import logger
+
+
+# ---------------------------------------------------------------------------
+# tuning space -> experiment list (reference autotuning/utils.py
+# get_all_configs)
+# ---------------------------------------------------------------------------
+
+def _set_path(cfg: Dict, dotted: str, value) -> None:
+    node = cfg
+    parts = dotted.split(".")
+    for p in parts[:-1]:
+        node = node.setdefault(p, {})
+    node[parts[-1]] = value
+
+
+def expand_space(base_config: Dict[str, Any],
+                 tuning_space: Dict[str, Sequence]) -> List[Dict[str, Any]]:
+    """Cartesian product of a {dotted.key: [values]} space applied onto
+    ``base_config`` — one ds_config per point."""
+    keys = list(tuning_space)
+    configs = []
+    for combo in itertools.product(*(tuning_space[k] for k in keys)):
+        cfg = copy.deepcopy(base_config)
+        for k, v in zip(keys, combo):
+            _set_path(cfg, k, v)
+        cfg["_tuning_point"] = dict(zip(keys, combo))
+        configs.append(cfg)
+    return configs
+
+
+def config_features(cfg: Dict[str, Any]) -> List[float]:
+    """Numeric feature vector from a config's tuning point (the
+    reference flattens the whole ds_config; the tuning point is the part
+    that varies)."""
+    import zlib
+
+    feats = []
+    for _, v in sorted(cfg.get("_tuning_point", {}).items()):
+        if isinstance(v, bool):
+            feats.append(float(v))
+        elif isinstance(v, Number):
+            feats.append(float(v))
+        else:
+            # stable across interpreters (hash() is salted, which would
+            # break seed reproducibility of the cost model)
+            feats.append(float(zlib.crc32(str(v).encode()) % 97))
+    return feats
+
+
+# ---------------------------------------------------------------------------
+# subprocess experiment scheduler (reference ResourceManager)
+# ---------------------------------------------------------------------------
+
+def record_experiment_metrics(metric_val: Optional[float],
+                              seconds: float) -> None:
+    """Mirror one experiment record into the MetricsRegistry.
+
+    The JSON sidecar (``exps_dir`` / ``Autotuner.records``) used to be
+    the only sink, so sweeps were invisible to ``trace_summarize
+    --metrics`` and the flight-dump header.  Registering here puts
+    experiment counts, wall seconds, and the running metric value in
+    every registry export — including the flight dump's embedded
+    metrics block — for free."""
+    from deepspeed_tpu_torch.telemetry.metrics import metrics as _metrics
+
+    if not _metrics.enabled:
+        return
+    status = "ok" if metric_val is not None else "error"
+    _metrics.counter(
+        "dstpu_autotune_experiments_total",
+        "Autotuning experiments by outcome",
+        labels=("status",)).labels(status=status).inc()
+    _metrics.histogram(
+        "dstpu_autotune_experiment_seconds",
+        "Wall seconds per autotuning experiment").observe(
+            float(seconds))
+    if metric_val is not None:
+        _metrics.gauge(
+            "dstpu_autotune_last_metric",
+            "Most recent successful experiment's metric value").set(
+                float(metric_val))
+
+
+@dataclass
+class Experiment:
+    exp_id: int
+    ds_config: Dict[str, Any]
+    metric_val: Optional[float] = None
+    error: Optional[str] = None
+    seconds: float = 0.0
+    record: Dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def ok(self) -> bool:
+        return self.metric_val is not None
+
+
+class ExperimentScheduler:
+    """Run experiments through ``runner`` with quarantine.
+
+    ``runner`` defaults to :func:`subprocess_runner`-style isolation via
+    ``make_subprocess_runner``; inject a callable ``(ds_config) ->
+    float`` for in-process measurement (unit tests, CPU sweeps).
+    """
+
+    def __init__(self, runner: Callable[[Dict], float],
+                 exps_dir: Optional[str] = None):
+        self.runner = runner
+        self.exps_dir = exps_dir
+        self.finished: List[Experiment] = []
+        self._next = itertools.count()
+
+    def run_experiments(self, configs: List[Dict[str, Any]]
+                        ) -> List[Experiment]:
+        out = []
+        for cfg in configs:
+            exp = Experiment(exp_id=next(self._next),
+                             ds_config=copy.deepcopy(cfg))
+            t0 = time.perf_counter()
+            try:
+                exp.metric_val = float(self.runner(cfg))
+            except Exception as e:           # quarantined, tuner continues
+                exp.error = f"{type(e).__name__}: {e}"
+                logger.info(f"autotuning exp {exp.exp_id} quarantined: "
+                            f"{exp.error[:200]}")
+            exp.seconds = time.perf_counter() - t0
+            exp.record = {"exp_id": exp.exp_id,
+                          "tuning_point": cfg.get("_tuning_point", {}),
+                          "metric_val": exp.metric_val,
+                          "error": exp.error,
+                          "seconds": round(exp.seconds, 3)}
+            record_experiment_metrics(exp.metric_val, exp.seconds)
+            self.finished.append(exp)
+            if self.exps_dir:
+                os.makedirs(self.exps_dir, exist_ok=True)
+                path = os.path.join(self.exps_dir,
+                                    f"exp_{exp.exp_id}.json")
+                with open(path, "w") as f:
+                    json.dump({"ds_config": exp.ds_config,
+                               **exp.record}, f, indent=2)
+            out.append(exp)
+        return out
+
+
+def make_subprocess_runner(factory: str, steps: int = 3,
+                           timeout: float = 600.0,
+                           python: Optional[str] = None,
+                           env: Optional[Dict[str, str]] = None,
+                           device: Optional[str] = None
+                           ) -> Callable[[Dict], float]:
+    """Isolated measurement: each config runs in a fresh interpreter via
+    ``python -m deepspeed_tpu_torch.autotuning.exp_runner`` (reference
+    ResourceManager launching the user script with ``--autotuning run``).
+
+    ``factory``: ``"pkg.module:fn"`` importable in the subprocess;
+    ``fn()`` must return ``(model, batch_fn)`` where ``model`` is a loss
+    module (built under ``torch.device("meta")`` to have its weights
+    drawn on the device) and ``batch_fn(global_batch_size)`` yields a
+    training batch.  ``device``: the subprocess engine's (``cuda`` by
+    default; ``"cpu"`` only when asked for).  Out of memory, a failed
+    kernel build or a hang (timeout) surface as exceptions here and
+    quarantine upstream.
+    """
+
+    def run(ds_config: Dict[str, Any]) -> float:
+        with tempfile.TemporaryDirectory(prefix="dstpu_autotune_") as td:
+            cfg_path = os.path.join(td, "config.json")
+            out_path = os.path.join(td, "result.json")
+            cfg = {k: v for k, v in ds_config.items()
+                   if k != "_tuning_point"}
+            with open(cfg_path, "w") as f:
+                json.dump(cfg, f)
+            cmd = [python or sys.executable, "-m",
+                   "deepspeed_tpu_torch.autotuning.exp_runner",
+                   "--config", cfg_path, "--factory", factory,
+                   "--out", out_path, "--steps", str(steps)]
+            if device is not None:
+                cmd += ["--device", str(device)]
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=timeout,
+                                  env={**os.environ, **(env or {})})
+            if proc.returncode != 0 or not os.path.exists(out_path):
+                tail = (proc.stderr or proc.stdout or "").strip()
+                raise RuntimeError(
+                    f"experiment subprocess failed (rc={proc.returncode}): "
+                    f"{tail[-500:]}")
+            with open(out_path) as f:
+                return float(json.load(f)["metric_val"])
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# tuners (reference tuner/{base,index_based,model_based}_tuner.py)
+# ---------------------------------------------------------------------------
+
+class BaseTuner:
+    def __init__(self, configs: List[Dict[str, Any]],
+                 scheduler: ExperimentScheduler):
+        self.pool = list(configs)
+        self.scheduler = scheduler
+        self.best: Optional[Experiment] = None
+
+    def has_next(self) -> bool:
+        return bool(self.pool)
+
+    def next_batch(self, sample_size: int) -> List[Dict[str, Any]]:
+        raise NotImplementedError
+
+    def update(self, exps: List[Experiment]) -> None:
+        pass
+
+    def tune(self, sample_size: int = 1, n_trials: int = 1000,
+             early_stopping: Optional[int] = None) -> Optional[Experiment]:
+        """Reference ``BaseTuner.tune``: batched evaluation with optional
+        no-improvement early stop (counted in experiments)."""
+        i = 0
+        best_at = 0
+        while i < n_trials and self.has_next():
+            batch = self.next_batch(sample_size)
+            exps = self.scheduler.run_experiments(batch)
+            improved = False
+            for e in exps:
+                if e.ok and (self.best is None or
+                             e.metric_val > self.best.metric_val):
+                    self.best = e
+                    improved = True
+            i += len(exps)
+            if improved:
+                # count from AFTER the improving batch, else any
+                # sample_size >= early_stopping stops immediately
+                best_at = i
+            self.update(exps)
+            if early_stopping is not None and i - best_at >= early_stopping:
+                logger.info(f"autotuning early stop at {i} experiments "
+                            f"(no improvement in {early_stopping})")
+                break
+        return self.best
+
+
+class GridSearchTuner(BaseTuner):
+    def next_batch(self, sample_size: int) -> List[Dict[str, Any]]:
+        batch, self.pool = (self.pool[:sample_size],
+                            self.pool[sample_size:])
+        return batch
+
+
+class RandomTuner(BaseTuner):
+    def __init__(self, configs, scheduler, seed: int = 0):
+        super().__init__(configs, scheduler)
+        self._rng = np.random.default_rng(seed)
+
+    def next_batch(self, sample_size: int) -> List[Dict[str, Any]]:
+        n = min(sample_size, len(self.pool))
+        idx = self._rng.choice(len(self.pool), size=n, replace=False)
+        batch = [self.pool[i] for i in idx]
+        for i in sorted(idx, reverse=True):
+            self.pool.pop(i)
+        return batch
+
+
+class ModelBasedTuner(BaseTuner):
+    """Cost-model-guided search: ridge regression over the tuning-point
+    features predicts the metric; each round evaluates the predicted
+    best configs, with ``explore_ratio`` random picks (reference
+    ModelBasedTuner's XGBoost rank model + 0.2 random exploration)."""
+
+    INIT_NUM = 2
+
+    def __init__(self, configs, scheduler, seed: int = 0,
+                 explore_ratio: float = 0.2):
+        super().__init__(configs, scheduler)
+        self._rng = np.random.default_rng(seed)
+        self.explore_ratio = explore_ratio
+        self._X: List[List[float]] = []
+        self._y: List[float] = []
+        self._ok_vals: List[float] = []
+        self._init_left = min(self.INIT_NUM, len(self.pool))
+
+    def _predict(self) -> np.ndarray:
+        X = np.asarray([config_features(c) for c in self.pool], np.float64)
+        if len(self._ok_vals) < 2:
+            # need 2+ REAL observations before fitting: an all-failure
+            # start would train the ridge purely on synthetic penalty
+            # values whose scale says nothing about the metric
+            return self._rng.standard_normal(len(self.pool))
+        A = np.asarray(self._X, np.float64)
+        y = np.asarray(self._y, np.float64)
+        mu, sd = A.mean(0), A.std(0) + 1e-9
+
+        def design(M):
+            Mn = (M - mu) / sd
+            # quadratic basis: tuning surfaces (throughput vs batch,
+            # stage) are concave with interior optima a linear model
+            # would extrapolate past
+            return np.c_[Mn, Mn ** 2, np.ones(len(M))]
+
+        An = design(A)
+        w = np.linalg.lstsq(An.T @ An + 1e-3 * np.eye(An.shape[1]),
+                            An.T @ y, rcond=None)[0]
+        return design(X) @ w
+
+    def next_batch(self, sample_size: int) -> List[Dict[str, Any]]:
+        batch = []
+        for _ in range(min(sample_size, len(self.pool))):
+            if self._init_left > 0 or \
+                    self._rng.random() < self.explore_ratio:
+                i = int(self._rng.integers(len(self.pool)))
+                self._init_left = max(self._init_left - 1, 0)
+            else:
+                i = int(np.argmax(self._predict()))
+            batch.append(self.pool.pop(i))
+        return batch
+
+    def update(self, exps: List[Experiment]) -> None:
+        for e in exps:
+            feats = config_features(e.ds_config)
+            self._X.append(feats)
+            # failures train the model too: a fixed penalty one unit
+            # below the worst REAL observation steers the search away
+            # from the infeasible region (tracked separately — deriving
+            # the floor from _y would cascade past penalties downward)
+            if e.ok:
+                self._ok_vals.append(e.metric_val)
+                self._y.append(e.metric_val)
+            else:
+                floor = (min(self._ok_vals) if self._ok_vals else 0.0)
+                self._y.append(floor - 1.0)
+
+
+TUNERS = {"gridsearch": GridSearchTuner, "random": RandomTuner,
+          "model_based": ModelBasedTuner}
+
+
+def tune_space(base_config: Dict[str, Any],
+               tuning_space: Dict[str, Sequence],
+               runner: Callable[[Dict], float],
+               tuner: str = "model_based",
+               sample_size: int = 1, n_trials: int = 1000,
+               early_stopping: Optional[int] = None,
+               exps_dir: Optional[str] = None,
+               seed: int = 0) -> Optional[Experiment]:
+    """One-call orchestration: expand the space, pick a tuner, run."""
+    configs = expand_space(base_config, tuning_space)
+    sched = ExperimentScheduler(runner, exps_dir=exps_dir)
+    cls = TUNERS[tuner]
+    kw = {} if cls is GridSearchTuner else {"seed": seed}
+    t = cls(configs, sched, **kw)
+    best = t.tune(sample_size=sample_size, n_trials=n_trials,
+                  early_stopping=early_stopping)
+    if best is not None:
+        logger.info(f"autotuning best: {best.record}")
+        from deepspeed_tpu_torch.telemetry.metrics import metrics as _metrics
+        if _metrics.enabled and best.metric_val is not None:
+            _metrics.gauge(
+                "dstpu_autotune_best_metric",
+                "Best metric value found by the last sweep").set(
+                    float(best.metric_val))
+    return best

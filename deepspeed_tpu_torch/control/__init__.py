@@ -1,10 +1,49 @@
-"""The control plane's typed knob surface.
+"""Closed-loop control plane: the signal plane drives the knobs.
 
-Counterpart of ``deepspeed_tpu/control/``: so far :mod:`~.knobs`
-(:class:`Knob`, :class:`KnobRegistry`, :func:`router_knobs`), which the
-scale-out router's role and admission knobs use.  The online controller,
-the host profile and the engine's knobs are ROADMAP A10b.
+Counterpart of ``deepspeed_tpu/control/``:
+
+- :mod:`~deepspeed_tpu_torch.control.knobs`: the typed knob surface
+  (:class:`KnobRegistry`): bounds, step, cooldown, apply callbacks wired
+  into the ragged engine, the tiered KV store and the router; knobs
+  baked into a captured CUDA graph are fenced offline-only.
+- :mod:`~deepspeed_tpu_torch.control.controller`: the online
+  :class:`Controller`: rule + hill-climb policy with hysteresis and an
+  oscillation guard, every decision a ``cat="control"`` trace event
+  plus ``dstpu_control_*`` metrics.
+- :mod:`~deepspeed_tpu_torch.control.profile`: the offline sweep (on
+  the ``autotuning/`` ExperimentScheduler substrate) and the per-host
+  profile that seeds the online starting point.
+
+The moment-stream swapper's knobs (the JAX package's ``swapper_knobs``)
+come with the swapper (ROADMAP A11).
+
+``DSTPU_CONTROL=0`` is the kill switch: :func:`control_enabled` gates
+every attach point, so the armed system degrades to the structurally
+pre-control one.
 """
-from deepspeed_tpu_torch.control.knobs import Knob, KnobRegistry, router_knobs
+from __future__ import annotations
 
-__all__ = ["Knob", "KnobRegistry", "router_knobs"]
+import os
+
+from deepspeed_tpu_torch.control.controller import (Controller, Rule,
+                                                    engine_signal_feed,
+                                                    prefetch_rule,
+                                                    slo_shed_rule)
+from deepspeed_tpu_torch.control.knobs import Knob, KnobRegistry, router_knobs
+from deepspeed_tpu_torch.control.profile import (HostProfile,
+                                                 autotune_serving,
+                                                 fingerprint_key,
+                                                 host_fingerprint,
+                                                 load_profile, save_profile)
+
+__all__ = ["Controller", "Rule", "Knob", "KnobRegistry", "HostProfile",
+           "autotune_serving", "control_enabled", "engine_signal_feed",
+           "fingerprint_key", "host_fingerprint", "load_profile",
+           "prefetch_rule", "router_knobs", "save_profile",
+           "slo_shed_rule"]
+
+
+def control_enabled() -> bool:
+    """The ``DSTPU_CONTROL=0`` kill switch (default: enabled, but the
+    controller still only runs where config/kwargs arm it)."""
+    return os.environ.get("DSTPU_CONTROL", "1") != "0"

@@ -1,8 +1,9 @@
 """Typed knob surface for the closed-loop control plane.
 
 Counterpart of ``deepspeed_tpu/control/knobs.py``: ``Knob``,
-``KnobRegistry`` and ``router_knobs``.  The engine's and the swapper's
-knobs and the controller itself are not ported yet (ROADMAP A10b).
+``KnobRegistry`` and ``router_knobs``; the engine's knobs are
+``RaggedInferenceEngineV2.knob_registry``, and the moment-stream
+swapper's come with the swapper (ROADMAP A11).
 
 Every perf-critical runtime parameter the system grew — the serving
 pipeline's ``harvest_interval``/``async_depth``, the tiered KV store's
@@ -144,8 +145,9 @@ class KnobRegistry:
 
 
 # -- knob builders for the non-engine owners ------------------------------
-# (the router's; the engine's ``knob_registry`` and the moment-stream
-# swapper's come with ROADMAP A10b and A11)
+# (the router's; the engine builds its own in
+# ``RaggedInferenceEngineV2.knob_registry``, and the moment-stream
+# swapper's comes with ROADMAP A11)
 
 def router_knobs(router, prefix: str = "router.") -> KnobRegistry:
     """The scale-out router's admission thresholds: SLO-burn deferral

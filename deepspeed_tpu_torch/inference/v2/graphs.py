@@ -129,6 +129,14 @@ class DecodeBlockGraphs:
         st.graph_captures += 1
         st.graph_capture_s += time.perf_counter() - t0
 
+    def reset(self) -> None:
+        """Drop every captured graph and its outputs: the engine's
+        ``decode_block_size`` or ``spec_k`` changed, and a replay would
+        run a block of the old shape.  The next ``ensure`` captures
+        again."""
+        self.graphs.clear()
+        self.outputs.clear()
+
     def run(self, sampled: bool, spec: bool = False
             ) -> Tuple[torch.Tensor, ...]:
         """One block over the static buffers: a replay when captured, the

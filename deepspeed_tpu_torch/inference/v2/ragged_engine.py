@@ -134,11 +134,19 @@ JAX's threefry streams (:mod:`~deepspeed_tpu_torch.inference.sampling`).
   "int8", "fp8" and "fp6" quantize the expert banks too, each expanded
   whole once a layer a tick; "w8a8" is refused, as the JAX engine
   refuses it (an expert bank is no Linear a native W8A8 product reads).
+  A Mixtral or Qwen2-MoE draft model serves like a dense one; its
+  catch-up chunks are padded to ``prefill_chunk`` rows, as the JAX
+  engine pads them, so its capacity sees the JAX draft's rows.
+- **The control plane** (``control``, A10b).  :meth:`knob_registry` is
+  the engine's typed knob surface; an armed
+  :class:`~deepspeed_tpu_torch.control.controller.Controller` ticks every
+  ``interval`` steps on the host loop, seeded from a per-host profile
+  before any capture.  The knobs that a captured block bakes in
+  (``decode_block_size``, ``spec_k``) are offline only; setting one
+  drops the captured graphs, so the next block captures again.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: tensor parallelism (A7a), the closed-loop control plane
-(``control``, and the engine's ``knob_registry``: A10b) and an MoE
-draft model (A12c).
+Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
+item: tensor parallelism (A7a).
 """
 from __future__ import annotations
 
@@ -189,6 +197,10 @@ from deepspeed_tpu_torch.telemetry.slo import SLOSet, TailSampler
 from deepspeed_tpu_torch.utils.async_stage import (BoundedAsyncStage,
                                                    StageTimers)
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
+
+# the upper bounds of the engine.harvest_interval and engine.async_depth
+# knobs (the reference's), which size the harvest ring
+_HARVEST_HI, _DEPTH_HI = 16, 8
 
 # _block_arrays' order
 _BLOCK_ARRAYS = ("last_tok", "pos", "active", "remaining", "eos_ids",
@@ -373,9 +385,11 @@ class RaggedInferenceEngineV2:
         ``trace_sample``: tail-based trace sampling 1-in-N (kwarg >
         config ``v2.trace_sample`` > env ``DSTPU_TRACE_SAMPLE``); N > 0
         arms the process tracer's sampling mode.  ``replica`` labels this
-        engine's metric children (scale-out serving).  ``control`` and
-        ``topology`` raise ``NotImplementedError`` when they ask for a
-        feature."""
+        engine's metric children (scale-out serving).  ``control``:
+        ``None`` (the config's ``v2.control`` decides; off by default), a
+        bool, a dict (``enabled`` unless it says otherwise) or a
+        :class:`ControlConfig`: the closed-loop controller (module
+        docstring).  ``topology`` raises ``NotImplementedError``."""
         mcfg = getattr(model, "config", None)
         if not _llama_family(mcfg):
             raise TypeError(
@@ -395,7 +409,7 @@ class RaggedInferenceEngineV2:
             trace_sample = (v2cfg.trace_sample if trace_sample is None
                             else trace_sample)
             control = v2cfg.control if control is None else control
-        self._check_unported(topology, quantize_weights, control)
+        self._check_unported(topology, quantize_weights)
         if quantize_weights == "w8a8" and not getattr(
                 type(model), "w8a8_native", False):
             why = " (its expert banks are no Linear)" if is_moe(model) else ""
@@ -612,23 +626,56 @@ class RaggedInferenceEngineV2:
             f"pipeline={self.pipeline} cuda_graph={self.enable_cuda_graph}"
             f"{note} device={self.device} (paged KV, fused SplitFuse step)",
             ranks=[0])
+        self._setup_control(control)
 
     # -- construction helpers -------------------------------------------
 
     @staticmethod
-    def _check_unported(topology, quantize_weights, control) -> None:
-        """Raise for every feature asked for that this port lacks
-        (``control`` comes resolved: the kwarg, else the config's)."""
+    def _check_unported(topology, quantize_weights) -> None:
+        """Raise for every feature asked for that this port lacks."""
         if topology is not None:
             raise _unported("tensor-parallel serving (topology)", "A7a")
         if quantize_weights is not None:
             check_format(quantize_weights)
-        if isinstance(control, bool):
+
+    def _setup_control(self, control) -> None:
+        """The closed-loop control plane (the reference's
+        ``ragged_engine.py:715-757``): ticks on this host loop (``step``
+        counts engine steps), no thread of its own.  ``DSTPU_CONTROL=0``
+        disarms it whatever the config says.  A profile seeds the knobs
+        here, before any warm-up or capture, so the knobs a captured
+        block bakes in are still fair game."""
+        from deepspeed_tpu_torch.control import (Controller, control_enabled,
+                                                 engine_signal_feed,
+                                                 host_fingerprint,
+                                                 load_profile, prefetch_rule)
+
+        if control is None:
+            control = ControlConfig()
+        elif isinstance(control, bool):
             control = ControlConfig(enabled=control)
         elif isinstance(control, dict):
             control = ControlConfig(**{"enabled": True, **control})
-        if control is not None and control.enabled:
-            raise _unported("the control plane (control)", "A10b")
+        self._control_cfg = control
+        self._controller: Optional[Controller] = None
+        self._control_steps = 0
+        if not (control.enabled and control_enabled()):
+            return
+        knobs = self.knob_registry()
+        prof = load_profile(control.profile,
+                            fingerprint=host_fingerprint(self.device))
+        if prof is not None:
+            applied = knobs.apply_profile(prof.knobs)
+            if applied:
+                log_dist(f"control plane seeded from host profile "
+                         f"{prof.key}: {applied}", ranks=[0])
+        rules = [prefetch_rule()] if self.tiering is not None else []
+        self._controller = Controller(
+            knobs, engine_signal_feed(self), objective=control.objective,
+            settle=control.settle, hysteresis=control.hysteresis,
+            cooldown=control.cooldown, guard_window=control.guard_window,
+            guard_reverts=control.guard_reverts, freeze=control.freeze,
+            smooth=control.smooth, rules=rules)
 
     def _make_pools(self, c, fmt: str) -> List[PagedKVPool]:
         """One pool a layer of model config ``c``, in page format
@@ -655,6 +702,7 @@ class RaggedInferenceEngineV2:
         self._draft_len = np.zeros((self.max_seqs,), np.int64)
         self.draft_catchup_chunks = 0      # catch-up prefill calls
         self._draft_module: Optional[nn.Module] = None
+        self._draft_moe = False
         self._draft_cache: List[PagedKVPool] = []
         self.draft_kv_cache_dtype: Optional[str] = None
         if self.spec_mode != "draft":
@@ -667,9 +715,10 @@ class RaggedInferenceEngineV2:
                 "speculation.draft_model preset name is for CLIs to build "
                 "one)")
         dmcfg = getattr(draft_model, "config", None)
-        if is_moe(draft_model):
-            raise _unported("an MoE draft model (speculation.mode='draft')",
-                            "A12c")
+        # an MoE draft routes every row of a catch-up chunk together
+        # (capacity couples them): its chunks are padded as the JAX
+        # engine pads them
+        self._draft_moe = is_moe(draft_model)
         if not _llama_family(dmcfg):
             raise TypeError("the draft model must be a Llama-family module "
                             "of this package (the ragged paged decode "
@@ -1105,6 +1154,114 @@ class RaggedInferenceEngineV2:
                 self.request_latency.on_handoff_stall(uid, stall)
         return new_uids
 
+    # -- the control plane's knobs (A10b) ---------------------------------
+
+    def _set_block_shape(self, decode_block_size: int, spec_k: int) -> None:
+        """Change a knob that a captured block bakes in: a live pipeline
+        is harvested and torn down first, then the captured graphs, their
+        outputs and the harvest rings are dropped, so that the next block
+        captures again (counted in ``graph_captures``)."""
+        if self._dev is not None:
+            self._pipeline_harvest(teardown=True)
+        self.decode_block_size = max(int(decode_block_size), 1)
+        self.spec_k = max(int(spec_k), 1)
+        self._graphs.reset()
+        self._rings.clear()
+
+    def knob_registry(self):
+        """The engine's typed knob surface for the control plane
+        (:class:`~deepspeed_tpu_torch.control.knobs.KnobRegistry`), the
+        reference's knobs with the same names, bounds, kinds and
+        ``recompiles`` flags.
+
+        Online-safe knobs: ``harvest_interval`` is read fresh each
+        pipelined step; ``async_depth`` re-sizes the live decode window in
+        place (it back-pressures on the next submit).  The harvest ring
+        is sized for the knobs' upper bounds, so neither can lap it.
+        ``decode_block_size`` and ``spec_k`` are baked into captured block
+        shapes, so they carry ``recompiles=True``: reachable only by the
+        offline sweep or profile seeding, never the online policy.
+        Setting one drops the captured graphs (:meth:`_set_block_shape`).
+        With tiering on, the tier store's prefetch toggle and IO-window
+        depths ride along under ``kv.*``."""
+        from deepspeed_tpu_torch.control.knobs import Knob, KnobRegistry
+
+        reg = KnobRegistry()
+
+        def _set_harvest(v):
+            self.harvest_interval = max(int(v), 1)
+
+        def _set_depth(v):
+            self.async_depth = max(int(v), 1)
+            if self._dev is not None:
+                self._dev["window"].depth = self.async_depth
+
+        reg.register(Knob(
+            "engine.harvest_interval",
+            lambda: self.harvest_interval, _set_harvest,
+            lo=1, hi=_HARVEST_HI, step=1, kind="int",
+            doc="pipelined decode blocks between token harvests"))
+        reg.register(Knob(
+            "engine.async_depth",
+            lambda: self.async_depth, _set_depth,
+            lo=1, hi=_DEPTH_HI, step=1, kind="int",
+            doc="in-flight decode blocks in the pipeline window"))
+        reg.register(Knob(
+            "engine.decode_block_size",
+            lambda: self.decode_block_size,
+            lambda v: self._set_block_shape(v, self.spec_k),
+            lo=1, hi=16, step=1, kind="int", recompiles=True,
+            doc="device ticks per decode block (captured shape)"))
+        if self.spec_mode != "off":
+            reg.register(Knob(
+                "engine.spec_k", lambda: self.spec_k,
+                lambda v: self._set_block_shape(self.decode_block_size, v),
+                lo=1, hi=8, step=1, kind="int", recompiles=True,
+                doc="speculative draft length (captured shape)"))
+        if self.tiering is not None:
+            t = self.tiering
+
+            def _set_prefetch(v):
+                t.prefetch_enabled = bool(v) and t.nvme_budget > 0
+
+            def _set_wdepth(v):
+                t._writes.depth = max(int(v), 1)
+
+            def _set_rdepth(v):
+                t._reads.depth = max(int(v), 1)
+
+            reg.register(Knob(
+                "kv.prefetch", lambda: t.prefetch_enabled,
+                _set_prefetch, kind="bool",
+                doc="NVMe read-ahead on tier restore"))
+            reg.register(Knob(
+                "kv.write_depth", lambda: t._writes.depth, _set_wdepth,
+                lo=1, hi=8, step=1, kind="int",
+                doc="bounded spill write-back window depth"))
+            reg.register(Knob(
+                "kv.read_depth", lambda: t._reads.depth, _set_rdepth,
+                lo=1, hi=8, step=1, kind="int",
+                doc="bounded restore read-ahead window depth"))
+
+            def _set_lookahead(v):
+                self.prefetch_lookahead = max(int(v), 1)
+
+            def _set_window(v):
+                self._tier_cfg.window_pages = max(int(v), 1)
+
+            reg.register(Knob(
+                "kv.prefetch_lookahead",
+                lambda: self.prefetch_lookahead, _set_lookahead,
+                lo=1, hi=64, step=1, kind="int",
+                doc="queued spilled sequences prefetched ahead of reap"))
+            reg.register(Knob(
+                "kv.window_pages",
+                lambda: int(self._tier_cfg.window_pages), _set_window,
+                lo=1, hi=64, step=1, kind="int",
+                doc="recent device-resident pages per partially-resident "
+                    "sequence (long-context residency window)"))
+        return reg
+
     # -- stats ------------------------------------------------------------
 
     def serving_stages(self) -> Dict[str, Any]:
@@ -1114,8 +1271,10 @@ class RaggedInferenceEngineV2:
         per-request latency percentiles; with tiering the tier store's
         stats (``kv_tiering``), with the prefix cache the index's and the
         admissions' counters (``prefix_cache``), after any handoff its
-        counts (``handoff``), with objectives the SLO burn (``slo``), and
-        with the metrics registry on its flat view (``metrics``)."""
+        counts (``handoff``), with an armed controller its counts, knobs
+        and frozen knobs (``control``), with objectives the SLO burn
+        (``slo``), and with the metrics registry on its flat view
+        (``metrics``)."""
         out = self.host_stats.serving_stages()
         if self.tiering is not None:
             out["kv_tiering"] = self.tiering.stats()
@@ -1146,6 +1305,8 @@ class RaggedInferenceEngineV2:
             out["pipeline_window"] = self._pipe_timers.snapshot()
         if self.enable_cuda_graph:
             out.update(self.host_stats.graph_stages())
+        if self._controller is not None:
+            out["control"] = self._controller.stats()
         out["requests"] = self.request_latency.summary()
         if self.slo is not None:
             out["slo"] = self.slo.flat_summary()
@@ -1417,7 +1578,12 @@ class RaggedInferenceEngineV2:
         this runs at admission and re-admission (evict, spill and
         restore included).  A shared prefix page's draft rows are
         written by each sharer with the same tokens at the same
-        positions."""
+        positions.  An MoE draft's chunk is padded to ``prefill_chunk``
+        rows as the JAX engine pads every chunk
+        (``ragged_engine.py:1740-1764``): pad rows carry token 0 at the
+        positions past ``take`` (clamped to ``max_seq_len - 1``), belong
+        to no sequence and write their K/V to the trash page, so the
+        draft's routing and capacity see the JAX draft's rows."""
         if self.spec_mode != "draft":
             return
         st = self.host_stats
@@ -1432,17 +1598,22 @@ class RaggedInferenceEngineV2:
                                       np.asarray(r.generated, np.int32)])
                 while lo < target:
                     take = min(C, target - lo)
+                    rows = C if self._draft_moe else take
                     pos = np.arange(lo, lo + take)
                     pg = self.page_table[r.slot, pos // page]
                     assert (pg > 0).all(), "write into unallocated page"
+                    ids = np.zeros((rows,), np.int64)
+                    ids[:take] = seq[lo:lo + take]
+                    qpos = np.minimum(np.arange(lo, lo + rows),
+                                      self.max_seq_len - 1)
+                    wdest = np.zeros((rows,), np.int64)   # pads: trash
+                    wdest[:take] = pg * page + pos % page
                     ids, positions, kv_lens, table, cu, dest = [
                         self._upload(a) for a in (
-                            seq[lo:lo + take][None].astype(np.int64),
-                            pos[None].astype(np.int64),
+                            ids[None], qpos[None].astype(np.int64),
                             np.asarray([lo + take], np.int32),
                             self.page_table[r.slot][None],
-                            np.asarray([0, take], np.int32),
-                            (pg * page + pos % page).astype(np.int64))]
+                            np.asarray([0, take], np.int32), wdest)]
                     meta = RaggedMeta(kv_lens, table, cu, self._one_seq,
                                       dest)
                     with torch.inference_mode():
@@ -1512,11 +1683,11 @@ class RaggedInferenceEngineV2:
                 num_seqs=self._block_ns,
                 new_kv_dest=torch.where(qvalid, dp * page + qpos % page,
                                         0).reshape(-1))
-            dlg = self._draft_module(
+            dlg = logits_of(self._draft_module(
                 qtok.reshape(1, -1),
                 positions=torch.where(qvalid, qpos, 0).reshape(1, -1),
                 kv_cache=self._draft_cache, ragged_meta=meta,
-                logit_rows=rows * w + w - 1).float()
+                logit_rows=rows * w + w - 1)).float()
             nxt = dlg.argmax(dim=-1)
             if sampled:
                 flg = filter_logits_batched(dlg, temperature, top_k, top_p)
@@ -1730,10 +1901,12 @@ class RaggedInferenceEngineV2:
         out = self._graphs.run(dv["sampled"], spec)
         self._graphs.chain(out)
         # a block waits in its slot until a harvest: at most
-        # harvest_interval of them, so the ring never laps one
-        R = self.harvest_interval + self.async_depth
+        # harvest_interval of them, so the ring never laps one, at any
+        # value the control plane's knobs can set
         ring = self._rings.get(spec)
         if ring is None:
+            R = (max(self.harvest_interval, _HARVEST_HI)
+                 + max(self.async_depth, _DEPTH_HI))
             rows, S = out[4].shape
             with torch.inference_mode():
                 ring = self._rings[spec] = (
@@ -1743,7 +1916,7 @@ class RaggedInferenceEngineV2:
                                 device=self.device),
                     torch.empty((R, 2), dtype=torch.int64,
                                 device=self.device))
-        slot = dv["block_seq"] % R
+        slot = dv["block_seq"] % ring[0].shape[0]
         with torch.inference_mode():
             block = [ring[0][slot].copy_(out[4]),
                      ring[1][slot].copy_(out[5]), None]
@@ -1917,6 +2090,12 @@ class RaggedInferenceEngineV2:
         across steps when ``pipeline``; any prefilling sequence falls
         back to the fused SplitFuse tick."""
         self._sched_seq += 1
+        if self._controller is not None:
+            self._control_steps += 1
+            if self._control_steps >= self._control_cfg.interval:
+                self._control_steps = 0
+                with self.host_stats.stage("plan"):
+                    self._controller.tick()
         if self._dev is not None:
             return self._pipeline_step()
         st = self.host_stats

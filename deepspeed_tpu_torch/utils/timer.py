@@ -6,10 +6,14 @@ Counterpart of ``deepspeed_tpu/utils/timer.py`` (the reference's
 event on the current stream at ``start`` and ``stop`` and reads the
 elapsed device time only when asked (``elapsed``, ``mean``), so timing a
 step adds no host sync to it; on the CPU it uses the host clock.  The
-engine's timer names are the JAX engine's (``batch_prep``, ``step``).  The
-tracer spans and the metrics histogram of the JAX version are not wired:
-its times are device times read when asked, which a host span cannot
-carry as the reference's host times do (ROADMAP A10b).
+engine's timer names are the JAX engine's (``batch_prep``, ``step``).
+
+As the JAX ``Timer`` does, every recorded interval is observed into the
+``dstpu_engine_seconds{timer=...}`` histogram when the metrics registry is
+on and lands as a ``cat="engine"`` tracer span when the tracer is on.  On
+the card both happen where the timer drains its events (``elapsed``,
+``mean``), which adds no sync to the step: the span starts at the host
+time of ``start`` and lasts the device interval.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from deepspeed_tpu_torch.telemetry import trace
+from deepspeed_tpu_torch.telemetry.metrics import metrics as _metrics
 from deepspeed_tpu_torch.utils.logging import logger
 
 FORWARD_MICRO_TIMER = "fwd_microstep"
@@ -38,10 +44,14 @@ class Timer:
                          else use_cuda)
         self.started = False
         self._start = None
-        self._pending: List = []       # (start, stop) event pairs unread
+        self._host_start = 0.0
+        # (start, stop, host start, recorded) per interval not yet read
+        self._pending: List = []
         self._elapsed = 0.0
         self._record_count = 0
         self.last_interval = 0.0
+        self._hist = None
+        self._hist_fam = None
 
     def _mark(self):
         if self.use_cuda:
@@ -53,6 +63,7 @@ class Timer:
     def start(self) -> None:
         if self.started:
             raise RuntimeError(f"timer {self.name} already started")
+        self._host_start = time.perf_counter()
         self._start = self._mark()
         self.started = True
 
@@ -62,9 +73,10 @@ class Timer:
         end = self._mark()
         self.started = False
         if self.use_cuda:
-            self._pending.append((self._start, end))
+            self._pending.append((self._start, end, self._host_start,
+                                  record))
         else:
-            self._add(end - self._start)
+            self._add(end - self._start, self._host_start, record)
         if record:
             self._record_count += 1
 
@@ -72,14 +84,31 @@ class Timer:
         """Abandon an in-flight interval without recording it."""
         self.started = False
 
-    def _add(self, seconds: float) -> None:
+    def _observe(self, seconds: float) -> None:
+        if self._hist is None or self._hist_fam is not _metrics.get(
+                "dstpu_engine_seconds"):
+            self._hist_fam = _metrics.histogram(
+                "dstpu_engine_seconds",
+                "Engine wall-clock timer intervals (s)",
+                labels=("timer",))
+            self._hist = self._hist_fam.labels(timer=self.name)
+        self._hist.observe(seconds)
+
+    def _add(self, seconds: float, host_start: float,
+             recorded: bool) -> None:
         self.last_interval = seconds
         self._elapsed += seconds
+        if not recorded:
+            return
+        if trace.enabled:
+            trace.add_complete(self.name, host_start, seconds, cat="engine")
+        if _metrics.enabled:
+            self._observe(seconds)
 
     def _drain(self) -> None:
-        for start, end in self._pending:
+        for start, end, host_start, recorded in self._pending:
             end.synchronize()
-            self._add(start.elapsed_time(end) / 1e3)
+            self._add(start.elapsed_time(end) / 1e3, host_start, recorded)
         self._pending.clear()
 
     def reset(self) -> None:

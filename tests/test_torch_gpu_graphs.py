@@ -39,6 +39,9 @@ eager unpipelined engine's tokens.  Sparse MoE: a tiny bf16 Qwen2-MoE
 replayed blocks, pipeline on and off, gives the eager unpipelined
 engine's tokens bit for bit, with the paged kernel once a layer a tick;
 and with int8 and fp6 expert banks (each expanded whole a tick) the same.
+The control plane's offline knob: ``decode_block_size`` set after a
+capture drops the graphs, captures again and serves the eager tokens at
+the new block length.
 """
 import numpy as np
 import pytest
@@ -130,6 +133,34 @@ def test_v2_graphs_give_the_eager_tokens(cuda, sampled):
             eager_ticks + 2 * K * st["graph_captures"])
         if pipeline:
             assert eng.host_stats.blocking_gets < eng.host_stats.dispatches
+
+
+@pytest.mark.gpu
+def test_block_size_change_captures_again(cuda):
+    """``decode_block_size`` set through the knob registry after a capture
+    (the offline path): the graphs are dropped, the next block captures
+    again (``graph_captures`` + 1), runs the new length (each replay K'
+    ticks, the harvest ring K' rows) and serves the eager tokens."""
+    eager = _v2(cuda, pipeline=False)
+    want = _serve(eager, False)
+    eng = _v2(cuda, module=eager.module, pipeline=True,
+              config={"enable_cuda_graph": True})
+    for g, w in zip(_serve(eng, False), want):
+        np.testing.assert_array_equal(g, w)
+    st = eng.serving_stages()
+    assert st["graph_captures"] == 1
+    eng.knob_registry().set("engine.decode_block_size", 2,
+                            allow_recompile=True)
+    assert not eng._graphs.graphs and not eng._rings
+    ticks, replays = eng.host_stats.ticks, st["graph_replays"]
+    for g, w in zip(_serve(eng, False), want):
+        np.testing.assert_array_equal(g, w)
+    st = eng.serving_stages()
+    assert st["graph_captures"] == 2
+    assert {r[0].shape[1] for r in eng._rings.values()} == {2}
+    assert eng._graphs.outputs[(False, False)][4].shape[0] == 2
+    assert st["graph_replays"] > replays
+    assert eng.host_stats.ticks > ticks
 
 
 @pytest.mark.gpu

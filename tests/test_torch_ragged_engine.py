@@ -269,22 +269,35 @@ def test_stream_deltas_report_each_token_once(served):
     assert seen == out[7:].tolist()
 
 
-# SLOs and tail sampling are ported (tests/test_torch_telemetry.py): the
-# cases that asked for them now ask for the control plane, still unported
-# (A10b), through each route a request for it can take; the ids are kept
+# SLOs and tail sampling are ported (tests/test_torch_telemetry.py), and
+# so is the control plane (tests/test_torch_control.py): the cases that
+# asked for it now check that each route a request for it can take arms
+# the controller (item None), with the config's settings; tensor
+# parallelism (A7a) still raises.  The ids are kept
 @pytest.mark.parametrize("kwargs,item", [
     pytest.param(dict(config={"v2": {"control": {"enabled": True}}}),
-                 "A10b", id="kwargs0-A10"),
+                 None, id="kwargs0-A10"),
     (dict(topology=object()), "A7a"),
-    pytest.param(dict(control=True), "A10b", id="kwargs2-A10"),
-    pytest.param(dict(control={"interval": 4}), "A10b", id="kwargs3-A10"),
+    pytest.param(dict(control=True), None, id="kwargs2-A10"),
+    pytest.param(dict(control={"interval": 4}), None, id="kwargs3-A10"),
     pytest.param(dict(config={"v2": {"control": {"enabled": True}}},
                       control=None, slo=["ttft_ms_p99 <= 150"],
-                      trace_sample=4), "A10b", id="kwargs4-A10"),
+                      trace_sample=4), None, id="kwargs4-A10"),
 ])
-def test_deferred_features_raise(served, kwargs, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        port_engine(served["state"], **kwargs)
+def test_deferred_features_raise(served, kwargs, item, monkeypatch):
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            port_engine(served["state"], **kwargs)
+        return
+    monkeypatch.delenv("DSTPU_CONTROL", raising=False)
+    eng = port_engine(served["state"], **kwargs)
+    assert eng._controller is not None
+    want = kwargs.get("control") or {}
+    assert eng._control_cfg.interval == (
+        want.get("interval", 8) if isinstance(want, dict) else 8)
+    assert "control" in eng.serving_stages()
+    monkeypatch.setenv("DSTPU_CONTROL", "0")       # the kill switch
+    assert port_engine(served["state"], **kwargs)._controller is None
 
 
 def test_config_defaults_and_unported_methods(served):

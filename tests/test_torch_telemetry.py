@@ -1070,3 +1070,29 @@ def test_lifecycle_events_match_jax_engine(tiny, both_tracers, pipeline):
     recs = [[{k: r[k] for k in counts} for r in e.request_latency.completed()]
             for e in (je, pe)]
     assert recs[1] == recs[0] and len(recs[0]) == len(ps)
+
+
+# -- the engine timers feed the histogram and the tracer -----------------------
+
+def test_timer_observes_each_recorded_interval(registry, global_trace):
+    """``utils/timer.Timer`` observes ``dstpu_engine_seconds{timer=...}``
+    once per recorded interval, as the JAX ``Timer`` does, and lands each
+    as a ``cat="engine"`` span; an unrecorded interval is neither."""
+    from deepspeed_tpu_torch.utils.timer import SynchronizedWallClockTimer
+
+    global_trace.configure(enabled=True)
+    timers = SynchronizedWallClockTimer()
+    t = timers("step")
+    t.use_cuda = False
+    for _ in range(3):
+        t.start()
+        t.stop()
+    t.start()
+    t.stop(record=False)
+    hist = registry.get("dstpu_engine_seconds").labels(timer="step")
+    assert hist.count() == 3
+    spans = [e for e in global_trace.snapshot()
+             if e.get("cat") == "engine" and e.get("name") == "step"]
+    assert len(spans) == 3
+    assert t.mean() >= 0.0
+    assert hist.count() == 3          # reading the timer observes nothing
