@@ -358,6 +358,27 @@ Phases (any failed check raises; nothing is caught):
    int8 pools: the prefetch rule fires on the spill signal, every
    restored page digest-verified and read back equal, tokens equal to
    control off.
+27. ZeRO-Offload and ZeRO-Infinity (A11), last: (a) ``llama-1b`` at full
+   size on phase 9's config, seed and batch, 3 steps each: stage 0 with
+   the optimizer state in page-locked host RAM (tier cpu) bit-identical
+   to a resident stage-0 run (losses and the final master); stage 3
+   with both offloads bit-identical to a resident stage-3 run, and
+   within ``STAGE_LOSS_RTOL`` of stage 0; stage 2 with the
+   moments on NVMe (tier nvme) pipelined against serial, bit-identical;
+   an NVMe checkpoint (2 layers) resumed into a resident engine,
+   bit-identical; #4 once a bucket a step, exactly.  (b) ``llama3-8b``
+   at full width, ZeRO stage 2 over one NCCL rank, tier cpu, bf16, fused
+   AdamW, full remat, 1 x 2048 tokens, a warm-up and 3 steps, at the
+   depth the host's RAM holds with 16 GiB spare (``MemTotal`` /
+   ``MemAvailable`` and the free disk printed first, the cut printed);
+   losses, peak card GiB, page-locked host GiB and its pinning time, the
+   step against the PCIe bound (the stream's bytes over page-locked
+   copy rates measured in the phase), #4 once a bucket a step, and the
+   largest bucket's #4 against plain.  (c) ``llama3-8b`` at full size
+   through ``NvmeWeightStreamingEngine``, 4 x 128 + 8 greedy, against
+   v1's tokens on the same seeded weights; resident bytes, GB read and
+   new tokens/s against a sweep's read bound.  Files under
+   ``build/smoke_offload``, removed afterwards.
 
 Phases 3, 6, 12, 14, 22, 23, 24's first model, 25's Mixtral and 26's
 first model keep their full depth;
@@ -374,7 +395,8 @@ alone, ``--tiering-only`` the build and phase 19, ``--spec-only`` the
 build and phase 20, ``--lc-only`` the build, phase 5's carry cases and
 phase 21, ``--wq-only`` the build and phase 22, ``--disagg-only`` the
 build and phase 23, ``--moe-only`` the build and phases 24 and 25,
-``--tuning-only`` the build and phase 26; none prints result lines.  The line before the last is the ``kernels`` JSON;
+``--tuning-only`` the build and phase 26, ``--offload-only`` the build
+and phase 27; none prints result lines.  The line before the last is the ``kernels`` JSON;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it exits
 nonzero and prints no result.
 """
@@ -6348,6 +6370,478 @@ def phase_tuning():
     return train, paged
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: ZeRO-Offload and ZeRO-Infinity (A11)
+# ---------------------------------------------------------------------------
+
+OFFLOAD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "smoke_offload")
+HOST_SPARE = 16 << 30       # host RAM the 8 B leg leaves free
+OFFLOAD_STEPS = 3
+
+
+def meminfo():
+    """``MemTotal`` and ``MemAvailable`` of the host, in bytes."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(val.split()[0]) * 1024
+    return out
+
+
+def offload_config(stage, tier=None, param=False, micro=4, gas=2, **off):
+    """Phase 9's training config at ``stage``, with the optimizer state in
+    ``tier`` ("cpu" or "nvme"; the working copy too with ``param``)."""
+    zero = {"stage": stage}
+    if tier is not None:
+        zero["offload_optimizer"] = dict(device=tier, **off)
+        if tier == "nvme":
+            zero["offload_optimizer"]["nvme_path"] = OFFLOAD_DIR
+    if param:
+        zero["offload_param"] = {"device": "cpu"}
+    return train_config(zero_optimization=zero,
+                        train_micro_batch_size_per_gpu=micro,
+                        gradient_accumulation_steps=gas)
+
+
+def offload_run(cfg, config, batch, steps, keep_master=True):
+    """``steps`` train_batch calls on a fresh engine: losses, the final
+    master on the host, step seconds, peak GiB, and the engine."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaLMLoss
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.device("meta"):
+        model = LlamaLMLoss(cfg)
+    t = time.perf_counter()
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=config,
+        generator=torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    losses, step_s = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(engine.train_batch(batch=batch)))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    master = None
+    if keep_master:
+        engine._settle_tier()
+        master = engine.state.params.detach().to("cpu", copy=True)
+    return dict(engine=engine, model=model, losses=losses, master=master,
+                step_s=step_s, init_s=init_s,
+                peak=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def drop(run):
+    """Free a run's engine (its tier unpins and removes its files)."""
+    eng = run.pop("engine", None)
+    if eng is not None and eng.swapper is not None:
+        eng.swapper.close()
+    run.pop("model", None)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def offload_1b(smi):
+    """Phase 27(a): the tiers on ``llama-1b`` at full size, phase 9's
+    config, seed and batch, 3 steps each."""
+    import shutil
+
+    from deepspeed_tpu_torch.models.llama import get_config
+    from deepspeed_tpu_torch.ops import fused_adam as fo
+
+    cfg = get_config("llama-1b")
+    batch = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                 size=(8, 2048))
+    shutil.rmtree(OFFLOAD_DIR, ignore_errors=True)
+    os.makedirs(OFFLOAD_DIR)
+    lines, launches = [], 0
+
+    def leg(label, config, steps=OFFLOAD_STEPS, **kw):
+        nonlocal launches
+        before = fo.fused_adam.launches
+        r = offload_run(cfg, config, batch, steps, **kw)
+        sw = r["engine"].swapper
+        n = fo.fused_adam.launches - before
+        if sw is not None:
+            assert n == steps * len(sw.buckets), (label, n, len(sw.buckets))
+            launches += n
+        lines.append(
+            f"{label}: losses {[round(x, 4) for x in r['losses']]}, step s "
+            f"{[round(x, 2) for x in r['step_s']]}, init {r['init_s']:.1f} s,"
+            f" peak {r['peak']:.2f} GiB"
+            + (f", {len(sw.buckets)} buckets (#4 launches {n}), host "
+               f"{sw.host_bytes / 2**30:.2f} GiB pinned in "
+               f"{sw.pin_seconds:.1f} s, stages {sw.stage_stats}"
+               if sw is not None else ""))
+        return r
+
+    res = leg("stage 0 resident", offload_config(0))
+    drop(res)
+    cpu = leg("stage 0 tier cpu", offload_config(0, "cpu"))
+    drop(cpu)
+    same = (cpu["losses"] == res["losses"] and
+            torch.equal(cpu["master"], res["master"]))
+    assert same, ("tier cpu differs from resident", cpu["losses"],
+                  res["losses"])
+    lines.append("stage 0 tier cpu = resident bit for bit (losses and the "
+                 "final master)")
+    del cpu
+    res3 = leg("stage 3 resident", offload_config(3))
+    drop(res3)
+    s3 = leg("stage 3 offload_optimizer + offload_param cpu",
+             offload_config(3, "cpu", param=True))
+    numels = s3["engine"].buffer_numels()
+    drop(s3)
+    # the host working copy and its unit fill, held bit for bit
+    same = (s3["losses"] == res3["losses"] and
+            torch.equal(s3["master"], res3["master"]))
+    assert same, ("stage 3 with both offloads differs from stage 3 "
+                  "resident", s3["losses"], res3["losses"])
+    gap = max(abs(a - b) / abs(b) for a, b in zip(s3["losses"],
+                                                 res["losses"]))
+    assert gap <= STAGE_LOSS_RTOL and all(map(math.isfinite, s3["losses"]))
+    lines.append(f"stage 3 both offloads = stage 3 resident bit for bit "
+                 f"(losses and the final master); largest loss gap to "
+                 f"stage 0 {gap:.3e} (limit {STAGE_LOSS_RTOL}); buffers on "
+                 f"the card {numels}")
+    del res3, s3
+    on = leg("stage 2 tier nvme pipelined",
+             offload_config(2, "nvme", buffer_count=3))
+    st_on = on["engine"].swapper.stage_stats
+    drop(on)
+    off = leg("stage 2 tier nvme serial",
+              offload_config(2, "nvme", pipeline_read=False,
+                             pipeline_write=False))
+    drop(off)
+    assert on["losses"] == off["losses"] and torch.equal(
+        on["master"], off["master"]), "nvme pipelined differs from serial"
+    lines.append(f"stage 2 nvme pipelined = serial bit for bit; pipelined "
+                 f"stream {st_on.get('stream_gbps')} GB/s, overlap "
+                 f"{st_on.get('overlap_efficiency')}")
+    del on, off
+
+    # an nvme checkpoint (CKPT_LAYERS layers) resumed into a resident
+    # stage-2 engine: the next steps equal the nvme engine's own
+    ccfg = get_config("llama-1b", num_hidden_layers=CKPT_LAYERS)
+    ckpt = os.path.join(OFFLOAD_DIR, "ckpt")
+    nv = offload_run(ccfg, offload_config(2, "nvme"), batch, 1,
+                     keep_master=False)
+    t = time.perf_counter()
+    nv["engine"].save_checkpoint(ckpt)
+    save_s = time.perf_counter() - t
+    cont = [float(nv["engine"].train_batch(batch=batch)) for _ in range(2)]
+    nv["engine"]._settle_tier()
+    want = nv["engine"].state.params.detach().cpu()
+    drop(nv)
+    rs = offload_run(ccfg, offload_config(2), batch, 0, keep_master=False)
+    path, _ = rs["engine"].load_checkpoint(ckpt)
+    again = [float(rs["engine"].train_batch(batch=batch)) for _ in range(2)]
+    same = torch.equal(rs["engine"].state.params.detach().cpu(), want)
+    drop(rs)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    lines.append(f"nvme checkpoint of {CKPT_LAYERS} layers saved in "
+                 f"{save_s:.1f} s, resumed into a resident stage-2 engine: "
+                 f"losses {cont} then {again}, master bit-identical {same}")
+    assert path is not None and again == cont and same, \
+        "the resident engine resumed from the nvme checkpoint differs"
+    log(f"[{smi}] offload (a) llama-1b, phase 9's config: " +
+        " | ".join(lines))
+    return launches
+
+
+def pcie_rates(nbytes=1 << 30):
+    """Page-locked copy rates (bytes/s) host to card and back, each alone
+    and both at once (the two copy engines together)."""
+    from deepspeed_tpu_torch.runtime.swap_tensor import host_buffer
+
+    torch.cuda.synchronize()
+    owners = []
+    h1 = host_buffer(nbytes, torch.uint8, torch.device("cuda"),
+                     owners=owners)
+    h2 = host_buffer(nbytes, torch.uint8, torch.device("cuda"),
+                     owners=owners)
+    d1 = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    d2 = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+
+    def timed(fns):
+        for _ in range(2):
+            for s, fn in fns:
+                with torch.cuda.stream(s):
+                    fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            for s, fn in fns:
+                with torch.cuda.stream(s):
+                    fn()
+        torch.cuda.synchronize()
+        return 3 * nbytes / (time.perf_counter() - t)
+
+    h2d = (s1, lambda: d1.copy_(h1, non_blocking=True))
+    d2h = (s2, lambda: h2.copy_(d2, non_blocking=True))
+    out = dict(h2d=timed([h2d]), d2h=timed([d2h]), both=timed([h2d, d2h]))
+    del d1, d2, owners
+    torch.cuda.empty_cache()
+    return out
+
+
+def offload_bucket_check(engine, entries):
+    """One bucket of the 8 B leg's tier through #4 on the card against
+    ``adam_update_reference``, from page-locked staging, timed beside
+    its byte bound and one ``torch.optim.AdamW(fused=True).step``."""
+    from deepspeed_tpu_torch.ops import fused_adam as fo
+
+    sw = engine.swapper
+    sw.synchronize()
+    a, b = max(sw.buckets, key=lambda r: r[1] - r[0])
+    n = b - a
+    before = fo.fused_adam.launches
+    p = sw.p[a:b].to("cuda", non_blocking=True)
+    m = sw.m[a:b].to("cuda", non_blocking=True)
+    v = sw.v[a:b].to("cuda", non_blocking=True)
+    g = engine._grad[a:b]
+    w = torch.empty(n, dtype=torch.bfloat16, device="cuda")
+    sc = engine._sc.clone()
+    opt = engine.opt
+    kw = dict(b1=opt.b1, b2=opt.b2, eps=opt.eps, wd=opt.wd,
+              adam_w=opt.adam_w)
+    ref = [t.clone() for t in (p, m, v, w)]
+    fo.fused_adam(p, g, m, v, sc, w, **kw)
+    fo.adam_update_reference(ref[0], g, ref[1], ref[2], sc, ref[3], **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for x, y in zip((p, m, v), ref[:3]):
+        d = (x - y).abs()
+        assert (d <= OPT_ATOL + OPT_RTOL * y.abs()).all(), (
+            f"offload bucket: #4 differs from plain by {d.max().item():.3e}")
+        err = max(err, d.max().item())
+    assert torch.equal(w, p.to(torch.bfloat16))
+    ms = time_ms(lambda: fo.fused_adam(p, g, m, v, sc, w, **kw), reps=10,
+                 warmup=2)
+    plain_ms = time_ms(lambda: fo.adam_update_reference(
+        ref[0], g, ref[1], ref[2], sc, ref[3], **kw), reps=3, warmup=1)
+    param = torch.nn.Parameter(p.clone())
+    param.grad = g.clone()
+    topt = torch.optim.AdamW([param], lr=1e-4, betas=(opt.b1, opt.b2),
+                             weight_decay=opt.wd, fused=True)
+    lib_ms = time_ms(topt.step, reps=10, warmup=2)
+    bound = n * (16 + 12 + 2) / PEAK_BYTES * 1e3
+    fo.fused_adam.launches = before      # the comparison is not the path
+    del p, m, v, w, ref, param, topt
+    torch.cuda.empty_cache()
+    entries.append(dict(
+        name="fused_adam_offload_bucket", route="cuda",
+        source="deepspeed_tpu_torch/ops/csrc/fused_adam.cu",
+        replaces="deepspeed_tpu/ops/fused_adam.py:52", launches=0,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by="bytes", library_ms=lib_ms))
+    return n
+
+
+def offload_8b(smi, entries):
+    """Phase 27(b): ``llama3-8b`` at full width on one card, ZeRO stage 2
+    at one NCCL rank with its optimizer state in page-locked host RAM
+    (tier cpu), bf16 compute, fused AdamW, full remat, 1 x 2048 tokens a
+    step; the depth is the most that the host's RAM holds with 16 GiB to
+    spare."""
+    import shutil
+
+    from deepspeed_tpu_torch.models.llama import LlamaLMLoss, get_config
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_adam as fo
+
+    mem = meminfo()
+    os.makedirs(OFFLOAD_DIR, exist_ok=True)
+    disk = shutil.disk_usage(OFFLOAD_DIR)
+    log(f"[{smi}] offload preflight: MemTotal {mem['MemTotal'] / 2**30:.1f} "
+        f"GiB, MemAvailable {mem['MemAvailable'] / 2**30:.1f} GiB; "
+        f"{disk.free / 2**30:.1f} GiB free of {disk.total / 2**30:.1f} GiB "
+        f"under {OFFLOAD_DIR}")
+    full = get_config("llama3-8b")
+    with torch.device("meta"):
+        one = sum(p.numel() for p in LlamaLMLoss(get_config(
+            "llama3-8b", num_hidden_layers=1)).parameters())
+        two = sum(p.numel() for p in LlamaLMLoss(get_config(
+            "llama3-8b", num_hidden_layers=2)).parameters())
+    per_layer, rest = two - one, 2 * one - two
+    budget = mem["MemAvailable"] - HOST_SPARE
+    L = min(full.num_hidden_layers, int((budget / 12 - rest) // per_layer))
+    assert L >= 1, f"the host cannot hold one layer's state: {mem}"
+    n_params = rest + L * per_layer
+    cut = ("full depth" if L == full.num_hidden_layers else
+           f"DEPTH CUT to {L} of {full.num_hidden_layers} layers: "
+           f"{12 * (rest + full.num_hidden_layers * per_layer) / 2**30:.1f} "
+           f"GiB of master and moments at full depth, the host holds "
+           f"{budget / 2**30:.1f} GiB with {HOST_SPARE >> 30} GiB spare")
+    log(f"[{smi}] offload (b) llama3-8b at {L} layers, {n_params} "
+        f"parameters ({cut})")
+    cfg = get_config("llama3-8b", num_hidden_layers=L)
+    batch = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                 size=(1, 2048))
+    rates = pcie_rates()
+    config = offload_config(2, "cpu", micro=1, gas=1)
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                fo.fused_adam)
+    for c in counters:                    # the main path's run starts here
+        c.launches = 0
+    r = offload_run(cfg, config, batch, 1 + OFFLOAD_STEPS,
+                    keep_master=False)
+    launched = {c.__name__: c.launches for c in counters}
+    eng = r["engine"]
+    sw = eng.swapper
+    nb = len(sw.buckets)
+    assert launched["fused_adam"] == (1 + OFFLOAD_STEPS) * nb, (launched, nb)
+    assert all(map(math.isfinite, r["losses"])), r["losses"]
+    step = float(np.median(r["step_s"][1:]))
+    stream = 12 * sw.numel                # each way
+    bound = stream / min(rates["both"], rates["h2d"], rates["d2h"])
+    n_bucket = offload_bucket_check(eng, entries)
+    entries[-1]["launches"] = launched["fused_adam"]
+    log(f"[{smi}] offload (b) llama3-8b x {L} layers, stage 2 tier cpu, "
+        f"1 x 2048 tokens a step: losses (warm-up, then {OFFLOAD_STEPS}) "
+        f"{[round(x, 4) for x in r['losses']]}; step s "
+        f"{[round(x, 3) for x in r['step_s']]} (median after the warm-up "
+        f"{step:.3f}); peak card {r['peak']:.2f} GiB; host "
+        f"{sw.host_bytes / 2**30:.2f} GiB page-locked in "
+        f"{sw.pin_seconds:.1f} s (engine init {r['init_s']:.1f} s); "
+        f"PCIe page-locked rates h2d {rates['h2d'] / 1e9:.2f} GB/s, d2h "
+        f"{rates['d2h'] / 1e9:.2f} GB/s, both at once "
+        f"{rates['both'] / 1e9:.2f} GB/s each way; the stream moves "
+        f"{stream / 1e9:.2f} GB each way a step, bound {bound:.3f} s, step "
+        f"at {bound / step:.1%} of it; {nb} buckets a step (the largest "
+        f"{n_bucket} elements), #4 launched {launched['fused_adam']} times "
+        f"in {1 + OFFLOAD_STEPS} steps; flash launches {launched}; tier "
+        f"stages {sw.stage_stats}; card buffers {eng.buffer_numels()}")
+    drop(r)
+    return launched
+
+
+def offload_stream(smi):
+    """Phase 27(c): ``llama3-8b`` at full size served through
+    ``NvmeWeightStreamingEngine``, 4 x 128 prompt tokens + 8 new, bf16,
+    against v1's greedy tokens on the same weights (drawn from one
+    seed)."""
+    import shutil
+
+    from deepspeed_tpu_torch.inference.engine import init_inference
+    from deepspeed_tpu_torch.inference.zero_inference import \
+        NvmeWeightStreamingEngine
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, get_config
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    cfg = get_config("llama3-8b")
+    prompts = np.random.default_rng(SEED + 27).integers(
+        0, cfg.vocab_size, size=(4, 128))
+    new = 8
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    v1 = init_inference(model, dtype="bfloat16", max_out_tokens=256,
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            SEED + 27))
+    want = v1.generate(prompts, max_new_tokens=new)
+    tree = sum(p.numel() * p.element_size() for n, p in
+               v1.module.named_parameters() if ".layers." not in n)
+    del v1, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    wdir = os.path.join(OFFLOAD_DIR, "weights")
+    shutil.rmtree(wdir, ignore_errors=True)
+    fa.flash_fwd.launches = 0             # the main path's run starts here
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    eng = NvmeWeightStreamingEngine(
+        model, None, wdir, max_batch_size=4, max_out_tokens=256,
+        dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 27))
+    layer = eng.store.layer_bytes
+    # the read rate of one sweep alone, two layer reads in flight as in
+    # the engine (the files were just written: a warm page-cache read)
+    ops = []
+    t = time.perf_counter()
+    for i in range(cfg.num_hidden_layers):
+        if len(ops) == 2:
+            eng.store.handle.wait(ops.pop(0))
+        ops.append(eng.store.start_read(i, eng._hbuf[i % 2]))
+    for op in ops:
+        eng.store.handle.wait(op)
+    read_rate = cfg.num_hidden_layers * layer / (time.perf_counter() - t)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = eng.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    launches = fa.flash_fwd.launches
+    assert launches == cfg.num_hidden_layers, launches    # one prefill
+    st = dict(eng.stats)
+    resident = eng.resident_bytes()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert resident <= tree + 2 * layer, (resident, tree, layer)
+    same = torch.equal(got, want)
+    tokens = 4 * new
+    bound_s = st["bytes_read"] / read_rate
+    log(f"[{smi}] offload (c) llama3-8b at full size through "
+        f"NvmeWeightStreamingEngine (4 x 128 + {new}, bf16): tokens equal "
+        f"to v1's {same}; {eng.store.bytes_written / 1e9:.2f} GB of layers "
+        f"written in {eng.write_seconds:.1f} s (drawn module by module); "
+        f"resident {resident / 1e9:.3f} GB (tree {tree / 1e9:.3f} GB + 2 x "
+        f"{layer / 1e6:.1f} MB layer slots), peak card {peak:.2f} GiB; "
+        f"{st['sweeps']} sweeps read {st['bytes_read'] / 1e9:.2f} GB from "
+        f"NVMe in {gen_s:.2f} s (read waits {st['read_wait_s']:.2f} s): "
+        f"{tokens / gen_s:.2f} new tokens/s against a read bound of "
+        f"{tokens / bound_s:.2f}, {bound_s / gen_s:.1%} of it (a sweep "
+        f"alone reads {read_rate / 1e9:.2f} GB/s, warm page cache); #1 "
+        f"{launches} launches (one prefill)")
+    assert same, (got, want)
+    eng.close()
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(wdir, ignore_errors=True)
+    return launches
+
+
+def phase_offload():
+    """Phase 27: ZeRO-Offload and ZeRO-Infinity (A11).  Returns the
+    kernels-line entry of #4 over an offload bucket (with its launches in
+    the 8 B leg) and #1's launches in the streamed prefill."""
+    import shutil
+
+    from deepspeed_tpu_torch import comm
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    t_phase = time.perf_counter()
+    comm.init_distributed(dist_backend="nccl")
+    entries = []
+    try:
+        n1b = offload_1b(smi)
+        log(f"[{smi}] phase 27 (a) done at "
+            f"{time.perf_counter() - t_phase:.1f} s, #4 launched {n1b} "
+            "times over the tiers' buckets")
+        offload_8b(smi, entries)
+        log(f"[{smi}] phase 27 (b) done at "
+            f"{time.perf_counter() - t_phase:.1f} s")
+    finally:
+        comm.destroy_process_group()
+    flash = offload_stream(smi)
+    shutil.rmtree(OFFLOAD_DIR, ignore_errors=True)
+    log(f"[{smi}] phase 27: {time.perf_counter() - t_phase:.1f} s")
+    return entries[0], flash
+
+
 def main() -> int:
     # ``--cpu-side NAMES``: the worker of the parity checks' CPU halves,
     # which the whole run and ``--wq-only`` start themselves; it sees no
@@ -6420,6 +6914,14 @@ def main() -> int:
         phase_report()
         phase_tuning()
         log(f"phase 26 done at {time.perf_counter() - t0:.1f} s")
+        return 0
+    # ``--offload-only``: the build and phase 27 alone, for work on the
+    # offload tiers and NVMe weight streaming; it prints no result lines
+    if sys.argv[1:] == ["--offload-only"]:
+        t0 = time.perf_counter()
+        phase_report()
+        phase_offload()
+        log(f"phase 27 done at {time.perf_counter() - t0:.1f} s")
         return 0
     # ``--disagg-only``: the build and phase 23 alone, for work on
     # disaggregated serving; it prints no result lines
@@ -6506,10 +7008,16 @@ def main() -> int:
         by_name[f"{kname}_gpt2_125m" + ("" if kname == "fused_adam"
                                         else "_train")]["launches"] += n
     log(f"phase 26 done at {time.perf_counter() - t0:.1f} s")
+    # phase 27's streamed prefill joins #1's entry; #4 over an offload
+    # bucket is its own entry, with the 8 B leg's launches
+    offload_adam, flash = phase_offload()
+    entry["launches"] += flash
+    log(f"phase 27 done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": [entry, paged, paged_quant, carry,
                                 carry_quant, moe9, moe8] + banks +
                     [train[k] for k in ("flash_bwd_dq", "flash_bwd_dkv",
                                         "fused_adam", "fused_lion")] +
+                    [offload_adam] +
                     [quant[f"{op}_int8_g{gs}"] for gs in (128, 2048)
                      for op in ("quantize", "dequantize")] + gpt2 + wq}))
     log(f"chip_smoke: all phases done in {time.perf_counter() - t0:.1f} s")

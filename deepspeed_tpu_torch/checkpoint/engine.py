@@ -21,8 +21,12 @@ PRNG key's counterpart), the LR scheduler, the dataloader cursor and
 state (``sharded.py``); rank 0 writes the rest, verifies on load and
 commits, and the ranks meet at barriers between.  The pieces are
 addressed by leaf, so a save at (world W, stage k) loads at (W', k').
-The directory must be one all ranks see.  Async save raises (ROADMAP
-A5); legacy pickles, the NVMe tiers and ``zero_to_fp32`` are not ported.
+An offload tier's master and moments are saved and loaded through the
+same pieces (``DeepSpeedEngine.checkpoint_pieces``: host tensors, the
+NVMe tier's moments read from and written to their files), so a
+checkpoint of any tier (resident, ``cpu``, ``nvme``) resumes into any
+other.  The directory must be one all ranks see.  Async save raises
+(ROADMAP A5); legacy pickles and ``zero_to_fp32`` are not ported.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ META_FILE = "ds_meta.json"
 LATEST_FILE = "latest"
 STAGING_PREFIX = "tmp."                 # uncommitted tag being written
 CORRUPT_SUFFIX = ".corrupt"             # quarantined tag
+TORN_SUFFIX = ".torn"                   # a postmortem copy of a torn step
 
 
 def _tag_of(engine, tag: Optional[str]) -> str:
@@ -150,15 +155,16 @@ def _commit_tag(save_dir: str, tag: str, save_latest: bool,
 
 
 def _committed_tags(ckpt_dir: str) -> List[str]:
-    """Committed tag names under ``ckpt_dir``, newest first (staging and
-    quarantined tags excluded)."""
+    """Committed tag names under ``ckpt_dir``, newest first (staging,
+    quarantined and torn tags excluded)."""
     out = []
     try:
         names = os.listdir(ckpt_dir)
     except OSError:
         return []
     for name in names:
-        if name.startswith(STAGING_PREFIX) or CORRUPT_SUFFIX in name:
+        if (name.startswith(STAGING_PREFIX) or CORRUPT_SUFFIX in name or
+                name.endswith(TORN_SUFFIX)):
             continue
         p = os.path.join(ckpt_dir, name)
         if os.path.isdir(p) and os.path.exists(os.path.join(p, EXTRA_FILE)):
@@ -222,6 +228,10 @@ def _resolve_verified_tag(engine, load_dir: str, tag: Optional[str]
             tag = committed[0]
             logger.warning(f"no 'latest' pointer in {load_dir}; using "
                            f"newest committed tag {tag!r}")
+    if tag.endswith(TORN_SUFFIX):
+        raise RuntimeError(
+            f"checkpoint {tag!r} is a postmortem copy of a step that failed "
+            "mid-stream (its master is torn), not a state to resume from")
     tried = set()
     while True:
         tried.add(tag)
@@ -317,7 +327,7 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     st.skipped_steps.fill_(int(extra["skipped_steps"]))
     engine.global_steps = int(extra["global_steps"])
     engine.global_samples = int(extra.get("global_samples", 0))
-    engine.refresh_working_copy()
+    engine.checkpoint_loaded(optimizer=load_optimizer_states)
     if load_lr_scheduler_states and engine.lr_scheduler is not None:
         engine.lr_scheduler.load_state_dict(extra["lr_scheduler"])
     dl_state = extra.get("dataloader")

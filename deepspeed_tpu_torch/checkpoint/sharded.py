@@ -24,7 +24,7 @@ from __future__ import annotations
 import json
 import os
 import zlib
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,8 +37,10 @@ INDEX_FILE = "index_p{proc}.json"
 BLOB_FILE = "shards_p{proc}.bin"
 DONE_FILE = "done_p{proc}"
 
-# (path, leaf shape, lo, hi, flat tensor of hi - lo elements)
-Piece = Tuple[str, Tuple[int, ...], int, int, torch.Tensor]
+# (path, leaf shape, lo, hi, flat tensor of hi - lo elements); in place
+# of the tensor a piece may hold a function: a save calls it for the
+# tensor when it writes the piece, a load calls it with the elements read
+Piece = Tuple[str, Tuple[int, ...], int, int, Any]
 
 
 def _dtype_name(t: torch.Tensor) -> str:
@@ -73,6 +75,8 @@ def _write_blob(blob: str, pieces: Sequence[Piece]) -> List[Dict]:
     records, offset = [], 0
     with open(blob, "wb") as f:
         for i, (path, shape, lo, hi, t) in enumerate(pieces):
+            if callable(t):
+                t = t()
             data = _to_bytes(t)
             action = faults.hook("ckpt.write_record", path=blob, index=i,
                                  nbytes=int(data.nbytes))
@@ -199,11 +203,15 @@ class Reader:
             self.blobs[proc] = os.path.join(path, BLOB_FILE.format(proc=proc))
 
     @retriable(retry_on=(OSError,))
-    def _pread(self, rec: Dict) -> bytes:
+    def _pread(self, rec: Dict, start: int = 0,
+               stop: Optional[int] = None) -> bytes:
+        """Bytes ``[start, stop)`` of the record (all of it by
+        default)."""
         faults.hook("ckpt.read_record", path=rec["path"], proc=rec["proc"])
+        stop = rec["nbytes"] if stop is None else stop
         with open(self.blobs[rec["proc"]], "rb") as f:
-            f.seek(rec["offset"])
-            return f.read(rec["nbytes"])
+            f.seek(rec["offset"] + start)
+            return f.read(stop - start)
 
     def shape(self, path: str) -> Tuple[int, ...]:
         return tuple(self._records(path)[0]["global_shape"])
@@ -224,8 +232,13 @@ class Reader:
         for rec in recs:
             a, b = rec["flat"]
             if a < hi and b > lo:
-                raw = np.frombuffer(self._pread(rec), dtype=np.uint8)
-                pieces.append((a * size, b * size, raw))
+                # only the overlap: a piece of a large record reads its
+                # own bytes
+                s, e = max(a, lo), min(b, hi)
+                raw = np.frombuffer(self._pread(rec, (s - a) * size,
+                                                (e - a) * size),
+                                    dtype=np.uint8)
+                pieces.append((s * size, e * size, raw))
         data, covered = assemble_flat(lo * size, hi * size, pieces, np.uint8)
         if not covered.all():
             raise ValueError(
@@ -245,4 +258,8 @@ def load_pieces(pieces: Sequence[Piece], path: str) -> None:
             raise ValueError(f"{key!r}: checkpoint shape {saved} != model "
                              f"shape {tuple(shape)} (different model "
                              "config?)")
-        dst.copy_(reader.read_flat(key, lo, hi))
+        data = reader.read_flat(key, lo, hi)
+        if callable(dst):
+            dst(data)
+        else:
+            dst.copy_(data)

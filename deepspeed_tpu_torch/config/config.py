@@ -632,9 +632,9 @@ _XLA_OWNED_KNOBS = {
         "allgather_partitions", "contiguous_gradients",
         "round_robin_gradients", "stage3_prefetch_bucket_size",
         "stage3_max_reuse_distance", "sub_group_size"),
-    "host-memory management (jax owns pinned staging)": (
-        "pin_memory", "buffer_count", "buffer_size", "max_in_cpu",
-        "fast_init"),
+    "host-memory management (the offload tiers page-lock and size "
+    "their own staging)": (
+        "pin_memory", "buffer_size", "max_in_cpu", "fast_init"),
     "cuda-graph/stream controls": ("graph_harvesting",),
     "sparse embedding-gradient allreduce (XLA AD emits dense grads; "
     "sparse scatter-grads don't map to static-shape SPMD)": (
@@ -671,13 +671,13 @@ def warn_unimplemented(cfg: DeepSpeedConfig) -> None:
         notes.append("compression_training.* (use deepspeed_tpu."
                      "compression.init_compression explicitly)")
     offl_p = cfg.zero_optimization.offload_param
-    offl_o = cfg.zero_optimization.offload_optimizer
     if offl_p is not None and offl_p.device == "nvme":
-        notes.append("offload_param.device=nvme (device=cpu pinned-host "
-                     "offload IS supported)")
-    # offload_optimizer.device=nvme is implemented (NVMe-swapped Adam
-    # moments, runtime/swap_tensor.py); eligibility beyond the config —
-    # adam-family optimizer, single controller — is checked by the engine.
+        notes.append("offload_param.device=nvme (device=cpu, page-locked "
+                     "host RAM at stage 3, IS supported)")
+    # offload_optimizer.device cpu and nvme are implemented
+    # (runtime/swap_tensor.py); eligibility beyond the config (an
+    # Adam-family optimizer, nvme_path, offload_param beside a tier) is
+    # checked by the engine.
     if (cfg.zero_optimization.zero_quantized_weights or
             cfg.zero_optimization.zero_quantized_gradients or
             cfg.zero_optimization.zero_quantized_nontrainable_weights):

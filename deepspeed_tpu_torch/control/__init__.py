@@ -14,8 +14,8 @@ Counterpart of ``deepspeed_tpu/control/``:
   the ``autotuning/`` ExperimentScheduler substrate) and the per-host
   profile that seeds the online starting point.
 
-The moment-stream swapper's knobs (the JAX package's ``swapper_knobs``)
-come with the swapper (ROADMAP A11).
+``swapper_knobs`` gives the offload tier's ``buffer_count``
+(``runtime/swap_tensor.py``) the same typed surface.
 
 ``DSTPU_CONTROL=0`` is the kill switch: :func:`control_enabled` gates
 every attach point, so the armed system degrades to the structurally
@@ -29,7 +29,8 @@ from deepspeed_tpu_torch.control.controller import (Controller, Rule,
                                                     engine_signal_feed,
                                                     prefetch_rule,
                                                     slo_shed_rule)
-from deepspeed_tpu_torch.control.knobs import Knob, KnobRegistry, router_knobs
+from deepspeed_tpu_torch.control.knobs import (Knob, KnobRegistry,
+                                               router_knobs, swapper_knobs)
 from deepspeed_tpu_torch.control.profile import (HostProfile,
                                                  autotune_serving,
                                                  fingerprint_key,
@@ -40,7 +41,7 @@ __all__ = ["Controller", "Rule", "Knob", "KnobRegistry", "HostProfile",
            "autotune_serving", "control_enabled", "engine_signal_feed",
            "fingerprint_key", "host_fingerprint", "load_profile",
            "prefetch_rule", "router_knobs", "save_profile",
-           "slo_shed_rule"]
+           "slo_shed_rule", "swapper_knobs"]
 
 
 def control_enabled() -> bool:

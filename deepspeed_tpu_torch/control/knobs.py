@@ -1,9 +1,8 @@
 """Typed knob surface for the closed-loop control plane.
 
 Counterpart of ``deepspeed_tpu/control/knobs.py``: ``Knob``,
-``KnobRegistry`` and ``router_knobs``; the engine's knobs are
-``RaggedInferenceEngineV2.knob_registry``, and the moment-stream
-swapper's come with the swapper (ROADMAP A11).
+``KnobRegistry``, ``router_knobs`` and ``swapper_knobs``; the engine's
+knobs are ``RaggedInferenceEngineV2.knob_registry``.
 
 Every perf-critical runtime parameter the system grew — the serving
 pipeline's ``harvest_interval``/``async_depth``, the tiered KV store's
@@ -29,7 +28,7 @@ from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
-__all__ = ["Knob", "KnobRegistry", "router_knobs"]
+__all__ = ["Knob", "KnobRegistry", "router_knobs", "swapper_knobs"]
 
 
 @dataclass
@@ -145,9 +144,9 @@ class KnobRegistry:
 
 
 # -- knob builders for the non-engine owners ------------------------------
-# (the router's; the engine builds its own in
-# ``RaggedInferenceEngineV2.knob_registry``, and the moment-stream
-# swapper's comes with ROADMAP A11)
+# (the engine builds its own in ``RaggedInferenceEngineV2.knob_registry``;
+# these exist so that the router and the moment-stream swapper expose the
+# same typed surface, mergeable under one controller)
 
 def router_knobs(router, prefix: str = "router.") -> KnobRegistry:
     """The scale-out router's admission thresholds: SLO-burn deferral
@@ -189,4 +188,21 @@ def router_knobs(router, prefix: str = "router.") -> KnobRegistry:
             lo=1, hi=8, step=1, kind="int",
             doc="in-flight prefill->decode handoff export rounds per "
                 "prefill replica"))
+    return reg
+
+
+def swapper_knobs(swapper, prefix: str = "swap.") -> KnobRegistry:
+    """The offload tier's window sizing (``runtime/swap_tensor.py``).
+    ``buffer_count`` applies through ``set_buffer_count``, which defers
+    the resize to the next quiescent point, the next step's start: the
+    knob is runtime-safe by the swapper's own contract, and every count
+    gives the same bits."""
+    from deepspeed_tpu_torch.runtime.swap_tensor import MAX_BUFFERS
+
+    reg = KnobRegistry()
+    reg.register(Knob(
+        f"{prefix}buffer_count", lambda: swapper.buffer_count,
+        swapper.set_buffer_count,
+        lo=1, hi=MAX_BUFFERS, step=1, kind="int",
+        doc="staging slots / read-ahead + write-back depth"))
     return reg

@@ -16,6 +16,20 @@ Instrumented sites:
 ``ckpt.write_index``      before the manifest JSON is written
 ``ckpt.commit``           just before the atomic staging->tag rename
 ``ckpt.read_record``      before each shard-record read (retry target)
+``swap.write_bucket``     before each NVMe moment-bucket write submit
+                          (runtime/swap_tensor.py; the async submit and
+                          its blocking retry alike): ``torn`` writes a
+                          fraction then dies, ``oserror`` fails the op
+``swap.read_bucket``      after each bucket read completes, before its
+                          checksum check; fires again per blocking
+                          re-read, so ``count`` models a transient flip
+                          (healed) or a persistent one (quarantine,
+                          ``SwapCorruptionError``)
+``swap.write_item``       before each moment range the swapped tier
+                          writes outside the step (a checkpoint load)
+``swap.read_item``        after each moment range the swapped tier reads
+                          outside the step (a checkpoint save), before
+                          its checksum check (and per re-read)
 ``comm.all_reduce``       once per all_reduce call (comm/comm.py)
 ``comm.all_gather``       once per all_gather call
 ``comm.reduce_scatter``   once per reduce_scatter call
@@ -52,14 +66,12 @@ Instrumented sites:
                           client socket mid-stream, ``slow`` delays it
 ========================  ==================================================
 
-The swap sites (``swap.*``) come with ROADMAP A11, and with them
-``sigterm``.
-
 Fault kinds:
 
 ``oserror``   raise a transient ``OSError`` (retry/backoff target)
 ``torn``      write only ``param`` fraction of the bytes, then die
 ``crash``     raise :class:`SimulatedCrash` (process death mid-op)
+``sigterm``   deliver a real SIGTERM (the preemption handler's quarry)
 ``corrupt``   comm sites: scale ``param`` fraction of this rank's result
               of the collective (a lossy link delivering corrupted data
               to one receiver: the desync detector's quarry)
@@ -67,8 +79,10 @@ Fault kinds:
               collective (a slow rank; peers stall waiting for it)
 ``drop``      comm sites: skip the collective entirely on this rank, so
               peers hang in it (the collective watchdog's quarry)
-``bitflip``   kv read sites: flip ``param`` random bit(s) of the buffer
-              just read (:func:`apply_bitflip`; silent corruption)
+``bitflip``   swap and kv read sites: flip ``param`` random bit(s) of
+              the buffer just read (:func:`apply_bitflip`; silent
+              corruption); :func:`flip_bit_in_file` models corruption
+              on the media, which every re-read returns
 ``io_error``  raise ``OSError(EIO)``: a hard device error, which the KV
               tiers count toward their degraded mode and the serving
               death paths key on
@@ -87,11 +101,13 @@ faults handed to worker processes.
 from __future__ import annotations
 
 import errno
+import os
 import random
+import signal
 from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = ["FaultInjector", "SimulatedCrash", "hook", "active",
-           "apply_bitflip"]
+           "apply_bitflip", "flip_bit_in_file"]
 
 
 class SimulatedCrash(BaseException):
@@ -118,8 +134,8 @@ class FaultInjector:
 
     ``fired`` records every triggered fault as ``(site, kind, call#)``."""
 
-    KINDS = ("oserror", "torn", "crash", "corrupt", "straggle", "drop",
-             "bitflip", "io_error", "hang", "slow")
+    KINDS = ("oserror", "torn", "crash", "sigterm", "corrupt", "straggle",
+             "drop", "bitflip", "io_error", "hang", "slow")
 
     def __init__(self, seed: int = 0):
         self.rng = random.Random(seed)
@@ -151,6 +167,11 @@ class FaultInjector:
     def crash(self, site: str, after: int = 0) -> "FaultInjector":
         """Simulated process death at ``site``."""
         return self.inject(site, "crash", after=after)
+
+    def sigterm(self, site: str, after: int = 0) -> "FaultInjector":
+        """Deliver a real SIGTERM to this process when ``site`` fires
+        (exercises an installed preemption handler)."""
+        return self.inject(site, "sigterm", after=after)
 
     def corrupt(self, site: str, fraction: float = 0.05, after: int = 0,
                 count: int = 1) -> "FaultInjector":
@@ -258,6 +279,9 @@ class FaultInjector:
             if f.kind == "crash":
                 raise SimulatedCrash(f"[fault-injection] crash at {site} "
                                      f"(call {n})")
+            if f.kind == "sigterm":
+                signal.raise_signal(signal.SIGTERM)
+                return None
             # directives the site honours: torn (fraction of bytes kept),
             # corrupt (fraction of payload), straggle (delay seconds),
             # drop (skip the op), bitflip (bits to flip in the buffer
@@ -309,3 +333,22 @@ def apply_bitflip(buf, nbits: float) -> None:
     for _ in range(max(1, int(nbits))):
         i = rng.randrange(view.size)
         view[i] ^= np.uint8(1 << rng.randrange(8))
+
+
+def flip_bit_in_file(path: str, bit: Optional[int] = None,
+                     seed: int = 0) -> int:
+    """Flip one bit of ``path`` in place: corruption on the media, which
+    every re-read returns (unlike the transient ``bitflip`` kind).
+    ``bit`` is the absolute bit index; ``None`` picks one from ``seed``.
+    Returns the flipped bit's index."""
+    nbits = os.path.getsize(path) * 8
+    if nbits == 0:
+        raise ValueError(f"cannot flip a bit in the empty file {path}")
+    if bit is None:
+        bit = random.Random(seed).randrange(nbits)
+    with open(path, "rb+") as f:
+        f.seek(bit // 8)
+        byte = f.read(1)[0]
+        f.seek(bit // 8)
+        f.write(bytes([byte ^ (1 << (bit % 8))]))
+    return bit

@@ -1,12 +1,22 @@
 """Runtime training guards.
 
-Copy of ``deepspeed_tpu/resilience/guards.py`` without the swap path's
-``SwapCorruptionError`` (ROADMAP A11): detectors that turn
+Copy of ``deepspeed_tpu/resilience/guards.py``: detectors that turn
 "silently wrong forever" failure modes into loud, actionable aborts.
 """
 from __future__ import annotations
 
 from deepspeed_tpu_torch.utils.logging import logger
+
+
+class SwapCorruptionError(RuntimeError):
+    """Silent data corruption detected in the NVMe offload hot path: a
+    swapped moment bucket failed its checksum and the blocking re-reads
+    could not produce clean bytes (the corruption is on the media, not
+    transient host-buffer noise).  The swap file is quarantined before
+    this raises.  The engine saves the torn state only as a postmortem
+    copy (``emergency_step<N>.torn``, which ``latest`` never names) and
+    re-raises, so the job restarts from the last whole checkpoint
+    instead of training on garbage (``runtime/swap_tensor.py``)."""
 
 
 class GradientAnomalyError(RuntimeError):

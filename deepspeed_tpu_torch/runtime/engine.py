@@ -35,15 +35,30 @@ RMSNorm weights included (``prec.cast_tree`` in the JAX step), not under
 and the optional resilience checks); ``train_batch`` returns the loss as
 a device tensor.
 
+ZeRO-Offload and ZeRO-Infinity (``zero_optimization.offload_optimizer``
+with ``device`` "cpu" or "nvme", and ``offload_param.device=cpu`` at stage
+3): the fp32 master and the moments of this rank's shard live in a tier
+(``runtime/swap_tensor.py``: page-locked host RAM, or moments on NVMe),
+the working copy and the fp32 gradient on the card; the step streams the
+shard through the card bucket by bucket, the optimizer's own update once
+a bucket (one kernel #4 launch when it is fused), and gives the resident
+step's bits.  The master is updated in place a bucket at a time, so an
+emergency checkpoint is never taken mid-step: a preemption signal is
+answered once the step is done, and a step that fails mid-stream saves
+only a postmortem copy that ``latest`` never names.  With
+``offload_param`` the working-copy shard lives in host RAM too and each
+unit is copied in before its gather.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: offload and NVMe, 1-bit optimizers, curriculum learning and
-TP/PP/SP/EP (A11), the imperative ``forward``/``backward``/``step``
-triple (A4), pure-bf16 training without master weights (A4), async
-checkpoint save (A5).
+ROADMAP item: 1-bit optimizers, curriculum learning and TP/PP/SP/EP
+(A11), the imperative ``forward``/``backward``/``step`` triple (A4),
+pure-bf16 training without master weights (A4), async checkpoint save
+(A5).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import weakref
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
@@ -58,8 +73,10 @@ from deepspeed_tpu_torch.config.config import DeepSpeedConfig, load_config
 from deepspeed_tpu_torch.ops.fused_adam import step_scalars
 from deepspeed_tpu_torch.parallel.topology import MeshTopology
 from deepspeed_tpu_torch.resilience.distributed import DesyncDetector
-from deepspeed_tpu_torch.resilience.guards import SkippedStepGuard
+from deepspeed_tpu_torch.resilience.guards import (SkippedStepGuard,
+                                                   SwapCorruptionError)
 from deepspeed_tpu_torch.runtime import precision as prec
+from deepspeed_tpu_torch.runtime import swap_tensor
 from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
                                                     RepeatingLoader)
 from deepspeed_tpu_torch.runtime.lr_schedules import (LRScheduler,
@@ -68,7 +85,8 @@ from deepspeed_tpu_torch.runtime.optimizers import build_optimizer
 from deepspeed_tpu_torch.runtime.train_state import TrainState
 from deepspeed_tpu_torch.runtime.zero import (EXTENT, UnitGatherHooks,
                                               ZeroBuffers,
-                                              ZeroPartitionPlan)
+                                              ZeroPartitionPlan,
+                                              gather_units)
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (STEP_GLOBAL_TIMER,
                                              SynchronizedWallClockTimer,
@@ -140,12 +158,7 @@ def initialize(args=None,
 
 def _unported(config: DeepSpeedConfig) -> Dict[str, str]:
     """Config settings of paths not ported yet -> their ROADMAP item."""
-    z = config.zero_optimization
     out = {}
-    for name, off in (("offload_optimizer", z.offload_optimizer),
-                      ("offload_param", z.offload_param)):
-        if off is not None and off.device != "none":
-            out[f"zero_optimization.{name}.device={off.device}"] = "A11"
     if config.curriculum_learning.enabled:
         out["curriculum_learning.enabled"] = "A11"
     for name, size in (("tensor_parallel.tp_size",
@@ -160,6 +173,54 @@ def _unported(config: DeepSpeedConfig) -> Dict[str, str]:
             not config.fp16.enabled:
         out["bf16.master_weights=false"] = "A4"
     return out
+
+
+SWAP_STAGES = ("swap_in_wait", "bucket_update", "swap_out_wait",
+               "swap_verify")
+
+
+def _offload_settings(config: DeepSpeedConfig, optimizer_name: str,
+                      optimizer) -> Tuple[Optional[str], bool]:
+    """``(tier, offload_param)`` of a config, as the JAX engine picks them
+    (``runtime/engine.py:266-440``): ``offload_optimizer.device`` "cpu"
+    or "nvme" (an Adam-family optimizer; "nvme" needs ``nvme_path``), and
+    ``offload_param.device=cpu`` at stage 3 (below it ignored with a
+    warning, as there)."""
+    z = config.zero_optimization
+    off_o, off_p = z.offload_optimizer, z.offload_param
+    tier = off_o.device if off_o is not None and \
+        off_o.device in ("cpu", "nvme") else None
+    if tier is not None and not hasattr(optimizer, "bias_corrections"):
+        raise ValueError(
+            f"offload_optimizer.device={tier} streams two Adam moments a "
+            f"parameter: it needs an Adam-family optimizer, not "
+            f"{optimizer_name!r}")
+    if tier == "nvme" and not off_o.nvme_path:
+        raise ValueError("offload_optimizer.device=nvme requires "
+                         "offload_optimizer.nvme_path")
+    param = off_p is not None and off_p.device == "cpu"
+    if param and z.stage < 3:
+        logger.warning(f"offload_param.device=cpu requires zero stage 3 "
+                       f"(params are not partitioned at stage {z.stage}); "
+                       "IGNORED")
+        param = False
+    if param and tier is None:
+        raise ValueError(
+            "offload_param.device=cpu streams the working copy through the "
+            "optimizer's tier: set offload_optimizer.device too")
+    if param and z.zero_hpz_partition_size > 1:
+        raise NotImplementedError(
+            "offload_param with zero_hpz_partition_size > 1 is not ported "
+            "yet: ROADMAP A11")
+    return tier, param
+
+
+def _sumsq(g: torch.Tensor) -> torch.Tensor:
+    """``g . g``.  cuBLAS's dot takes at most 2**31 - 1 elements, so a
+    longer shard sums the dots of its 2**30-element pieces."""
+    if g.numel() < 2**31:
+        return torch.dot(g, g)
+    return torch.stack([torch.dot(c, c) for c in g.split(1 << 30)]).sum()
 
 
 def _own_params(module: nn.Module, device) -> None:
@@ -341,20 +402,49 @@ class DeepSpeedEngine:
 
         self.plan: Optional[ZeroPartitionPlan] = None
         self.zero: Optional[ZeroBuffers] = None
+        self.offload_tier, self.offload_param = _offload_settings(
+            config, self.optimizer_name, self.opt)
+        self.swapper = None
+        self._pinned: list = []             # the host working shard's
+        self._moment_loader = None          # a load's MomentFiles
+        self._offloaded: Optional[list] = None   # offload_states' buffers
         if self.zero_stage == 0:
-            flat_p = torch.empty(n_total, dtype=torch.float32,
-                                 device=self.device)
-            with torch.no_grad():
-                for view, src in zip(self._views(flat_p).values(), sources):
-                    view.copy_(src)
-            if self.dp_world_size > 1:
-                # every rank starts from rank 0's weights
-                comm.broadcast(flat_p, src=0, group=EXTENT,
-                               log_name="init_broadcast")
+            if self.offload_tier is None:
+                flat_p = torch.empty(n_total, dtype=torch.float32,
+                                     device=self.device)
+                with torch.no_grad():
+                    for view, src in zip(self._views(flat_p).values(),
+                                         sources):
+                        view.copy_(src)
+                if self.dp_world_size > 1:
+                    # every rank starts from rank 0's weights
+                    comm.broadcast(flat_p, src=0, group=EXTENT,
+                                   log_name="init_broadcast")
+                # working copy in the compute dtype (the master itself in
+                # fp32)
+                self._flat_w = (flat_p if self.compute_dtype == torch.float32
+                                else flat_p.to(self.compute_dtype))
+            else:
+                self.swapper = self._make_swapper(n_total, [
+                    (self._offsets[idx[0]], self._offsets[idx[-1] + 1])
+                    for _, idx in gather_units(self._names)])
+                flat_p = self.swapper.p
+                # the master in host RAM, the working copy on the card,
+                # each filled a leaf at a time
+                self._flat_w = torch.zeros(n_total, dtype=self.compute_dtype,
+                                           device=self.device)
+                with torch.no_grad():
+                    for vp, vw, src in zip(
+                            self._views(flat_p).values(),
+                            self._views(self._flat_w).values(), sources):
+                        if self.dp_world_size > 1:
+                            src = src.to(device=self.device,
+                                         dtype=torch.float32, copy=True)
+                            comm.broadcast(src, src=0, group=EXTENT,
+                                           log_name="init_broadcast")
+                        vp.copy_(src)
+                        vw.copy_(src.to(torch.float32))
             params = flat_p
-            # working copy in the compute dtype (the master itself in fp32)
-            self._flat_w = (flat_p if self.compute_dtype == torch.float32
-                            else flat_p.to(self.compute_dtype))
             self._flat_gw = torch.zeros(n_total, dtype=self.compute_dtype,
                                         device=self.device)
             self._flat_g = torch.zeros(n_total, dtype=torch.float32,
@@ -369,9 +459,22 @@ class DeepSpeedEngine:
                 hpz=zcfg.zero_hpz_partition_size,
                 persistence_threshold=zcfg.stage3_param_persistence_threshold)
             log_dist(self.plan.describe(), ranks=[0])
+            master = working = None
+            if self.offload_tier is not None:
+                self.swapper = self._make_swapper(
+                    self.plan.n_shard,
+                    [(u.shard_offset, u.shard_offset + u.chunk)
+                     for u in self.plan.units])
+                master = self.swapper.p
+            if self.offload_param:
+                working = (master if self.compute_dtype == torch.float32
+                           else swap_tensor.host_buffer(
+                               self.plan.n_shard, self.compute_dtype,
+                               self.device, owners=self._pinned))
             with torch.no_grad():
                 self.zero = ZeroBuffers(self.plan, sources,
-                                        self.compute_dtype, self.device)
+                                        self.compute_dtype, self.device,
+                                        master=master, working=working)
             params = self.zero.p
             self._grad = self.zero.g
             leaves = [v.view(s) for v, s in zip(self.zero.working_views(),
@@ -408,8 +511,17 @@ class DeepSpeedEngine:
 
         self._sc = step_scalars(self.device)
         self._last_gscale: Optional[torch.Tensor] = None
+        if self.swapper is None:
+            opt_state = self.opt.init(params)
+        else:
+            # the moments live in the tier; the count on the card
+            opt_state = {"count": torch.zeros((), dtype=torch.int32,
+                                              device=self.device)}
+            if self.swapper.moments_on_host:
+                opt_state.update(m=self.swapper.m, v=self.swapper.v)
+            weakref.finalize(self, self.swapper.close)
         self.state = TrainState(
-            step=0, params=params, opt_state=self.opt.init(params),
+            step=0, params=params, opt_state=opt_state,
             scale=prec.init_loss_scale(config.fp16, self.device),
             generator=generator,
             skipped_steps=torch.zeros((), dtype=torch.int32,
@@ -447,6 +559,12 @@ class DeepSpeedEngine:
         if rc.desync_interval > 0:
             self._desync = DesyncDetector(rc.desync_interval,
                                           rc.desync_tolerance)
+        self._preemption_save_dir: Optional[str] = None
+        self._preemption_prev_handlers = None
+        self._in_step = False
+        self._pending_signal = None        # (signum, frame) held for it
+        self.preempted = False
+        self.swap_corrupted = False
 
         self.optimizer = OptimizerHandle(self)
         log_dist(
@@ -454,11 +572,42 @@ class DeepSpeedEngine:
             f"ranks={self.dp_world_size} device={self.device} "
             f"dtype={self.compute_dtype} optimizer={self.optimizer_name} "
             f"fused={self.opt.fused} params={n_total} "
+            f"offload={self.offload_tier or 'none'}"
+            f"{'+param' if self.offload_param else ''} "
             f"micro={config.train_micro_batch_size_per_gpu} "
             f"gas={config.gradient_accumulation_steps} "
             f"train_batch={config.train_batch_size}", ranks=[0])
 
     # ------------------------------------------------------------------
+
+    def _make_swapper(self, numel: int, units):
+        """The offload tier over this rank's flat shard of ``numel``
+        elements cut into ``units``."""
+        cfg = self.config
+        off = cfg.zero_optimization.offload_optimizer
+        kw = dict(device=self.device, optimizer=self.opt,
+                  buffer_count=off.buffer_count,
+                  pipeline_read=off.pipeline_read,
+                  pipeline_write=off.pipeline_write)
+        if self.offload_tier == "cpu":
+            sw = swap_tensor.HostMomentSwapper(numel, units, **kw)
+        else:
+            aio, sdc = cfg.aio, cfg.resilience.sdc
+            sw = swap_tensor.NvmeOptimizerSwapper(
+                off.nvme_path, numel, units,
+                aio_block_size=aio.block_size,
+                aio_thread_count=aio.thread_count,
+                aio_queue_depth=aio.queue_depth,
+                aio_use_odirect=aio.use_odirect,
+                sdc_verify=sdc.verify_on_read, sdc_checksum=sdc.checksum,
+                sdc_max_reread=sdc.max_reread_retries, **kw)
+        log_dist(f"ZeRO-Offload: tier {self.offload_tier}, "
+                 f"{len(sw.buckets)} buckets of at most "
+                 f"{swap_tensor.bucket_cap()} elements, "
+                 f"{sw.host_bytes / 2**30:.2f} GiB of host memory "
+                 f"{'page-locked ' if sw.device.type == 'cuda' else ''}"
+                 f"in {sw.pin_seconds:.1f} s", ranks=[0])
+        return sw
 
     def _views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {n: flat[a:b].view(s) for n, s, a, b in zip(
@@ -514,9 +663,26 @@ class DeepSpeedEngine:
         """The working copy from the master weights (after a load)."""
         w = self._working_shard()
         if w is not None:
-            w.copy_(self.state.params)
+            if self.swapper is not None:
+                self.swapper.fill_working(w)
+            else:
+                w.copy_(self.state.params)
         if self.zero is not None:
             self.zero.refresh()
+
+    def checkpoint_loaded(self, optimizer: bool = True) -> None:
+        """After a load has filled :meth:`checkpoint_pieces`: the NVMe
+        tier's last bucket of moments goes to its file, and the working
+        copy is made from the master."""
+        if optimizer and self._moment_loader is not None:
+            self._moment_loader.flush()
+        self._moment_loader = None
+        self.refresh_working_copy()
+
+    def _settle_tier(self) -> None:
+        """Wait for the tier's copies back before the host reads it."""
+        if self.swapper is not None:
+            self.swapper.synchronize()
 
     def _working_shard(self) -> Optional[torch.Tensor]:
         """What the optimizer writes the compute-dtype copy into, or None
@@ -529,16 +695,19 @@ class DeepSpeedEngine:
     def _unit_leaves(self, flat: torch.Tensor,
                      unit) -> Dict[int, torch.Tensor]:
         """The leaves of ``unit`` in a flat buffer laid out like the master
-        shard, whole: one gather of the unit (every rank calls it)."""
-        whole = torch.empty(unit.padded, dtype=flat.dtype, device=flat.device)
-        self.zero.gather_unit(self.zero.shard_slice(flat, unit), whole,
-                              "state_gather")
+        shard, whole, on the card: one gather of the unit (every rank
+        calls it)."""
+        whole = torch.empty(unit.padded, dtype=flat.dtype, device=self.device)
+        self.zero.gather_unit(
+            self.zero.shard_slice(flat, unit).to(self.device), whole,
+            "state_gather")
         return {i: whole[at:at + self.plan.numels[i]].view(self._shapes[i])
                 for i, at in zip(unit.leaves, unit.leaf_offsets)}
 
     def _leaf_full(self, flat: torch.Tensor, i: int) -> torch.Tensor:
         """Leaf ``i`` of a buffer laid out like the master, whole (a
         collective at stages 1-3)."""
+        self._settle_tier()
         if self.zero is None:
             return flat[self._offsets[i]:self._offsets[i + 1]].view(
                 self._shapes[i])
@@ -548,6 +717,7 @@ class DeepSpeedEngine:
     def _full(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Every leaf of a buffer laid out like the master, whole, by name
         (a collective at stages 1-3)."""
+        self._settle_tier()
         if self.zero is None:
             return self._views(flat)
         out = {}
@@ -557,40 +727,69 @@ class DeepSpeedEngine:
 
     def checkpoint_pieces(self, for_load: bool = False
                           ) -> List[Tuple[str, Tuple[int, ...], int, int,
-                                          torch.Tensor]]:
+                                          Any]]:
         """The state this rank saves (or, ``for_load``, fills on a load):
         ``(path, leaf shape, lo, hi, flat tensor)`` for elements ``[lo,
         hi)`` of each leaf, keyed like the JAX engine's tree
         (``module/<param>``, ``optimizer/<moment>/<param>``,
         ``optimizer/count``).  At stages 1-3 each rank has the pieces of
         its shard; at stage 0 rank 0 saves whole leaves and every rank
-        loads them."""
+        loads them.  An offload tier's master and moments are host
+        tensors, except the NVMe tier's moments: their pieces are cut at
+        the buckets' bounds and hold, in place of the tensor, a function
+        that reads them (a save) or takes them (a load) one bucket at a
+        time (``swap_tensor.MomentFiles``)."""
         st = self.state
+        self._settle_tier()
+        if self.zero is not None:
+            ranges = list(self.plan.leaf_pieces())
+        elif for_load or self.dp_rank == 0:
+            ranges = [(i, 0, b - a, a) for i, (a, b) in enumerate(
+                zip(self._offsets[:-1], self._offsets[1:]))]
+        else:
+            ranges = []
         bufs = [("module", st.params)] + [
             (f"optimizer/{k}", v) for k, v in st.opt_state.items()
             if k != "count"]
-        out = []
-        if self.zero is None:
-            if for_load or self.dp_rank == 0:
-                for prefix, flat in bufs:
-                    for i, name in enumerate(self._names):
-                        a, b = self._offsets[i], self._offsets[i + 1]
-                        out.append((f"{prefix}/{name}", self._shapes[i],
-                                    0, b - a, flat[a:b]))
-        else:
-            for prefix, flat in bufs:
-                for i, lo, hi, pos in self.plan.leaf_pieces():
-                    out.append((f"{prefix}/{self._names[i]}",
-                                self._shapes[i], lo, hi,
-                                flat[pos:pos + hi - lo]))
+        out = [(f"{prefix}/{self._names[i]}", self._shapes[i], lo, hi,
+                flat[pos:pos + hi - lo])
+               for prefix, flat in bufs for i, lo, hi, pos in ranges]
+        if self.swapper is not None and not self.swapper.moments_on_host:
+            out += self._moment_file_pieces(ranges, for_load)
         if for_load or self.dp_rank == 0:
             out.append(("optimizer/count", (), 0, 1,
                         st.opt_state["count"].view(1)))
         return out
 
+    def _moment_file_pieces(self, ranges, for_load: bool) -> list:
+        """The NVMe tier's moment pieces: the leaf ``ranges`` cut at the
+        buckets' bounds, bucket by bucket (its ``m`` pieces, then its
+        ``v`` pieces), so that one bucket's ``[m; v]`` is all the host
+        holds for them."""
+        io = swap_tensor.MomentFiles(self.swapper)
+        if for_load:
+            self._moment_loader = io
+        out = []
+        for k, (a, b) in enumerate(self.swapper.buckets):
+            for half, name in enumerate(("m", "v")):
+                for i, lo, hi, pos in ranges:
+                    s, e = max(a, pos), min(b, pos + hi - lo)
+                    if s >= e:
+                        continue
+                    at = half * (b - a) + s - a
+                    fn = (functools.partial(io.fill, k, at) if for_load
+                          else functools.partial(io.read, k, at,
+                                                 at + e - s))
+                    out.append((f"optimizer/{name}/{self._names[i]}",
+                                self._shapes[i], lo + s - pos, lo + e - pos,
+                                fn))
+        return out
+
     def buffer_numels(self) -> Dict[str, int]:
-        """Elements of this rank's buffers: fp32 master, each moment,
-        fp32 gradient, and the working copy held now."""
+        """Elements of this rank's buffers on the card: fp32 master, each
+        moment, fp32 gradient, and the working copy held now (an offload
+        tier's master and moments count under ``offloaded``, the working
+        shard in host RAM under ``offloaded_working``)."""
         if self.zero is None:
             out = {"master": self.state.params.numel(),
                    "grad_fp32": self._flat_g.numel(),
@@ -602,6 +801,13 @@ class DeepSpeedEngine:
             out = self.zero.numels()
         out["moments"] = sum(v.numel() for k, v in
                              self.state.opt_state.items() if k != "count")
+        if self.swapper is not None:
+            out["offloaded"] = out["master"] + out["moments"] + (
+                0 if self.swapper.moments_on_host else 2 * self.swapper.numel)
+            out["master"] = out["moments"] = 0
+        if self.offload_param:
+            out["offloaded_working"] = out.pop("working_shard")
+            out["working_shard"] = 0
         return out
 
     @property
@@ -720,6 +926,10 @@ class DeepSpeedEngine:
         gas = self.gas
         world = self.dp_world_size
         loss_sum = self._backward(micro, scale)
+        if self.swapper is not None and hasattr(self.swapper,
+                                                "start_prefetch"):
+            # the NVMe tier's first reads run under the backward enqueued
+            self.swapper.start_prefetch()
 
         # overflow scanning exists for fp16 loss scaling (or the
         # resilience knob); bf16/fp32 steps never skip, as in the JAX step
@@ -741,7 +951,7 @@ class DeepSpeedEngine:
             # the partitions' squared norms and non-finite counts, and the
             # losses, summed over the ranks in one call
             stats = torch.stack([
-                loss_sum, torch.dot(g, g),
+                loss_sum, _sumsq(g),
                 (~torch.isfinite(g)).sum().float() if check_overflow
                 else torch.zeros((), device=self.device)])
             comm.all_reduce(stats, group=EXTENT, log_name="step_stats")
@@ -759,7 +969,20 @@ class DeepSpeedEngine:
         sc = self._sc
         sc[0].fill_(lr)
         sc[3:5] = torch.stack([gscale, overflow.float()])
-        self.opt.step(st.params, g, st.opt_state, sc, self._working_shard())
+        if self.swapper is None:
+            self.opt.step(st.params, g, st.opt_state, sc,
+                          self._working_shard())
+        else:
+            # the bucket stream runs on a skipped step too: the kernel
+            # leaves every bucket as it was, nothing is read on the host
+            self.opt.bias_corrections(st.opt_state, sc)
+            self.swapper.step(g, self._working_shard(), sc)
+            self.opt.advance(st.opt_state, sc)
+            if cfg.wall_clock_breakdown:
+                stats = self.swapper.stage_stats
+                for name in SWAP_STAGES:
+                    if f"{name}_s" in stats:
+                        self.timers(name).record(stats[f"{name}_s"])
         if self.zero is not None:
             self.zero.refresh()
 
@@ -797,10 +1020,23 @@ class DeepSpeedEngine:
         if breakdown:
             self.timers("batch_prep").stop()
         lr = float(self.get_lr()[0])
+        if self._offloaded is not None:
+            self.reload_states()
         self.tput_timer.start()
         if breakdown:
             self.timers(STEP_GLOBAL_TIMER).start()
-        metrics = self._train_step(micro, lr)
+        self._in_step = True
+        try:
+            metrics = self._train_step(micro, lr)
+        except BaseException as e:
+            self._in_step = False
+            if breakdown:
+                self.timers(STEP_GLOBAL_TIMER).discard()
+            if isinstance(e, SwapCorruptionError):
+                self._handle_swap_corruption(e)
+            # the state may be torn: a held preemption takes no checkpoint
+            self._answer_pending_signal(checkpoint=False)
+            raise
         if breakdown:
             self.timers(STEP_GLOBAL_TIMER).stop()
         self._last_metrics = metrics
@@ -809,6 +1045,9 @@ class DeepSpeedEngine:
         self.global_samples += self.config.train_batch_size
         self.lr_scheduler.step()
         self.tput_timer.stop(global_step=True)
+        # the step and its counters are whole: a held preemption saves now
+        self._in_step = False
+        self._answer_pending_signal(checkpoint=True)
         if self._skip_guard is not None:
             # one scalar read a step, only with the guard configured
             self._skip_guard.update(bool(metrics["overflow"]),
@@ -825,7 +1064,8 @@ class DeepSpeedEngine:
                 f"grad_norm={float(metrics['grad_norm']):.3f} "
                 f"loss_scale={float(metrics['loss_scale']):.0f}", ranks=[0])
             if breakdown:
-                self.timers.log(["batch_prep", STEP_GLOBAL_TIMER],
+                self.timers.log(["batch_prep", STEP_GLOBAL_TIMER] +
+                                list(SWAP_STAGES),
                                 normalizer=self.config.steps_per_print)
         return metrics["loss"]
 
@@ -866,6 +1106,170 @@ class DeepSpeedEngine:
                      load_optimizer_states=load_optimizer_states,
                      load_lr_scheduler_states=load_lr_scheduler_states)
 
+    # -- offloading state between phases, and the fault paths ----------
+
+    def offload_states(self, include: Optional[Tuple[str, ...]] = None
+                       ) -> None:
+        """Move the optimizer state (``include`` "optimizer", the
+        default) and the fp32 master ("params") of a resident engine to
+        page-locked host memory, freeing the card between training phases
+        (reference ``engine.offload_states``); :meth:`reload_states` or
+        the next :meth:`train_batch` moves them back.  A no-op for an
+        engine whose state is in an offload tier already, and on the CPU
+        (no host memory apart from the device)."""
+        if self.swapper is not None or self.device.type != "cuda":
+            logger.warning("offload_states: the state is in host memory "
+                           "already; no-op")
+            return
+        if self._offloaded is not None:
+            return
+        include = tuple(include or ("optimizer",))
+        st, owners = self.state, []
+
+        def to_host(t):
+            h = swap_tensor.host_buffer(t.numel(), t.dtype, self.device,
+                                        zero=False, owners=owners)
+            h.copy_(t.reshape(-1))
+            return h.view(t.shape)
+
+        if "optimizer" in include:
+            for k, v in list(st.opt_state.items()):
+                if k != "count":
+                    st.opt_state[k] = to_host(v)
+        if "params" in include and self._working_shard() is None:
+            logger.warning("offload_states: the fp32 master is the working "
+                           "copy; params stay on the card")
+        elif "params" in include:
+            st.params = to_host(st.params)
+            if self.zero is not None:
+                self.zero.p = st.params
+        self._offloaded = owners
+        torch.cuda.empty_cache()
+        log_dist(f"offload_states: {include} moved to page-locked host "
+                 "memory", ranks=[0])
+
+    def reload_states(self) -> None:
+        """Inverse of :meth:`offload_states`."""
+        if self._offloaded is None:
+            return
+        st = self.state
+        for k, v in list(st.opt_state.items()):
+            if k != "count" and v.device.type == "cpu":
+                st.opt_state[k] = v.to(self.device)
+        if st.params.device.type == "cpu":
+            st.params = st.params.to(self.device)
+            if self.zero is not None:
+                self.zero.p = st.params
+        self._offloaded = None
+        log_dist("reload_states: state back in device memory", ranks=[0])
+
+    def emergency_checkpoint(self, save_dir: str, torn: bool = False
+                             ) -> str:
+        """The last-gasp synchronous checkpoint a preemption or a fault
+        takes, tagged ``emergency_step<N>``.  ``torn``: the state is not
+        a whole step (a failure in the middle of the offload tiers'
+        stream): a postmortem copy, tagged ``emergency_step<N>.torn``,
+        that ``latest`` never names and a load refuses."""
+        from deepspeed_tpu_torch.checkpoint.engine import TORN_SUFFIX
+
+        tag = f"emergency_step{self.global_steps}"
+        return self.save_checkpoint(
+            save_dir, tag=tag + TORN_SUFFIX if torn else tag,
+            save_latest=not torn, async_save=False)
+
+    def _handle_swap_corruption(self, e: SwapCorruptionError) -> None:
+        """Persistent silent data corruption in the NVMe tier: the file
+        is quarantined and the swapped moments invalidated already.  The
+        master was stepped in place up to the corrupt bucket and the
+        moments are gone, so the state is no whole step: the emergency
+        checkpoint saves it only as a postmortem copy (an attempt: a
+        failure is logged and does not mask ``e``), ``latest`` keeps the
+        last whole checkpoint, and the caller re-raises so that the job
+        restarts from it."""
+        self.swap_corrupted = True
+        logger.error(f"silent data corruption in the NVMe swap path: {e}")
+        save_dir = self._preemption_save_dir
+        if save_dir:
+            from deepspeed_tpu_torch.telemetry import flight
+
+            flight.dump_on_fault("swap_corruption", e, dir=save_dir)
+            try:
+                path = self.emergency_checkpoint(save_dir, torn=True)
+                logger.error(f"postmortem copy of the torn state at {path}; "
+                             "aborting for a restart from 'latest'")
+            except BaseException as ce:     # noqa: BLE001 (e re-raised)
+                logger.error(f"emergency checkpoint failed under swap "
+                             f"corruption ({ce!r}); aborting without it")
+
+    def install_preemption_handler(self, save_dir: str, signals=None,
+                                   exit_after: bool = True) -> None:
+        """On SIGTERM (a preemption notice) take the emergency checkpoint
+        into ``save_dir``, then re-deliver the signal to the previous
+        handler (``exit_after=False`` returns to the interrupted code).
+        A signal that arrives inside :meth:`train_batch` is held until
+        the step is done (the offload tiers update the master in place,
+        bucket by bucket, so a save mid-step would hold a torn state);
+        if the step fails instead, no checkpoint is taken and the signal
+        is re-delivered.  ``save_dir`` also receives the swap-corruption
+        path's postmortem copy."""
+        import signal as _signal
+
+        signals = tuple(signals or (_signal.SIGTERM,))
+        prev = {}
+
+        def handler(signum, frame):
+            self.preempted = True
+            if self._in_step:
+                logger.error(f"signal {signum}: preemption notice inside a "
+                             "step; the emergency checkpoint follows it")
+                self._pending_signal = (signum, frame)
+                return
+            self._preempt(signum, frame, checkpoint=True)
+
+        for sig in signals:
+            prev[sig] = _signal.signal(sig, handler)
+        self._preemption_prev_handlers = prev
+        self._preemption_save_dir = save_dir
+        self._preemption_exit_after = exit_after
+
+    def _answer_pending_signal(self, checkpoint: bool) -> None:
+        if self._pending_signal is not None:
+            signum, frame = self._pending_signal
+            self._pending_signal = None
+            self._preempt(signum, frame, checkpoint)
+
+    def _preempt(self, signum, frame, checkpoint: bool) -> None:
+        """Take the emergency checkpoint (unless the state is torn), then
+        hand the signal to the handler installed before ours."""
+        import signal as _signal
+
+        if checkpoint:
+            logger.error(f"signal {signum}: preemption notice, taking the "
+                         "emergency checkpoint")
+            path = self.emergency_checkpoint(self._preemption_save_dir)
+            logger.error(f"emergency checkpoint committed at {path}")
+        else:
+            logger.error(f"signal {signum}: the step failed under the "
+                         "preemption notice; no emergency checkpoint "
+                         "('latest' names the last whole one)")
+        if not self._preemption_exit_after:
+            return
+        old = (self._preemption_prev_handlers or {}).get(signum,
+                                                         _signal.SIG_DFL)
+        if callable(old):
+            old(signum, frame)
+        else:
+            _signal.signal(signum, old)
+            _signal.raise_signal(signum)
+
+    def uninstall_preemption_handler(self) -> None:
+        import signal as _signal
+
+        if self._preemption_prev_handlers:
+            for sig, old in self._preemption_prev_handlers.items():
+                _signal.signal(sig, old)
+            self._preemption_prev_handlers = None
+
     def get_global_grad_norm(self) -> Optional[float]:
         """Global (pre-clip) gradient norm of the most recent step."""
         if self._last_metrics is None:
@@ -875,7 +1279,9 @@ class DeepSpeedEngine:
     def module_state_dict(self) -> Dict[str, torch.Tensor]:
         """The fp32 master weights by parameter name, whole, on the device
         (views of the master at stage 0; at stages 1-3 gathered from the
-        shards, a collective every rank calls)."""
+        shards, a collective every rank calls; an offload tier's master
+        is in host RAM, and its leaves come back on the card at stages
+        1-3, in host RAM at stage 0)."""
         return self._full(self.state.params)
 
     def train(self, mode: bool = True):

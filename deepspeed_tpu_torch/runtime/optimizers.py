@@ -70,7 +70,8 @@ class FlatOptimizer:
         raise NotImplementedError
 
     @staticmethod
-    def _advance(state, sc) -> None:
+    def advance(state, sc) -> None:
+        """Count the step just taken, unless ``sc`` says it was skipped."""
         state["count"].add_((sc[4] == 0).to(torch.int32))
 
 
@@ -83,19 +84,28 @@ class Adam(FlatOptimizer):
         # the optax chain of the non-fused path always decouples the decay
         self.adam_w = adam_w if fused else True
 
-    def step(self, p, g, state, sc, w=None) -> None:
-        # bias corrections of the step about to be taken, 1 - b^t in fp32
+    def bias_corrections(self, state, sc) -> None:
+        """``sc[1:3]``: the bias corrections of the step about to be
+        taken, 1 - b^t in fp32 (the offload tiers' step reads them too)."""
         t = (state["count"] + 1).float()
         sc[1] = 1.0 - torch.pow(self.b1, t)
         sc[2] = 1.0 - torch.pow(self.b2, t)
+
+    def update(self, p, g, m, v, sc, w=None) -> None:
+        """The AdamW update of flat ``p, m, v`` (and ``w``) in place, with
+        the bias corrections already in ``sc``: the whole step's, or one
+        offload bucket's (``runtime/swap_tensor.py``)."""
         kw = dict(b1=self.b1, b2=self.b2, eps=self.eps, wd=self.wd,
                   adam_w=self.adam_w)
         if self.fused:
-            fa.fused_adam(p, g, state["m"], state["v"], sc, w, **kw)
+            fa.fused_adam(p, g, m, v, sc, w, **kw)
         else:
-            fa.adam_update_reference(p, g, state["m"], state["v"], sc, w,
-                                     **kw)
-        self._advance(state, sc)
+            fa.adam_update_reference(p, g, m, v, sc, w, **kw)
+
+    def step(self, p, g, state, sc, w=None) -> None:
+        self.bias_corrections(state, sc)
+        self.update(p, g, state["m"], state["v"], sc, w)
+        self.advance(state, sc)
 
 
 class Lion(FlatOptimizer):
@@ -111,7 +121,7 @@ class Lion(FlatOptimizer):
             fa.fused_lion(p, g, state["m"], sc, w, **kw)
         else:
             fa.lion_update_reference(p, g, state["m"], sc, w, **kw)
-        self._advance(state, sc)
+        self.advance(state, sc)
 
 
 class SGD(FlatOptimizer):
@@ -134,7 +144,7 @@ class SGD(FlatOptimizer):
         p.copy_(torch.where(skip, p, p - lr * u))
         if w is not None:
             w.copy_(torch.where(skip, w, p.to(w.dtype)))
-        self._advance(state, sc)
+        self.advance(state, sc)
 
 
 def build_optimizer(name: Optional[str], params: Dict[str, Any]

@@ -276,10 +276,15 @@ class ZeroBuffers:
       this rank's ``data_sub`` piece of every regular unit.
 
     ``micro`` (the micro-batch index) and ``in_backward`` are set by the
-    engine around each backward."""
+    engine around each backward.
+
+    With an offload tier (``runtime/swap_tensor.py``) ``master`` is the
+    tier's host tensor for ``p``, and with ``offload_param`` ``working``
+    is the host tensor for ``w_shard``: each regular unit is then copied
+    to the card just before its gather (the unit fill)."""
 
     def __init__(self, plan: ZeroPartitionPlan, sources: Iterable, dtype,
-                 device):
+                 device, master=None, working=None):
         self.plan = plan
         self.dtype = dtype
         self.device = device
@@ -293,7 +298,15 @@ class ZeroBuffers:
         self.leaves: List = []        # set by the engine: the bound leaves
         z = dict(dtype=torch.float32, device=device)
         big = max(u.padded for u in plan.units)
-        self.p = torch.zeros(plan.n_shard, **z)
+        self.p = (torch.zeros(plan.n_shard, **z) if master is None
+                  else master)
+        if working is not None:
+            self.w_shard = working
+        elif dtype == torch.float32 and master is None:
+            self.w_shard = self.p
+        else:
+            self.w_shard = torch.zeros(plan.n_shard, dtype=dtype,
+                                       device=device)
         pieces: Dict[int, List[Tuple[int, int, int]]] = {}
         for i, lo, hi, pos in plan.leaf_pieces():
             pieces.setdefault(i, []).append((lo, hi, pos))
@@ -305,8 +318,11 @@ class ZeroBuffers:
                                log_name="init_broadcast")
             for lo, hi, pos in pieces.get(i, ()):
                 self.p[pos:pos + hi - lo] = v[lo:hi]
+                if self.w_shard is not self.p:
+                    # the working copy is the master's values cast
+                    self.w_shard[pos:pos + hi - lo] = \
+                        v[lo:hi].to(torch.float32)
         self.g = torch.zeros(plan.n_shard, **z)
-        self.w_shard = self.p if dtype == torch.float32 else self.p.to(dtype)
         w = dict(dtype=dtype, device=device)
         self._views: List = [None] * len(plan.numels)
         if plan.stage <= 2:
@@ -356,6 +372,13 @@ class ZeroBuffers:
 
     def shard_slice(self, t, unit: Unit):
         return t[unit.shard_offset:unit.shard_offset + unit.chunk]
+
+    def _on_device(self, t):
+        """``t`` on the card: a slice of a working copy kept in host RAM
+        (``offload_param``) is copied in first."""
+        if t.device.type == torch.device(self.device).type:
+            return t
+        return t.to(self.device, non_blocking=True)
 
     def numels(self) -> Dict[str, int]:
         """Elements this rank holds now: fp32 master and gradient, the
@@ -422,7 +445,8 @@ class ZeroBuffers:
         for u, unit in enumerate(plan.units):
             src = self.shard_slice(self.w_shard, unit)
             if unit.persistent:
-                self.gather_unit(src, self.w_pers, "weight_gather")
+                self.gather_unit(self._on_device(src), self.w_pers,
+                                 "weight_gather")
             elif plan.hpz > 1:
                 n = unit.padded // plan.hpz
                 comm.all_gather(src, group="data", log_name="weight_gather",
@@ -443,7 +467,8 @@ class ZeroBuffers:
             src, group = self.w_pshard[unit.param_offset:
                                        unit.param_offset + n], "data_sub"
         else:
-            src, group = self.shard_slice(self.w_shard, unit), EXTENT
+            src = self._on_device(self.shard_slice(self.w_shard, unit))
+            group = EXTENT
         with torch.autograd._unsafe_preserve_version_counter(buf):
             comm.all_gather(src, group=group, out=buf,
                             log_name="param_gather")

@@ -84,6 +84,12 @@ class Timer:
         """Abandon an in-flight interval without recording it."""
         self.started = False
 
+    def record(self, seconds: float) -> None:
+        """Account an interval measured elsewhere (an offload tier's stage
+        seconds)."""
+        self._add(seconds, time.perf_counter() - seconds, True)
+        self._record_count += 1
+
     def _observe(self, seconds: float) -> None:
         if self._hist is None or self._hist_fam is not _metrics.get(
                 "dstpu_engine_seconds"):

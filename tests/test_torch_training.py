@@ -507,8 +507,7 @@ def test_bridge_back_gives_jax_the_ports_loss(scan_layers):
 
 @pytest.mark.parametrize("config,item", [
     ({"pipeline": {"stages": 2}}, "A11"),
-    ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
-     "A11"),
+    ({"expert_parallel": {"size": 2}}, "A11"),
     ({"curriculum_learning": {"enabled": True}}, "A11"),
     ({"tensor_parallel": {"tp_size": 2}}, "A11"),
     ({"bf16": {"enabled": True, "master_weights": False}}, "A4"),

@@ -142,6 +142,18 @@ def largest_fp32_tensor(fn):
     return result, track.most
 
 
+def whole_pieces(eng):
+    """Every checkpoint piece of ``eng`` by path, this rank's pieces of
+    it joined in order, on the host (the NVMe tier's moment pieces are
+    cut at its buckets and hold functions that read them)."""
+    parts = {}
+    for path, _, lo, _, t in eng.checkpoint_pieces():
+        t = t() if callable(t) else t
+        parts.setdefault(path, []).append((lo, t.detach().cpu().clone()))
+    return {k: torch.cat([t for _, t in sorted(v, key=lambda x: x[0])])
+            for k, v in parts.items()}
+
+
 def numpy_state(sd):
     return {k: v.detach().cpu().numpy().copy() for k, v in sd.items()}
 
@@ -365,4 +377,46 @@ def gpt2_zero_worker(rank, world, init_method, state, batches, configs,
                      "bit_identical": bool(torch.equal(
                          fresh.state.params, eng.state.params)),
                      "loaded": path is not None}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the offload tiers at stages 1-3
+# ---------------------------------------------------------------------------
+
+def offload_worker(rank, world, init_method, state, batches, swap_dir):
+    """At stages 1-3: the resident engine, then tier ``cpu`` (stage 3:
+    with ``offload_param``) and tier ``nvme``, each trained over
+    ``batches`` with many buckets; each tier's losses, and whether they
+    and this rank's checkpoint pieces (master and moments) equal the
+    resident engine's bit for bit."""
+    from deepspeed_tpu_torch import comm
+
+    os.environ["DSTPU_SWAP_BUCKET_MB"] = "1"
+    comm.init_distributed(device="cpu", init_method=init_method, rank=rank,
+                          world_size=world)
+
+    def run(stage, **zero):
+        eng = make_engine(state, stage, **zero)
+        losses = [float(eng.train_batch(batch=b)) for b in batches]
+        pieces = whole_pieces(eng)
+        nb = None
+        if eng.swapper is not None:
+            nb = len(eng.swapper.buckets)
+            eng.swapper.close()
+        return losses, pieces, nb
+
+    out = {}
+    for stage in (1, 2, 3):
+        base, want, _ = run(stage)
+        for tier in ("cpu", "nvme"):
+            zero = {"offload_optimizer": {"device": tier,
+                                          "nvme_path": swap_dir}}
+            if tier == "cpu" and stage == 3:
+                zero["offload_param"] = {"device": "cpu"}
+            losses, got, nb = run(stage, **zero)
+            out[(stage, tier)] = dict(
+                losses=losses, buckets=nb, same_losses=losses == base,
+                same_state=got.keys() == want.keys() and all(
+                    torch.equal(got[k], want[k]) for k in want))
     return out
